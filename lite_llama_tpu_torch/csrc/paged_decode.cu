@@ -1,0 +1,247 @@
+// Paged flash-decode attention for Hopper (sm_90a).
+//
+// Replaces the TPU kernel lite_llama_tpu/ops/attention_decode.py
+// paged_flash_decode / _decode_kernel: decode-step attention, one query token
+// per request, reading K/V straight out of the paged pool
+// [L, 2, T, Hkv*D] (K/V planes, flat token rows, head-major channels) through
+// the page table, and returning the online-softmax state (m, l) in the exp2
+// domain beside the normalised output, so that the caller can fold in the
+// newest token (ops/ref.py fold_new_token).
+//
+// What bounds it: device-memory bytes. Every K and V row of every live token
+// is read once, B * kv_len * 2 * Hkv * D * 2 bytes, against a few FLOPs per
+// byte; the H100 runs out of bandwidth long before it runs out of arithmetic.
+//
+// Design:
+// - One block per (kv head, request). The G = Nq / Hkv query heads of the
+//   group live in registers of every warp, so each K/V row is loaded once
+//   and used G times.
+// - A warp owns whole tokens: its 32 lanes split one head row (D/32 values
+//   each, 8- or 4-byte loads, neighbouring lanes on neighbouring addresses)
+//   and reduce the G dot products with shuffles. Eight warps take tokens
+//   round robin, UNR tokens each per iteration, so 8 * UNR rows per block are
+//   in flight to hide device-memory latency.
+// - The block resolves its own pages through the page table (no
+//   prefetched index list) and handles any page_size.
+// - Each warp keeps an fp32 online softmax (m, l, acc) per query head in the
+//   exp2 domain with sm_scale*log2(e) folded into q (q rounded to bf16 after
+//   the scale, as on the TPU); the eight partial states are merged through
+//   shared memory at the end.
+// - An empty slot (kv_len 0) writes m = -1e30, l = 0, out = 0, so that the
+//   fold returns the new token's value exactly.
+// Not carried over from the TPU: the wide/grouped MXU forms, the cross-program
+// DMA lookahead and the 128-lane m/l outputs (TPU layout devices).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int MAX_G = 8;   // query heads per kv head
+constexpr int UNR = 4;     // tokens per warp per iteration
+constexpr float NEG = -1e30f;
+
+template <int VPL>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&f)[VPL]) {
+  if constexpr (VPL == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  } else {
+    static_assert(VPL == 2, "head_dim must be 64 or 128");
+    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+    f[0] = a.x; f[1] = a.y;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
+                    const __nv_bfloat16* __restrict__ pages,  // [L, 2, T, Hkv*D]
+                    const int* __restrict__ page_table,       // [B, ppr]
+                    const int* __restrict__ kv_lens,          // [B]
+                    __nv_bfloat16* __restrict__ out,          // [B, Nq, D]
+                    float* __restrict__ m_out,                // [B, Nq]
+                    float* __restrict__ l_out,                // [B, Nq]
+                    int Nq, int Hkv, long long T, int layer, int ps, int ppr,
+                    float qscale) {
+  constexpr int VPL = D / 32;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = Nq / Hkv;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long HD = (long long)Hkv * D;
+  const int len = kv_lens[b];
+  const int* pt = page_table + (long long)b * ppr;
+  const __nv_bfloat16* kbase =
+      pages + (long long)layer * 2 * T * HD + (long long)h * D + lane * VPL;
+  const __nv_bfloat16* vbase = kbase + T * HD;
+
+  float qf[MAX_G][VPL];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    float t[VPL];
+    if (g < G) {
+      load_row<VPL>(q + ((long long)b * Nq + h * G + g) * D + lane * VPL, t);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) t[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+      qf[g][i] = __bfloat162float(__float2bfloat16(t[i] * qscale));
+  }
+
+  float m[MAX_G], l[MAX_G], acc[MAX_G][VPL];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    m[g] = NEG;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) acc[g][i] = 0.f;
+  }
+
+  // len is uniform over the block, so every branch below is warp-uniform.
+  for (int t0 = warp * UNR; t0 < len; t0 += WARPS * UNR) {
+    float kf[UNR][VPL], vf[UNR][VPL];
+    bool ok[UNR];
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+      const int t = t0 + u;
+      ok[u] = t < len;
+      if (ok[u]) {
+        const long long row = (long long)pt[t / ps] * ps + (t % ps);
+        load_row<VPL>(kbase + row * HD, kf[u]);
+        load_row<VPL>(vbase + row * HD, vf[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) kf[u][i] = vf[u][i] = 0.f;
+      }
+    }
+    float s[UNR][MAX_G];
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) {
+        float a = 0.f;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) a += qf[g][i] * kf[u][i];
+        s[u][g] = a;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g) {
+          if (g < G) s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g < G) {
+        float mx = NEG;
+#pragma unroll
+        for (int u = 0; u < UNR; ++u)
+          if (ok[u]) mx = fmaxf(mx, s[u][g]);
+        const float m_new = fmaxf(m[g], mx);
+        const float corr = exp2f(m[g] - m_new);
+        float p[UNR];
+        float psum = 0.f;
+#pragma unroll
+        for (int u = 0; u < UNR; ++u) {
+          p[u] = ok[u] ? exp2f(s[u][g] - m_new) : 0.f;
+          psum += p[u];
+        }
+        l[g] = l[g] * corr + psum;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {
+          float a = acc[g][i] * corr;
+#pragma unroll
+          for (int u = 0; u < UNR; ++u) a += p[u] * vf[u][i];
+          acc[g][i] = a;
+        }
+        m[g] = m_new;
+      }
+    }
+  }
+
+  // Merge the eight warps' partial states.
+  __shared__ float sm_m[WARPS][MAX_G];
+  __shared__ float sm_l[WARPS][MAX_G];
+  __shared__ float sm_acc[WARPS][MAX_G][D];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    if (g < G) {
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) sm_acc[warp][g][lane * VPL + i] = acc[g][i];
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * D; idx += THREADS) {
+    const int g = idx / D;
+    const int d = idx % D;
+    float M = NEG;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = exp2f(sm_m[w][g] - M);
+      L += sm_l[w][g] * c;
+      A += sm_acc[w][g][d] * c;
+    }
+    const long long o = (long long)b * Nq + h * G + g;
+    out[o * D + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    if (d == 0) {
+      m_out[o] = M;
+      l_out[o] = L;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// kv_lens: tokens present in the pool per request (the caller passes
+// seq_len - 1 when the newest token rides separately).
+extern "C" int paged_decode_bf16(const void* q, const void* pages, const void* page_table,
+                                 const void* kv_lens, void* out, void* m, void* l, int B,
+                                 int Nq, int Hkv, int D, long long T, int layer, int ps,
+                                 int ppr, float qscale, void* stream) {
+  if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_G) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Hkv, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* pp = static_cast<const __nv_bfloat16*>(pages);
+  const auto* tp = static_cast<const int*>(page_table);
+  const auto* lp = static_cast<const int*>(kv_lens);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* mp = static_cast<float*>(m);
+  auto* lo = static_cast<float*>(l);
+  if (D == 128) {
+    paged_decode_kernel<128><<<grid, THREADS, 0, st>>>(qp, pp, tp, lp, op, mp, lo, Nq, Hkv,
+                                                       T, layer, ps, ppr, qscale);
+  } else if (D == 64) {
+    paged_decode_kernel<64><<<grid, THREADS, 0, st>>>(qp, pp, tp, lp, op, mp, lo, Nq, Hkv, T,
+                                                      layer, ps, ppr, qscale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,262 @@
+"""Generic decoder-only transformer, Llama-3.x / Qwen2.5 / Qwen3 (port of
+``lite_llama_tpu/models/decoder.py``).
+
+The architectural deltas are config flags: q/k/v biases (qwen2,
+``cfg.attention_bias``), per-head q/k RMSNorm before RoPE (qwen3,
+``cfg.qk_norm``), tied or untied lm_head. Parameters are a dict of stacked
+per-layer tensors with the JAX package's layout (wq [L, H, Nq, D],
+wkv [L, H, 2, Nkv, D], o_proj [L, Nq, D, H], gate_up_proj [L, 2, H, I],
+down_proj [L, I, H], ...), so a JAX tree converts one to one
+(utils/weights.py params_from_numpy). The layers run as a Python loop.
+
+KV lands in the paged pool (executor/kv_cache.py) and attention reads it
+through the page table. Decode keeps the virtual-page protocol: each layer's
+new K/V goes into attention beside the pool, and all layers are written to
+the pool once after the loop. The projections are plain matrix products
+(``torch.matmul``), as the JAX package leaves them to XLA; norms, SwiGLU and
+attention go through ``ops`` (the hand-written kernels on the card).
+
+Not ported yet, and refused with NotImplementedError: sharding (tp/cp/dp),
+fused QKV, quantized weights, chunked prefill with pool history, and
+``inputs_embeds`` (LLaVA).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import ops
+from ..executor.kv_cache import KVPool, kv_write_decode_all, kv_write_prefill
+from .rotary import compute_inv_freq_dual
+
+
+class AttnContext(NamedTuple):
+    """Per-step attention metadata."""
+
+    table_rows: torch.Tensor  # int32 [B, pages_per_req] page-table rows
+    seq_lens: torch.Tensor  # int32 [B] stored tokens incl. this step
+    start_pos: torch.Tensor  # int32 [B] first position written this step
+    chunk_lens: torch.Tensor  # int32 [B] valid tokens in this chunk (prefill)
+    active: Optional[torch.Tensor] = None  # bool [B] decode: still generating
+
+
+# ---------------------------------------------------------------------------
+# Param init (random; real weights come through utils/weights.py)
+
+
+def init_decoder_params(cfg, generator: torch.Generator, scale: float = 0.02) -> dict:
+    """Random parameter tree: N(0, scale) weights, unit norms, zero biases,
+    drawn from ``generator`` on its device."""
+    device = generator.device
+    L, H, D = cfg.num_hidden_layers, cfg.hidden_size, cfg.head_dim
+    Nq, Nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    I, V = cfg.intermediate_size, cfg.vocab_size
+    dt = cfg.dtype
+
+    def init(*shape):
+        w = torch.empty(shape, dtype=dt, device=device)
+        return w.normal_(0.0, scale, generator=generator)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    layers = {
+        "attn_norm": ones(L, H),
+        "wq": init(L, H, Nq, D),
+        "wkv": init(L, H, 2, Nkv, D),
+        "o_proj": init(L, Nq, D, H),
+        "mlp_norm": ones(L, H),
+        "gate_up_proj": init(L, 2, H, I),
+        "down_proj": init(L, I, H),
+    }
+    if cfg.attention_bias:
+        layers["q_bias"] = zeros(L, Nq, D)
+        layers["kv_bias"] = zeros(L, 2, Nkv, D)
+    if getattr(cfg, "qk_norm", False):
+        layers["q_norm"] = ones(L, D)
+        layers["k_norm"] = ones(L, D)
+    params = {"embed": init(V, H), "layers": layers, "final_norm": ones(H)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = init(H, V)
+    return params
+
+
+def _unstack_layers(params: dict):
+    """Per-layer views of the stacked weights, one ``unbind`` per key."""
+    layers = params["layers"]
+    for name in ("wqkv", "qkv_bias"):
+        if name in layers:
+            raise NotImplementedError("fused QKV weights are not ported yet")
+    keys = list(layers)
+    cols = [torch.unbind(layers[k], 0) for k in keys]
+    return [dict(zip(keys, vals)) for vals in zip(*cols)]
+
+
+# ---------------------------------------------------------------------------
+# Shared layer math
+
+
+def _project_qkv(cfg, lp, x):
+    """x [..., H] -> q [..., Nq, D], k/v [..., Nkv, D]."""
+    Nq, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    H = x.shape[-1]
+    batch = x.shape[:-1]
+    q = torch.matmul(x, lp["wq"].reshape(H, Nq * D)).view(*batch, Nq, D)
+    kv = torch.matmul(x, lp["wkv"].reshape(H, 2 * Nkv * D)).view(*batch, 2, Nkv, D)
+    if "q_bias" in lp:
+        q = q + lp["q_bias"]
+        kv = kv + lp["kv_bias"]
+    k = kv[..., 0, :, :]
+    v = kv[..., 1, :, :]
+    if "q_norm" in lp:
+        q = ops.rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = ops.rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+    return q, k, v
+
+
+def _mlp(lp, x):
+    w = lp["gate_up_proj"]  # [2, H, I]
+    out = ops.swiglu(torch.matmul(x, w[0]), torch.matmul(x, w[1]))
+    return torch.matmul(out, lp["down_proj"])
+
+
+def _attn_out(lp, attn):
+    flat = attn.reshape(*attn.shape[:-2], -1)
+    return torch.matmul(flat, lp["o_proj"].reshape(flat.shape[-1], -1))
+
+
+def _unembed(params, cfg, normed):
+    """fp32 logits, as the JAX package computes them. Untied: the product in
+    the activation dtype, then fp32 (the JAX einsum returns the activation
+    dtype). Tied: fp32 accumulation AND fp32 output, with no bf16 rounding
+    of the logits (cuBLAS's ``out_dtype`` on the card; an fp32 product on the
+    CPU, where only the tests run)."""
+    if "lm_head" in params:
+        return torch.matmul(normed, params["lm_head"]).float()
+    emb_t = params["embed"].t()
+    flat = normed.reshape(-1, normed.shape[-1])
+    if flat.dtype == torch.float32:
+        out = torch.mm(flat, emb_t)
+    elif flat.is_cuda:
+        out = torch.mm(flat, emb_t, out_dtype=torch.float32)
+    else:
+        out = torch.mm(flat.float(), emb_t.float())
+    return out.view(*normed.shape[:-1], -1)
+
+
+_ROPE_TABLES = {}  # (rope fields, device) -> (inv_freq, short-or-None, threshold, scale)
+
+
+def _inv_freq_tables(cfg, device):
+    """compute_inv_freq_dual on ``device``, cached: a fresh host->device copy
+    every decode step would make the host wait for the device."""
+    key = (cfg.head_dim, cfg.rope_theta, repr(cfg.rope_scaling),
+           cfg.max_position_embeddings, cfg.max_seq_len, str(device))
+    tables = _ROPE_TABLES.get(key)
+    if tables is None:
+        inv_freq, short, threshold, att_scale = compute_inv_freq_dual(cfg)
+        tables = (
+            torch.as_tensor(inv_freq, device=device),
+            None if short is None else torch.as_tensor(short, device=device),
+            threshold,
+            att_scale,
+        )
+        _ROPE_TABLES[key] = tables
+    return tables
+
+
+def _rope_tables(cfg, positions, seq_lens=None):
+    """cos/sin for the step's positions; dynamic-NTK checkpoints select the
+    table per request by live sequence length (models/rotary.py)."""
+    long_t, short_t, threshold, att_scale = _inv_freq_tables(cfg, positions.device)
+    if short_t is not None and seq_lens is not None:
+        per_req = torch.where((seq_lens > threshold)[:, None], long_t[None], short_t[None])
+        return ops.rope_cos_sin(positions, per_req, att_scale)
+    return ops.rope_cos_sin(positions, long_t, att_scale)
+
+
+def _refuse(shard=None, chunked=False, inputs_embeds=None):
+    if shard is not None:
+        raise NotImplementedError("sharded (tp/cp/dp) decoding is not ported yet")
+    if chunked:
+        raise NotImplementedError("chunked prefill with pool history is not ported yet")
+    if inputs_embeds is not None:
+        raise NotImplementedError("inputs_embeds (LLaVA) is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Prefill forward: [B, S] tokens -> logits
+
+
+def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
+                    input_ids: torch.Tensor, last_only: bool = False, chunked: bool = False,
+                    shard=None, inputs_embeds=None):
+    """Returns (logits, kv_pages): logits [B, S, V] fp32, or [B, V] for each
+    request's last valid position with ``last_only``. Writes the chunk's K/V
+    into the pool in place."""
+    _refuse(shard, chunked, inputs_embeds)
+    h = params["embed"][input_ids]
+    B, S, _ = h.shape
+    positions = ctx.start_pos.long()[:, None] + torch.arange(S, device=h.device)
+    cos, sin = _rope_tables(cfg, positions, ctx.seq_lens)
+    sm_scale = 1.0 / (cfg.head_dim**0.5)
+    eps = cfg.rms_norm_eps
+    x, residual = h, torch.zeros_like(h)
+    for li, lp in enumerate(_unstack_layers(params)):
+        normed, residual = ops.skip_rms_norm(x, residual, lp["attn_norm"], eps)
+        q, k, v = _project_qkv(cfg, lp, normed)
+        q = ops.apply_rope(q, cos, sin)
+        k = ops.apply_rope(k, cos, sin)
+        kv_write_prefill(kv_pages, li, k, v, ctx.table_rows, ctx.start_pos, ctx.chunk_lens)
+        attn = ops.prefill_attention(q, k, v, ctx.chunk_lens, sm_scale)
+        normed2, residual = ops.skip_rms_norm(
+            _attn_out(lp, attn), residual, lp["mlp_norm"], eps
+        )
+        x = _mlp(lp, normed2)
+    normed, _ = ops.skip_rms_norm(x, residual, params["final_norm"], eps)
+    if last_only:
+        last = torch.clamp(ctx.chunk_lens.long() - 1, min=0)
+        normed = normed[torch.arange(B, device=h.device), last]
+    return _unembed(params, cfg, normed), kv_pages
+
+
+# ---------------------------------------------------------------------------
+# Decode forward: one token per request -> next-token logits
+
+
+def decoder_decode(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
+                   input_ids: torch.Tensor, shard=None):
+    """Returns (logits [B, V] fp32, kv_pages). ``ctx.start_pos`` is the
+    position being written (seq_len - 1 after allocation); ``ctx.seq_lens``
+    includes the new token."""
+    _refuse(shard)
+    h = params["embed"][input_ids]  # [B, H]
+    cos, sin = _rope_tables(cfg, ctx.start_pos, ctx.seq_lens)  # [B, D/2]
+    sm_scale = 1.0 / (cfg.head_dim**0.5)
+    eps = cfg.rms_norm_eps
+    x, residual = h, torch.zeros_like(h)
+    ks, vs = [], []
+    for li, lp in enumerate(_unstack_layers(params)):
+        normed, residual = ops.skip_rms_norm(x, residual, lp["attn_norm"], eps)
+        q, k, v = _project_qkv(cfg, lp, normed)
+        q = ops.apply_rope(q, cos, sin)
+        k = ops.apply_rope(k, cos, sin)
+        attn = ops.paged_decode_attention(
+            q, kv_pages, li, ctx.table_rows, ctx.seq_lens, sm_scale, k_new=k, v_new=v
+        )
+        normed2, residual = ops.skip_rms_norm(
+            _attn_out(lp, attn), residual, lp["mlp_norm"], eps
+        )
+        x = _mlp(lp, normed2)
+        ks.append(k)
+        vs.append(v)
+    kv_write_decode_all(
+        kv_pages, torch.stack(ks), torch.stack(vs), ctx.table_rows, ctx.start_pos, ctx.active
+    )
+    normed, _ = ops.skip_rms_norm(x, residual, params["final_norm"], eps)
+    return _unembed(params, cfg, normed), kv_pages

@@ -1,0 +1,177 @@
+"""Plain PyTorch versions of every compute op (port of
+``lite_llama_tpu/ops/ref.py``).
+
+They define the numerical contract of the port's kernels: each kernel in
+``ops/norms.py``, ``ops/attention_decode.py`` and ``ops/attention_prefill.py``
+is held against the function here, and a wrapper that is handed a CPU tensor
+runs the function here instead of its kernel. All softmax/normalization math
+is fp32 regardless of input dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+LOG2E = math.log2(math.e)
+# Large-negative instead of -inf in the online-softmax state: exp2 flushes it
+# to 0 and (unlike -inf) it never makes NaN through inf - inf.
+NEG_INF = -1e30
+
+
+def cdiv_int(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def skip_rms_norm(x, residual, weight, eps: float = 1e-5):
+    """Fused residual-add + RMSNorm. Returns ``(normed, new_residual)`` with
+    ``new_residual = x + residual`` rounded to x's dtype (the sum that is
+    normalised is that rounded sum). ``residual=None`` means plain RMSNorm."""
+    if residual is not None:
+        x = x + residual
+    return rms_norm(x, weight, eps), x
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    g = gate.float()
+    return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
+                 attention_scaling: float = 1.0):
+    """fp32 (cos, sin) of shape positions.shape + [head_dim//2]. ``inv_freq``
+    is [head_dim//2] or per-request [B, head_dim//2]."""
+    if inv_freq.ndim == 2:
+        inv_freq = inv_freq.reshape(
+            inv_freq.shape[0], *([1] * (positions.ndim - 1)), -1
+        )
+    freqs = positions.float()[..., None] * inv_freq
+    return torch.cos(freqs) * attention_scaling, torch.sin(freqs) * attention_scaling
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE. x: [..., heads, head_dim]; cos/sin: [..., head_dim//2]
+    (broadcast over the heads axis)."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+
+
+def prefill_attention(q, k, v, seq_lens, sm_scale=None):
+    """Causal GQA self-attention over a padded batch with per-request lengths.
+    q [B, S, Hq, D], k/v [B, S, Hkv, D], seq_lens int32 [B]. Query head n
+    attends kv head n // G. Pad rows (s >= seq_lens[b]) are garbage that no
+    caller reads."""
+    B, S, Hq, D = q.shape
+    groups = Hq // k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / (D**0.5)
+    kf = k.float().repeat_interleave(groups, dim=2)
+    vf = v.float().repeat_interleave(groups, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), kf) * sm_scale
+    pos = torch.arange(S, device=q.device)
+    causal = pos[:, None] >= pos[None, :]
+    valid = pos[None, :] < seq_lens[:, None].to(q.device)  # [B, S(t)]
+    mask = causal[None, None] & valid[:, None, None, :]
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(q.dtype).float(), vf)
+    return out.to(q.dtype)
+
+
+def gather_kv_pages(kv_pool, layer: int, page_table: torch.Tensor, max_seq_len: int):
+    """Gather one layer's K/V rows for each request out of the paged pool into
+    dense [B, Hkv, max_seq_len, D] views. Page ids past a request's live
+    pages may be anything; they are clamped into the pool (the callers mask
+    those positions)."""
+    pages = kv_pool.pages
+    L, _, T, HD = pages.shape
+    Hkv, D = kv_pool.num_kv_heads, kv_pool.head_dim
+    ps = kv_pool.page_size
+    n = max_seq_len // ps
+    pt = page_table[:, :n].long()
+    off = torch.arange(ps, device=pages.device)
+    rows = (pt[:, :, None] * ps + off).reshape(pt.shape[0], n * ps).clamp(0, T - 1)
+    B, S = rows.shape
+    kv = pages[layer][:, rows].reshape(2, B, S, Hkv, D).transpose(2, 3)
+    return kv[0], kv[1]
+
+
+def paged_decode_attention(q, kv_pool, layer, page_table, seq_lens,
+                           max_seq_len=None, sm_scale=None, k_new=None, v_new=None):
+    """Decode-step attention reading K/V through the page table (gather then
+    mask). q [B, Hq, D]; seq_lens include the new token. When (k_new, v_new)
+    are given, the pool holds seq_lens-1 tokens and the newest token is
+    spliced into the gathered view at position seq_lens-1."""
+    B, Hq, D = q.shape
+    Hkv = kv_pool.num_kv_heads
+    ps = kv_pool.page_size
+    if max_seq_len is None:
+        max_seq_len = page_table.shape[1] * ps
+    if sm_scale is None:
+        sm_scale = 1.0 / (D**0.5)
+    k, v = gather_kv_pages(kv_pool, layer, page_table, max_seq_len)
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if k_new is not None:
+        bidx = torch.arange(B, device=q.device)
+        pos_new = seq_lens.long() - 1
+        k = k.clone()
+        v = v.clone()
+        k[bidx, :, pos_new, :] = k_new.to(k.dtype)
+        v[bidx, :, pos_new, :] = v_new.to(v.dtype)
+    groups = Hq // Hkv
+    qg = q.reshape(B, Hkv, groups, D)
+    logits = torch.einsum("bhgd,bhtd->bhgt", qg.float(), k.float()) * sm_scale
+    t = torch.arange(max_seq_len, device=q.device)
+    mask = t[None, :] < seq_lens[:, None]
+    logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgt,bhtd->bhgd", probs.to(q.dtype).float(), v.float())
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def fold_new_token(out, m1, l1, q, k_new, v_new, sm_scale):
+    """Exact LSE combine of a normalized partial attention result ``out``
+    [B, Nq, D] with its online-softmax state ``(m1, l1)`` [B, Nq] (exp2
+    domain, sm_scale*log2(e) folded into the scores) and one extra K/V token
+    ``k_new``/``v_new`` [B, Hkv, D]. An empty partial (m1 = -1e30, l1 = 0)
+    returns ``v_new`` exactly."""
+    B, Nq, D = q.shape
+    Hkv = k_new.shape[1]
+    G = Nq // Hkv
+    qg = (q.float() * (sm_scale * LOG2E)).reshape(B, Hkv, G, D)
+    s2 = torch.einsum("bhgd,bhd->bhg", qg, k_new.float()).reshape(B, Nq)
+    m_out = torch.maximum(m1, s2)
+    c1 = torch.exp2(m1 - m_out)  # pool-side correction
+    c2 = torch.exp2(s2 - m_out)  # new-token weight
+    l_out = l1 * c1 + c2
+    v2 = v_new.float()[:, :, None, :].expand(B, Hkv, G, D).reshape(B, Nq, D)
+    num = out.float() * (l1 * c1)[..., None] + v2 * c2[..., None]
+    return (num / torch.clamp(l_out, min=1e-30)[..., None]).to(q.dtype)
