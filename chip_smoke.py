@@ -18,15 +18,25 @@ Phases, in order; any failure exits non-zero:
    TFLOP/s), the plain version's time and one PyTorch library call's time
    where one computes the same function (timed here only; the port never
    calls it).
-4. Slice: Llama-3.2-3B at full width and depth with random bf16 weights from
-   a seeded generator; InferenceEngine + TextGenerator.generate_tokens on 12
-   prompts of 25 random ids, greedy, max_gen_len 128. Every kernel's launch
-   counter must grow in that run; the run is repeated for the median time.
-   Decode through the paged cache must agree with re-prefilling prompt +
-   generated tokens in a fresh cache, within a limit set between the plain
-   versions' reading and that of faults planted in K1's inputs; the script
-   plants them and fails if the limit misses one.
-5. Summary: one JSON line with every kernel, then the last line
+4. Batch slice: Llama-3.2-3B at full width and depth with random bf16
+   weights from a seeded generator; InferenceEngine +
+   TextGenerator.generate_tokens on 12 prompts of 25 random ids, greedy,
+   max_gen_len 128. Every kernel of that path must launch in that run; the
+   run is repeated for the median time. Decode through the paged cache must
+   agree with re-prefilling prompt + generated tokens in a fresh cache,
+   within a limit set between the plain versions' reading and that of
+   faults planted in K1's inputs; the script plants them and fails if the
+   limit misses one.
+5. Serving: the same model and weights through ServingFrontend ->
+   ContinuousBatchingScheduler -> engine sessions with the prefix cache on
+   (prefill_chunk 512, page 16, 64 slots, decode_chunk 32), from 4
+   submitting threads, in two waves (serving_phase); K5 must launch in each
+   wave and the prefix cache must hit at least 16 times. Then two prefill
+   invariants (prefill_invariants): chunked (K5) against single-shot (K2)
+   prefill of 1500-token prompts, and prefix-hit against uncached prefill,
+   read through the kernels, the plain versions and faults planted in K5's
+   inputs.
+6. Summary: one JSON line with every kernel, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -56,10 +66,21 @@ ATOL, RTOL = 1e-2, 1e-2  # bf16 outputs: one bf16 step is 2^-8 relative
 # sit near the geometric mean, ~1.8x from either side.
 INVARIANT_REL_RMS = 0.08
 INVARIANT_MAX_ABS = 0.08
+# Chunked or prefix-hit prefill against a single-shot prefill of the same
+# prompts (first-token logits): relative RMS of the difference and max
+# |difference| over max |logit|. On an H100 (PERF.md) the kernels read 0 /
+# 0 (K5 walks the same 64-key tiles in the same order as K2), the plain
+# versions 0.030 / 0.033, the smallest planted fault (start_pos one page
+# short) 0.452 / 0.510. The limits sit near the geometric mean of the last
+# two, ~4x from either side.
+PREFILL_REL_RMS = 0.12
+PREFILL_MAX_ABS = 0.12
+WAVE_GEN = 64  # max_gen_len of every serving request
 GEN_REPEATS = 3  # generate_tokens runs timed (host time varies run to run)
 SPLIT_REPEATS = 5  # prefill + decode runs timed apart
 SEED = 0
 
+NORM_NO_RESIDUAL = 3  # index of K3's no-residual case in kernel_phase()
 KERNELS = {
     "paged_flash_decode": dict(
         route="cuda", source="lite_llama_tpu_torch/csrc/paged_decode.cu",
@@ -74,7 +95,15 @@ KERNELS = {
     "swiglu": dict(
         route="triton", source="lite_llama_tpu_torch/ops/norms.py",
         replaces="lite_llama_tpu/ops/norms.py:115"),
+    "flash_prefill_chunked": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        replaces="lite_llama_tpu/ops/attention_prefill.py:650"),
 }
+# The kernels each main path must launch: batch generation of short prompts
+# (phase 4) and serving (phase 5; K2 runs there only for a prompt batch
+# that is neither long nor a prefix hit, which the admission order decides).
+BATCH_PATH = ("paged_flash_decode", "flash_prefill", "rms_norm", "swiglu")
+SERVING_PATH = ("paged_flash_decode", "rms_norm", "swiglu", "flash_prefill_chunked")
 MODELS = {  # head_dim, query heads, kv heads, hidden, intermediate
     "llama-3.2-3b": dict(D=128, Nq=24, Hkv=8, H=3072, I=8192),
     "llama-3.2-1b": dict(D=64, Nq=32, Hkv=8, H=2048, I=8192),
@@ -310,6 +339,82 @@ def norm_case(rows, H, residual):
                 library="F.rms_norm (normalisation alone, no residual add)")
 
 
+def chunked_case(model, starts, clens, S=512, ps=16, return_state=False):
+    """K5 on one chunk of S query rows per request over a paged history of
+    ``starts[b]`` tokens (page ids shuffled) plus the chunk's own
+    ``clens[b]`` keys, against its plain version on out (and m, l)."""
+    from lite_llama_tpu_torch.executor.kv_cache import KVPool
+    from lite_llama_tpu_torch.ops.attention_prefill import (
+        chunked_prefill_state_plain, flash_prefill_chunked)
+
+    m = MODELS[model]
+    D, Nq, Hkv = m["D"], m["Nq"], m["Hkv"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    B = len(starts)
+    ppr = max(1, math.ceil((max(starts) + S) / ps))
+    P = B * ppr
+    pages = torch.randn((2, 2, P * ps, Hkv * D), generator=g, device=dev).bfloat16()
+    table = torch.randperm(P, generator=g, device=dev).view(B, ppr).int()  # shuffled
+    q = torch.randn((B, S, Nq, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
+    sp = torch.tensor(starts, dtype=torch.int32, device=dev)
+    cl = torch.tensor(clens, dtype=torch.int32, device=dev)
+    scale = D**-0.5
+
+    def kernel(q, k, v, cl, sp, pages, table):
+        return flash_prefill_chunked(q, k, v, cl, sp, KVPool(pages, ps, Hkv, D), 1, table,
+                                     scale, return_state=return_state)
+
+    def plain(q, k, v, cl, sp, pages, table):
+        return chunked_prefill_state_plain(q, k, v, cl, sp, pages, ps, 1, table, scale)
+
+    args = (q, k, v, cl, sp, pages, table)
+    got = kernel(*args)
+    out = got[0] if return_state else got
+    po, pm, pl = plain(*args)
+    torch.cuda.synchronize()
+    err, ok = max_err(out, po)  # every row: pad rows attend the whole chunk, as on the TPU
+    if return_state:
+        mm, ll = got[1], got[2]
+        ok = ok and bool(torch.all((mm - pm).abs() <= 1e-3 * torch.clamp(pm.abs(), min=1.0)))
+        ok = ok and bool(torch.all((ll - pl).abs() <= 1e-3 * pl.abs() + 1e-6))
+    hist_tok = sum(starts)
+    rows = sum(clens)
+    bytes_moved = (2 * hist_tok * Hkv * D * 2 + rows * (2 * Nq * D * 2 + 2 * Hkv * D * 2)
+                   + (rows * Nq * 8 if return_state else 0) + 2 * B * 4
+                   + sum(math.ceil(s / ps) for s in starts) * 4)
+    flops = 4 * Nq * D * sum(c * s + c * c / 2 for c, s in zip(clens, starts))
+    t_bound, by = bound(bytes_moved, flops)
+    # Library yardstick: SDPA on the history gathered dense beside the
+    # chunk's keys, with the same mask (the gather is not timed).
+    Th = max(1, math.ceil(max(starts) / ps)) * ps
+    hrows = (table.long()[:, : Th // ps, None] * ps + torch.arange(ps, device=dev)).view(B, Th)
+    G = Nq // Hkv
+    kd = torch.cat([pages[1, 0][hrows].view(B, Th, Hkv, D), k], 1)
+    vd = torch.cat([pages[1, 1][hrows].view(B, Th, Hkv, D), v], 1)
+    kd, vd = (x.transpose(1, 2).repeat_interleave(G, 1).contiguous() for x in (kd, vd))
+    t_h = torch.arange(Th, device=dev)
+    t_c = torch.arange(S, device=dev)
+    mask = torch.cat([(t_h[None] < sp[:, None])[:, None, :].expand(B, S, Th),
+                      (t_c[None, :] <= t_c[:, None])[None] & (t_c[None, None] < cl[:, None, None])],
+                     -1)[:, None]
+    lib_args = (q.transpose(1, 2).contiguous(), kd, vd, mask)
+    t = timings(
+        kernel, plain, args, bytes_moved,
+        (lambda qd, kd, vd, mask: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+         lib_args, sum(a.numel() * a.element_size() for a in lib_args)),
+        plain_in_graph=False,  # the plain version reads max(start_pos) on the host
+    )
+    return dict(model=model, shape=f"B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
+                                   f"start_pos={list(starts)} chunk_lens={list(clens)} "
+                                   f"return_state={return_state}",
+                max_abs_err=err, ok=ok, **t, bound_ms=t_bound, bound_by=by,
+                library="F.scaled_dot_product_attention (history gathered dense + chunk, "
+                        "boolean mask)")
+
+
 def swiglu_case(rows, I):
     from lite_llama_tpu_torch import ops
     from lite_llama_tpu_torch.ops import ref
@@ -330,7 +435,10 @@ def swiglu_case(rows, I):
 
 def kernel_phase():
     """Returns {kernel: [cases]}; the first case of each is the main path's
-    own shape (Llama-3.2-3B decode step, or its 12 x 25-token prefill)."""
+    own shape (Llama-3.2-3B decode step, its 12 x 25-token prefill, or the
+    serving phase's middle chunk of eight 1500-token prompts for K5). K3's
+    case ``NORM_NO_RESIDUAL`` is its no-residual form at Qwen3-4B's q-norm
+    shape (12 rows x 32 heads, width 128), reported on its own."""
     ragged = [0, 1, 15, 16, 17, 100, 255, 256, 511, 1000, 1537, 2048]  # B=12
     cases = {
         "paged_flash_decode": [
@@ -347,10 +455,15 @@ def kernel_phase():
             norm_case(12, 3072, True),
             norm_case(300, 3072, True),
             norm_case(300, 3072, False),
-            norm_case(12 * 24, 128, False),  # qk-norm rows of a 3B-shaped decode
+            norm_case(12 * 32, 128, False),  # NORM_NO_RESIDUAL: Qwen3-4B q-norm rows
             norm_case(300 * 32, 128, True),
         ],
         "swiglu": [swiglu_case(12, 8192), swiglu_case(300, 8192)],
+        "flash_prefill_chunked": [
+            chunked_case("llama-3.2-3b", [512] * 8, [512] * 8),
+            *(chunked_case(model, [0, 16, 500, 1536], [512, 300, 0, 512], return_state=rs)
+              for model in MODELS for rs in (False, True)),
+        ],
     }
     for name, cs in cases.items():
         for c in cs:
@@ -377,6 +490,7 @@ def counters():
         "flash_prefill": attention_prefill.launch_flash_prefill,
         "rms_norm": norms.launch_rms_norm,
         "swiglu": norms.launch_swiglu,
+        "flash_prefill_chunked": attention_prefill.launch_flash_prefill_chunked,
     }
 
 
@@ -400,6 +514,7 @@ def plain_ops():
                                           k_new=k_new, v_new=v_new)
 
     return dict(prefill_attention=ref.prefill_attention, paged_decode_attention=decode,
+                chunked_prefill_attention=ref.chunked_prefill_attention,
                 rms_norm=ref.rms_norm, skip_rms_norm=ref.skip_rms_norm, swiglu=ref.swiglu)
 
 
@@ -526,16 +641,15 @@ def profile_decode(engine, prompts, steps=16):
     )
 
 
-def slice_phase(dev, cfg, B=12, P=25, G=128):
-    """Llama-3.2-3B (``cfg``) through InferenceEngine + TextGenerator on
-    ``dev``: B prompts of P random ids, greedy, max_gen_len G."""
+def slice_phase(dev, cfg, params, B=12, P=25, G=128):
+    """Llama-3.2-3B (``cfg``, ``params``) through InferenceEngine +
+    TextGenerator on ``dev``: B prompts of P random ids, greedy,
+    max_gen_len G."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.generate import TextGenerator
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
-    from lite_llama_tpu_torch.models.decoder import init_decoder_params
 
     t0 = time.perf_counter()
-    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
     engine = InferenceEngine(cfg, params, device=dev)
     sync(dev)
     setup_s = time.perf_counter() - t0
@@ -556,8 +670,8 @@ def slice_phase(dev, cfg, B=12, P=25, G=128):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
     log(f"  generate_tokens: {sum(len(o.token_ids) for o in outs)} tokens in {gen_s[0]:.3f} s; "
         f"launches {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    require(not missing, f"kernels never launched on the main path: {missing}")
+    missing = [k for k in BATCH_PATH if launches[k] == 0]
+    require(not missing, f"kernels never launched on the batch path: {missing}")
     for o in outs:
         require(1 <= len(o.token_ids) <= G, "output length out of range")
         require(all(0 <= t < cfg.vocab_size for t in o.token_ids), "token id out of range")
@@ -648,6 +762,245 @@ def check_invariant(dev, cfg, params, prompts, generated):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: serving
+
+
+def run_wave(fe, reqs, threads=4):
+    """Submit ``reqs`` to the ServingFrontend from ``threads`` threads (each
+    submits its share, then waits for each result); returns the results in
+    request order and the wall time."""
+    import threading
+
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(t):
+        try:
+            mine = list(range(t, len(reqs), threads))
+            rids = [fe.submit(reqs[i]["tokens"], max_gen_len=WAVE_GEN,
+                              temperature=reqs[i]["temperature"], top_p=0.9) for i in mine]
+            for i, rid in zip(mine, rids):
+                results[i] = fe.result(rid, timeout=600)
+        except Exception as e:  # reported below; the script fails on it
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    for p in pool:
+        p.start()
+    for p in pool:
+        p.join(timeout=900)
+    wall = time.perf_counter() - t0
+    require(not errors and not any(p.is_alive() for p in pool),
+            f"serving clients failed: {errors}")
+    return results, wall
+
+
+def serving_phase(dev, cfg, params):
+    """Llama-3.2-3B through ServingFrontend -> ContinuousBatchingScheduler
+    -> engine sessions, with the prefix cache on. Wave 1: eight prompts of
+    1500 random ids (three K5 chunks each at prefill_chunk 512) and one
+    prompt of a 256-token shared prefix plus 8 tokens, whose 16 full pages
+    (the prefix exactly) are registered when it finishes. Wave 2, after
+    wave 1: sixteen prompts of the same prefix plus their own 48 tokens,
+    each a prefix hit (K5 over 256 cached tokens); twelve greedy, four
+    sampled (T 0.6, top_p 0.9)."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.executor.scheduler import ContinuousBatchingScheduler
+    from lite_llama_tpu_torch.server import ServingFrontend
+    from lite_llama_tpu_torch.utils.profiling import steady_state_tps
+
+    engine = InferenceEngine(cfg, params, device=dev, prefix_cache=True, prefill_chunk=512,
+                             page_size=16, max_reqs=64, decode_chunk=32)
+    prompts = serving_prompts(cfg)
+    waves = [
+        [dict(tokens=p, temperature=0.0) for p in prompts["long"]]
+        + [dict(tokens=prompts["prefix"] + prompts["tail"], temperature=0.0)],
+        [dict(tokens=prompts["prefix"] + s, temperature=0.0 if i < 12 else 0.6)
+         for i, s in enumerate(prompts["suffixes"])],
+    ]
+    fe = ServingFrontend(ContinuousBatchingScheduler(engine))
+    out, launches = [], {k: 0 for k in KERNELS}
+    try:
+        for w, reqs in enumerate(waves, 1):
+            reset_counts()
+            hits0 = engine.stats.prefix_hits
+            log0 = len(fe.sched.chunk_log)
+            sync(dev)
+            results, wall = run_wave(fe, reqs)
+            sync(dev)
+            counts = read_counts()
+            for k in launches:
+                launches[k] += counts[k]
+            toks = [r["tokens"] for r in results]
+            for r in results:
+                require(r["finish_reason"] in ("stop", "length"), f"wave {w}: {r}")
+                require(1 <= len(r["tokens"]) <= WAVE_GEN, f"wave {w}: output length")
+                require(all(0 <= t < cfg.vocab_size for t in r["tokens"]),
+                        f"wave {w}: token id out of range")
+                require(len(r["logprobs"]) == len(r["tokens"])
+                        and all(math.isfinite(v) for v in r["logprobs"]),
+                        f"wave {w}: non-finite or missing logprobs")
+            ttft = sorted(r["ttft_s"] for r in results)
+            n_tok = sum(len(t) for t in toks)
+            rec = dict(
+                wave=w, requests=len(reqs), prompt_tokens=sum(len(r["tokens"]) for r in reqs),
+                tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                ttft_p50_s=float(np.percentile(ttft, 50)),
+                ttft_p90_s=float(np.percentile(ttft, 90)),
+                steady_state=steady_state_tps(fe.sched.chunk_log[log0:],
+                                              full_occupancy=len(reqs)),
+                prefix_hits=engine.stats.prefix_hits - hits0, launches=counts,
+                outputs_head=[t[:4] for t in toks[:3]],
+            )
+            log(f"  serving wave {w}: {json.dumps(rec)}")
+            require(counts["flash_prefill_chunked"] > 0, f"wave {w}: K5 never launched")
+            out.append(rec)
+        profile = profile_wave(fe, waves[1])
+        log(f"  serving wave 2 again, profiled: {json.dumps(profile)}")
+    finally:
+        fe.shutdown()
+    missing = [k for k in SERVING_PATH if launches[k] == 0]
+    require(not missing, f"kernels never launched on the serving path: {missing}")
+    require(engine.stats.prefix_hits >= 16,
+            f"prefix hits {engine.stats.prefix_hits} < 16 in the serving phase")
+    return dict(waves=out, wave2_profile=profile, prefix_hits=engine.stats.prefix_hits,
+                prefill_tokens=engine.stats.prefill_tokens,
+                decode_tokens=engine.stats.decode_tokens, chunks=engine.stats.chunks), launches
+
+
+def profile_wave(fe, reqs):
+    """One wave under torch.profiler: the device's busy share of the wave's
+    wall time and device time by kernel name (device-side events of the
+    whole process, the serving thread's included). "not measured" (None)
+    when the profiler records no device time. Launch counts of this run are
+    not part of any wave's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = run_wave(fe, reqs)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(r[1] for r in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:12]
+    return dict(wall_s=wall, device_ms=device_us / 1e3 if device_us else None,
+                device_busy_share=device_us / 1e6 / wall if device_us else None,
+                top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n) for k, us, n in top])
+
+
+def serving_prompts(cfg):
+    """The serving phase's prompts, random ids from the seed."""
+    rng = np.random.default_rng(SEED + 5)
+    ids = lambda n: rng.integers(0, cfg.vocab_size, n).tolist()  # noqa: E731
+    return dict(long=[ids(1500) for _ in range(8)], prefix=ids(256), tail=ids(8),
+                suffixes=[ids(48) for _ in range(16)], prefix2=ids(256))
+
+
+def planted_k5_faults():
+    """K5 handed a history one page short, or another request's table row:
+    faults the prefill invariants' limit must catch, each a replacement of
+    ops.chunked_prefill_attention (the same set of keys in another order
+    is not a fault: after RoPE the softmax does not see the order)."""
+    from lite_llama_tpu_torch.ops.attention_prefill import flash_prefill_chunked as k5
+
+    def one_page_short(q, k, v, chunk_lens, start_pos, pool, layer, table, sm_scale=None,
+                       max_hist_len=None):
+        return k5(q, k, v, chunk_lens, torch.clamp(start_pos - pool.page_size, min=0), pool,
+                  layer, table, sm_scale)
+
+    def other_request(q, k, v, chunk_lens, start_pos, pool, layer, table, sm_scale=None,
+                      max_hist_len=None):
+        return k5(q, k, v, chunk_lens, start_pos, pool, layer, table.roll(1, 0), sm_scale)
+
+    return {"start_pos one page short": one_page_short,
+            "another request's table row": other_request}
+
+
+def compare_logits(got, want):
+    d = got - want
+    return dict(
+        max_abs_diff=float(d.abs().max()), max_abs_logit=float(want.abs().max()),
+        rel_rms_diff=float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()),
+        top1_equal=int((got.argmax(-1) == want.argmax(-1)).sum()), rows=int(got.shape[0]),
+    )
+
+
+def prefill_holds(r):
+    return (r["rel_rms_diff"] <= PREFILL_REL_RMS
+            and r["max_abs_diff"] <= PREFILL_MAX_ABS * r["max_abs_logit"])
+
+
+def _last_logits(engine, prompts, prefix_prompts=()):
+    """First-token logits of ``prompts`` prefilled together; with
+    ``prefix_prompts`` they are run (and released) first, so that their full
+    pages are cached for the prompts to hit."""
+    from lite_llama_tpu_torch.generation.generate import TextGenerator
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+
+    if prefix_prompts:
+        TextGenerator(engine).generate_tokens(list(prefix_prompts), max_gen_len=1,
+                                              temperature=0.0)
+    hits0 = engine.stats.prefix_hits
+    total = [len(p) + 1 for p in prompts]
+    slots = engine.admit_requests(total, prompts=prompts)
+    try:
+        sampling = SamplingParams.make(len(prompts), temperature=0.0, device="cpu")
+        _, _, last, _ = engine.prefill(prompts, sampling, slots, return_logits=True)
+    finally:
+        engine.release_slots(slots, total)
+    return torch.from_numpy(last), engine.stats.prefix_hits - hits0
+
+
+def prefill_invariants(dev, cfg, params):
+    """(a) the last logits of the 1500-token prompts chunked through K5
+    (prefill_chunk 512) against one single-shot K2 prefill; (b) the first
+    logits of prefix-hit prefills (K5 over 256 cached tokens) against the
+    same prompts with the prefix cache off. Each read through the kernels,
+    through the plain versions patched in, and with faults planted in K5's
+    inputs; the kernels must hold the limit, every fault must break it."""
+    from unittest import mock
+
+    from lite_llama_tpu_torch import ops
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+
+    p = serving_prompts(cfg)
+    longs = p["long"]
+    hit = [p["prefix"] + p["suffixes"][0], p["prefix2"] + p["suffixes"][1]]
+    warm = [p["prefix"] + p["tail"], p["prefix2"] + p["tail"]]
+
+    def engine(**kw):  # explicit small pools: these engines hold a few prompts
+        return InferenceEngine(cfg, params, device=dev, page_size=16, max_reqs=8,
+                               num_pages=8 * 100, decode_chunk=32, **kw)
+
+    def read(patch):
+        with mock.patch.multiple(ops, **patch) if patch else contextlib.nullcontext():
+            chunked, _ = _last_logits(engine(prefill_chunk=512), longs)
+            single, _ = _last_logits(engine(prefill_chunk=2048), longs)
+            cached, hits = _last_logits(engine(prefill_chunk=512, prefix_cache=True), hit,
+                                        prefix_prompts=warm)
+            uncached, _ = _last_logits(engine(prefill_chunk=512), hit)
+        require(hits == len(hit), f"prefix-hit reading hit {hits} of {len(hit)} prompts")
+        return dict(a=compare_logits(chunked, single), b=compare_logits(cached, uncached))
+
+    inv = {"kernels": read(None), "plain": read(plain_ops())}
+    inv["faults"] = {name: read(dict(chunked_prefill_attention=f))
+                     for name, f in planted_k5_faults().items()}
+    inv["limit"] = dict(rel_rms=PREFILL_REL_RMS, max_abs_of_max_logit=PREFILL_MAX_ABS)
+    for name, r in [("kernels", inv["kernels"]), ("plain", inv["plain"]),
+                    *inv["faults"].items()]:
+        log(f"  prefill invariants, {name}: {json.dumps(r)}")
+    for side in ("a", "b"):
+        require(prefill_holds(inv["kernels"][side]), f"invariant ({side}) fails: {inv}")
+        require(prefill_holds(inv["plain"][side]), f"plain invariant ({side}) fails: {inv}")
+        caught = {n: not prefill_holds(r[side]) for n, r in inv["faults"].items()}
+        log(f"  invariant ({side}) planted faults caught: {caught}")
+        require(all(caught.values()), f"invariant ({side}) misses a planted fault: {caught}")
+    return inv
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -686,22 +1039,33 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions (bf16)")
     cases = kernel_phase()
-    summary = None
-    launches = {k: None for k in KERNELS}
+    by_path = {"batch": {k: None for k in KERNELS}, "serving": {k: None for k in KERNELS}}
     if not args.kernels_only:
+        from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
 
-        log("phase 4: slice")
-        summary, launches = slice_phase(torch.device("cuda"),
-                                        llama32_3b(dtype=torch.bfloat16))
+        dev = torch.device("cuda")
+        cfg = llama32_3b(dtype=torch.bfloat16)
+        params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        log("phase 4: slice (batch generation)")
+        summary, by_path["batch"] = slice_phase(dev, cfg, params)
         log("slice: " + json.dumps(summary))
+        log("phase 5: serving")
+        t0 = time.perf_counter()
+        serving, by_path["serving"] = serving_phase(dev, cfg, params)
+        serving["prefill_invariants"] = prefill_invariants(dev, cfg, params)
+        serving["seconds"] = time.perf_counter() - t0
+        log("serving: " + json.dumps(serving))
 
     kernels = []
     for name, meta in KERNELS.items():
         cs = cases[name]
         main_case = cs[0]
-        kernels.append(dict(
-            name=name, **meta, launches=launches[name],
+        runs = {path: counts[name] for path, counts in by_path.items()}
+        entry = dict(
+            name=name, **meta,
+            launches=None if args.kernels_only else sum(runs.values()),
+            launches_by_path=runs,
             max_abs_err=max(c["max_abs_err"] for c in cs),
             tolerance=f"|err| <= {ATOL} + {RTOL}*|plain|",
             ms=main_case["ms"], l2_warm_ms=main_case["l2_warm_ms"],
@@ -709,7 +1073,13 @@ def main() -> int:
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], library=main_case["library"],
             shape=main_case["shape"], cases=cs,
-        ))
+        )
+        if name == "rms_norm":
+            c = cs[NORM_NO_RESIDUAL]
+            entry["no_residual"] = {k: c[k] for k in (
+                "shape", "max_abs_err", "ms", "l2_warm_ms", "eager_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library")}
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     if args.kernels_only:
         return 0

@@ -1,33 +1,49 @@
-// Ragged causal GQA flash attention (prefill) for Hopper (sm_90a).
+// Ragged causal GQA flash attention (prefill) for Hopper (sm_90a), fresh
+// (K2) and chunked over the paged pool's history (K5): one kernel template,
+// as the TPU has one _prefill_kernel for both.
 //
-// Replaces the TPU kernel lite_llama_tpu/ops/attention_prefill.py
-// flash_prefill -> _flash_prefill_impl / _prefill_kernel (has_history=False):
-// causal attention over a padded [B, S] batch with per-request lengths;
-// query head n attends kv head n // G; padded keys are masked and padded
-// query rows are never read by any caller.
+// Replaces the TPU kernels of lite_llama_tpu/ops/attention_prefill.py:
+// - K2, flash_prefill -> _flash_prefill_impl / _prefill_kernel
+//   (has_history=False): causal attention over a padded [B, S] batch with
+//   per-request lengths; padded keys are masked and padded query rows are
+//   never read by any caller.
+// - K5, flash_prefill_chunked -> the same kernel with has_history=True:
+//   chunk query row s of request b attends the pool history
+//   [0, start_pos[b]) through table_rows[b] (no mask there), then the chunk's
+//   own keys p <= s, p < chunk_lens[b]. One online-softmax state spans both
+//   phases. A request with no history and an empty chunk writes out = 0,
+//   m = -1e30, l = 0; chunk_lens = 0 with a history is a walk over the
+//   history only. With m/l pointers the kernel also writes each query row's
+//   online-softmax state (exp2 domain) for a later LSE combine.
+// Query head n attends kv head n // G in both.
 //
-// What bounds it: tensor-core operations once prompts are long,
-// about 2 * 2 * Nq * D * sum_b(len_b^2) / 2 FLOPs against 989 TFLOP/s in bf16;
-// for short prompts the bytes of q, k, v and out.
+// What bounds them: tensor-core operations once prompts or histories are
+// long, about 4 * Nq * D * sum_b(chunk_b * hist_b + chunk_b^2 / 2) FLOPs
+// against 989 TFLOP/s in bf16; for short ones the bytes of the history K/V,
+// q, k, v and out against 3.35 TB/s.
 //
 // Design:
 // - Grid (q tile, kv head, request). A block holds the G query heads of one
 //   kv head: warp w computes 16 query rows of head w / QW, QW = 8 / G warps
 //   per head, so one BK x D tile of K and V in shared memory serves all
 //   G * 16 * QW query rows of the group.
+// - K5's history phase is a loop over BK-row tiles that runs before the
+//   chunk loop. Each tile row is gathered through the page table
+//   (row = page * page_size + offset of the [L, 2, T, Hkv*D] pool), so any
+//   page size works; the TPU's BK % page_size rule was a DMA constraint.
 // - QK^T and PV run on the tensor cores through mma.sync m16n8k16
 //   (bf16 inputs, fp32 accumulate). The score fragment is rounded to bf16
 //   and reused in registers as the A operand of the PV product (as the TPU
-//   kernel rounds P before its PV dot).
+//   kernel rounds P before its PV dot); the row sums l use the unrounded P.
 // - fp32 online softmax in the exp2 domain, sm_scale*log2(e) folded into q
 //   (rounded to bf16 after the scale, as on the TPU).
 // - The causal mask and the ragged length mask are applied per tile; key
 //   tiles above a warp's diagonal are skipped, key tiles past the causal
-//   frontier or past seq_lens[b] are never loaded, and a q tile that starts
-//   past seq_lens[b] only writes zeros.
+//   frontier or past the chunk length are never loaded.
 // - Head packing for D=64 (a TPU 128-lane DMA device) is not carried over:
 //   D = 64 and D = 128 are template instances.
-// Simple first: one K/V buffer, no cp.async/TMA pipelining, no wgmma.
+// Simple first: one K/V buffer, no cp.async/TMA pipelining, no wgmma; every
+// q tile of a request walks the whole history (from L2 after the first).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,14 +79,97 @@ __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi)
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// One warp's 16 query rows against one BK-key tile in shared memory:
+// scores, mask, online-softmax update, PV. CAUSAL: key j0 + i is visible to
+// row p iff it is <= p and < limit (the chunk phase); otherwise iff it is
+// < limit (the history phase).
+template <int D, bool CAUSAL>
+__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4],
+                                            float (&o)[D / 8][4], float (&mrow)[2],
+                                            float (&lrow)[2], const __nv_bfloat16* sK,
+                                            const __nv_bfloat16* sV, int j0, int limit, int p0,
+                                            int r, int c) {
+  constexpr int KS = D + KPAD;
+  constexpr int KT = D / 16;
+  constexpr int DT = D / 8;
+  float s[BK / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      const __nv_bfloat16* kp = &sK[(nt * 8 + r) * KS + kk * 16 + 2 * c];
+      mma_16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
+                *reinterpret_cast<const uint32_t*>(kp + 8));
+    }
+  }
+
+  float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = j0 + nt * 8 + 2 * c + (e & 1);
+      const int prow = p0 + r + ((e & 2) ? 8 : 0);
+      const bool ok = CAUSAL ? (key <= prow && key < limit) : (key < limit);
+      s[nt][e] = ok ? s[nt][e] : NEG;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    }
+  }
+  float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    corr[i] = exp2f(mrow[i] - mx[i]);
+    mrow[i] = mx[i];
+  }
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = s[nt][e] > 0.5f * NEG ? exp2f(s[nt][e] - mrow[e >> 1]) : 0.f;
+      s[nt][e] = p;
+      psum[e >> 1] += p;
+    }
+  }
+  // Per-thread partial row sums; the quad's sum is taken once at the end.
+  lrow[0] = lrow[0] * corr[0] + psum[0];
+  lrow[1] = lrow[1] * corr[1] + psum[1];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    o[dt][0] *= corr[0];
+    o[dt][1] *= corr[0];
+    o[dt][2] *= corr[1];
+    o[dt][3] *= corr[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t pa[4] = {
+        pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
+        pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]), pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const __nv_bfloat16* vp = &sV[(kk * 16 + 2 * c) * KS + dt * 8 + r];
+      mma_16816(o[dt], pa, pack_raw(vp[0], vp[KS]), pack_raw(vp[8 * KS], vp[9 * KS]));
+    }
+  }
+}
+
+template <int D, bool HAS_HISTORY>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Nq, D]
-                     const __nv_bfloat16* __restrict__ k,  // [B, S, Hkv, D]
-                     const __nv_bfloat16* __restrict__ v,  // [B, S, Hkv, D]
-                     const int* __restrict__ seq_lens,     // [B]
-                     __nv_bfloat16* __restrict__ out,      // [B, S, Nq, D]
-                     int S, int Nq, int Hkv, int QW, float qscale) {
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
+                     const __nv_bfloat16* __restrict__ k,      // [B, S, Hkv, D]
+                     const __nv_bfloat16* __restrict__ v,      // [B, S, Hkv, D]
+                     const int* __restrict__ chunk_lens,       // [B]
+                     const int* __restrict__ start_pos,        // [B] (history only)
+                     const __nv_bfloat16* __restrict__ pages,  // [L, 2, T, Hkv*D] (history only)
+                     const int* __restrict__ table,            // [B, ppr] (history only)
+                     __nv_bfloat16* __restrict__ out,          // [B, S, Nq, D]
+                     float* __restrict__ m_out,                // [B, S, Nq] or null
+                     float* __restrict__ l_out,                // [B, S, Nq] or null
+                     int S, int Nq, int Hkv, int QW, float qscale, long long T, int layer,
+                     int ps, int ppr) {
   constexpr int KS = D + KPAD;  // shared-memory row stride
   constexpr int KT = D / 16;    // k-steps of the QK product
   constexpr int DT = D / 8;     // n-tiles of the PV product
@@ -92,15 +191,25 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Nq, D]
   const int p0 = q0 + (warp % QW) * 16; // first position of this warp's rows
   const int r = lane >> 2;              // fragment row group
   const int c = lane & 3;               // fragment column pair
-  const int len = seq_lens[b];
+  const int len = chunk_lens[b];
+  const int hist = HAS_HISTORY ? start_pos[b] : 0;
   const long long qs = (long long)Nq * D;   // position stride of q / out
-  const long long ks = (long long)Hkv * D;  // position stride of k / v
+  const long long ks = (long long)Hkv * D;  // position stride of k / v (and pool rows)
   __nv_bfloat16* ob = out + (long long)b * S * qs + (long long)n * D;
+  float* mb = m_out ? m_out + (long long)b * S * Nq + n : nullptr;
+  float* lb = l_out ? l_out + (long long)b * S * Nq + n : nullptr;
 
-  if (q0 >= len) {  // the whole q tile is padding
+  // K2: a q tile wholly past the request's length is padding. K5: a row
+  // attends something unless the request has neither history nor chunk.
+  const bool empty = HAS_HISTORY ? (hist <= 0 && len <= 0) : (q0 >= len);
+  if (empty) {  // uniform over the block
     for (int i = lane; i < 16 * D; i += 32) {
       const int pos = p0 + i / D;
       if (pos < S) ob[pos * qs + i % D] = __float2bfloat16(0.f);
+    }
+    if (mb && lane < 16 && p0 + lane < S) {
+      mb[(long long)(p0 + lane) * Nq] = NEG;
+      lb[(long long)(p0 + lane) * Nq] = 0.f;
     }
     return;
   }
@@ -127,8 +236,36 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Nq, D]
   float mrow[2] = {NEG, NEG};
   float lrow[2] = {0.f, 0.f};
 
+  if (HAS_HISTORY) {
+    // History phase: every key precedes the whole chunk, so no causal mask.
+    const __nv_bfloat16* kpool = pages + (long long)layer * 2 * T * ks + (long long)h * D;
+    const __nv_bfloat16* vpool = kpool + T * ks;
+    const int* tb = table + (long long)b * ppr;
+    const int n_hist = (hist + BK - 1) / BK;
+    for (int t = 0; t < n_hist; ++t) {
+      const int j0 = t * BK;
+      __syncthreads();  // the previous tile is consumed
+      for (int idx = threadIdx.x; idx < BK * (D / 8); idx += blockDim.x) {
+        const int row = idx / (D / 8);
+        const int ch = (idx % (D / 8)) * 8;
+        const int pos = j0 + row;
+        uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+        if (pos < hist) {
+          const long long pr = (long long)tb[min(pos / ps, ppr - 1)] * ps + pos % ps;
+          kv4 = *reinterpret_cast<const uint4*>(kpool + pr * ks + ch);
+          vv4 = *reinterpret_cast<const uint4*>(vpool + pr * ks + ch);
+        }
+        *reinterpret_cast<uint4*>(&sK[row * KS + ch]) = kv4;
+        *reinterpret_cast<uint4*>(&sV[row * KS + ch]) = vv4;
+      }
+      __syncthreads();
+      attend_tile<D, false>(qa, o, mrow, lrow, sK, sV, j0, hist, p0, r, c);
+    }
+  }
+
+  // Chunk phase: the causal prefix of the chunk's own keys.
   const int kv_hi = min(q0 + BQ, len);  // keys any row of this tile may see
-  const int n_tiles = (kv_hi + BK - 1) / BK;
+  const int n_tiles = kv_hi > 0 ? (kv_hi + BK - 1) / BK : 0;
   const __nv_bfloat16* kb = k + (long long)b * S * ks + (long long)h * D;
   const __nv_bfloat16* vb = v + (long long)b * S * ks + (long long)h * D;
 
@@ -149,78 +286,16 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Nq, D]
     }
     __syncthreads();
     if (j0 > p0 + 15) continue;  // tile entirely above this warp's diagonal
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const __nv_bfloat16* kp = &sK[(nt * 8 + r) * KS + kk * 16 + 2 * c];
-        mma_16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                  *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-
-    float mx[2] = {mrow[0], mrow[1]};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + nt * 8 + 2 * c + (e & 1);
-        const int prow = p0 + r + ((e & 2) ? 8 : 0);
-        const bool ok = key <= prow && key < len;
-        s[nt][e] = ok ? s[nt][e] : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float corr[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = exp2f(mrow[i] - mx[i]);
-      mrow[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[nt][e] > 0.5f * NEG ? exp2f(s[nt][e] - mrow[e >> 1]) : 0.f;
-        s[nt][e] = p;
-        psum[e >> 1] += p;
-      }
-    }
-    // Per-thread partial row sums; the quad's sum is taken once at the end.
-    lrow[0] = lrow[0] * corr[0] + psum[0];
-    lrow[1] = lrow[1] * corr[1] + psum[1];
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
-          pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]), pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* vp = &sV[(kk * 16 + 2 * c) * KS + dt * 8 + r];
-        mma_16816(o[dt], pa, pack_raw(vp[0], vp[KS]), pack_raw(vp[8 * KS], vp[9 * KS]));
-      }
-    }
+    attend_tile<D, true>(qa, o, mrow, lrow, sK, sV, j0, len, p0, r, c);
   }
 
-  float inv[2];
+  float lt[2], inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float lt = lrow[i];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    inv[i] = 1.f / fmaxf(lt, 1e-30f);
+    lt[i] = lrow[i];
+    lt[i] += __shfl_xor_sync(0xffffffffu, lt[i], 1);
+    lt[i] += __shfl_xor_sync(0xffffffffu, lt[i], 2);
+    inv[i] = 1.f / fmaxf(lt[i], 1e-30f);
   }
   const int pr0 = p0 + r;
   const int pr1 = p0 + r + 8;
@@ -234,18 +309,25 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, Nq, D]
       *reinterpret_cast<__nv_bfloat162*>(ob + pr1 * qs + d) =
           __floats2bfloat162_rn(o[dt][2] * inv[1], o[dt][3] * inv[1]);
   }
+  if (mb && c == 0) {
+    if (pr0 < S) {
+      mb[(long long)pr0 * Nq] = mrow[0];
+      lb[(long long)pr0 * Nq] = lt[0];
+    }
+    if (pr1 < S) {
+      mb[(long long)pr1 * Nq] = mrow[1];
+      lb[(long long)pr1 * Nq] = lt[1];
+    }
+  }
 }
 
-}  // namespace
-
-extern "C" const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
-                                  const void* seq_lens, void* out, int B, int S, int Nq,
-                                  int Hkv, int D, float qscale, void* stream) {
+template <bool HAS_HISTORY>
+int launch(const void* q, const void* k, const void* v, const void* chunk_lens,
+           const void* start_pos, const void* pages, const void* table, void* out, void* m,
+           void* l, int B, int S, int Nq, int Hkv, int D, float qscale, long long T, int layer,
+           int ps, int ppr, void* stream) {
   if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_WARPS) return (int)cudaErrorInvalidValue;
+  if (HAS_HISTORY && (ps <= 0 || ppr <= 0)) return (int)cudaErrorInvalidValue;
   const int G = Nq / Hkv;
   const int QW = MAX_WARPS / G;  // warps (16-row slices) per query head
   const int BQ = 16 * QW;
@@ -255,14 +337,47 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* lp = static_cast<const int*>(seq_lens);
+  const auto* cl = static_cast<const int*>(chunk_lens);
+  const auto* sp = static_cast<const int*>(start_pos);
+  const auto* pp = static_cast<const __nv_bfloat16*>(pages);
+  const auto* tp = static_cast<const int*>(table);
   auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* mp = static_cast<float*>(m);
+  auto* lp = static_cast<float*>(l);
   if (D == 128) {
-    flash_prefill_kernel<128><<<grid, block, 0, st>>>(qp, kp, vp, lp, op, S, Nq, Hkv, QW, qscale);
+    flash_prefill_kernel<128, HAS_HISTORY><<<grid, block, 0, st>>>(
+        qp, kp, vp, cl, sp, pp, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
   } else if (D == 64) {
-    flash_prefill_kernel<64><<<grid, block, 0, st>>>(qp, kp, vp, lp, op, S, Nq, Hkv, QW, qscale);
+    flash_prefill_kernel<64, HAS_HISTORY><<<grid, block, 0, st>>>(
+        qp, kp, vp, cl, sp, pp, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// K2: fresh prefill, no history.
+extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
+                                  const void* seq_lens, void* out, int B, int S, int Nq,
+                                  int Hkv, int D, float qscale, void* stream) {
+  return launch<false>(q, k, v, seq_lens, nullptr, nullptr, nullptr, out, nullptr, nullptr, B,
+                       S, Nq, Hkv, D, qscale, 0, 0, 0, 0, stream);
+}
+
+// K5: a chunk over the pool's history. m and l may be null (no state out).
+extern "C" int flash_prefill_chunked_bf16(const void* q, const void* k, const void* v,
+                                          const void* chunk_lens, const void* start_pos,
+                                          const void* pages, const void* table, void* out,
+                                          void* m, void* l, int B, int S, int Nq, int Hkv,
+                                          int D, float qscale, long long T, int layer, int ps,
+                                          int ppr, void* stream) {
+  if ((m == nullptr) != (l == nullptr)) return (int)cudaErrorInvalidValue;
+  return launch<true>(q, k, v, chunk_lens, start_pos, pages, table, out, m, l, B, S, Nq, Hkv,
+                      D, qscale, T, layer, ps, ppr, stream);
 }

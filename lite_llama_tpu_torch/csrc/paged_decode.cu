@@ -25,8 +25,10 @@
 //   prefetched index list) and handles any page_size.
 // - Each warp keeps an fp32 online softmax (m, l, acc) per query head in the
 //   exp2 domain with sm_scale*log2(e) folded into q (q rounded to bf16 after
-//   the scale, as on the TPU); the eight partial states are merged through
-//   shared memory at the end.
+//   the scale, as on the TPU); P is rounded to bf16 before the PV product and
+//   the row sum l takes the unrounded P (the TPU kernel's p_v.astype and
+//   sum); the eight partial states are merged through shared memory at the
+//   end.
 // - An empty slot (kv_len 0) writes m = -1e30, l = 0, out = 0, so that the
 //   fold returns the new token's value exactly.
 // Not carried over from the TPU: the wide/grouped MXU forms, the cross-program
@@ -158,8 +160,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
         float psum = 0.f;
 #pragma unroll
         for (int u = 0; u < UNR; ++u) {
-          p[u] = ok[u] ? exp2f(s[u][g] - m_new) : 0.f;
-          psum += p[u];
+          const float pu = ok[u] ? exp2f(s[u][g] - m_new) : 0.f;
+          psum += pu;  // l sums the unrounded P, as the TPU kernel does
+          p[u] = __bfloat162float(__float2bfloat16(pu));  // P in bf16 for PV
         }
         l[g] = l[g] * corr + psum;
 #pragma unroll

@@ -122,18 +122,29 @@ def _valid_slots(cache: PagedKVCache, req_ids: torch.Tensor) -> torch.Tensor:
     return req_ids < cache.max_reqs
 
 
-def alloc_prefill(cache: PagedKVCache, req_ids: torch.Tensor, lens: torch.Tensor):
+def alloc_prefill(cache: PagedKVCache, req_ids: torch.Tensor, lens: torch.Tensor,
+                  prefix_rows: Optional[torch.Tensor] = None,
+                  prefix_pages: Optional[torch.Tensor] = None):
     """Allocate pages for ``lens[b]`` tokens in slot ``req_ids[b]`` and set
     those slots' lengths. Sentinel slots (>= max_reqs) pop their pages like
-    JAX does but write nothing."""
+    JAX does but write nothing.
+
+    Prefix caching: where ``prefix_pages[b] > 0`` the first table entries
+    point at shared, already-filled pages from ``prefix_rows`` [B, ppr] and
+    only the pages after them are popped. The host owns sharing and
+    reference counts (engine ``PrefixCache``); this only splices the table."""
     B = req_ids.shape[0]
     ppr = cache.pages_per_req
     lens = lens.to(torch.int32)
     pages_needed = (lens + cache.page_size - 1) // cache.page_size
     j = torch.arange(ppr, dtype=torch.int32, device=lens.device)
-    need = (j[None, :] < pages_needed[:, None]).reshape(-1)
+    start = (torch.zeros_like(lens) if prefix_pages is None
+             else prefix_pages.to(torch.int32))
+    need = ((j[None, :] >= start[:, None]) & (j[None, :] < pages_needed[:, None])).reshape(-1)
     page_ids, new_top = _pop_pages(cache, need)
     rows = torch.where(need, page_ids, torch.zeros_like(page_ids)).reshape(B, ppr)
+    if prefix_rows is not None:
+        rows = torch.where(j[None, :] < start[:, None], prefix_rows.to(torch.int32), rows)
     ok = _valid_slots(cache, req_ids)
     slots = req_ids[ok].long()
     cache.page_table[slots] = rows[ok]
@@ -170,26 +181,43 @@ def alloc_decode(cache: PagedKVCache, req_ids: torch.Tensor,
     return cache
 
 
-def free_requests(cache: PagedKVCache, req_ids: torch.Tensor):
+def _push(cache: PagedKVCache, pages: torch.Tensor, mask: torch.Tensor):
+    """Push ``pages[mask]`` onto the free stack in order (pushes past the
+    stack's end are dropped, as JAX drops them)."""
+    m = mask.to(torch.int32)
+    rank = torch.cumsum(m, 0, dtype=torch.int32) - m
+    dst = (cache.free_top + rank).long()
+    push = mask & (dst < cache.free_stack.shape[0])
+    cache.free_stack[dst[push]] = pages[push].to(torch.int32)
+    cache.free_top = cache.free_top + m.sum(dtype=torch.int32)
+
+
+def free_requests(cache: PagedKVCache, req_ids: torch.Tensor,
+                  keep_pages: Optional[torch.Tensor] = None):
     """Push every page owned by the given slots back onto the free stack and
-    zero their lengths and table rows. Sentinel slots are ignored."""
+    zero their lengths and table rows. Sentinel slots are ignored.
+    ``keep_pages[b]`` leading pages stay allocated: shared-prefix pages that
+    the host's PrefixCache owns after the release."""
     ppr = cache.pages_per_req
     ok = _valid_slots(cache, req_ids)
     req = req_ids.long().clamp(max=cache.max_reqs - 1)
     used = (cache.seq_lens[req] + cache.page_size - 1) // cache.page_size
     used = torch.where(ok, used, torch.zeros_like(used))
+    keep = (torch.zeros_like(used) if keep_pages is None
+            else keep_pages.to(device=used.device, dtype=used.dtype))
     j = torch.arange(ppr, dtype=torch.int32, device=req_ids.device)
-    mask = (j[None, :] < used[:, None]).reshape(-1)
-    pages = cache.page_table[req].reshape(-1)
-    m = mask.to(torch.int32)
-    rank = torch.cumsum(m, 0, dtype=torch.int32) - m
-    dst = (cache.free_top + rank).long()
-    push = mask & (dst < cache.free_stack.shape[0])  # JAX drops pushes past the stack
-    cache.free_stack[dst[push]] = pages[push]
+    mask = ((j[None, :] >= keep[:, None]) & (j[None, :] < used[:, None])).reshape(-1)
+    _push(cache, cache.page_table[req].reshape(-1), mask)
     slots = req_ids[ok].long()
     cache.page_table[slots] = 0
     cache.seq_lens[slots] = 0
-    cache.free_top = cache.free_top + m.sum(dtype=torch.int32)
+    return cache
+
+
+def push_pages(cache: PagedKVCache, pages: torch.Tensor, valid: torch.Tensor):
+    """Return arbitrary page ids to the free stack: the eviction path for
+    the host-owned shared-prefix pages."""
+    _push(cache, pages, valid)
     return cache
 
 

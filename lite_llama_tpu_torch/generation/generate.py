@@ -1,15 +1,20 @@
-"""Batch generation over an InferenceEngine (port of
-``lite_llama_tpu/generation/generate.py``, ``TextGenerator.generate_tokens``).
+"""Batch and streaming generation over an InferenceEngine (port of
+``lite_llama_tpu/generation/generate.py``, ``TextGenerator.generate_tokens``
+and ``stream_tokens``).
 
 Generation runs through the engine's chunked decode (one host sync per
-chunk). Token ids are enough; the tokenizer is optional and only turns the
-result into text. Streaming and the chat/text front ends are not ported yet.
+chunk); the streaming API trades chunk size down (default 4) for latency.
+Prompts are handed to admission, so a prefix-cache engine registers and hits
+shared prompt prefixes here too. Token ids are enough; the tokenizer is
+optional and only turns the result into text. The chat front end waits for
+the prompt templates (``utils/prompts.py``), which wait for a tokenizer in
+the repository.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Generator, List, Optional, Sequence
 
 import numpy as np
 
@@ -26,7 +31,7 @@ class CompletionOutput:
 
 
 class TextGenerator:
-    """Batch completion over an InferenceEngine."""
+    """Batch and streaming completion over an InferenceEngine."""
 
     def __init__(self, engine: InferenceEngine, tokenizer=None):
         self.engine = engine
@@ -36,6 +41,16 @@ class TextGenerator:
             eos = [tokenizer.eos_token_id]
             engine.set_eos(eos)
         self.eos_ids = set(eos or [])
+
+    def _admit(self, prompt_tokens, max_gen_len, temperature, top_p, top_k):
+        eng = self.engine
+        lens = [len(t) for t in prompt_tokens]
+        max_total = [min(n + max_gen_len, eng.config.max_seq_len) for n in lens]
+        slots = eng.admit_requests(max_total, prompts=prompt_tokens)
+        # Host-side parameters: the engine uploads them without a sync.
+        sampling = SamplingParams.make(len(prompt_tokens), temperature=temperature,
+                                       top_p=top_p, top_k=top_k, device="cpu")
+        return lens, max_total, slots, sampling
 
     def generate_tokens(
         self,
@@ -50,13 +65,9 @@ class TextGenerator:
         """Non-streaming batch completion with optional per-token logprobs."""
         eng = self.engine
         B = len(prompt_tokens)
-        lens = [len(t) for t in prompt_tokens]
-        max_total = [min(n + max_gen_len, eng.config.max_seq_len) for n in lens]
-        slots = eng.admit_requests(max_total)
+        lens, max_total, slots, sampling = self._admit(prompt_tokens, max_gen_len, temperature,
+                                                       top_p, top_k)
         try:
-            sampling = SamplingParams.make(
-                B, temperature=temperature, top_p=top_p, top_k=top_k, device=eng.device
-            )
             first_tok, _, _, lp0 = eng.prefill(prompt_tokens, sampling, slots)
             out_tokens = [[int(first_tok[i])] for i in range(B)]
             out_lps = [[float(lp0[i])] for i in range(B)]
@@ -90,6 +101,51 @@ class TextGenerator:
                 token_ids=ids, text=self._decode(ids), logprobs=lps_i, finish_reason=finish,
             ))
         return results
+
+    def stream_tokens(
+        self,
+        prompt_tokens: Sequence[Sequence[int]],
+        max_gen_len: int = 128,
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+        top_k: int = 0,
+        chunk: int = 4,
+    ) -> Generator[List[List[int]], None, None]:
+        """Streaming: yields the newly generated token ids per request after
+        the prefill and after every ``chunk`` decode steps."""
+        eng = self.engine
+        B = len(prompt_tokens)
+        lens, max_total, slots, sampling = self._admit(prompt_tokens, max_gen_len, temperature,
+                                                       top_p, top_k)
+        try:
+            first_tok, _, _, _ = eng.prefill(prompt_tokens, sampling, slots)
+            done_host = np.asarray(
+                [t in self.eos_ids or lens[i] + 1 >= max_total[i]
+                 for i, t in enumerate(first_tok)]
+            )
+            produced = [1] * B
+            yield [[int(first_tok[i])] for i in range(B)]
+            tok, done = first_tok, done_host
+            steps_left = max(mt - n - 1 for mt, n in zip(max_total, lens))
+            while steps_left > 0 and not bool(done_host.all()):
+                n = min(chunk, steps_left)
+                tok, done, toks, _ = eng.decode(slots, tok, done, max_total, sampling,
+                                                n_steps=n)
+                new_done = done.cpu().numpy()
+                out = []
+                for i in range(B):
+                    if done_host[i]:
+                        out.append([])
+                    else:
+                        remaining = max_total[i] - lens[i] - produced[i]
+                        row = self._truncate_at_eos([int(t) for t in toks[:, i]][:remaining])
+                        produced[i] += len(row)
+                        out.append(row)
+                done_host = new_done
+                steps_left -= n
+                yield out
+        finally:
+            eng.release_slots(slots, max_total)
 
     def _truncate_at_eos(self, ids: List[int]) -> List[int]:
         for j, t in enumerate(ids):

@@ -17,8 +17,7 @@ the pool once after the loop. The projections are plain matrix products
 attention go through ``ops`` (the hand-written kernels on the card).
 
 Not ported yet, and refused with NotImplementedError: sharding (tp/cp/dp),
-fused QKV, quantized weights, chunked prefill with pool history, and
-``inputs_embeds`` (LLaVA).
+fused QKV, quantized weights and ``inputs_embeds`` (LLaVA).
 """
 
 from __future__ import annotations
@@ -180,11 +179,9 @@ def _rope_tables(cfg, positions, seq_lens=None):
     return ops.rope_cos_sin(positions, long_t, att_scale)
 
 
-def _refuse(shard=None, chunked=False, inputs_embeds=None):
+def _refuse(shard=None, inputs_embeds=None):
     if shard is not None:
         raise NotImplementedError("sharded (tp/cp/dp) decoding is not ported yet")
-    if chunked:
-        raise NotImplementedError("chunked prefill with pool history is not ported yet")
     if inputs_embeds is not None:
         raise NotImplementedError("inputs_embeds (LLaVA) is not ported yet")
 
@@ -195,11 +192,17 @@ def _refuse(shard=None, chunked=False, inputs_embeds=None):
 
 def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
                     input_ids: torch.Tensor, last_only: bool = False, chunked: bool = False,
-                    shard=None, inputs_embeds=None):
+                    hist_bound: Optional[int] = None, shard=None, inputs_embeds=None):
     """Returns (logits, kv_pages): logits [B, S, V] fp32, or [B, V] for each
     request's last valid position with ``last_only``. Writes the chunk's K/V
-    into the pool in place."""
-    _refuse(shard, chunked, inputs_embeds)
+    into the pool in place.
+
+    ``chunked=True``: this call is one chunk of a longer prompt (or the tail
+    after a prefix-cache hit): ``ctx.start_pos`` tokens per request are
+    already in the pool, and attention covers [pool history | causal chunk
+    prefix] (K5 on the card). ``hist_bound`` bounds the history the plain
+    CPU form gathers; the kernel walks each request's own pages."""
+    _refuse(shard, inputs_embeds)
     h = params["embed"][input_ids]
     B, S, _ = h.shape
     positions = ctx.start_pos.long()[:, None] + torch.arange(S, device=h.device)
@@ -213,7 +216,13 @@ def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
         kv_write_prefill(kv_pages, li, k, v, ctx.table_rows, ctx.start_pos, ctx.chunk_lens)
-        attn = ops.prefill_attention(q, k, v, ctx.chunk_lens, sm_scale)
+        if chunked:
+            attn = ops.chunked_prefill_attention(
+                q, k, v, ctx.chunk_lens, ctx.start_pos, kv_pages, li, ctx.table_rows,
+                sm_scale, max_hist_len=hist_bound,
+            )
+        else:
+            attn = ops.prefill_attention(q, k, v, ctx.chunk_lens, sm_scale)
         normed2, residual = ops.skip_rms_norm(
             _attn_out(lp, attn), residual, lp["mlp_norm"], eps
         )

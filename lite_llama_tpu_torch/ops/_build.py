@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Set, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_declared: Set[Tuple[str, str]] = set()  # (source, entry) with argtypes set
 
 
 def nvcc_path() -> str:
@@ -88,19 +89,24 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 def library(name: str, entry: str, argtypes) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed,
-    with the C signature of ``entry`` declared."""
+    with the C signature of ``entry`` declared. One library may serve
+    several entries; each gets its own signature the first time it is
+    asked for (an undeclared entry would get ctypes' default conversion,
+    which cuts 64-bit device pointers to 32 bits)."""
     lib = _loaded.get(name)
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
+    if (name, entry) not in _declared:
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _declared.add((name, entry))
     return lib
 
 

@@ -1,15 +1,17 @@
-"""Ragged causal flash attention for prefill (port of
-``lite_llama_tpu/ops/attention_prefill.py``, the ``flash_prefill`` entry).
+"""Ragged causal flash attention for prefill, fresh and chunked over the
+paged pool's history (port of ``lite_llama_tpu/ops/attention_prefill.py``,
+the ``flash_prefill`` and ``flash_prefill_chunked`` entries).
 
-K2 replaces the TPU kernel ``flash_prefill`` -> ``_flash_prefill_impl`` /
-``_prefill_kernel`` (``has_history=False``) with the CUDA kernel
-``csrc/flash_prefill.cu`` (its header says what bounds it and how it is laid
-out). The chunked form with pool history (``flash_prefill_chunked``) is not
-ported yet.
+Both TPU entries run one kernel, ``_prefill_kernel``, and so do their
+ports: ``csrc/flash_prefill.cu`` (its header says what bounds it and how it
+is laid out) is instantiated without history for K2 (``flash_prefill`` ->
+``_flash_prefill_impl``, ``has_history=False``) and with it for K5
+(``flash_prefill_chunked``, ``has_history=True``).
 
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
-takes the plain version, ``ops/ref.py`` ``prefill_attention``. Pad query
-rows (s >= seq_lens[b]) hold garbage in both and are never read.
+takes the plain version: ``ops/ref.py`` ``prefill_attention`` for K2,
+:func:`chunked_prefill_state_plain` for K5. Pad query rows of K2
+(s >= seq_lens[b]) hold garbage in both and are never read.
 """
 
 from __future__ import annotations
@@ -19,9 +21,24 @@ import ctypes
 import torch
 
 from . import _build, ref
-from .ref import LOG2E
+from .ref import LOG2E, NEG_INF, cdiv_int
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_CHUNKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+]
+
+
+def _check_qkv(what, q, k, v):
+    B, S, Nq, D = q.shape
+    Hkv = k.shape[2]
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise ValueError(f"{what} kernel takes bf16 q/k/v")
+    if (D not in (64, 128) or k.shape != (B, S, Hkv, D) or v.shape != k.shape
+            or Nq % Hkv or Nq // Hkv > 8):
+        raise ValueError(f"{what} kernel: unsupported shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)}")
 
 
 def launch_flash_prefill(q, k, v, seq_lens, sm_scale):
@@ -31,12 +48,9 @@ def launch_flash_prefill(q, k, v, seq_lens, sm_scale):
     Hkv = k.shape[2]
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v, seq_lens)):
         raise ValueError("flash_prefill kernel: all tensors must be on one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or seq_lens.dtype != torch.int32:
-        raise ValueError("flash_prefill kernel takes bf16 q/k/v and int32 seq_lens")
-    if (D not in (64, 128) or k.shape != (B, S, Hkv, D) or v.shape != k.shape
-            or Nq % Hkv or Nq // Hkv > 8 or seq_lens.shape != (B,)):
-        raise ValueError(f"flash_prefill kernel: unsupported shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)}")
+    _check_qkv("flash_prefill", q, k, v)
+    if seq_lens.dtype != torch.int32 or seq_lens.shape != (B,):
+        raise ValueError("flash_prefill kernel takes int32 seq_lens [B]")
     q, k, v, seq_lens = (t.contiguous() for t in (q, k, v, seq_lens))
     out = torch.empty_like(q)
     if B and S:
@@ -61,3 +75,119 @@ def flash_prefill(q, k, v, seq_lens, sm_scale=None):
     if q.is_cuda:
         return launch_flash_prefill(q, k, v, seq_lens.to(torch.int32), sm_scale)
     return ref.prefill_attention(q, k, v, seq_lens, sm_scale)
+
+
+# ---------------------------------------------------------------------------
+# K5: a chunk over the pool's history
+
+
+def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size, layer,
+                                table_rows, sm_scale):
+    """Plain version of K5: (out [B, S, Nq, D] in q's dtype, m, l [B, S, Nq]
+    fp32). Row s of request b attends the pool history [0, start_pos[b])
+    read through ``table_rows[b]`` from ``pages`` [L, 2, T, Hkv*D], then the
+    chunk's keys p <= s, p < chunk_lens[b]. Exp2 domain with
+    sm_scale*log2(e) folded into q; q and P are rounded to bf16 before their
+    products when q is bf16, as the TPU kernel does. A row with nothing to
+    attend gives out = 0, m = -1e30, l = 0."""
+    B, S, Nq, D = q.shape
+    Hkv = k.shape[2]
+    G = Nq // Hkv
+    T = pages.shape[2]
+    ps = page_size
+    dev = q.device
+    mat = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    start_pos = start_pos.to(dev)
+    chunk_lens = chunk_lens.to(dev)
+    qs = (q.float() * (sm_scale * LOG2E)).to(mat).float().reshape(B, S, Hkv, G, D)
+    n_pages = cdiv_int(int(start_pos.max()), ps) if B else 0
+    off = torch.arange(ps, device=dev)
+    rows = (table_rows[:, :n_pages].long()[:, :, None] * ps + off).reshape(B, -1)
+    rows = rows.clamp(0, T - 1)
+    Th = rows.shape[1]
+    hist = pages[layer][:, rows].float().reshape(2, B, Th, Hkv, D)
+    keys = torch.cat([hist[0], k.float()], dim=1)  # [B, Th + S, Hkv, D]
+    vals = torch.cat([hist[1], v.float()], dim=1)
+    s = torch.einsum("bshgd,bthd->bhgst", qs, keys)
+    t_h = torch.arange(Th, device=dev)
+    t_c = torch.arange(S, device=dev)
+    valid_h = (t_h[None, :] < start_pos[:, None])[:, None, :].expand(B, S, Th)
+    valid_c = (t_c[None, :] <= t_c[:, None])[None] & (t_c[None, None, :] < chunk_lens[:, None, None])
+    valid = torch.cat([valid_h, valid_c], dim=-1)[:, None, None]  # [B, 1, 1, S, Th + S]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp2(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhgst,bthd->bhgsd", p.to(mat).float(), vals)
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, Nq, D).to(q.dtype)
+    return out, m.permute(0, 3, 1, 2).reshape(B, S, Nq), l.permute(0, 3, 1, 2).reshape(B, S, Nq)
+
+
+def launch_flash_prefill_chunked(q, k, v, chunk_lens, start_pos, pages, page_size, layer,
+                                 table_rows, sm_scale, return_state=False):
+    """K5 on the card: (out, m, l) as :func:`chunked_prefill_state_plain`,
+    with m and l None unless ``return_state``."""
+    B, S, Nq, D = q.shape
+    Hkv = k.shape[2]
+    if not all(t.is_cuda and t.device == q.device
+               for t in (q, k, v, chunk_lens, start_pos, pages, table_rows)):
+        raise ValueError("flash_prefill_chunked kernel: all tensors must be on one CUDA device")
+    _check_qkv("flash_prefill_chunked", q, k, v)
+    L, two, T, HD = pages.shape
+    if pages.dtype != torch.bfloat16 or two != 2 or HD != Hkv * D:
+        raise ValueError(f"flash_prefill_chunked kernel: bf16 pool [L, 2, T, {Hkv * D}] "
+                         f"required, got {pages.dtype} {tuple(pages.shape)}")
+    if (chunk_lens.dtype != torch.int32 or start_pos.dtype != torch.int32
+            or table_rows.dtype != torch.int32 or chunk_lens.shape != (B,)
+            or start_pos.shape != (B,) or table_rows.dim() != 2 or table_rows.shape[0] != B):
+        raise ValueError("flash_prefill_chunked kernel: int32 chunk_lens [B], start_pos [B] "
+                         "and table_rows [B, ppr] required")
+    if not 0 <= int(layer) < L or page_size <= 0:
+        raise ValueError(f"flash_prefill_chunked kernel: layer {layer} or page_size "
+                         f"{page_size} out of range")
+    if not pages.is_contiguous():
+        raise ValueError("flash_prefill_chunked kernel: the pool must be contiguous")
+    q, k, v, chunk_lens, start_pos, table_rows = (
+        t.contiguous() for t in (q, k, v, chunk_lens, start_pos, table_rows))
+    out = torch.empty_like(q)
+    m = l = None
+    if return_state:
+        m = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
+        l = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
+    if B and S:
+        lib = _build.library("flash_prefill", "flash_prefill_chunked_bf16", _CHUNKED_ARGTYPES)
+        code = lib.flash_prefill_chunked_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), chunk_lens.data_ptr(),
+            start_pos.data_ptr(), pages.data_ptr(), table_rows.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+            B, S, Nq, Hkv, D, float(sm_scale * LOG2E), T, int(layer), page_size,
+            table_rows.shape[1], torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _build.check(lib, code, "flash_prefill_chunked")
+        launch_flash_prefill_chunked.launches += 1
+    return out, m, l
+
+
+launch_flash_prefill_chunked.launches = 0
+
+
+def flash_prefill_chunked(q, k, v, chunk_lens, start_pos, kv_pool, layer, table_rows,
+                          sm_scale=None, return_state=False):
+    """Chunked prefill: each query attends the request's pool history
+    [0, start_pos) plus the causal prefix of the current chunk. q
+    [B, S_c, Nq, D], k/v [B, S_c, Hkv, D] (the chunk's own keys, also
+    written to the pool by the caller), chunk_lens / start_pos [B],
+    table_rows [B, ppr]. ``return_state=True`` also returns the per-query
+    online-softmax state (m, l) [B, S_c, Nq] in the exp2 domain, for an LSE
+    combine across partial results; ``chunk_lens = 0`` makes the call a walk
+    over the history only."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    args = (q, k, v, chunk_lens.to(torch.int32), start_pos.to(torch.int32), kv_pool.pages,
+            kv_pool.page_size, layer, table_rows.to(torch.int32), sm_scale)
+    if q.is_cuda:
+        out, m, l = launch_flash_prefill_chunked(*args, return_state=return_state)
+    else:
+        out, m, l = chunked_prefill_state_plain(*args)
+    return (out, m, l) if return_state else out

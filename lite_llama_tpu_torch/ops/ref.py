@@ -18,6 +18,10 @@ LOG2E = math.log2(math.e)
 # Large-negative instead of -inf in the online-softmax state: exp2 flushes it
 # to 0 and (unlike -inf) it never makes NaN through inf - inf.
 NEG_INF = -1e30
+# History-block width of the streamed chunked-prefill form: above it the
+# dense [B, Hq, S_c, T_h] scores are replaced by an online softmax over
+# HIST_BLOCK-token blocks (memory ~ S_c * HIST_BLOCK instead of S_c * T_h).
+HIST_BLOCK = 2048
 
 
 def cdiv_int(a: int, b: int) -> int:
@@ -155,6 +159,93 @@ def paged_decode_attention(q, kv_pool, layer, page_table, seq_lens,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgt,bhtd->bhgd", probs.to(q.dtype).float(), v.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def chunked_prefill_attention(q, k, v, chunk_lens, start_pos, kv_pool, layer, page_table,
+                              sm_scale=None, max_hist_len=None):
+    """Chunked-prefill attention: every chunk query attends the request's
+    pool history [0, start_pos) plus the causal prefix of the current chunk
+    (keys p <= s, p < chunk_lens). q [B, S_c, Hq, D], k/v [B, S_c, Hkv, D],
+    chunk_lens / start_pos int32 [B]. ``max_hist_len`` bounds the history
+    span read (default: the whole page-table span). Up to HIST_BLOCK tokens
+    of history are gathered densely with one joint softmax; beyond that the
+    history streams in HIST_BLOCK-token blocks with an online softmax, so
+    [B, Hq, S_c, T_h] scores are never materialised."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    groups = Hq // Hkv
+    ps = kv_pool.page_size
+    if max_hist_len is None:
+        max_hist_len = page_table.shape[1] * ps
+    if sm_scale is None:
+        sm_scale = 1.0 / (D**0.5)
+    dev = q.device
+    start_pos = start_pos.to(dev)
+    chunk_lens = chunk_lens.to(dev)
+    qh = q.float().transpose(1, 2)  # [B, Hq, S, D]
+    kc = k.float().transpose(1, 2).repeat_interleave(groups, dim=1)
+    vc = v.float().transpose(1, 2).repeat_interleave(groups, dim=1)
+    t_c = torch.arange(S, device=dev)
+    causal = t_c[:, None] >= t_c[None, :]  # [S(q), S(k)]
+    mask_c = causal[None] & (t_c[None, None, :] < chunk_lens[:, None, None])  # [B, S, S]
+
+    if max_hist_len <= HIST_BLOCK:
+        k_h, v_h = gather_kv_pages(kv_pool, layer, page_table, max_hist_len)
+        kh = k_h.to(q.dtype).float().repeat_interleave(groups, dim=1)  # [B, Hq, T_h, D]
+        vh = v_h.to(q.dtype).float().repeat_interleave(groups, dim=1)
+        s_hist = torch.einsum("bhsd,bhtd->bhst", qh, kh) * sm_scale
+        s_chunk = torch.einsum("bhsd,bhtd->bhst", qh, kc) * sm_scale
+        t_h = torch.arange(max_hist_len, device=dev)
+        mask_h = t_h[None, :] < start_pos[:, None]  # [B, T_h]
+        s_hist = s_hist.masked_fill(~mask_h[:, None, None, :], float("-inf"))
+        s_chunk = s_chunk.masked_fill(~mask_c[:, None], float("-inf"))
+        p = torch.softmax(torch.cat([s_hist, s_chunk], dim=-1), dim=-1)
+        p_h, p_c = p[..., :max_hist_len], p[..., max_hist_len:]
+        out = (torch.einsum("bhst,bhtd->bshd", p_h.to(q.dtype).float(), vh)
+               + torch.einsum("bhst,bhtd->bshd", p_c.to(q.dtype).float(), vc))
+        return out.to(q.dtype)
+
+    # Long history: stream it block by block with an online softmax.
+    TB = HIST_BLOCK
+    if TB % ps:
+        raise ValueError(f"page_size {ps} must divide the history block {TB}")
+    bp = TB // ps
+    n_blocks = cdiv_int(max_hist_len, TB)
+    need = n_blocks * bp
+    pt = page_table
+    if pt.shape[1] < need:  # pad pages gather garbage rows that the mask removes
+        pt = torch.nn.functional.pad(pt, (0, need - pt.shape[1]))
+    m = torch.full((B, Hq, S, 1), NEG_INF, device=dev)
+    l = torch.zeros((B, Hq, S, 1), device=dev)
+    acc = torch.zeros((B, Hq, S, D), device=dev)
+    for i in range(n_blocks):
+        k_h, v_h = gather_kv_pages(kv_pool, layer, pt[:, i * bp:(i + 1) * bp], TB)
+        kh = k_h.to(q.dtype).float().repeat_interleave(groups, dim=1)
+        vh = v_h.to(q.dtype).float().repeat_interleave(groups, dim=1)
+        s = torch.einsum("bhsd,bhtd->bhst", qh, kh) * sm_scale
+        t_abs = i * TB + torch.arange(TB, device=dev)
+        mask = t_abs[None, :] < start_pos[:, None]  # [B, TB]
+        s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m_new), torch.zeros_like(s))
+        corr = torch.where(m > 0.5 * NEG_INF, torch.exp(m - m_new), torch.zeros_like(m))
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhst,bhtd->bhsd", p.to(q.dtype).float(), vh)
+        m = m_new
+
+    # The chunk part (dense [S, S], bounded by the engine's prefill_chunk),
+    # then the two-part LSE combine.
+    s_c = torch.einsum("bhsd,bhtd->bhst", qh, kc) * sm_scale
+    s_c = s_c.masked_fill(~mask_c[:, None], NEG_INF)
+    m_c = s_c.amax(dim=-1, keepdim=True)
+    p_c = torch.where(s_c > 0.5 * NEG_INF, torch.exp(s_c - m_c), torch.zeros_like(s_c))
+    l_c = p_c.sum(dim=-1, keepdim=True)
+    o_c = torch.einsum("bhst,bhtd->bhsd", p_c.to(q.dtype).float(), vc)
+    m_t = torch.maximum(m, m_c)
+    a = torch.where(m > 0.5 * NEG_INF, torch.exp(m - m_t), torch.zeros_like(m))
+    b = torch.where(m_c > 0.5 * NEG_INF, torch.exp(m_c - m_t), torch.zeros_like(m_c))
+    out = (acc * a + o_c * b) / torch.clamp(l * a + l_c * b, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def fold_new_token(out, m1, l1, q, k_new, v_new, sm_scale):

@@ -74,7 +74,8 @@ def test_sampled_generation_and_admission(engines):
     with pytest.raises(RuntimeError, match="KV capacity exhausted"):
         teng.admit_requests([64] * 9)
     assert len(teng._free_slots) == ENGINE["max_reqs"]
-    with pytest.raises(NotImplementedError):
+    # Long prompts are chunked now; one past max_seq_len cannot fit a table row.
+    with pytest.raises(ValueError, match="max_seq_len"):
         teng.prefill([[1] * 3000], tsamp.SamplingParams.make(1, device="cpu"), [0])
 
 

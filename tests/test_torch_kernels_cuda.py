@@ -26,7 +26,12 @@ from lite_llama_tpu_torch.ops.attention_decode import (  # noqa: E402
     paged_decode_state_plain,
     paged_flash_decode,
 )
-from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill  # noqa: E402
+from lite_llama_tpu_torch.ops.attention_prefill import (  # noqa: E402
+    chunked_prefill_state_plain,
+    flash_prefill_chunked,
+    launch_flash_prefill,
+    launch_flash_prefill_chunked,
+)
 
 
 def _within(got, want):
@@ -51,6 +56,10 @@ def test_launchers_refuse_cpu_tensors():
                             torch.ones(2, dtype=torch.int32), 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         launch_flash_prefill(x[None], x[None], x[None], torch.ones(1, dtype=torch.int32), 0.1)
+    one = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_flash_prefill_chunked(x[None], x[None], x[None], one, one, pages, 8, 0,
+                                     torch.zeros(1, 2, dtype=torch.int32), 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         norms.launch_rms_norm(x, None, torch.ones(64), 1e-5)
     with pytest.raises(ValueError, match="CUDA"):
@@ -65,6 +74,40 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
+
+
+def test_library_declares_each_entry_of_a_source(monkeypatch, tmp_path):
+    """Two C entries of one source each get their own signature (builds
+    nothing: the shared library is a stub)."""
+    import ctypes
+
+    class Fn:
+        argtypes = restype = None
+
+    class Lib:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, name):
+            fn = Fn()
+            setattr(self, name, fn)
+            return fn
+
+    fake = tmp_path / "libfake.so"
+    fake.write_bytes(b"")
+    monkeypatch.setattr(_build, "_lib_path", lambda name: fake)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_declared", set())
+    monkeypatch.setattr(ctypes, "CDLL", Lib)
+    a = [ctypes.c_void_p, ctypes.c_int]
+    b = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+    lib = _build.library("flash_prefill", "entry_a", a)
+    assert _build.library("flash_prefill", "entry_b", b) is lib
+    assert lib.entry_a.argtypes == a and lib.entry_b.argtypes == b
+    assert lib.entry_a.restype is ctypes.c_int and lib.entry_b.restype is ctypes.c_int
+    assert lib.error_string.restype is ctypes.c_char_p
+    _build.library("flash_prefill", "entry_a", b)  # declared once, not redeclared
+    assert lib.entry_a.argtypes == a
 
 
 @pytest.mark.parametrize("D,Nq,Hkv", [(128, 24, 8), (64, 32, 8)])
@@ -97,6 +140,33 @@ def test_prefill_kernel_matches_plain(cuda, D, Nq, Hkv):
     want = ref.prefill_attention(q, k, v, sl)
     for b, n in enumerate(lens):  # pad rows are never read
         assert _within(got[b, :n], want[b, :n]), b
+
+
+@pytest.mark.parametrize("D,Nq,Hkv", [(128, 24, 8), (64, 32, 8)])
+@pytest.mark.parametrize("S,page_size", [(512, 16), (80, 7)])
+def test_chunked_prefill_kernel_matches_plain(cuda, D, Nq, Hkv, S, page_size):
+    """K5 against its plain version on out, m and l for every row: history
+    lengths 0, 16, 500 and 1536 under shuffled page ids, a chunk of 0 rows
+    (a history-only walk) and an empty request (no history, no chunk)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, ppr = 5, 230  # ppr * page_size covers the 1536-token history
+    P = B * ppr
+    start = torch.tensor([0, 16, 500, 1536, 0], dtype=torch.int32, device=cuda)
+    clen = torch.tensor([S, S * 3 // 5, 0, S, 0], dtype=torch.int32, device=cuda)
+    pages = torch.randn((2, 2, P * page_size, Hkv * D), generator=g, device=cuda).bfloat16()
+    table = torch.randperm(P, generator=g, device=cuda)[: B * ppr].view(B, ppr).int()
+    q = torch.randn((B, S, Nq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    pool = KVPool(pages, page_size, Hkv, D)
+    out, m, l = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table, return_state=True)
+    assert torch.equal(flash_prefill_chunked(q, k, v, clen, start, pool, 1, table), out)
+    po, pm, pl = chunked_prefill_state_plain(q, k, v, clen, start, pages, page_size, 1, table,
+                                             D**-0.5)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    assert torch.all(m[4] == -1e30) and torch.all(l[4] == 0) and torch.all(out[4] == 0)
 
 
 @pytest.mark.parametrize("rows,H,residual", [(12, 3072, True), (300, 3072, False),
