@@ -36,8 +36,22 @@ Phases, in order; any failure exits non-zero:
    prefill of 1500-token prompts, and prefix-hit against uncached prefill,
    read through the kernels, the plain versions and faults planted in K5's
    inputs.
-6. Summary: one JSON line with every kernel, then the last line
+6. Quantized slice (quantized_phase): the same seeded Llama-3.2-3B weights
+   at full width and depth, quantized by the port to int4 (group 128,
+   riffle), with an int8 KV pool: the phase-4 batch path (K6, K1q-int8, K2,
+   K3, K4 must launch), decode through the int8 pool against a re-prefill
+   with faults planted in K1q's scale inputs, last-token logits through the
+   kernels against the plain versions with faults planted in K6's inputs,
+   phase 5's serving waves (K5q-int8 must launch) and prefill invariants
+   under the int8 pool; before those, a short fp8-KV run with the bf16
+   weights (K5q-fp8 and K1q-fp8 must launch).
+7. Summary: one JSON line with every kernel, then the last line
    {"ok": true, "device": {...}}.
+
+Phase 3 also holds the quantized kernels against their plain versions: K6
+(W4A8) and K7 (W8A8) at the 3B projection shapes, with faults planted in
+K6's inputs that must fail the tolerance, and K1q / K5q on int8 and fp8
+pools at K1's and K5's main shapes.
 """
 
 from __future__ import annotations
@@ -98,12 +112,72 @@ KERNELS = {
     "flash_prefill_chunked": dict(
         route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:650"),
+    "quantized_matmul_packed": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/qmatmul.cu",
+        replaces="lite_llama_tpu/ops/qmatmul.py:435"),
+    "quantized_matmul_int8": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/qmatmul.cu",
+        replaces="lite_llama_tpu/ops/qmatmul.py:289"),
+    "paged_flash_decode_int8": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/paged_decode.cu",
+        replaces="lite_llama_tpu/ops/attention_decode.py:345",
+        branch="lite_llama_tpu/ops/attention_decode.py:272-299 (quantized=True)"),
+    "paged_flash_decode_fp8": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/paged_decode.cu",
+        replaces="lite_llama_tpu/ops/attention_decode.py:345",
+        branch="lite_llama_tpu/ops/attention_decode.py:300-311 (fp8 page tiles)"),
+    "flash_prefill_chunked_int8": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        replaces="lite_llama_tpu/ops/attention_prefill.py:650",
+        branch="lite_llama_tpu/ops/attention_prefill.py:200-245 (quantized=True)"),
+    "flash_prefill_chunked_fp8": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        replaces="lite_llama_tpu/ops/attention_prefill.py:650",
+        branch="fp8 pools: the JAX dispatcher's reference (ops/__init__.py:96-117)"),
 }
 # The kernels each main path must launch: batch generation of short prompts
 # (phase 4) and serving (phase 5; K2 runs there only for a prompt batch
 # that is neither long nor a prefix hit, which the admission order decides).
 BATCH_PATH = ("paged_flash_decode", "flash_prefill", "rms_norm", "swiglu")
 SERVING_PATH = ("paged_flash_decode", "rms_norm", "swiglu", "flash_prefill_chunked")
+# Phase 6: int4 weights with an int8 pool (batch, then serving), and bf16
+# weights with an fp8 pool. K7 runs in phase 3 only: as in the JAX package,
+# no model path routes to it.
+QUANT_BATCH_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8", "flash_prefill",
+                    "rms_norm", "swiglu")
+QUANT_SERVING_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8", "rms_norm", "swiglu",
+                      "flash_prefill_chunked_int8")
+FP8_KV_PATH = ("flash_prefill_chunked_fp8", "paged_flash_decode_fp8")
+# The 3B projections K6 serves at decode: (C, logical O, fp32 output).
+QMM_SHAPES = {
+    "gate_up": (3072, 16384, False),
+    "wqkv": (3072, 5120, False),
+    "o_proj": (3072, 3072, False),
+    "down": (8192, 3072, False),
+    "lm_head": (3072, 128256, True),  # stored 129024 wide (lane-alignment pad)
+}
+# Phase-6 limits, relative RMS of a logit difference and max |difference|
+# over max |logit|, each set between the plain versions' reading and the
+# smallest planted fault, as read on an H100 (PERF.md):
+# decode through the int8 pool vs a re-prefill after 127 steps (K1q faults):
+# kernels 0.203 / 0.204, plain 0.186 / 0.199, smallest fault 1.10 / 1.10
+# (int4 activations round to int8 per row; in 28 random layers one
+# flipped rounding spreads, so the noise is 5x bf16's and top-1 is not
+# compared);
+QUANT_INVARIANT_REL_RMS = 0.45
+QUANT_INVARIANT_MAX_ABS = 0.45
+# last-token logits of the int4 model, kernels vs plain versions (K6
+# faults): plain 0.167 / 0.149, smallest fault 1.16 / 1.20 (K6
+# equals its plain version, but K2's and K3's bf16 roundings flip int8
+# activation roundings that 28 layers spread);
+QLOGITS_REL_RMS = 0.45
+QLOGITS_MAX_ABS = 0.45
+# chunked vs single-shot and prefix-hit vs uncached prefill under the int8
+# pool (K5q faults): kernels (a) 0.064 / 0.067, (b) 0.181 / 0.174, smallest
+# fault (a) 0.460 / 0.554 ((b) compares a W4A8 tail of 96 rows
+# with a W4A16 prefill of 608).
+QPREFILL_REL_RMS = 0.3
+QPREFILL_MAX_ABS = 0.3
 MODELS = {  # head_dim, query heads, kv heads, hidden, intermediate
     "llama-3.2-3b": dict(D=128, Nq=24, Hkv=8, H=3072, I=8192),
     "llama-3.2-1b": dict(D=64, Nq=32, Hkv=8, H=2048, I=8192),
@@ -225,7 +299,26 @@ def require(cond, what):
 # Phase 3: kernels against their plain versions
 
 
-def decode_case(model, lens, ps=16):
+def quantized_pages(pages, kv, Hkv):
+    """A bf16 pool [L, 2, T, Hkv*D] as an int8 pool with its merged scale
+    slab [L, T, 128] (the port's own KV quantizer), an fp8 pool, or as it is;
+    returns (pages, scales or None, the dequantized bf16 pool)."""
+    from lite_llama_tpu_torch.executor import kv_cache as kvc
+
+    if kv is None:
+        return pages, None, pages
+    L, _, T, HD = pages.shape
+    if kv == "fp8":
+        q = kvc._cast_kv(pages, torch.float8_e4m3fn).view(torch.float8_e4m3fn)
+        return q, None, q.bfloat16()
+    qv, sc = kvc._quantize_kv(pages.view(L, 2, T, Hkv, -1))
+    deq = (qv.float() * sc.float()[..., None]).bfloat16().view(L, 2, T, HD)
+    return qv.view(L, 2, T, HD), kvc._scale_rows(sc[:, 0], sc[:, 1]), deq
+
+
+def decode_case(model, lens, ps=16, kv=None):
+    """K1 (bf16 pool) or K1q (``kv`` "int8" / "fp8") at ``lens`` tokens per
+    request, page ids shuffled, against its plain version."""
     from lite_llama_tpu_torch.executor.kv_cache import KVPool
     from lite_llama_tpu_torch.ops.attention_decode import (
         paged_decode_state_plain, paged_flash_decode)
@@ -238,19 +331,20 @@ def decode_case(model, lens, ps=16):
     ppr = max(1, math.ceil(max(lens) / ps))
     P = B * ppr
     pages = torch.randn((2, 2, P * ps, Hkv * D), generator=g, device=dev).bfloat16()
+    pages, scales, deq = quantized_pages(pages, kv, Hkv)
     table = torch.randperm(P, generator=g, device=dev).view(B, ppr).int()  # shuffled
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = torch.randn((B, Nq, D), generator=g, device=dev).bfloat16()
     scale = D**-0.5
 
-    def kernel(q, pages, table, kv_lens):
-        pool = KVPool(pages, ps, Hkv, D)
+    def kernel(q, pages, scales, table, kv_lens):
+        pool = KVPool(pages, ps, Hkv, D, scales)
         return paged_flash_decode(q, pool, 1, table, kv_lens, scale, return_state=True)
 
-    def plain(q, pages, table, kv_lens):
-        return paged_decode_state_plain(q, pages, ps, 1, table, kv_lens, scale)
+    def plain(q, pages, scales, table, kv_lens):
+        return paged_decode_state_plain(q, pages, ps, 1, table, kv_lens, scale, scales)
 
-    args = (q, pages, table, kv_lens)
+    args = (q, pages, scales, table, kv_lens)
     out, mm, ll = kernel(*args)
     po, pm, pl = plain(*args)
     torch.cuda.synchronize()
@@ -258,13 +352,16 @@ def decode_case(model, lens, ps=16):
     m_ok = bool(torch.all((mm - pm).abs() <= 1e-3 * torch.clamp(pm.abs(), min=1.0)))
     l_ok = bool(torch.all((ll - pl).abs() <= 1e-3 * pl.abs() + 1e-6))
     tokens = sum(lens)
-    bytes_moved = (tokens * 2 * Hkv * D * 2 + 2 * B * Nq * D * 2 + B * Nq * 8
-                   + B * 4 + sum(math.ceil(n / ps) for n in lens) * 4)
+    value_bytes = pages.element_size()
+    scale_bytes = tokens * 2 * Hkv * 2 if scales is not None else 0  # the lanes read
+    bytes_moved = (tokens * 2 * Hkv * D * value_bytes + scale_bytes + 2 * B * Nq * D * 2
+                   + B * Nq * 8 + B * 4 + sum(math.ceil(n / ps) for n in lens) * 4)
     t_bound, by = bound(bytes_moved, 4 * tokens * Nq * D)
-    # Library yardstick: SDPA on the same K/V gathered dense (gather untimed).
+    # Library yardstick: SDPA on the same K/V gathered dense (gather and
+    # dequantization untimed).
     rows = (table.long()[:, :, None] * ps + torch.arange(ps, device=dev)).view(B, -1)
-    kd = pages[1, 0][rows].view(B, -1, Hkv, D).transpose(1, 2).repeat_interleave(Nq // Hkv, 1)
-    vd = pages[1, 1][rows].view(B, -1, Hkv, D).transpose(1, 2).repeat_interleave(Nq // Hkv, 1)
+    kd = deq[1, 0][rows].view(B, -1, Hkv, D).transpose(1, 2).repeat_interleave(Nq // Hkv, 1)
+    vd = deq[1, 1][rows].view(B, -1, Hkv, D).transpose(1, 2).repeat_interleave(Nq // Hkv, 1)
     mask = (torch.arange(rows.shape[1], device=dev)[None] < kv_lens[:, None])[:, None, None]
     lib_args = (q[:, :, None], kd, vd, mask)
     t = timings(
@@ -276,10 +373,11 @@ def decode_case(model, lens, ps=16):
         plain_in_graph=False,
     )
     return dict(model=model, shape=f"B={B} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
-                                   f"kv_lens={lens}",
+                                   f"kv_lens={lens} pool={kv or 'bf16'}",
                 max_abs_err=err, ok=ok and m_ok and l_ok, **t,
                 bound_ms=t_bound, bound_by=by,
-                library="F.scaled_dot_product_attention (dense K/V, boolean mask)")
+                library="F.scaled_dot_product_attention (dense K/V, boolean mask"
+                        + (", dequantized to bf16)" if kv else ")"))
 
 
 def prefill_case(model, B, S, lens):
@@ -339,10 +437,11 @@ def norm_case(rows, H, residual):
                 library="F.rms_norm (normalisation alone, no residual add)")
 
 
-def chunked_case(model, starts, clens, S=512, ps=16, return_state=False):
-    """K5 on one chunk of S query rows per request over a paged history of
-    ``starts[b]`` tokens (page ids shuffled) plus the chunk's own
-    ``clens[b]`` keys, against its plain version on out (and m, l)."""
+def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None):
+    """K5 (bf16 pool) or K5q (``kv`` "int8" / "fp8") on one chunk of S query
+    rows per request over a paged history of ``starts[b]`` tokens (page ids
+    shuffled) plus the chunk's own ``clens[b]`` keys, against its plain
+    version on out (and m, l)."""
     from lite_llama_tpu_torch.executor.kv_cache import KVPool
     from lite_llama_tpu_torch.ops.attention_prefill import (
         chunked_prefill_state_plain, flash_prefill_chunked)
@@ -355,6 +454,7 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False):
     ppr = max(1, math.ceil((max(starts) + S) / ps))
     P = B * ppr
     pages = torch.randn((2, 2, P * ps, Hkv * D), generator=g, device=dev).bfloat16()
+    pages, scales, deq = quantized_pages(pages, kv, Hkv)
     table = torch.randperm(P, generator=g, device=dev).view(B, ppr).int()  # shuffled
     q = torch.randn((B, S, Nq, D), generator=g, device=dev).bfloat16()
     k = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
@@ -363,14 +463,14 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False):
     cl = torch.tensor(clens, dtype=torch.int32, device=dev)
     scale = D**-0.5
 
-    def kernel(q, k, v, cl, sp, pages, table):
-        return flash_prefill_chunked(q, k, v, cl, sp, KVPool(pages, ps, Hkv, D), 1, table,
-                                     scale, return_state=return_state)
+    def kernel(q, k, v, cl, sp, pages, scales, table):
+        return flash_prefill_chunked(q, k, v, cl, sp, KVPool(pages, ps, Hkv, D, scales), 1,
+                                     table, scale, return_state=return_state)
 
-    def plain(q, k, v, cl, sp, pages, table):
-        return chunked_prefill_state_plain(q, k, v, cl, sp, pages, ps, 1, table, scale)
+    def plain(q, k, v, cl, sp, pages, scales, table):
+        return chunked_prefill_state_plain(q, k, v, cl, sp, pages, ps, 1, table, scale, scales)
 
-    args = (q, k, v, cl, sp, pages, table)
+    args = (q, k, v, cl, sp, pages, scales, table)
     got = kernel(*args)
     out = got[0] if return_state else got
     po, pm, pl = plain(*args)
@@ -382,7 +482,9 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False):
         ok = ok and bool(torch.all((ll - pl).abs() <= 1e-3 * pl.abs() + 1e-6))
     hist_tok = sum(starts)
     rows = sum(clens)
-    bytes_moved = (2 * hist_tok * Hkv * D * 2 + rows * (2 * Nq * D * 2 + 2 * Hkv * D * 2)
+    scale_bytes = 2 * hist_tok * Hkv * 2 if scales is not None else 0  # the lanes read
+    bytes_moved = (2 * hist_tok * Hkv * D * pages.element_size() + scale_bytes
+                   + rows * (2 * Nq * D * 2 + 2 * Hkv * D * 2)
                    + (rows * Nq * 8 if return_state else 0) + 2 * B * 4
                    + sum(math.ceil(s / ps) for s in starts) * 4)
     flops = 4 * Nq * D * sum(c * s + c * c / 2 for c, s in zip(clens, starts))
@@ -392,8 +494,8 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False):
     Th = max(1, math.ceil(max(starts) / ps)) * ps
     hrows = (table.long()[:, : Th // ps, None] * ps + torch.arange(ps, device=dev)).view(B, Th)
     G = Nq // Hkv
-    kd = torch.cat([pages[1, 0][hrows].view(B, Th, Hkv, D), k], 1)
-    vd = torch.cat([pages[1, 1][hrows].view(B, Th, Hkv, D), v], 1)
+    kd = torch.cat([deq[1, 0][hrows].view(B, Th, Hkv, D), k], 1)
+    vd = torch.cat([deq[1, 1][hrows].view(B, Th, Hkv, D), v], 1)
     kd, vd = (x.transpose(1, 2).repeat_interleave(G, 1).contiguous() for x in (kd, vd))
     t_h = torch.arange(Th, device=dev)
     t_c = torch.arange(S, device=dev)
@@ -409,10 +511,10 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False):
     )
     return dict(model=model, shape=f"B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
                                    f"start_pos={list(starts)} chunk_lens={list(clens)} "
-                                   f"return_state={return_state}",
+                                   f"return_state={return_state} pool={kv or 'bf16'}",
                 max_abs_err=err, ok=ok, **t, bound_ms=t_bound, bound_by=by,
-                library="F.scaled_dot_product_attention (history gathered dense + chunk, "
-                        "boolean mask)")
+                library="F.scaled_dot_product_attention (history gathered dense"
+                        + (" and dequantized to bf16" if kv else "") + " + chunk, boolean mask)")
 
 
 def swiglu_case(rows, I):
@@ -431,6 +533,87 @@ def swiglu_case(rows, I):
     t = timings(ops.swiglu, ref.swiglu, (gate, up), 3 * rows * I * 2)
     return dict(shape=f"[{rows}, {I}]", max_abs_err=err, ok=ok, **t,
                 bound_ms=t_bound, bound_by=by, library=None)
+
+
+def planted_k6_faults():
+    """K6 handed its weight with the scale rows shifted one group, the two
+    nibbles of every byte swapped, or each byte column the neighbouring
+    pair's scale: (q, scale) -> faulty (q, scale) of one layer."""
+    def shifted(q, s):
+        return q, s.roll(1, dims=-2)
+
+    def swapped(q, s):
+        from lite_llama_tpu_torch.quant.qtensor import QTensor
+
+        even, odd = QTensor(q, s, packed=True).unpack_halves()
+        return (even.to(torch.int16) * 16 + odd + 8).to(torch.int8), s
+
+    def neighbour(q, s):
+        return q, s.roll(1, dims=-1)
+
+    return {"scale rows shifted one group": shifted, "nibble halves swapped": swapped,
+            "the neighbouring pair's scale": neighbour}
+
+
+def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
+    """K6 (``packed``) or K7 on the 3B projection ``name`` at M rows: a
+    two-layer stack quantized by the port from seeded bf16 weights, layer 1
+    read by index. K6 with every planted fault must fail the tolerance."""
+    from lite_llama_tpu_torch.ops import qmatmul as qmm
+    from lite_llama_tpu_torch.quant.qtensor import quantize
+
+    C, O, fp32 = QMM_SHAPES[name]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    w = torch.randn((2, C, O), generator=g, device=dev).mul_(0.02).bfloat16()
+    qt = quantize(w, (1,), "int4" if packed else "int8", group_size=gs,
+                  riffle_blocks=1 if packed and riffle else 0)
+    del w
+    x = torch.randn((M, C), generator=g, device=dev).bfloat16()
+    out_dtype = torch.float32 if fp32 else torch.bfloat16
+    if packed:
+        def kernel(x, q, s):
+            return qmm.quantized_matmul_packed(x, q, s, 1, out_dtype, not riffle, O)
+
+        def plain(x, q, s):
+            return qmm.quantized_matmul_packed_plain(x, q, s, 1, out_dtype, not riffle, O)
+    else:
+        def kernel(x, q, s):
+            return qmm.quantized_matmul_int8(x, q, s, 1, out_dtype)
+
+        def plain(x, q, s):
+            return qmm.quantized_matmul_int8_plain(x, q, s, 1, out_dtype)
+
+    args = (x, qt.q, qt.scale)
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want)
+    rec = dict(shape=f"{name} M={M} C={C} O={O} stored={qt.q.shape[-1]} group={gs} "
+                     f"{'int4 ' + ('riffle' if riffle else 'classic') if packed else 'int8'} "
+                     f"out={str(out_dtype).split('.')[-1]}",
+               max_abs_err=err, ok=ok, bit_equal=bool(torch.equal(got, want)))
+    if packed:
+        rec["faults"] = {}
+        for fname, fault in planted_k6_faults().items():
+            if gs is None and "group" in fname:
+                continue  # per-channel scales have one group
+            fq, fs = fault(qt.q[1:2], qt.scale[1:2])
+            bad = qmm.quantized_matmul_packed(x, fq, fs, 0, out_dtype, not riffle, O)
+            ferr, fok = max_err(bad, want)
+            rec["faults"][fname] = dict(max_abs_err=ferr, caught=not fok)
+            rec["ok"] = rec["ok"] and not fok
+    if not timed:
+        return rec
+    layer_bytes = qt.q[1].numel() + qt.scale[1].numel() * 4
+    bytes_moved = M * C * 2 + layer_bytes + M * O * got.element_size()
+    t_bound, by = bound(bytes_moved, 2 * M * C * O)
+    wd = qt.dequant(torch.bfloat16)[1].reshape(C, O)  # the bf16 product it replaces
+    t = timings(kernel, plain, args, bytes_moved,
+                (lambda x, w: x @ w, (x, wd), M * C * 2 + C * O * 2 + M * O * 2),
+                plain_in_graph=False)
+    return dict(rec, model="llama-3.2-3b", **t, bound_ms=t_bound, bound_by=by,
+                library="torch.matmul in bf16 on the dequantized weight (cuBLAS; the "
+                        "bf16 product the quantization replaces)")
 
 
 def kernel_phase():
@@ -464,15 +647,43 @@ def kernel_phase():
             *(chunked_case(model, [0, 16, 500, 1536], [512, 300, 0, 512], return_state=rs)
               for model in MODELS for rs in (False, True)),
         ],
+        "quantized_matmul_packed": [
+            *(qmm_case(n, 12) for n in QMM_SHAPES),  # gate_up first: the main case
+            qmm_case("gate_up", 64),
+            *(qmm_case(n, 64, timed=False) for n in QMM_SHAPES if n != "gate_up"),
+            *(qmm_case(n, M, riffle=False, timed=False) for n in QMM_SHAPES for M in (12, 64)),
+            qmm_case("down", 12, gs=None, timed=False),  # per-channel scales
+        ],
+        "quantized_matmul_int8": [
+            qmm_case("gate_up", 12, packed=False),
+            qmm_case("down", 12, packed=False, gs=None, timed=False),
+            qmm_case("wqkv", 64, packed=False, timed=False),
+        ],
     }
+    for kv in ("int8", "fp8"):
+        cases[f"paged_flash_decode_{kv}"] = [
+            decode_case("llama-3.2-3b", [88] * 12, kv=kv),
+            decode_case("llama-3.2-1b", ragged, kv=kv),
+        ]
+        cases[f"flash_prefill_chunked_{kv}"] = [
+            chunked_case("llama-3.2-3b", [512] * 8, [512] * 8, kv=kv),
+            chunked_case("llama-3.2-1b", [0, 16, 500, 1536], [512, 300, 0, 512],
+                         return_state=True, kv=kv),
+        ]
     for name, cs in cases.items():
         for c in cs:
-            lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.5f}"
-            log(f"  {name:18s} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} "
-                f"ok={c['ok']} ms={c['ms']:.5f} l2_warm_ms={c['l2_warm_ms']:.5f} "
-                f"eager_ms={c['eager_ms']:.5f} plain_ms={c['plain_ms']:.5f} "
-                f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) library_ms={lib} "
-                f"copies={c['copies']}")
+            line = f"  {name:18s} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} ok={c['ok']}"
+            if "ms" in c:
+                lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.5f}"
+                line += (f" ms={c['ms']:.5f} l2_warm_ms={c['l2_warm_ms']:.5f} "
+                         f"eager_ms={c['eager_ms']:.5f} plain_ms={c['plain_ms']:.5f} "
+                         f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) library_ms={lib} "
+                         f"copies={c['copies']}")
+            if "bit_equal" in c:
+                line += f" bit_equal={c['bit_equal']}"
+            if "faults" in c:
+                line += f" faults={json.dumps(c['faults'])}"
+            log(line)
     bad = [(n, c["shape"]) for n, cs in cases.items() for c in cs if not c["ok"]]
     require(not bad, f"kernels disagree with their plain versions beyond tolerance: {bad}")
     return cases
@@ -483,7 +694,7 @@ def kernel_phase():
 
 
 def counters():
-    from lite_llama_tpu_torch.ops import attention_decode, attention_prefill, norms
+    from lite_llama_tpu_torch.ops import attention_decode, attention_prefill, norms, qmatmul
 
     return {
         "paged_flash_decode": attention_decode.launch_paged_decode,
@@ -491,6 +702,12 @@ def counters():
         "rms_norm": norms.launch_rms_norm,
         "swiglu": norms.launch_swiglu,
         "flash_prefill_chunked": attention_prefill.launch_flash_prefill_chunked,
+        "quantized_matmul_packed": qmatmul.launch_quantized_matmul_packed,
+        "quantized_matmul_int8": qmatmul.launch_quantized_matmul_int8,
+        "paged_flash_decode_int8": attention_decode.launch_paged_decode_int8,
+        "paged_flash_decode_fp8": attention_decode.launch_paged_decode_fp8,
+        "flash_prefill_chunked_int8": attention_prefill.launch_flash_prefill_chunked_int8,
+        "flash_prefill_chunked_fp8": attention_prefill.launch_flash_prefill_chunked_fp8,
     }
 
 
@@ -504,10 +721,11 @@ def reset_counts():
 
 
 def plain_ops():
-    """The decoder's kernel ops replaced by their plain versions in ops/ref.py
-    (patched into ``lite_llama_tpu_torch.ops`` by this script only): the
-    invariant's reading when no kernel runs, the floor its limit sits above."""
-    from lite_llama_tpu_torch.ops import ref
+    """The decoder's kernel ops replaced by their plain versions (ops/ref.py,
+    and K6's in ops/qmatmul.py), patched in by this script only: the
+    invariants' reading when no kernel runs, the floor their limits sit
+    above."""
+    from lite_llama_tpu_torch.ops import qmatmul, ref
 
     def decode(q, pool, layer, table, seq_lens, sm_scale=None, k_new=None, v_new=None):
         return ref.paged_decode_attention(q, pool, layer, table, seq_lens, sm_scale=sm_scale,
@@ -515,7 +733,28 @@ def plain_ops():
 
     return dict(prefill_attention=ref.prefill_attention, paged_decode_attention=decode,
                 chunked_prefill_attention=ref.chunked_prefill_attention,
-                rms_norm=ref.rms_norm, skip_rms_norm=ref.skip_rms_norm, swiglu=ref.swiglu)
+                rms_norm=ref.rms_norm, skip_rms_norm=ref.skip_rms_norm, swiglu=ref.swiglu,
+                quantized_matmul_packed=qmatmul.quantized_matmul_packed_plain)
+
+
+@contextlib.contextmanager
+def patched(patch):
+    """Replace ops of ``lite_llama_tpu_torch.ops`` (and the W4A8 matmul that
+    ``quant/qtensor.py`` routes to) for the duration; ``None`` patches
+    nothing."""
+    from unittest import mock
+
+    from lite_llama_tpu_torch import ops
+    from lite_llama_tpu_torch.quant import qtensor
+
+    patch = dict(patch or {})
+    qmm = {k: patch.pop(k) for k in ("quantized_matmul_packed",) if k in patch}
+    with contextlib.ExitStack() as stack:
+        if patch:
+            stack.enter_context(mock.patch.multiple(ops, **patch))
+        if qmm:
+            stack.enter_context(mock.patch.multiple(qtensor, **qmm))
+        yield
 
 
 def planted_faults():
@@ -537,49 +776,57 @@ def planted_faults():
             "the other request's pages": other_request}
 
 
-def decode_vs_reprefill(dev, cfg, params, prompts, generated, patch=None):
+def decode_vs_reprefill(dev, cfg, params, prompts, generated, patch=None, kv_quant=False):
     """The repository's key invariant at full size: decode the engine's
-    greedy tokens through the paged cache (K1 on every layer), then
-    re-prefill prompt + generated tokens in a fresh cache (K2); the
-    last-position logits agree. ``patch`` replaces ops of
-    ``lite_llama_tpu_torch.ops`` for the whole reading."""
-    from unittest import mock
-
-    from lite_llama_tpu_torch import ops
-
-    with mock.patch.multiple(ops, **patch) if patch else contextlib.nullcontext():
-        return _decode_vs_reprefill(dev, cfg, params, prompts, generated)
+    greedy tokens through the paged cache (K1, or K1q on a ``kv_quant``
+    pool, on every layer), then re-prefill prompt + generated tokens in a
+    fresh cache (K2); the last-position logits agree. ``patch`` replaces
+    kernel ops for the whole reading (see ``patched``)."""
+    with patched(patch):
+        return _decode_vs_reprefill(dev, cfg, params, prompts, generated, kv_quant)
 
 
-def invariant_holds(inv):
-    return (inv["rel_rms_diff"] <= INVARIANT_REL_RMS
-            and inv["max_abs_diff"] <= INVARIANT_MAX_ABS * inv["max_abs_logit"]
-            and inv["top1_decode"] == inv["top1_reprefill"] == inv["engine_tokens"])
+def invariant_holds(inv, limits=(INVARIANT_REL_RMS, INVARIANT_MAX_ABS), top1=True):
+    rel_rms, max_abs = limits
+    return (inv["rel_rms_diff"] <= rel_rms
+            and inv["max_abs_diff"] <= max_abs * inv["max_abs_logit"]
+            and (not top1
+                 or inv["top1_decode"] == inv["top1_reprefill"] == inv["engine_tokens"]))
 
 
-def _decode_vs_reprefill(dev, cfg, params, prompts, generated):
+def fresh_cache(dev, cfg, B, kv_quant=False, num_pages=64):
     from lite_llama_tpu_torch.executor import kv_cache as kvc
-    from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_decode, decoder_prefill
+
+    return kvc.create_kv_cache(cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim,
+                               num_pages=num_pages, page_size=16, max_reqs=B,
+                               max_seq_len=cfg.max_seq_len, dtype=cfg.dtype, device=dev,
+                               quantized=kv_quant)
+
+
+def prefill_last_logits(dev, cfg, params, cache, rows):
+    """Last-position logits of ``rows`` prefilled together into slots 0..B-1
+    of ``cache`` (one decoder_prefill call, no engine)."""
+    from lite_llama_tpu_torch.executor import kv_cache as kvc
+    from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_prefill
+
+    B = len(rows)
+    n = torch.tensor([len(r) for r in rows], dtype=torch.int32, device=dev)
+    ids = torch.tensor(rows, dtype=torch.long, device=dev)
+    slots = torch.arange(B, dtype=torch.int32, device=dev)
+    kvc.alloc_prefill(cache, slots, n)
+    ctx = AttnContext(cache.page_table[slots.long()], n, torch.zeros_like(n), n)
+    return decoder_prefill(params, cfg, cache.kv_pages, ctx, ids, last_only=True)[0]
+
+
+def _decode_vs_reprefill(dev, cfg, params, prompts, generated, kv_quant=False):
+    from lite_llama_tpu_torch.executor import kv_cache as kvc
+    from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_decode
 
     B = len(prompts)
     n_steps = min(len(g) for g in generated) - 1
-    L, Hkv, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
-
-    def fresh():
-        return kvc.create_kv_cache(L, Hkv, D, num_pages=64, page_size=16, max_reqs=B,
-                                   max_seq_len=cfg.max_seq_len, dtype=cfg.dtype, device=dev)
-
-    def prefill(cache, rows):
-        n = torch.tensor([len(r) for r in rows], dtype=torch.int32, device=dev)
-        ids = torch.tensor(rows, dtype=torch.long, device=dev)
-        slots = torch.arange(B, dtype=torch.int32, device=dev)
-        kvc.alloc_prefill(cache, slots, n)
-        ctx = AttnContext(cache.page_table[slots.long()], n, torch.zeros_like(n), n)
-        return decoder_prefill(params, cfg, cache.kv_pages, ctx, ids, last_only=True)[0]
-
     with torch.inference_mode():
-        cache = fresh()
-        logits = prefill(cache, [list(p) for p in prompts])
+        cache = fresh_cache(dev, cfg, B, kv_quant)
+        logits = prefill_last_logits(dev, cfg, params, cache, [list(p) for p in prompts])
         slots = torch.arange(B, dtype=torch.int32, device=dev)
         for step in range(n_steps):
             tok = torch.tensor([g[step] for g in generated], dtype=torch.long, device=dev)
@@ -587,7 +834,8 @@ def _decode_vs_reprefill(dev, cfg, params, prompts, generated):
             sl = cache.seq_lens[slots.long()]
             ctx = AttnContext(cache.page_table[slots.long()], sl, sl - 1, torch.ones_like(sl))
             logits = decoder_decode(params, cfg, cache.kv_pages, ctx, tok)[0]
-        want = prefill(fresh(), [list(p) + list(g[:n_steps]) for p, g in zip(prompts, generated)])
+        want = prefill_last_logits(dev, cfg, params, fresh_cache(dev, cfg, B, kv_quant),
+                                   [list(p) + list(g[:n_steps]) for p, g in zip(prompts, generated)])
     d = logits - want
     return dict(
         steps=n_steps, max_abs_diff=float(d.abs().max()),
@@ -641,21 +889,29 @@ def profile_decode(engine, prompts, steps=16):
     )
 
 
-def slice_phase(dev, cfg, params, B=12, P=25, G=128):
+def batch_prompts(cfg, B=12, P=25):
+    """The batch slice's prompts, random ids from the seed."""
+    return np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, P)).tolist()
+
+
+def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_PATH,
+                invariant=None):
     """Llama-3.2-3B (``cfg``, ``params``) through InferenceEngine +
     TextGenerator on ``dev``: B prompts of P random ids, greedy,
-    max_gen_len G."""
+    max_gen_len G. ``engine_kw`` goes to the engine (a quantized pool),
+    ``path`` names the kernels that must launch, ``invariant(prompts,
+    outputs)`` reads the decode invariant (default: bf16 decode vs
+    re-prefill with faults in K1's inputs)."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.generate import TextGenerator
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
 
     t0 = time.perf_counter()
-    engine = InferenceEngine(cfg, params, device=dev)
+    engine = InferenceEngine(cfg, params, device=dev, **(engine_kw or {}))
     sync(dev)
     setup_s = time.perf_counter() - t0
     gen = TextGenerator(engine)
-    rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, cfg.vocab_size, (B, P)).tolist()
+    prompts = batch_prompts(cfg, B, P)
     gen.generate_tokens(prompts, max_gen_len=4, temperature=0.0)  # warm-up
 
     reset_counts()
@@ -670,7 +926,7 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
     log(f"  generate_tokens: {sum(len(o.token_ids) for o in outs)} tokens in {gen_s[0]:.3f} s; "
         f"launches {launches}")
-    missing = [k for k in BATCH_PATH if launches[k] == 0]
+    missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the batch path: {missing}")
     for o in outs:
         require(1 <= len(o.token_ids) <= G, "output length out of range")
@@ -723,7 +979,10 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128):
     if prof["device_ms"] is not None:  # against the decode steps timed without the profiler
         prof["device_busy_share"] = prof["device_ms"] / prof["steps"] / decode_ms_per_step
 
-    inv = check_invariant(dev, cfg, params, prompts[:2], [o.token_ids for o in outs[:2]])
+    if invariant is None:
+        inv = check_invariant(dev, cfg, params, prompts[:2], [o.token_ids for o in outs[:2]])
+    else:
+        inv = invariant(prompts, outs)
     return dict(
         model=f"{cfg.model_type} H={cfg.hidden_size} L={cfg.num_hidden_layers} "
               f"(random {str(cfg.dtype).split('.')[-1]} weights, seed {SEED})", batch=B, prompt_len=P,
@@ -739,23 +998,28 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128):
     ), launches
 
 
-def check_invariant(dev, cfg, params, prompts, generated):
+def check_invariant(dev, cfg, params, prompts, generated, kv_quant=False, faults=None,
+                    limits=(INVARIANT_REL_RMS, INVARIANT_MAX_ABS), top1=True):
     """Decode vs re-prefill through the kernels, through the plain versions,
-    and with each planted fault in K1's inputs. The kernels must hold the
-    limit; every planted fault must break it."""
-    inv = decode_vs_reprefill(dev, cfg, params, prompts, generated)
+    and with each planted fault (default: in K1's inputs). The kernels must
+    hold the limit; every planted fault must break it."""
+    def holds(r):
+        return invariant_holds(r, limits, top1)
+
+    inv = decode_vs_reprefill(dev, cfg, params, prompts, generated, kv_quant=kv_quant)
     log(f"  decode vs re-prefill, kernels: {inv}")
-    inv["plain"] = decode_vs_reprefill(dev, cfg, params, prompts, generated, plain_ops())
+    inv["plain"] = decode_vs_reprefill(dev, cfg, params, prompts, generated, plain_ops(),
+                                       kv_quant)
     log(f"  decode vs re-prefill, plain versions: {inv['plain']}")
     inv["faults"] = {}
-    for name, fault in planted_faults().items():
+    for name, fault in (faults or planted_faults()).items():
         inv["faults"][name] = r = decode_vs_reprefill(
-            dev, cfg, params, prompts, generated, dict(paged_decode_attention=fault))
+            dev, cfg, params, prompts, generated, dict(paged_decode_attention=fault), kv_quant)
         log(f"  decode vs re-prefill, planted fault ({name}): {r}")
-    inv["limit"] = dict(rel_rms=INVARIANT_REL_RMS, max_abs_of_max_logit=INVARIANT_MAX_ABS)
-    require(invariant_holds(inv), f"decode and re-prefill disagree: {inv}")
-    require(invariant_holds(inv["plain"]), f"plain decode and re-prefill disagree: {inv}")
-    caught = {n: not invariant_holds(r) for n, r in inv["faults"].items()}
+    inv["limit"] = dict(rel_rms=limits[0], max_abs_of_max_logit=limits[1])
+    require(holds(inv), f"decode and re-prefill disagree: {inv}")
+    require(holds(inv["plain"]), f"plain decode and re-prefill disagree: {inv}")
+    caught = {n: not holds(r) for n, r in inv["faults"].items()}
     log(f"  planted faults caught: {caught}")
     require(all(caught.values()), f"the invariant misses a planted fault: {caught}")
     return inv
@@ -796,7 +1060,8 @@ def run_wave(fe, reqs, threads=4):
     return results, wall
 
 
-def serving_phase(dev, cfg, params):
+def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
+                  chunk_kernel="flash_prefill_chunked", profile=True):
     """Llama-3.2-3B through ServingFrontend -> ContinuousBatchingScheduler
     -> engine sessions, with the prefix cache on. Wave 1: eight prompts of
     1500 random ids (three K5 chunks each at prefill_chunk 512) and one
@@ -804,14 +1069,17 @@ def serving_phase(dev, cfg, params):
     (the prefix exactly) are registered when it finishes. Wave 2, after
     wave 1: sixteen prompts of the same prefix plus their own 48 tokens,
     each a prefix hit (K5 over 256 cached tokens); twelve greedy, four
-    sampled (T 0.6, top_p 0.9)."""
+    sampled (T 0.6, top_p 0.9). ``engine_kw`` goes to the engine,
+    ``path`` names the kernels that must launch and ``chunk_kernel`` the
+    chunked-prefill instance every wave must launch; ``profile`` runs wave 2
+    again under the profiler."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.executor.scheduler import ContinuousBatchingScheduler
     from lite_llama_tpu_torch.server import ServingFrontend
     from lite_llama_tpu_torch.utils.profiling import steady_state_tps
 
     engine = InferenceEngine(cfg, params, device=dev, prefix_cache=True, prefill_chunk=512,
-                             page_size=16, max_reqs=64, decode_chunk=32)
+                             page_size=16, max_reqs=64, decode_chunk=32, **(engine_kw or {}))
     prompts = serving_prompts(cfg)
     waves = [
         [dict(tokens=p, temperature=0.0) for p in prompts["long"]]
@@ -854,13 +1122,14 @@ def serving_phase(dev, cfg, params):
                 outputs_head=[t[:4] for t in toks[:3]],
             )
             log(f"  serving wave {w}: {json.dumps(rec)}")
-            require(counts["flash_prefill_chunked"] > 0, f"wave {w}: K5 never launched")
+            require(counts[chunk_kernel] > 0, f"wave {w}: {chunk_kernel} never launched")
             out.append(rec)
-        profile = profile_wave(fe, waves[1])
-        log(f"  serving wave 2 again, profiled: {json.dumps(profile)}")
+        if profile:
+            profile = profile_wave(fe, waves[1])
+            log(f"  serving wave 2 again, profiled: {json.dumps(profile)}")
     finally:
         fe.shutdown()
-    missing = [k for k in SERVING_PATH if launches[k] == 0]
+    missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the serving path: {missing}")
     require(engine.stats.prefix_hits >= 16,
             f"prefix hits {engine.stats.prefix_hits} < 16 in the serving phase")
@@ -927,9 +1196,9 @@ def compare_logits(got, want):
     )
 
 
-def prefill_holds(r):
-    return (r["rel_rms_diff"] <= PREFILL_REL_RMS
-            and r["max_abs_diff"] <= PREFILL_MAX_ABS * r["max_abs_logit"])
+def prefill_holds(r, limits=(PREFILL_REL_RMS, PREFILL_MAX_ABS)):
+    return (r["rel_rms_diff"] <= limits[0]
+            and r["max_abs_diff"] <= limits[1] * r["max_abs_logit"])
 
 
 def _last_logits(engine, prompts, prefix_prompts=()):
@@ -953,16 +1222,15 @@ def _last_logits(engine, prompts, prefix_prompts=()):
     return torch.from_numpy(last), engine.stats.prefix_hits - hits0
 
 
-def prefill_invariants(dev, cfg, params):
+def prefill_invariants(dev, cfg, params, engine_kw=None,
+                       limits=(PREFILL_REL_RMS, PREFILL_MAX_ABS)):
     """(a) the last logits of the 1500-token prompts chunked through K5
     (prefill_chunk 512) against one single-shot K2 prefill; (b) the first
     logits of prefix-hit prefills (K5 over 256 cached tokens) against the
     same prompts with the prefix cache off. Each read through the kernels,
     through the plain versions patched in, and with faults planted in K5's
-    inputs; the kernels must hold the limit, every fault must break it."""
-    from unittest import mock
-
-    from lite_llama_tpu_torch import ops
+    inputs; the kernels must hold the limit, every fault must break it.
+    ``engine_kw`` goes to every engine (a quantized pool)."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
 
     p = serving_prompts(cfg)
@@ -972,10 +1240,10 @@ def prefill_invariants(dev, cfg, params):
 
     def engine(**kw):  # explicit small pools: these engines hold a few prompts
         return InferenceEngine(cfg, params, device=dev, page_size=16, max_reqs=8,
-                               num_pages=8 * 100, decode_chunk=32, **kw)
+                               num_pages=8 * 100, decode_chunk=32, **kw, **(engine_kw or {}))
 
     def read(patch):
-        with mock.patch.multiple(ops, **patch) if patch else contextlib.nullcontext():
+        with patched(patch):
             chunked, _ = _last_logits(engine(prefill_chunk=512), longs)
             single, _ = _last_logits(engine(prefill_chunk=2048), longs)
             cached, hits = _last_logits(engine(prefill_chunk=512, prefix_cache=True), hit,
@@ -987,17 +1255,191 @@ def prefill_invariants(dev, cfg, params):
     inv = {"kernels": read(None), "plain": read(plain_ops())}
     inv["faults"] = {name: read(dict(chunked_prefill_attention=f))
                      for name, f in planted_k5_faults().items()}
-    inv["limit"] = dict(rel_rms=PREFILL_REL_RMS, max_abs_of_max_logit=PREFILL_MAX_ABS)
+    inv["limit"] = dict(rel_rms=limits[0], max_abs_of_max_logit=limits[1])
     for name, r in [("kernels", inv["kernels"]), ("plain", inv["plain"]),
                     *inv["faults"].items()]:
         log(f"  prefill invariants, {name}: {json.dumps(r)}")
     for side in ("a", "b"):
-        require(prefill_holds(inv["kernels"][side]), f"invariant ({side}) fails: {inv}")
-        require(prefill_holds(inv["plain"][side]), f"plain invariant ({side}) fails: {inv}")
-        caught = {n: not prefill_holds(r[side]) for n, r in inv["faults"].items()}
+        require(prefill_holds(inv["kernels"][side], limits), f"invariant ({side}) fails: {inv}")
+        require(prefill_holds(inv["plain"][side], limits),
+                f"plain invariant ({side}) fails: {inv}")
+        caught = {n: not prefill_holds(r[side], limits) for n, r in inv["faults"].items()}
         log(f"  invariant ({side}) planted faults caught: {caught}")
         require(all(caught.values()), f"invariant ({side}) misses a planted fault: {caught}")
     return inv
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the quantized slice
+
+
+def planted_k1q_faults():
+    """K1q handed an int8 pool whose scale slab has the K and V lanes
+    swapped, or every head reading its neighbour's scale: faults the
+    quantized decode invariant must catch, each a replacement of
+    ops.paged_decode_attention."""
+    import dataclasses
+
+    from lite_llama_tpu_torch.ops.attention_decode import paged_flash_decode as k1
+
+    def lanes_swapped(q, pool, layer, table, seq_lens, sm_scale=None, **kw):
+        s = pool.scales
+        half = s.shape[-1] // 2
+        return k1(q, dataclasses.replace(pool, scales=torch.cat([s[..., half:], s[..., :half]], -1)),
+                  layer, table, seq_lens, sm_scale, **kw)
+
+    def neighbour_head(q, pool, layer, table, seq_lens, sm_scale=None, **kw):
+        return k1(q, dataclasses.replace(pool, scales=pool.scales.roll(-1, dims=-1)), layer,
+                  table, seq_lens, sm_scale, **kw)
+
+    return {"K and V scale lanes swapped": lanes_swapped,
+            "the neighbouring head's scale": neighbour_head}
+
+
+def planted_k6_patches():
+    """Each planted K6 fault as a replacement of the W4A8 matmul that
+    qeinsum routes to: the fault applied to the layer the call reads."""
+    from lite_llama_tpu_torch.ops.qmatmul import quantized_matmul_packed as k6
+
+    def make(fault):
+        def run(x, q, scale, layer, *a, **kw):
+            fq, fs = fault(q[layer:layer + 1], (scale[:, None] if scale.ndim == 2 else scale)
+                           [layer:layer + 1])
+            return k6(x, fq, fs, 0, *a, **kw)
+        return run
+
+    return {name: dict(quantized_matmul_packed=make(f)) for name, f in planted_k6_faults().items()}
+
+
+def logits_invariant(dev, cfg, qparams, prompts, bf16_logits):
+    """Last-token logits of the int4 model (every projection through K6:
+    the prompts are at most 256 rows) through the kernels against the plain
+    versions; the kernels must hold the limit, every K6 fault must break
+    it. The distance to the bf16 model's logits is reported, with no limit
+    (random weights say little about quantization error)."""
+    def read(patch):
+        with patched(patch), torch.inference_mode():
+            return prefill_last_logits(dev, cfg, qparams,
+                                       fresh_cache(dev, cfg, len(prompts), "int8"),
+                                       prompts).float().cpu()
+
+    kernels = read(None)
+    inv = dict(plain=compare_logits(kernels, read(plain_ops())),
+               faults={n: compare_logits(read(p), kernels) for n, p in planted_k6_patches().items()},
+               vs_bf16_model=compare_logits(kernels, bf16_logits),
+               limit=dict(rel_rms=QLOGITS_REL_RMS, max_abs_of_max_logit=QLOGITS_MAX_ABS))
+    log(f"  int4 last-token logits: {json.dumps(inv)}")
+    limits = (QLOGITS_REL_RMS, QLOGITS_MAX_ABS)
+    require(prefill_holds(inv["plain"], limits), f"kernels and plain versions disagree: {inv}")
+    caught = {n: not prefill_holds(r, limits) for n, r in inv["faults"].items()}
+    log(f"  K6 planted faults caught: {caught}")
+    require(all(caught.values()), f"the logits invariant misses a planted K6 fault: {caught}")
+    return inv
+
+
+def weight_bytes(tree):
+    from lite_llama_tpu_torch.quant.qtensor import QTensor
+
+    if isinstance(tree, dict):
+        return sum(weight_bytes(v) for v in tree.values())
+    if isinstance(tree, QTensor):
+        return weight_bytes(tree.q) + weight_bytes(tree.scale)
+    return tree.numel() * tree.element_size()
+
+
+def quantized_phase(dev, cfg, qparams, bf16_logits):
+    """Llama-3.2-3B int4 (g128, riffle) with an int8 KV pool: the batch
+    slice (decode invariant with K1q faults), the logits invariant (K6
+    faults), serving and the prefill invariants under the int8 pool.
+    Returns (summary, launches on this path)."""
+    problems = []
+
+    def attempt(what, fn, *a, **kw):
+        """An invariant whose failure is reported after the phase's other
+        readings are taken (the phase still fails)."""
+        try:
+            return fn(*a, **kw)
+        except Failure as e:
+            problems.append(f"{what}: {e}")
+            log(f"  FAILED ({what}): {e}")
+            return None
+
+    def invariant(prompts, outs):
+        # One request: its 152-row re-prefill takes W4A8 like the decode
+        # steps (more than 256 rows take W4A16, a difference of its own).
+        gen = [outs[0].token_ids]
+        inv = attempt("quantized decode invariant", check_invariant, dev, cfg, qparams,
+                      prompts[:1], gen, kv_quant="int8", faults=planted_k1q_faults(),
+                      limits=(QUANT_INVARIANT_REL_RMS, QUANT_INVARIANT_MAX_ABS), top1=False)
+        # Where the noise comes from: the same reading on a bf16 pool.
+        r = decode_vs_reprefill(dev, cfg, qparams, prompts[:1], gen)
+        log(f"  decode vs re-prefill, int4 weights on a bf16 pool: {r}")
+        return dict(inv or {}, bf16_pool=r)
+
+    out = {}
+    out["batch"], batch = slice_phase(dev, cfg, qparams, engine_kw=dict(kv_quant="int8"),
+                                      path=QUANT_BATCH_PATH, invariant=invariant)
+    log("quantized slice: " + json.dumps(out["batch"]))
+    out["logits"] = attempt("int4 logits invariant", logits_invariant, dev, cfg, qparams,
+                            batch_prompts(cfg)[:8], bf16_logits)
+    t0 = time.perf_counter()
+    out["serving"], serving = serving_phase(
+        dev, cfg, qparams, engine_kw=dict(kv_quant="int8"), path=QUANT_SERVING_PATH,
+        chunk_kernel="flash_prefill_chunked_int8", profile=False)
+    out["serving"]["prefill_invariants"] = attempt(
+        "int8-pool prefill invariants", prefill_invariants, dev, cfg, qparams,
+        engine_kw=dict(kv_quant="int8"), limits=(QPREFILL_REL_RMS, QPREFILL_MAX_ABS))
+    out["serving"]["seconds"] = time.perf_counter() - t0
+    log("quantized serving: " + json.dumps(out["serving"]))
+    require(not problems, f"phase 6 invariants failed: {problems}")
+    return out, {k: batch[k] + serving[k] for k in batch}
+
+
+def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
+    """bf16 weights with an fp8 KV pool: ``n`` prompts of ``P`` random ids
+    prefilled in 512-token chunks (K5q-fp8), then ``steps`` greedy decode
+    steps (K1q-fp8). First-token logits against the same prompts on a bf16
+    pool are reported, with no limit."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+
+    prompts = serving_prompts(cfg)["long"][:n]
+    total = [P + steps + 1] * n
+
+    def engine(kv_quant):
+        return InferenceEngine(cfg, params, device=dev, kv_quant=kv_quant, prefill_chunk=512,
+                               page_size=16, max_reqs=n, num_pages=n * 100, decode_chunk=steps)
+
+    eng = engine("fp8")
+    sampling = SamplingParams.make(n, temperature=0.0, device=dev)
+    reset_counts()
+    sync(dev)
+    slots = eng.admit_requests(total)
+    try:
+        t0 = time.perf_counter()
+        first, _, last, _ = eng.prefill(prompts, sampling, slots, return_logits=True)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, toks, lps = eng.decode(slots, first, np.zeros(n, bool), total, sampling,
+                                     n_steps=steps)
+        sync(dev)
+        decode_s = time.perf_counter() - t0
+    finally:
+        eng.release_slots(slots, total)
+    launches = read_counts()
+    del eng
+    missing = [k for k in FP8_KV_PATH if launches[k] == 0]
+    require(not missing, f"kernels never launched on the fp8-KV path: {missing}")
+    require(toks.shape == (steps, n) and np.all((toks >= 0) & (toks < cfg.vocab_size)),
+            "fp8-KV decode tokens out of range")
+    require(np.all(np.isfinite(lps)) and np.all(np.isfinite(last)), "fp8-KV: non-finite output")
+    bf16_last, _ = _last_logits(engine(False), prompts)
+    rec = dict(prompts=n, prompt_len=P, decode_steps=steps, prefill_s=prefill_s,
+               decode_ms_per_step=decode_s * 1e3 / steps, launches=launches,
+               first_logits_vs_bf16_pool=compare_logits(torch.from_numpy(last), bf16_last))
+    log("fp8 KV: " + json.dumps(rec))
+    return rec, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1039,13 +1481,15 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions (bf16)")
     cases = kernel_phase()
-    by_path = {"batch": {k: None for k in KERNELS}, "serving": {k: None for k in KERNELS}}
+    by_path = {p: {k: None for k in KERNELS} for p in ("batch", "serving", "quantized", "fp8_kv")}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
+        from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
 
         dev = torch.device("cuda")
         cfg = llama32_3b(dtype=torch.bfloat16)
+
         params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
         log("phase 4: slice (batch generation)")
         summary, by_path["batch"] = slice_phase(dev, cfg, params)
@@ -1056,6 +1500,29 @@ def main() -> int:
         serving["prefill_invariants"] = prefill_invariants(dev, cfg, params)
         serving["seconds"] = time.perf_counter() - t0
         log("serving: " + json.dumps(serving))
+
+        log("phase 6: quantized slice (int4 g128 riffle weights, int8 KV)")
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            bf16_logits = prefill_last_logits(dev, cfg, params, fresh_cache(dev, cfg, 8),
+                                              batch_prompts(cfg)[:8]).float().cpu()
+        bf16_bytes = weight_bytes(params)
+        # Where the quantized decode invariant's noise comes from: bf16
+        # weights on an int8 pool (teacher-forced on seeded random tokens).
+        forced = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, (1, 128)).tolist()
+        r = decode_vs_reprefill(dev, cfg, params, batch_prompts(cfg)[:1], forced,
+                                kv_quant="int8")
+        log(f"  decode vs re-prefill, bf16 weights on an int8 pool: {r}")
+        _, by_path["fp8_kv"] = fp8_kv_phase(dev, cfg, params)
+        t1 = time.perf_counter()
+        qparams = quantize_decoder_params(params, "int4", group_size=128, riffle=True)
+        sync(dev)
+        log(f"  quantized in {time.perf_counter() - t1:.2f} s: weights {bf16_bytes / 1e9:.3f} GB "
+            f"bf16 -> {weight_bytes(qparams) / 1e9:.3f} GB")
+        del params  # the bf16 weights leave the device before the quantized runs
+        torch.cuda.empty_cache()
+        _, by_path["quantized"] = quantized_phase(dev, cfg, qparams, bf16_logits)
+        log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():

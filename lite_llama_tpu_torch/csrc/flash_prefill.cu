@@ -42,14 +42,25 @@
 //   frontier or past the chunk length are never loaded.
 // - Head packing for D=64 (a TPU 128-lane DMA device) is not carried over:
 //   D = 64 and D = 128 are template instances.
+// - K5q, the quantized pools of the same TPU kernel (quantized=True, and the
+//   fp8 pools the JAX dispatcher sends to its XLA reference), are history
+//   instances templated on the pool type. Each gathered history row is
+//   dequantized whole on its way into shared memory, as the TPU kernel does:
+//   int8 as bf16(float(k_int8) * float(scale_bf16)), a product exact in fp32
+//   and so rounded once, as JAX's bf16 x bf16; fp8 e4m3 converts exactly. The
+//   per-(token, head) scales come from the merged [L, T, 128] slab (K in lane
+//   h, V in lane 64 + h). The chunk phase reads the chunk's own bf16 K/V.
 // Simple first: one K/V buffer, no cp.async/TMA pipelining, no wgmma; every
 // q tile of a request walks the whole history (from L2 after the first).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+enum KvType { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
 
 constexpr int BK = 64;    // keys per tile
 constexpr int KPAD = 8;   // shared-memory row padding (bf16) against bank conflicts
@@ -70,6 +81,30 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Eight 1-byte pool values (int8 times a scale, or fp8) as eight bf16.
+template <int KV>
+__device__ __forceinline__ uint4 dequant8(uint2 raw, float sc) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t src = i < 2 ? raw.x : raw.y;
+    float f[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t b = (src >> (16 * (i & 1) + 8 * j)) & 0xFFu;
+      if (KV == KV_INT8) {
+        f[j] = (float)(int8_t)b * sc;  // exact: 8 x 8 significant bits
+      } else {
+        __nv_fp8_e4m3 v;
+        v.__x = static_cast<__nv_fp8_storage_t>(b);
+        f[j] = static_cast<float>(v);
+      }
+    }
+    w[i] = pack2(f[0], f[1]);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -156,14 +191,15 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4],
   }
 }
 
-template <int D, bool HAS_HISTORY>
+template <int D, bool HAS_HISTORY, int KV>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
                      const __nv_bfloat16* __restrict__ k,      // [B, S, Hkv, D]
                      const __nv_bfloat16* __restrict__ v,      // [B, S, Hkv, D]
                      const int* __restrict__ chunk_lens,       // [B]
                      const int* __restrict__ start_pos,        // [B] (history only)
-                     const __nv_bfloat16* __restrict__ pages,  // [L, 2, T, Hkv*D] (history only)
+                     const void* __restrict__ pages,           // [L, 2, T, Hkv*D] (history only)
+                     const __nv_bfloat16* __restrict__ scales, // [L, T, 128] (int8 history only)
                      const int* __restrict__ table,            // [B, ppr] (history only)
                      __nv_bfloat16* __restrict__ out,          // [B, S, Nq, D]
                      float* __restrict__ m_out,                // [B, S, Nq] or null
@@ -238,8 +274,12 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
 
   if (HAS_HISTORY) {
     // History phase: every key precedes the whole chunk, so no causal mask.
-    const __nv_bfloat16* kpool = pages + (long long)layer * 2 * T * ks + (long long)h * D;
-    const __nv_bfloat16* vpool = kpool + T * ks;
+    constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
+    const uint8_t* kpool =
+        static_cast<const uint8_t*>(pages) + EB * ((long long)layer * 2 * T * ks + (long long)h * D);
+    const uint8_t* vpool = kpool + EB * T * ks;
+    const __nv_bfloat16* sbase =
+        KV == KV_INT8 ? scales + (long long)layer * T * 128 + h : nullptr;
     const int* tb = table + (long long)b * ppr;
     const int n_hist = (hist + BK - 1) / BK;
     for (int t = 0; t < n_hist; ++t) {
@@ -252,8 +292,16 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
         uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
         if (pos < hist) {
           const long long pr = (long long)tb[min(pos / ps, ppr - 1)] * ps + pos % ps;
-          kv4 = *reinterpret_cast<const uint4*>(kpool + pr * ks + ch);
-          vv4 = *reinterpret_cast<const uint4*>(vpool + pr * ks + ch);
+          const long long off = EB * (pr * ks + ch);
+          if (KV == KV_BF16) {
+            kv4 = *reinterpret_cast<const uint4*>(kpool + off);
+            vv4 = *reinterpret_cast<const uint4*>(vpool + off);
+          } else {
+            const float ksc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128]) : 1.f;
+            const float vsc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128 + 64]) : 1.f;
+            kv4 = dequant8<KV>(*reinterpret_cast<const uint2*>(kpool + off), ksc);
+            vv4 = dequant8<KV>(*reinterpret_cast<const uint2*>(vpool + off), vsc);
+          }
         }
         *reinterpret_cast<uint4*>(&sK[row * KS + ch]) = kv4;
         *reinterpret_cast<uint4*>(&sV[row * KS + ch]) = vv4;
@@ -321,13 +369,14 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
   }
 }
 
-template <bool HAS_HISTORY>
+template <bool HAS_HISTORY, int KV>
 int launch(const void* q, const void* k, const void* v, const void* chunk_lens,
-           const void* start_pos, const void* pages, const void* table, void* out, void* m,
-           void* l, int B, int S, int Nq, int Hkv, int D, float qscale, long long T, int layer,
-           int ps, int ppr, void* stream) {
+           const void* start_pos, const void* pages, const void* scales, const void* table,
+           void* out, void* m, void* l, int B, int S, int Nq, int Hkv, int D, float qscale,
+           long long T, int layer, int ps, int ppr, void* stream) {
   if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_WARPS) return (int)cudaErrorInvalidValue;
   if (HAS_HISTORY && (ps <= 0 || ppr <= 0)) return (int)cudaErrorInvalidValue;
+  if (KV == KV_INT8 && (scales == nullptr || Hkv > 64)) return (int)cudaErrorInvalidValue;
   const int G = Nq / Hkv;
   const int QW = MAX_WARPS / G;  // warps (16-row slices) per query head
   const int BQ = 16 * QW;
@@ -339,17 +388,17 @@ int launch(const void* q, const void* k, const void* v, const void* chunk_lens,
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* cl = static_cast<const int*>(chunk_lens);
   const auto* sp = static_cast<const int*>(start_pos);
-  const auto* pp = static_cast<const __nv_bfloat16*>(pages);
+  const auto* sc = static_cast<const __nv_bfloat16*>(scales);
   const auto* tp = static_cast<const int*>(table);
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* mp = static_cast<float*>(m);
   auto* lp = static_cast<float*>(l);
   if (D == 128) {
-    flash_prefill_kernel<128, HAS_HISTORY><<<grid, block, 0, st>>>(
-        qp, kp, vp, cl, sp, pp, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
+    flash_prefill_kernel<128, HAS_HISTORY, KV><<<grid, block, 0, st>>>(
+        qp, kp, vp, cl, sp, pages, sc, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
   } else if (D == 64) {
-    flash_prefill_kernel<64, HAS_HISTORY><<<grid, block, 0, st>>>(
-        qp, kp, vp, cl, sp, pp, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
+    flash_prefill_kernel<64, HAS_HISTORY, KV><<<grid, block, 0, st>>>(
+        qp, kp, vp, cl, sp, pages, sc, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -366,18 +415,24 @@ extern "C" const char* error_string(int code) {
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* seq_lens, void* out, int B, int S, int Nq,
                                   int Hkv, int D, float qscale, void* stream) {
-  return launch<false>(q, k, v, seq_lens, nullptr, nullptr, nullptr, out, nullptr, nullptr, B,
-                       S, Nq, Hkv, D, qscale, 0, 0, 0, 0, stream);
+  return launch<false, KV_BF16>(q, k, v, seq_lens, nullptr, nullptr, nullptr, nullptr, out,
+                                nullptr, nullptr, B, S, Nq, Hkv, D, qscale, 0, 0, 0, 0, stream);
 }
 
-// K5: a chunk over the pool's history. m and l may be null (no state out).
-extern "C" int flash_prefill_chunked_bf16(const void* q, const void* k, const void* v,
-                                          const void* chunk_lens, const void* start_pos,
-                                          const void* pages, const void* table, void* out,
-                                          void* m, void* l, int B, int S, int Nq, int Hkv,
-                                          int D, float qscale, long long T, int layer, int ps,
-                                          int ppr, void* stream) {
-  if ((m == nullptr) != (l == nullptr)) return (int)cudaErrorInvalidValue;
-  return launch<true>(q, k, v, chunk_lens, start_pos, pages, table, out, m, l, B, S, Nq, Hkv,
-                      D, qscale, T, layer, ps, ppr, stream);
-}
+// K5 (bf16 pool) and K5q (int8 / fp8 pool): a chunk over the pool's history.
+// scales: the int8 pool's merged [L, T, 128] bf16 slab, null otherwise. m
+// and l may be null (no state out).
+#define CHUNKED_ENTRY(NAME, KV)                                                                \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* chunk_lens,    \
+                      const void* start_pos, const void* pages, const void* scales,           \
+                      const void* table, void* out, void* m, void* l, int B, int S, int Nq,    \
+                      int Hkv, int D, float qscale, long long T, int layer, int ps, int ppr,   \
+                      void* stream) {                                                          \
+    if ((m == nullptr) != (l == nullptr)) return (int)cudaErrorInvalidValue;                  \
+    return launch<true, KV>(q, k, v, chunk_lens, start_pos, pages, scales, table, out, m, l,  \
+                            B, S, Nq, Hkv, D, qscale, T, layer, ps, ppr, stream);              \
+  }
+
+CHUNKED_ENTRY(flash_prefill_chunked_bf16, KV_BF16)
+CHUNKED_ENTRY(flash_prefill_chunked_int8, KV_INT8)
+CHUNKED_ENTRY(flash_prefill_chunked_fp8, KV_FP8)

@@ -31,10 +31,21 @@
 //   end.
 // - An empty slot (kv_len 0) writes m = -1e30, l = 0, out = 0, so that the
 //   fold returns the new token's value exactly.
+// - K1q, the quantized pools of the same TPU kernel (the quantized=True
+//   branch and the fp8 cast of its page tiles), are instances of this kernel
+//   templated on the pool type. An int8 pool carries per-(token, head) bf16
+//   scales in a merged [L, T, 128] slab (K in lane h, V in lane 64 + h); they
+//   are applied in the score domain as on the TPU: s = (q . k_int) * k_scale,
+//   l sums the unscaled P, and PV takes bf16(P * v_scale) against the integer
+//   V values. An fp8 e4m3 pool converts to bf16 exactly and is otherwise the
+//   bf16 path. A lane loads D/32 bytes of a quantized row instead of D/16, so
+//   the same bytes bound holds at half (int8 adds 4 scale bytes per token
+//   and head).
 // Not carried over from the TPU: the wide/grouped MXU forms, the cross-program
 // DMA lookahead and the 128-lane m/l outputs (TPU layout devices).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +56,26 @@ constexpr int THREADS = WARPS * 32;
 constexpr int MAX_G = 8;   // query heads per kv head
 constexpr int UNR = 4;     // tokens per warp per iteration
 constexpr float NEG = -1e30f;
+
+enum KvType { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
+
+__device__ __forceinline__ float fp8_to_float(uint32_t byte) {
+  __nv_fp8_e4m3 v;
+  v.__x = static_cast<__nv_fp8_storage_t>(byte);
+  return static_cast<float>(v);
+}
+
+// VPL consecutive 1-byte pool values as floats (exact for int8 and e4m3).
+template <int VPL, int KV>
+__device__ __forceinline__ void load_bytes(const uint8_t* p, float (&f)[VPL]) {
+  const uint32_t raw = VPL == 4 ? *reinterpret_cast<const uint32_t*>(p)
+                                : (uint32_t)*reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const uint32_t b = (raw >> (8 * i)) & 0xFFu;
+    f[i] = KV == KV_INT8 ? (float)(int8_t)b : fp8_to_float(b);
+  }
+}
 
 template <int VPL>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&f)[VPL]) {
@@ -61,18 +92,20 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&f)[VPL]
   }
 }
 
-template <int D>
+template <int D, int KV>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
-                    const __nv_bfloat16* __restrict__ pages,  // [L, 2, T, Hkv*D]
-                    const int* __restrict__ page_table,       // [B, ppr]
-                    const int* __restrict__ kv_lens,          // [B]
-                    __nv_bfloat16* __restrict__ out,          // [B, Nq, D]
-                    float* __restrict__ m_out,                // [B, Nq]
-                    float* __restrict__ l_out,                // [B, Nq]
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
+                    const void* __restrict__ pages,            // [L, 2, T, Hkv*D]
+                    const __nv_bfloat16* __restrict__ scales,  // [L, T, 128] (int8 only)
+                    const int* __restrict__ page_table,        // [B, ppr]
+                    const int* __restrict__ kv_lens,           // [B]
+                    __nv_bfloat16* __restrict__ out,           // [B, Nq, D]
+                    float* __restrict__ m_out,                 // [B, Nq]
+                    float* __restrict__ l_out,                 // [B, Nq]
                     int Nq, int Hkv, long long T, int layer, int ps, int ppr,
                     float qscale) {
   constexpr int VPL = D / 32;
+  constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Nq / Hkv;
@@ -81,9 +114,10 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
   const long long HD = (long long)Hkv * D;
   const int len = kv_lens[b];
   const int* pt = page_table + (long long)b * ppr;
-  const __nv_bfloat16* kbase =
-      pages + (long long)layer * 2 * T * HD + (long long)h * D + lane * VPL;
-  const __nv_bfloat16* vbase = kbase + T * HD;
+  const uint8_t* kbase = static_cast<const uint8_t*>(pages) +
+                         EB * ((long long)layer * 2 * T * HD + (long long)h * D + lane * VPL);
+  const uint8_t* vbase = kbase + EB * T * HD;
+  const __nv_bfloat16* sbase = KV == KV_INT8 ? scales + (long long)layer * T * 128 + h : nullptr;
 
   float qf[MAX_G][VPL];
 #pragma unroll
@@ -111,16 +145,26 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
 
   // len is uniform over the block, so every branch below is warp-uniform.
   for (int t0 = warp * UNR; t0 < len; t0 += WARPS * UNR) {
-    float kf[UNR][VPL], vf[UNR][VPL];
+    float kf[UNR][VPL], vf[UNR][VPL], ksc[UNR], vsc[UNR];
     bool ok[UNR];
 #pragma unroll
     for (int u = 0; u < UNR; ++u) {
       const int t = t0 + u;
       ok[u] = t < len;
+      ksc[u] = vsc[u] = 1.f;
       if (ok[u]) {
         const long long row = (long long)pt[t / ps] * ps + (t % ps);
-        load_row<VPL>(kbase + row * HD, kf[u]);
-        load_row<VPL>(vbase + row * HD, vf[u]);
+        if (KV == KV_BF16) {
+          load_row<VPL>(reinterpret_cast<const __nv_bfloat16*>(kbase + EB * row * HD), kf[u]);
+          load_row<VPL>(reinterpret_cast<const __nv_bfloat16*>(vbase + EB * row * HD), vf[u]);
+        } else {
+          load_bytes<VPL, KV>(kbase + row * HD, kf[u]);
+          load_bytes<VPL, KV>(vbase + row * HD, vf[u]);
+        }
+        if (KV == KV_INT8) {
+          ksc[u] = __bfloat162float(sbase[row * 128]);
+          vsc[u] = __bfloat162float(sbase[row * 128 + 64]);
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < VPL; ++i) kf[u][i] = vf[u][i] = 0.f;
@@ -147,6 +191,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
         }
       }
     }
+    if (KV == KV_INT8) {  // K dequant in the score domain
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g) s[u][g] *= ksc[u];
+      }
+    }
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) {
       if (g < G) {
@@ -162,7 +213,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
         for (int u = 0; u < UNR; ++u) {
           const float pu = ok[u] ? exp2f(s[u][g] - m_new) : 0.f;
           psum += pu;  // l sums the unrounded P, as the TPU kernel does
-          p[u] = __bfloat162float(__float2bfloat16(pu));  // P in bf16 for PV
+          // P in bf16 for PV; an int8 pool folds the V scale into it first.
+          p[u] = __bfloat162float(__float2bfloat16(KV == KV_INT8 ? pu * vsc[u] : pu));
         }
         l[g] = l[g] * corr + psum;
 #pragma unroll
@@ -215,6 +267,33 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Nq, D]
   }
 }
 
+template <int KV>
+int launch(const void* q, const void* pages, const void* scales, const void* page_table,
+           const void* kv_lens, void* out, void* m, void* l, int B, int Nq, int Hkv, int D,
+           long long T, int layer, int ps, int ppr, float qscale, void* stream) {
+  if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_G) return (int)cudaErrorInvalidValue;
+  if (KV == KV_INT8 && (scales == nullptr || Hkv > 64)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Hkv, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* sp = static_cast<const __nv_bfloat16*>(scales);
+  const auto* tp = static_cast<const int*>(page_table);
+  const auto* lp = static_cast<const int*>(kv_lens);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* mp = static_cast<float*>(m);
+  auto* lo = static_cast<float*>(l);
+  if (D == 128) {
+    paged_decode_kernel<128, KV><<<grid, THREADS, 0, st>>>(qp, pages, sp, tp, lp, op, mp, lo,
+                                                           Nq, Hkv, T, layer, ps, ppr, qscale);
+  } else if (D == 64) {
+    paged_decode_kernel<64, KV><<<grid, THREADS, 0, st>>>(qp, pages, sp, tp, lp, op, mp, lo, Nq,
+                                                          Hkv, T, layer, ps, ppr, qscale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int code) {
@@ -222,29 +301,17 @@ extern "C" const char* error_string(int code) {
 }
 
 // kv_lens: tokens present in the pool per request (the caller passes
-// seq_len - 1 when the newest token rides separately).
-extern "C" int paged_decode_bf16(const void* q, const void* pages, const void* page_table,
-                                 const void* kv_lens, void* out, void* m, void* l, int B,
-                                 int Nq, int Hkv, int D, long long T, int layer, int ps,
-                                 int ppr, float qscale, void* stream) {
-  if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_G) return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* pp = static_cast<const __nv_bfloat16*>(pages);
-  const auto* tp = static_cast<const int*>(page_table);
-  const auto* lp = static_cast<const int*>(kv_lens);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* mp = static_cast<float*>(m);
-  auto* lo = static_cast<float*>(l);
-  if (D == 128) {
-    paged_decode_kernel<128><<<grid, THREADS, 0, st>>>(qp, pp, tp, lp, op, mp, lo, Nq, Hkv,
-                                                       T, layer, ps, ppr, qscale);
-  } else if (D == 64) {
-    paged_decode_kernel<64><<<grid, THREADS, 0, st>>>(qp, pp, tp, lp, op, mp, lo, Nq, Hkv, T,
-                                                      layer, ps, ppr, qscale);
-  } else {
-    return (int)cudaErrorInvalidValue;
+// seq_len - 1 when the newest token rides separately). scales: the int8
+// pool's merged [L, T, 128] bf16 slab, null for bf16 and fp8 pools.
+#define PAGED_DECODE_ENTRY(NAME, KV)                                                          \
+  extern "C" int NAME(const void* q, const void* pages, const void* scales,                   \
+                      const void* page_table, const void* kv_lens, void* out, void* m, void* l, \
+                      int B, int Nq, int Hkv, int D, long long T, int layer, int ps, int ppr,  \
+                      float qscale, void* stream) {                                            \
+    return launch<KV>(q, pages, scales, page_table, kv_lens, out, m, l, B, Nq, Hkv, D, T,     \
+                      layer, ps, ppr, qscale, stream);                                         \
   }
-  return (int)cudaGetLastError();
-}
+
+PAGED_DECODE_ENTRY(paged_decode_bf16, KV_BF16)
+PAGED_DECODE_ENTRY(paged_decode_int8, KV_INT8)
+PAGED_DECODE_ENTRY(paged_decode_fp8, KV_FP8)

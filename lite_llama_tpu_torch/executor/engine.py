@@ -31,8 +31,11 @@ recompiles and lays batches out in data-parallel groups. PyTorch compiles
 nothing per shape and the port has one device, so every batch runs at its
 own width in caller order (no sentinel rows, no group layout).
 
-Not ported yet, and refused: quantized KV pools, speculative decoding and
-data parallelism.
+Quantized weights (``quant/qtensor.py``) and int8 / fp8 KV pools
+(``kv_quant``) run through the same paths; packed int4 wq/wkv are fused into
+one wqkv at build time, as the JAX engine does.
+
+Not ported yet, and refused: speculative decoding and data parallelism.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ import torch
 
 from ..config import BaseConfig
 from ..generation.sampling import SamplingParams, log_softmax_gather, needs_exact_sampling, sample
-from ..models.decoder import AttnContext, decoder_decode, decoder_prefill
+from ..models.decoder import AttnContext, decoder_decode, decoder_prefill, fuse_qkv_params
+from ..quant.qtensor import QTensor
 from .kv_cache import (
     alloc_decode,
     alloc_prefill,
@@ -194,13 +198,11 @@ class InferenceEngine:
         hbm_util: float = 0.9,
         decode_chunk: int = 32,
         prefill_chunk: int = 2048,
-        kv_quant=False,
+        kv_quant=False,  # False | True/'int8' | 'fp8'
         prefix_cache: bool = False,
         mesh=None,
         seed: int = 0,
     ):
-        if kv_quant:
-            raise NotImplementedError("quantized KV pools are not ported yet")
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
         self.device = torch.device(device)
@@ -217,8 +219,14 @@ class InferenceEngine:
             )
         if emb.device.type != self.device.type:
             raise ValueError(f"params live on {emb.device}, the engine on {self.device}")
+        wq = params["layers"].get("wq")
+        if isinstance(wq, QTensor) and wq.packed:
+            # One packed matmul per layer instead of two, as the JAX engine
+            # fuses by default on one device.
+            params = fuse_qkv_params(params)
         self.config = config
         self.params = params
+        self.kv_quant = kv_quant
         self.page_size = page_size
         self.max_reqs = max_reqs
         self.decode_chunk = decode_chunk
@@ -230,6 +238,7 @@ class InferenceEngine:
             config.num_hidden_layers, config.num_key_value_heads, config.head_dim,
             num_pages=num_pages, page_size=page_size, max_reqs=max_reqs,
             max_seq_len=config.max_seq_len, dtype=config.dtype, device=self.device,
+            quantized=kv_quant,
         )
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
@@ -375,7 +384,9 @@ class InferenceEngine:
 
     def _auto_num_pages(self, hbm_util: float) -> int:
         """Size the KV pool from free device memory. On the CPU (tests) there
-        is no device budget: the pool holds every slot at max_seq_len."""
+        is no device budget: the pool holds every slot at max_seq_len. A page
+        counts ``cfg.dtype`` bytes whatever the pool's type, as in the JAX
+        engine, so admission decisions stay equal."""
         cfg = self.config
         want = self.max_reqs * cdiv(cfg.max_seq_len, self.page_size)
         if self.device.type != "cuda":

@@ -1,9 +1,12 @@
 """Paged KV cache and its allocator (port of
-``lite_llama_tpu/executor/kv_cache.py``, bf16/fp32 pools only).
+``lite_llama_tpu/executor/kv_cache.py``).
 
 - Pool layout ``[L, 2, T, Hkv*D]`` as in the JAX package: K/V planes, a
   flat token axis (row = page_id * page_size + offset) and flat head-major
   channels, so the two pools compare element for element.
+- Pools hold bf16/fp32, int8 with per-(token, head) bf16 scales in a merged
+  ``[L, T, SCALE_LANES]`` slab (K scales in lanes [0, Hkv), V scales in
+  [64, 64 + Hkv)), or fp8 e4m3 with no scales (values clipped at +-448).
 - A free-page stack plus a stack top: popping N pages reads
   ``free_stack[free_top - 1 - rank]``, with ranks from a cumsum over the
   need mask, so allocation is a few tensor ops on the device with no host
@@ -28,21 +31,57 @@ from typing import Optional
 
 import torch
 
+from ..ops.ref import SCALE_HALF, SCALE_LANES, byte_view
 from ..ops.ref import cdiv_int as cdiv
 
 
 @dataclass
 class KVPool:
-    """The paged K/V storage: pages [L, 2, T, Hkv*D]."""
+    """The paged K/V storage: pages [L, 2, T, Hkv*D], plus the merged scale
+    slab [L, T, SCALE_LANES] bf16 of an int8 pool (None otherwise)."""
 
     pages: torch.Tensor
     page_size: int = 64
     num_kv_heads: int = 8
     head_dim: int = 128
+    scales: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.scales is not None
 
     @property
     def num_tokens(self) -> int:
         return self.pages.shape[2]
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric int8 per-(token, head) quantization over the D axis. The
+    scale (amax times fp32(1/127), as XLA computes a division by a constant)
+    is rounded to bf16 BEFORE the divide, so the stored bf16 scale
+    dequantizes the stored values exactly."""
+    xf = x.float()
+    scale = (torch.clamp(xf.abs().amax(dim=-1), min=1e-6) * (1.0 / 127.0)).to(torch.bfloat16)
+    q = torch.round(xf / scale.float()[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _cast_kv(x: torch.Tensor, dtype) -> torch.Tensor:
+    """K/V values in the pool dtype (as bits for fp8, see ``byte_view``);
+    fp8 saturates at the e4m3 maximum."""
+    if dtype == torch.float8_e4m3fn:
+        x = torch.clamp(x.float(), -448.0, 448.0)
+    return byte_view(x.to(dtype))
+
+
+def _scale_rows(ksc: torch.Tensor, vsc: torch.Tensor) -> torch.Tensor:
+    """Per-(token, head) K and V scales [..., Hkv] -> merged bf16 rows
+    [..., SCALE_LANES] (unused lanes zero, as in the JAX pool)."""
+    Hkv = ksc.shape[-1]
+    rows = torch.zeros((*ksc.shape[:-1], SCALE_LANES), dtype=torch.bfloat16, device=ksc.device)
+    rows[..., :Hkv] = ksc
+    rows[..., SCALE_HALF:SCALE_HALF + Hkv] = vsc
+    return rows
 
 
 @dataclass
@@ -78,15 +117,27 @@ class PagedKVCache:
 def create_kv_cache(num_layers, num_kv_heads, head_dim, num_pages, page_size=64,
                     max_reqs=64, max_seq_len=2048, dtype=torch.bfloat16,
                     device="cuda", quantized=False) -> PagedKVCache:
-    if quantized:
-        raise NotImplementedError("int8/fp8 KV pools are not ported yet")
+    """``quantized``: False (a ``dtype`` pool), True or "int8" (int8 values
+    + merged per-(token, head) bf16 scales), or "fp8" (float8_e4m3fn, no
+    scales)."""
+    if quantized not in (False, True, "int8", "fp8"):
+        raise ValueError(f"quantized must be False, True, 'int8' or 'fp8', got {quantized!r}")
     ppr = cdiv(max_seq_len, page_size)
     T = num_pages * page_size
-    pool = KVPool(
-        pages=torch.zeros((num_layers, 2, T, num_kv_heads * head_dim), dtype=dtype,
-                          device=device),
-        page_size=page_size, num_kv_heads=num_kv_heads, head_dim=head_dim,
-    )
+    shape = (num_layers, 2, T, num_kv_heads * head_dim)
+    scales = None
+    if quantized == "fp8":
+        dtype = torch.float8_e4m3fn
+    elif quantized:
+        if num_kv_heads > SCALE_HALF:
+            raise ValueError(
+                f"int8 KV cache supports num_kv_heads <= {SCALE_HALF}: the merged scale rows "
+                f"pack K and V scales into one {SCALE_LANES}-lane slab. Use bf16 KV for "
+                "wider-MHA models.")
+        dtype = torch.int8
+        scales = torch.zeros((num_layers, T, SCALE_LANES), dtype=torch.bfloat16, device=device)
+    pool = KVPool(pages=torch.zeros(shape, dtype=dtype, device=device), page_size=page_size,
+                  num_kv_heads=num_kv_heads, head_dim=head_dim, scales=scales)
     return PagedKVCache(
         kv_pages=pool,
         page_table=torch.zeros((max_reqs, ppr), dtype=torch.int32, device=device),
@@ -227,7 +278,8 @@ def push_pages(cache: PagedKVCache, pages: torch.Tensor, valid: torch.Tensor):
 
 def kv_write_prefill(kv: KVPool, layer: int, k_new, v_new, table_rows, start_pos, lens):
     """Scatter a prefill chunk's K/V [B, S, Hkv, D] into the pool in place.
-    Pad positions (s >= lens[b]) are dropped."""
+    Pad positions (s >= lens[b]) are dropped. An int8 pool quantizes per
+    (token, head) on the way in."""
     B, S = k_new.shape[0], k_new.shape[1]
     ps = kv.page_size
     ppr = table_rows.shape[1]
@@ -238,8 +290,13 @@ def kv_write_prefill(kv: KVPool, layer: int, k_new, v_new, table_rows, start_pos
     valid = (s[None, :] < lens[:, None]) & (rows < kv.num_tokens)
     HD = kv.pages.shape[-1]
     r = rows[valid]
-    kv.pages[layer, 0, r] = k_new[valid].reshape(-1, HD).to(kv.pages.dtype)
-    kv.pages[layer, 1, r] = v_new[valid].reshape(-1, HD).to(kv.pages.dtype)
+    k, v = k_new[valid], v_new[valid]  # [N, Hkv, D]
+    if kv.quantized:
+        (k, ksc), (v, vsc) = _quantize_kv(k), _quantize_kv(v)
+        kv.scales[layer, r] = _scale_rows(ksc, vsc)
+    pages = byte_view(kv.pages)
+    pages[layer, 0, r] = _cast_kv(k.reshape(-1, HD), kv.pages.dtype)
+    pages[layer, 1, r] = _cast_kv(v.reshape(-1, HD), kv.pages.dtype)
     return kv
 
 
@@ -264,8 +321,12 @@ def kv_write_decode_all(kv: KVPool, k_all, v_all, table_rows, pos, active=None):
         keep = keep & active
     rows_c = rows.clamp(0, T - 1)
     keep3 = keep[None, :, None]
+    if kv.quantized:
+        (k_all, ksc), (v_all, vsc) = _quantize_kv(k_all), _quantize_kv(v_all)
+        kv.scales[:, rows_c] = torch.where(keep3, _scale_rows(ksc, vsc), kv.scales[:, rows_c])
+    pages = byte_view(kv.pages)
     for half, val in ((0, k_all), (1, v_all)):
-        old = kv.pages[:, half, rows_c]
-        new = val.reshape(L, B, HD).to(kv.pages.dtype)
-        kv.pages[:, half, rows_c] = torch.where(keep3, new, old)
+        old = pages[:, half, rows_c]
+        new = _cast_kv(val.reshape(L, B, HD), kv.pages.dtype)
+        pages[:, half, rows_c] = torch.where(keep3, new, old)
     return kv

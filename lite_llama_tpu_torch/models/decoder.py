@@ -16,18 +16,27 @@ the pool once after the loop. The projections are plain matrix products
 (``torch.matmul``), as the JAX package leaves them to XLA; norms, SwiGLU and
 attention go through ``ops`` (the hand-written kernels on the card).
 
-Not ported yet, and refused with NotImplementedError: sharding (tp/cp/dp),
-fused QKV, quantized weights and ``inputs_embeds`` (LLaVA).
+Quantized weights (``quant/qtensor.py`` QTensor leaves, from
+``quantize_decoder_params``) go through ``qeinsum`` on every projection:
+each layer reads its slice of the stacked QTensor by index, so packed int4
+rides the W4A8 kernel (K6) without a per-layer copy. A fused ``wqkv``
+(``fuse_qkv_params``) and the flat riffle ``gate_up_proj`` [L, H, 2I] are
+taken as the JAX decoder takes them.
+
+Not ported yet, and refused with NotImplementedError: sharding (tp/cp/dp)
+and ``inputs_embeds`` (LLaVA).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
 from .. import ops
 from ..executor.kv_cache import KVPool, kv_write_decode_all, kv_write_prefill
+from ..quant.qtensor import QTensor, qeinsum
 from .rotary import compute_inv_freq_dual
 
 
@@ -85,15 +94,52 @@ def init_decoder_params(cfg, generator: torch.Generator, scale: float = 0.02) ->
     return params
 
 
+def fuse_qkv_params(params: dict) -> dict:
+    """Fuse wq + wkv into one ``wqkv [L, H, Nq+2*Nkv, D]`` weight (and the
+    biases into ``qkv_bias``): one projection per layer instead of two.
+    Works on plain tensors and on QTensors, whose bytes and (paired) scales
+    concatenate along the flat output axis; riffle-packed QTensors cannot be
+    byte-fused (``quantize_decoder_params(riffle=True)`` fuses before
+    packing). Returns a new tree; a no-op if already fused. The JAX
+    package's one-device order (tp = 1); its shard-periodic order for tensor
+    parallelism waits for multi-GPU."""
+    if "wqkv" in params["layers"] or "wq" not in params["layers"]:
+        return params
+    layers = dict(params["layers"])
+    wq, wkv = layers.pop("wq"), layers.pop("wkv")
+    if isinstance(wq, QTensor):
+        if wq.riffle_groups or wkv.riffle_groups:
+            raise ValueError("cannot byte-fuse riffle-packed wq/wkv: quantize_decoder_params"
+                             "(riffle=True) fuses the weights before packing instead")
+        H = wq.q.shape[1]
+        Nq, D = wq.out_shape
+        Nkv = wkv.out_shape[-2]
+        layers["wqkv"] = QTensor(
+            q=torch.cat([wq.q, wkv.q], dim=-1), scale=torch.cat([wq.scale, wkv.scale], dim=-1),
+            unit_shape=(H, Nq + 2 * Nkv, D), out_shape=(Nq + 2 * Nkv, D), packed=wq.packed)
+    else:
+        L, H, Nq, D = wq.shape
+        Nkv = wkv.shape[3]
+        layers["wqkv"] = torch.cat([wq, wkv.reshape(L, H, 2 * Nkv, D)], dim=2)
+    if "q_bias" in layers:
+        qb, kvb = layers.pop("q_bias"), layers.pop("kv_bias")
+        layers["qkv_bias"] = torch.cat([qb, kvb.reshape(kvb.shape[0], -1, kvb.shape[-1])], dim=1)
+    return dict(params, layers=layers)
+
+
 def _unstack_layers(params: dict):
-    """Per-layer views of the stacked weights, one ``unbind`` per key."""
+    """Per-layer views of the stacked weights: one ``unbind`` per plain key,
+    and each QTensor at its layer index (still stacked, no copy)."""
     layers = params["layers"]
-    for name in ("wqkv", "qkv_bias"):
-        if name in layers:
-            raise NotImplementedError("fused QKV weights are not ported yet")
-    keys = list(layers)
-    cols = [torch.unbind(layers[k], 0) for k in keys]
-    return [dict(zip(keys, vals)) for vals in zip(*cols)]
+    plain = [k for k in layers if not isinstance(layers[k], QTensor)]
+    quant = [k for k in layers if isinstance(layers[k], QTensor)]
+    cols = [torch.unbind(layers[k], 0) for k in plain]
+    L = layers[(plain or quant)[0]].shape[0]
+    out = [dict(zip(plain, vals)) for vals in zip(*cols)] if plain else [{} for _ in range(L)]
+    for li, lp in enumerate(out):
+        for k in quant:
+            lp[k] = layers[k].at_layer(li)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -101,17 +147,35 @@ def _unstack_layers(params: dict):
 
 
 def _project_qkv(cfg, lp, x):
-    """x [..., H] -> q [..., Nq, D], k/v [..., Nkv, D]."""
+    """x [..., H] -> q [..., Nq, D], k/v [..., Nkv, D], from wq + wkv or the
+    fused wqkv."""
     Nq, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     H = x.shape[-1]
     batch = x.shape[:-1]
-    q = torch.matmul(x, lp["wq"].reshape(H, Nq * D)).view(*batch, Nq, D)
-    kv = torch.matmul(x, lp["wkv"].reshape(H, 2 * Nkv * D)).view(*batch, 2, Nkv, D)
-    if "q_bias" in lp:
-        q = q + lp["q_bias"]
-        kv = kv + lp["kv_bias"]
-    k = kv[..., 0, :, :]
-    v = kv[..., 1, :, :]
+    if "wqkv" in lp:
+        w = lp["wqkv"]
+        if isinstance(w, QTensor):
+            qkv = qeinsum("...h,hnd->...nd", x, w)
+        else:
+            qkv = torch.matmul(x, w.reshape(H, -1)).view(*batch, Nq + 2 * Nkv, D)
+        if "qkv_bias" in lp:
+            qkv = qkv + lp["qkv_bias"]
+        q, k, v = qkv[..., :Nq, :], qkv[..., Nq:Nq + Nkv, :], qkv[..., Nq + Nkv:, :]
+    else:
+        wq, wkv = lp["wq"], lp["wkv"]
+        if isinstance(wq, QTensor):
+            q = qeinsum("...h,hnd->...nd", x, wq)
+        else:
+            q = torch.matmul(x, wq.reshape(H, Nq * D)).view(*batch, Nq, D)
+        if isinstance(wkv, QTensor):
+            kv = qeinsum("...h,hcnd->...cnd", x, wkv)
+        else:
+            kv = torch.matmul(x, wkv.reshape(H, 2 * Nkv * D)).view(*batch, 2, Nkv, D)
+        if "q_bias" in lp:
+            q = q + lp["q_bias"]
+            kv = kv + lp["kv_bias"]
+        k = kv[..., 0, :, :]
+        v = kv[..., 1, :, :]
     if "q_norm" in lp:
         q = ops.rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
         k = ops.rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
@@ -119,24 +183,46 @@ def _project_qkv(cfg, lp, x):
 
 
 def _mlp(lp, x):
-    w = lp["gate_up_proj"]  # [2, H, I]
-    out = ops.swiglu(torch.matmul(x, w[0]), torch.matmul(x, w[1]))
-    return torch.matmul(out, lp["down_proj"])
+    w = lp["gate_up_proj"]  # [2, H, I]; quantized riffle: flat [H, 2I] = [gate | up]
+    if isinstance(w, QTensor) and w.n_stack == 1:
+        y = qeinsum("...h,hj->...j", x, w)
+        half = y.shape[-1] // 2
+        out = ops.swiglu(y[..., :half], y[..., half:])
+    elif isinstance(w, QTensor):
+        gu = qeinsum("...h,chi->...ci", x, w)
+        out = ops.swiglu(gu[..., 0, :], gu[..., 1, :])
+    else:
+        out = ops.swiglu(torch.matmul(x, w[0]), torch.matmul(x, w[1]))
+    down = lp["down_proj"]
+    if isinstance(down, QTensor):
+        return qeinsum("...i,ih->...h", out, down)
+    return torch.matmul(out, down)
 
 
 def _attn_out(lp, attn):
+    w = lp["o_proj"]
+    if isinstance(w, QTensor):
+        return qeinsum("...nd,ndh->...h", attn, w)
     flat = attn.reshape(*attn.shape[:-2], -1)
-    return torch.matmul(flat, lp["o_proj"].reshape(flat.shape[-1], -1))
+    return torch.matmul(flat, w.reshape(flat.shape[-1], -1))
 
 
 def _unembed(params, cfg, normed):
-    """fp32 logits, as the JAX package computes them. Untied: the product in
+    """fp32 logits, as the JAX package computes them. A quantized head:
+    qeinsum with fp32 output. Untied: the product in
     the activation dtype, then fp32 (the JAX einsum returns the activation
     dtype). Tied: fp32 accumulation AND fp32 output, with no bf16 rounding
     of the logits (cuBLAS's ``out_dtype`` on the card; an fp32 product on the
     CPU, where only the tests run)."""
-    if "lm_head" in params:
-        return torch.matmul(normed, params["lm_head"]).float()
+    w = params.get("lm_head")
+    if isinstance(w, QTensor):
+        if w.packed and w.layer is None:
+            # The packed head runs as layer 0 of a 1-deep stack: the
+            # largest matmul of the step streams through K6 too.
+            w = dataclasses.replace(w, q=w.q[None], scale=w.scale[None], layer=0)
+        return qeinsum("...h,hv->...v", normed, w, out_dtype=torch.float32)
+    if w is not None:
+        return torch.matmul(normed, w).float()
     emb_t = params["embed"].t()
     flat = normed.reshape(-1, normed.shape[-1])
     if flat.dtype == torch.float32:

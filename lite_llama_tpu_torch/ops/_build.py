@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Set, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("paged_decode", "flash_prefill")
+SOURCES = ("paged_decode", "flash_prefill", "qmatmul")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -2,7 +2,8 @@
 
 K1 replaces the TPU kernel ``paged_flash_decode`` / ``_decode_kernel`` with
 the CUDA kernel ``csrc/paged_decode.cu`` (its header says what bounds it and
-how it is laid out). The kernel reads K/V through the page table straight
+how it is laid out); K1q, its int8 and fp8 pool instances, replace the
+kernel's quantized-pool branches (one launcher and launch count each). The kernel reads K/V through the page table straight
 out of the pool ``[L, 2, T, Hkv*D]`` and returns ``out`` with the
 online-softmax state ``(m, l)``; the newest token of a decode step is not in
 the pool yet and is folded in outside the kernel (``ref.fold_new_token``),
@@ -19,19 +20,27 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import LOG2E, NEG_INF, cdiv_int, fold_new_token
+from .ref import LOG2E, NEG_INF, SCALE_HALF, cdiv_int, fold_new_token, pool_rows
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p,
 ]
+# Pool dtype -> the kernel instance (C entry) that reads it.
+_ENTRIES = {torch.bfloat16: "paged_decode_bf16", torch.int8: "paged_decode_int8",
+            torch.float8_e4m3fn: "paged_decode_fp8"}
 
 
-def paged_decode_state_plain(q, pages, page_size, layer, page_table, kv_lens, sm_scale):
-    """Plain version of K1: (out [B, Nq, D] in q's dtype, m, l [B, Nq] fp32),
-    exp2 domain with sm_scale*log2(e) folded into q, q and P rounded to bf16
-    before their products when q is bf16 (as the TPU kernel does). kv_lens
-    == 0 gives m = -1e30, l = 0, out = 0."""
+def paged_decode_state_plain(q, pages, page_size, layer, page_table, kv_lens, sm_scale,
+                             scales=None):
+    """Plain version of K1 and K1q: (out [B, Nq, D] in q's dtype, m, l
+    [B, Nq] fp32), exp2 domain with sm_scale*log2(e) folded into q, q and P
+    rounded to bf16 before their products when q is bf16 (as the TPU kernel
+    does). kv_lens == 0 gives m = -1e30, l = 0, out = 0. An int8 pool
+    (``scales`` [L, T, 128]) is dequantized in the score domain: the K scale
+    multiplies the score, l sums the unscaled P, and P times the V scale
+    (rounded like P) meets the integer V values. fp8 values convert
+    exactly."""
     B, Nq, D = q.shape
     T, HD = pages.shape[2], pages.shape[3]
     Hkv = HD // D
@@ -44,61 +53,89 @@ def paged_decode_state_plain(q, pages, page_size, layer, page_table, kv_lens, sm
     off = torch.arange(ps, device=pages.device)
     rows = (pt[:, :, None] * ps + off).reshape(B, n_pages * ps).clamp(0, T - 1)
     S = rows.shape[1]
-    kv = pages[layer][:, rows].float().reshape(2, B, S, Hkv, D)
+    kv = pool_rows(pages, layer, rows).float().reshape(2, B, S, Hkv, D)
     s = torch.einsum("bhgd,bshd->bhgs", qs, kv[0])
+    if scales is not None:
+        sc = scales[layer][rows].float()  # [B, S, 128]
+        ksc = sc[..., :Hkv].permute(0, 2, 1)[:, :, None, :]  # [B, Hkv, 1, S]
+        vsc = sc[..., SCALE_HALF:SCALE_HALF + Hkv].permute(0, 2, 1)[:, :, None, :]
+        s = s * ksc
     valid = (torch.arange(S, device=q.device)[None, :] < kv_lens[:, None])[:, None, None, :]
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.where(valid, torch.exp2(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p.to(mat).float(), kv[1])
+    pv = p * vsc if scales is not None else p
+    out = torch.einsum("bhgs,bshd->bhgd", pv.to(mat).float(), kv[1])
     out = out / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Nq, D).to(q.dtype), m.reshape(B, Nq), l.reshape(B, Nq)
 
 
-def launch_paged_decode(q, pages, page_size, layer, page_table, kv_lens, sm_scale):
-    """K1 on the card: (out, m, l) as :func:`paged_decode_state_plain`."""
-    B, Nq, D = q.shape
-    L, two, T, HD = pages.shape
-    if not (q.is_cuda and pages.device == q.device and page_table.device == q.device
-            and kv_lens.device == q.device):
-        raise ValueError("paged_decode kernel: all tensors must be on one CUDA device")
-    if q.dtype != torch.bfloat16 or pages.dtype != torch.bfloat16:
-        raise ValueError("paged_decode kernel takes a bf16 query and a bf16 pool")
-    if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
-        raise ValueError("paged_decode kernel: page_table and kv_lens must be int32")
-    if D not in (64, 128) or two != 2 or HD % D or Nq % (HD // D) or Nq // (HD // D) > 8:
-        raise ValueError(f"paged_decode kernel: unsupported shape q={tuple(q.shape)} "
-                         f"pool={tuple(pages.shape)}")
-    if not (q.is_contiguous() and pages.is_contiguous() and page_table.is_contiguous()
-            and kv_lens.is_contiguous()) or page_table.shape[0] != B or kv_lens.shape != (B,):
-        raise ValueError("paged_decode kernel: contiguous q [B,Nq,D], page_table [B,ppr], "
-                         "kv_lens [B] required")
-    if not 0 <= int(layer) < L:
-        raise ValueError(f"paged_decode kernel: layer {layer} out of range")
-    out = torch.empty_like(q)
-    m = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
-    if B:
-        lib = _build.library("paged_decode", "paged_decode_bf16", _ARGTYPES)
-        code = lib.paged_decode_bf16(
-            q.data_ptr(), pages.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, Nq, HD // D, D, T, int(layer), page_size, page_table.shape[1],
-            float(sm_scale * LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-        _build.check(lib, code, "paged_decode")
-        launch_paged_decode.launches += 1
-    return out, m, l
+def _decode_launcher(pool_dtype):
+    entry = _ENTRIES[pool_dtype]
+
+    def launch(q, pages, page_size, layer, page_table, kv_lens, sm_scale, scales=None):
+        B, Nq, D = q.shape
+        L, two, T, HD = pages.shape
+        if not (q.is_cuda and pages.device == q.device and page_table.device == q.device
+                and kv_lens.device == q.device):
+            raise ValueError("paged_decode kernel: all tensors must be on one CUDA device")
+        if q.dtype != torch.bfloat16 or pages.dtype != pool_dtype:
+            raise ValueError(f"{entry} kernel takes a bf16 query and a {pool_dtype} pool, got "
+                             f"{q.dtype} and {pages.dtype}")
+        if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
+            raise ValueError("paged_decode kernel: page_table and kv_lens must be int32")
+        if D not in (64, 128) or two != 2 or HD % D or Nq % (HD // D) or Nq // (HD // D) > 8:
+            raise ValueError(f"paged_decode kernel: unsupported shape q={tuple(q.shape)} "
+                             f"pool={tuple(pages.shape)}")
+        if not (q.is_contiguous() and pages.is_contiguous() and page_table.is_contiguous()
+                and kv_lens.is_contiguous()) or page_table.shape[0] != B or kv_lens.shape != (B,):
+            raise ValueError("paged_decode kernel: contiguous q [B,Nq,D], page_table [B,ppr], "
+                             "kv_lens [B] required")
+        if not 0 <= int(layer) < L:
+            raise ValueError(f"paged_decode kernel: layer {layer} out of range")
+        if (scales is not None) != (pool_dtype == torch.int8):
+            raise ValueError("paged_decode kernel: an int8 pool needs its scales, other pools "
+                             "have none")
+        if scales is not None and (scales.shape != (L, T, 2 * SCALE_HALF)
+                                   or scales.dtype != torch.bfloat16
+                                   or not scales.is_contiguous() or scales.device != q.device):
+            raise ValueError(f"paged_decode kernel: scales must be bf16 [{L}, {T}, "
+                             f"{2 * SCALE_HALF}], got {scales.dtype} {tuple(scales.shape)}")
+        out = torch.empty_like(q)
+        m = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
+        l = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
+        if B:
+            lib = _build.library("paged_decode", entry, _ARGTYPES)
+            code = getattr(lib, entry)(
+                q.data_ptr(), pages.data_ptr(), None if scales is None else scales.data_ptr(),
+                page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), m.data_ptr(),
+                l.data_ptr(), B, Nq, HD // D, D, T, int(layer), page_size, page_table.shape[1],
+                float(sm_scale * LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
+            )
+            _build.check(lib, code, entry)
+            launch.launches += 1
+        return out, m, l
+
+    launch.__name__ = f"launch_{entry}"
+    launch.__doc__ = (f"K1{'' if pool_dtype == torch.bfloat16 else 'q'} on the card for a "
+                      f"{pool_dtype} pool: (out, m, l) as :func:`paged_decode_state_plain`.")
+    launch.launches = 0
+    return launch
 
 
-launch_paged_decode.launches = 0
+launch_paged_decode = _decode_launcher(torch.bfloat16)
+launch_paged_decode_int8 = _decode_launcher(torch.int8)
+launch_paged_decode_fp8 = _decode_launcher(torch.float8_e4m3fn)
+_LAUNCHERS = {torch.bfloat16: launch_paged_decode, torch.int8: launch_paged_decode_int8,
+              torch.float8_e4m3fn: launch_paged_decode_fp8}
 
 
 def paged_flash_decode(q, kv_pool, layer, page_table, seq_lens, sm_scale=None,
                        k_new=None, v_new=None, return_state=False):
     """Decode attention, one query per request: q [B, Nq, D] against the
-    pool's ``layer`` through ``page_table`` [B, ppr] int32, bounded by
+    pool's ``layer`` (bf16, int8 with scales, or fp8) through ``page_table``
+    [B, ppr] int32, bounded by
     ``seq_lens`` [B]. With ``k_new``/``v_new`` [B, Hkv, D] the pool holds
     seq_lens - 1 tokens and the newest token is folded in exactly.
     ``return_state`` returns (out, m, l) instead (no new token)."""
@@ -107,9 +144,13 @@ def paged_flash_decode(q, kv_pool, layer, page_table, seq_lens, sm_scale=None,
         sm_scale = 1.0 / (D**0.5)
     kv_lens = seq_lens if k_new is None else torch.clamp(seq_lens - 1, min=0)
     kv_lens = kv_lens.to(torch.int32)
-    args = (q, kv_pool.pages, kv_pool.page_size, layer, page_table, kv_lens, sm_scale)
+    args = (q, kv_pool.pages, kv_pool.page_size, layer, page_table, kv_lens, sm_scale,
+            kv_pool.scales)
     if q.is_cuda:
-        out, m, l = launch_paged_decode(*args)
+        launch = _LAUNCHERS.get(kv_pool.pages.dtype)
+        if launch is None:
+            raise ValueError(f"paged_decode kernel: no instance for a {kv_pool.pages.dtype} pool")
+        out, m, l = launch(*args)
     else:
         out, m, l = paged_decode_state_plain(*args)
     if return_state:

@@ -1,12 +1,14 @@
 """Ragged causal flash attention for prefill, fresh and chunked over the
 paged pool's history (port of ``lite_llama_tpu/ops/attention_prefill.py``,
-the ``flash_prefill`` and ``flash_prefill_chunked`` entries).
+the ``flash_prefill`` and ``flash_prefill_chunked`` entries, bf16, int8 and fp8
+pools).
 
 Both TPU entries run one kernel, ``_prefill_kernel``, and so do their
 ports: ``csrc/flash_prefill.cu`` (its header says what bounds it and how it
 is laid out) is instantiated without history for K2 (``flash_prefill`` ->
 ``_flash_prefill_impl``, ``has_history=False``) and with it for K5
-(``flash_prefill_chunked``, ``has_history=True``).
+(``flash_prefill_chunked``, ``has_history=True``) and K5q, its int8 and fp8
+pool instances (one launcher and launch count each).
 
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version: ``ops/ref.py`` ``prefill_attention`` for K2,
@@ -21,10 +23,10 @@ import ctypes
 import torch
 
 from . import _build, ref
-from .ref import LOG2E, NEG_INF, cdiv_int
+from .ref import LOG2E, NEG_INF, SCALE_HALF, cdiv_int, pool_rows
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-_CHUNKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+_CHUNKED_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
@@ -82,14 +84,16 @@ def flash_prefill(q, k, v, seq_lens, sm_scale=None):
 
 
 def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size, layer,
-                                table_rows, sm_scale):
-    """Plain version of K5: (out [B, S, Nq, D] in q's dtype, m, l [B, S, Nq]
-    fp32). Row s of request b attends the pool history [0, start_pos[b])
-    read through ``table_rows[b]`` from ``pages`` [L, 2, T, Hkv*D], then the
-    chunk's keys p <= s, p < chunk_lens[b]. Exp2 domain with
-    sm_scale*log2(e) folded into q; q and P are rounded to bf16 before their
-    products when q is bf16, as the TPU kernel does. A row with nothing to
-    attend gives out = 0, m = -1e30, l = 0."""
+                                table_rows, sm_scale, scales=None):
+    """Plain version of K5 and K5q: (out [B, S, Nq, D] in q's dtype, m, l
+    [B, S, Nq] fp32). Row s of request b attends the pool history
+    [0, start_pos[b]) read through ``table_rows[b]`` from ``pages``
+    [L, 2, T, Hkv*D], then the chunk's keys p <= s, p < chunk_lens[b]. Exp2
+    domain with sm_scale*log2(e) folded into q; q and P are rounded to bf16
+    before their products when q is bf16, as the TPU kernel does. An int8
+    pool's history rows (``scales`` [L, T, 128]) are dequantized whole,
+    value times scale rounded once to q's matmul dtype; fp8 converts
+    exactly. A row with nothing to attend gives out = 0, m = -1e30, l = 0."""
     B, S, Nq, D = q.shape
     Hkv = k.shape[2]
     G = Nq // Hkv
@@ -105,7 +109,11 @@ def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size
     rows = (table_rows[:, :n_pages].long()[:, :, None] * ps + off).reshape(B, -1)
     rows = rows.clamp(0, T - 1)
     Th = rows.shape[1]
-    hist = pages[layer][:, rows].float().reshape(2, B, Th, Hkv, D)
+    hist = pool_rows(pages, layer, rows).float().reshape(2, B, Th, Hkv, D)
+    if scales is not None:
+        srow = scales[layer][rows].float()  # [B, Th, SCALE_LANES]
+        sc = torch.stack([srow[..., :Hkv], srow[..., SCALE_HALF:SCALE_HALF + Hkv]])
+        hist = (hist * sc[..., None]).to(mat).float()
     keys = torch.cat([hist[0], k.float()], dim=1)  # [B, Th + S, Hkv, D]
     vals = torch.cat([hist[1], v.float()], dim=1)
     s = torch.einsum("bshgd,bthd->bhgst", qs, keys)
@@ -124,52 +132,83 @@ def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size
     return out, m.permute(0, 3, 1, 2).reshape(B, S, Nq), l.permute(0, 3, 1, 2).reshape(B, S, Nq)
 
 
-def launch_flash_prefill_chunked(q, k, v, chunk_lens, start_pos, pages, page_size, layer,
-                                 table_rows, sm_scale, return_state=False):
-    """K5 on the card: (out, m, l) as :func:`chunked_prefill_state_plain`,
-    with m and l None unless ``return_state``."""
-    B, S, Nq, D = q.shape
-    Hkv = k.shape[2]
-    if not all(t.is_cuda and t.device == q.device
-               for t in (q, k, v, chunk_lens, start_pos, pages, table_rows)):
-        raise ValueError("flash_prefill_chunked kernel: all tensors must be on one CUDA device")
-    _check_qkv("flash_prefill_chunked", q, k, v)
-    L, two, T, HD = pages.shape
-    if pages.dtype != torch.bfloat16 or two != 2 or HD != Hkv * D:
-        raise ValueError(f"flash_prefill_chunked kernel: bf16 pool [L, 2, T, {Hkv * D}] "
-                         f"required, got {pages.dtype} {tuple(pages.shape)}")
-    if (chunk_lens.dtype != torch.int32 or start_pos.dtype != torch.int32
-            or table_rows.dtype != torch.int32 or chunk_lens.shape != (B,)
-            or start_pos.shape != (B,) or table_rows.dim() != 2 or table_rows.shape[0] != B):
-        raise ValueError("flash_prefill_chunked kernel: int32 chunk_lens [B], start_pos [B] "
-                         "and table_rows [B, ppr] required")
-    if not 0 <= int(layer) < L or page_size <= 0:
-        raise ValueError(f"flash_prefill_chunked kernel: layer {layer} or page_size "
-                         f"{page_size} out of range")
-    if not pages.is_contiguous():
-        raise ValueError("flash_prefill_chunked kernel: the pool must be contiguous")
-    q, k, v, chunk_lens, start_pos, table_rows = (
-        t.contiguous() for t in (q, k, v, chunk_lens, start_pos, table_rows))
-    out = torch.empty_like(q)
-    m = l = None
-    if return_state:
-        m = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
-        l = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
-    if B and S:
-        lib = _build.library("flash_prefill", "flash_prefill_chunked_bf16", _CHUNKED_ARGTYPES)
-        code = lib.flash_prefill_chunked_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), chunk_lens.data_ptr(),
-            start_pos.data_ptr(), pages.data_ptr(), table_rows.data_ptr(), out.data_ptr(),
-            None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
-            B, S, Nq, Hkv, D, float(sm_scale * LOG2E), T, int(layer), page_size,
-            table_rows.shape[1], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-        _build.check(lib, code, "flash_prefill_chunked")
-        launch_flash_prefill_chunked.launches += 1
-    return out, m, l
+# Pool dtype -> the history instance (C entry) that reads it.
+_CHUNKED_ENTRIES = {torch.bfloat16: "flash_prefill_chunked_bf16",
+                    torch.int8: "flash_prefill_chunked_int8",
+                    torch.float8_e4m3fn: "flash_prefill_chunked_fp8"}
 
 
-launch_flash_prefill_chunked.launches = 0
+def _chunked_launcher(pool_dtype):
+    entry = _CHUNKED_ENTRIES[pool_dtype]
+
+    def launch(q, k, v, chunk_lens, start_pos, pages, page_size, layer, table_rows, sm_scale,
+               scales=None, return_state=False):
+        B, S, Nq, D = q.shape
+        Hkv = k.shape[2]
+        if not all(t.is_cuda and t.device == q.device
+                   for t in (q, k, v, chunk_lens, start_pos, pages, table_rows)):
+            raise ValueError("flash_prefill_chunked kernel: all tensors must be on one CUDA "
+                             "device")
+        _check_qkv("flash_prefill_chunked", q, k, v)
+        L, two, T, HD = pages.shape
+        if pages.dtype != pool_dtype or two != 2 or HD != Hkv * D:
+            raise ValueError(f"{entry} kernel: {pool_dtype} pool [L, 2, T, {Hkv * D}] "
+                             f"required, got {pages.dtype} {tuple(pages.shape)}")
+        if (chunk_lens.dtype != torch.int32 or start_pos.dtype != torch.int32
+                or table_rows.dtype != torch.int32 or chunk_lens.shape != (B,)
+                or start_pos.shape != (B,) or table_rows.dim() != 2
+                or table_rows.shape[0] != B):
+            raise ValueError("flash_prefill_chunked kernel: int32 chunk_lens [B], start_pos "
+                             "[B] and table_rows [B, ppr] required")
+        if not 0 <= int(layer) < L or page_size <= 0:
+            raise ValueError(f"flash_prefill_chunked kernel: layer {layer} or page_size "
+                             f"{page_size} out of range")
+        if not pages.is_contiguous():
+            raise ValueError("flash_prefill_chunked kernel: the pool must be contiguous")
+        if (scales is not None) != (pool_dtype == torch.int8):
+            raise ValueError("flash_prefill_chunked kernel: an int8 pool needs its scales, "
+                             "other pools have none")
+        if scales is not None and (scales.shape != (L, T, 2 * SCALE_HALF)
+                                   or scales.dtype != torch.bfloat16
+                                   or not scales.is_contiguous() or scales.device != q.device):
+            raise ValueError(f"flash_prefill_chunked kernel: scales must be bf16 [{L}, {T}, "
+                             f"{2 * SCALE_HALF}], got {scales.dtype} {tuple(scales.shape)}")
+        q, k, v, chunk_lens, start_pos, table_rows = (
+            t.contiguous() for t in (q, k, v, chunk_lens, start_pos, table_rows))
+        out = torch.empty_like(q)
+        m = l = None
+        if return_state:
+            m = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
+            l = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
+        if B and S:
+            lib = _build.library("flash_prefill", entry, _CHUNKED_ARGTYPES)
+            code = getattr(lib, entry)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), chunk_lens.data_ptr(),
+                start_pos.data_ptr(), pages.data_ptr(),
+                None if scales is None else scales.data_ptr(), table_rows.data_ptr(),
+                out.data_ptr(), None if m is None else m.data_ptr(),
+                None if l is None else l.data_ptr(), B, S, Nq, Hkv, D,
+                float(sm_scale * LOG2E), T, int(layer), page_size, table_rows.shape[1],
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+            _build.check(lib, code, entry)
+            launch.launches += 1
+        return out, m, l
+
+    launch.__name__ = f"launch_{entry}"
+    launch.__doc__ = (f"K5{'' if pool_dtype == torch.bfloat16 else 'q'} on the card for a "
+                      f"{pool_dtype} pool: (out, m, l) as :func:`chunked_prefill_state_plain`, "
+                      "with m and l None unless ``return_state``.")
+    launch.launches = 0
+    return launch
+
+
+launch_flash_prefill_chunked = _chunked_launcher(torch.bfloat16)
+launch_flash_prefill_chunked_int8 = _chunked_launcher(torch.int8)
+launch_flash_prefill_chunked_fp8 = _chunked_launcher(torch.float8_e4m3fn)
+_CHUNKED_LAUNCHERS = {torch.bfloat16: launch_flash_prefill_chunked,
+                      torch.int8: launch_flash_prefill_chunked_int8,
+                      torch.float8_e4m3fn: launch_flash_prefill_chunked_fp8}
 
 
 def flash_prefill_chunked(q, k, v, chunk_lens, start_pos, kv_pool, layer, table_rows,
@@ -185,9 +224,13 @@ def flash_prefill_chunked(q, k, v, chunk_lens, start_pos, kv_pool, layer, table_
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     args = (q, k, v, chunk_lens.to(torch.int32), start_pos.to(torch.int32), kv_pool.pages,
-            kv_pool.page_size, layer, table_rows.to(torch.int32), sm_scale)
+            kv_pool.page_size, layer, table_rows.to(torch.int32), sm_scale, kv_pool.scales)
     if q.is_cuda:
-        out, m, l = launch_flash_prefill_chunked(*args, return_state=return_state)
+        launch = _CHUNKED_LAUNCHERS.get(kv_pool.pages.dtype)
+        if launch is None:
+            raise ValueError(f"flash_prefill_chunked kernel: no instance for a "
+                             f"{kv_pool.pages.dtype} pool")
+        out, m, l = launch(*args, return_state=return_state)
     else:
         out, m, l = chunked_prefill_state_plain(*args)
     return (out, m, l) if return_state else out

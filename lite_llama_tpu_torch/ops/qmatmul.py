@@ -1,0 +1,271 @@
+"""W4A8 and W8A8 weight matmuls (port of ``lite_llama_tpu/ops/qmatmul.py``).
+
+K6 replaces the TPU kernel ``quantized_matmul_packed`` / ``_qmm_kernel`` and
+K7 ``quantized_matmul_int8`` / ``_qmm8_kernel``; both are the CUDA kernel of
+``csrc/qmatmul.cu`` (its header says what bounds it and how it is laid out).
+Activations are quantized per row to int8 (``quantize_activations``, which
+the JAX package leaves to XLA: plain PyTorch on the CPU, one small kernel of
+the same source on the card, which the plain version's arithmetic pins);
+the kernels then run exact integer dots on the raw weight bytes:
+
+- W4A8 (packed int4, ``byte = 16*hi + (lo + 8)``): ``g0 = x.b``,
+  ``g1 = x.(b & 15)`` per scale group, then ``lo = g1 - 8*sum(x_g)`` and
+  ``hi = (g0 - g1)/16`` folded into fp32 accumulators with the group scale.
+- W8A8 (int8 weights): one int8 dot per scale group, x the group scale.
+
+Both fold the int32 partials at every scale group, and per-channel weights
+at every ``_pick_bc`` contraction block, in the TPU kernel's order, then
+multiply by the row scale. The plain versions here repeat that arithmetic
+with exact float64 dots, so kernel and plain version agree bit for bit.
+
+A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
+takes the plain version. The routing predicate ``qmm_supported`` is the JAX
+package's at its default caps; its ``LITE_LLAMA_TPU_QMM_*`` switches are not
+ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+_BO_MAX = 512  # output-block ceiling of the TPU kernel
+_BC_MAX = 4096  # contraction-block ceiling of the TPU kernel
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_QUANTIZE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _pick_block(n: int, candidates=(512, 256, 128)) -> Optional[int]:
+    for b in candidates:
+        if b <= _BO_MAX and n % b == 0:
+            return b
+    return None
+
+
+def _pick_bc(C: int, n_groups: Optional[int]) -> Optional[int]:
+    """The TPU kernel's contraction block: per-channel scales take the
+    largest power-of-two block up to 4096 that divides C; grouped scales
+    the largest multiple of 8 groups that divides C under the cap, else
+    the whole C up to 4096."""
+    if n_groups is None or n_groups == 1:
+        return _pick_block(C, (4096, 2048, 1024, 512, 256, 128))
+    gs = C // n_groups
+    if gs == 0 or C % gs != 0:
+        return None
+    base = 8 * gs
+    if C % base == 0:
+        best = base
+        m = 2
+        while m * base <= min(C, _BC_MAX):
+            if C % (m * base) == 0:
+                best = m * base
+            m += 1
+        return best
+    if C <= 4096:
+        return C
+    return None
+
+
+def qmm_supported(C: int, Oh: int, n_groups: Optional[int], M: int) -> bool:
+    """Shapes the packed kernel takes (the JAX routing rule): at most 256
+    rows, a legal contraction block and a stored width that is a multiple of
+    128. Other shapes take the W4A16 dual dot."""
+    if M > 256:
+        return False
+    if _pick_bc(C, n_groups) is None:
+        return False
+    return Oh % 128 == 0
+
+
+def _fold_span(C: int, nG: int) -> int:
+    """Contraction rows between two folds of the int32 partials: a scale
+    group, or a per-channel weight's contraction block."""
+    if nG > 1:
+        return C // nG
+    return _pick_bc(C, None) or C
+
+
+def _quantize_rows(x: torch.Tensor):
+    # The row scale multiplies by fp32(1/127), as XLA computes a division by
+    # a constant; x is then divided by it.
+    xf = x.float()
+    xs = torch.clamp(xf.abs().amax(dim=1), min=1e-30) * (1.0 / 127.0)
+    return torch.round(xf / xs[:, None]).clamp_(-127, 127).to(torch.int8), xs
+
+
+def quantize_activations(x: torch.Tensor, n_groups: int):
+    """Per-row symmetric int8 activations: (x_i8 [M, C], x_scale fp32 [M],
+    sumx fp32 [M, n_groups]), sumx[m, g] the integer sum of row m over scale
+    group g (the kernels sum the rows themselves)."""
+    M, C = x.shape
+    xi, xs = _quantize_rows(x)
+    sumx = xi.view(M, n_groups, C // n_groups).sum(dim=2, dtype=torch.int32).float()
+    return xi, xs, sumx
+
+
+def _scales3(scale):
+    return scale[:, None, :] if scale.ndim == 2 else scale
+
+
+def _fold_loop(x, q, scale, layer, packed):
+    """The kernels' arithmetic: fp32 accumulators of the folded exact
+    integer dots, folded one span after another in order. Returns (acc_e,
+    acc_o or None, xs)."""
+    M, C = x.shape
+    nG = scale.shape[1]
+    F = _fold_span(C, nG)
+    nF = C // F
+    xi, xs = _quantize_rows(x)
+    b = q[layer]
+    Wn = b.shape[1]
+    xr = xi.double().view(M, nF, F).transpose(0, 1)  # [nF, M, F]
+    g0 = torch.bmm(xr, b.double().view(nF, F, Wn))  # exact: |sum| < 2^53
+    sg = scale[layer][torch.arange(nF, device=x.device) * F // (C // nG)]  # [nF, Wn]
+    if packed:
+        g1 = torch.bmm(xr, (b & 15).double().view(nF, F, Wn))
+        xsum = xr.sum(dim=-1, keepdim=True)
+        part = torch.stack([g1 - 8 * xsum, g0 - g1]).float()  # [2, nF, M, Wn]
+        sg = torch.stack([sg, sg * 0.0625])[:, :, None, :]
+    else:
+        part = g0.float()[None]
+        sg = sg[None, :, None, :]
+    acc = torch.zeros((part.shape[0], M, Wn), dtype=torch.float32, device=x.device)
+    for f in range(nF):
+        acc = acc + part[:, f] * sg[:, f]
+    return acc[0], (acc[1] if packed else None), xs
+
+
+def _place(ye, yo, interleave, width):
+    Wn = ye.shape[1]
+    if interleave:
+        y = torch.stack([ye, yo], dim=-1).reshape(ye.shape[0], 2 * Wn)
+    else:
+        y = torch.cat([ye, yo], dim=-1)
+    return y[:, :width]
+
+
+def quantized_matmul_packed_plain(x, q, scale, layer, out_dtype=None, interleave=True,
+                                  out_width=None):
+    """Plain version of K6 (see :func:`quantized_matmul_packed`)."""
+    out_dtype = out_dtype or x.dtype
+    scale = _scales3(scale)
+    acc_e, acc_o, xs = _fold_loop(x, q, scale, layer, packed=True)
+    ye = (acc_e * xs[:, None]).to(out_dtype)
+    yo = (acc_o * xs[:, None]).to(out_dtype)
+    return _place(ye, yo, interleave, out_width or 2 * q.shape[-1])
+
+
+def _check_cuda(what, x, q, scale):
+    if not (x.is_cuda and q.device == x.device and scale.device == x.device):
+        raise ValueError(f"{what} kernel: all tensors must be on one CUDA device")
+    if x.dtype not in (torch.bfloat16, torch.float32) or q.dtype != torch.int8:
+        raise ValueError(f"{what} kernel takes bf16/fp32 activations and int8 weight bytes")
+    if scale.dtype != torch.float32 or not (q.is_contiguous() and scale.is_contiguous()):
+        raise ValueError(f"{what} kernel takes contiguous weights and fp32 scales")
+
+
+def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle):
+    M, C = x.shape
+    Lf, Cq, Wn = q.shape
+    nG = scale.shape[1]
+    F = _fold_span(C, nG)
+    if (Cq != C or scale.shape != (Lf, nG, Wn) or not 1 <= M <= 256 or C % nG
+            or (C // nG) % 32 or F % 32 or C % F or Wn % 32 or not 0 <= int(layer) < Lf):
+        raise ValueError(f"{entry} kernel: unsupported shape x={tuple(x.shape)} "
+                         f"q={tuple(q.shape)} scale={tuple(scale.shape)} layer={layer} "
+                         "(needs M <= 256, scale groups and C a multiple of 32 rows, "
+                         "a stored width that is a multiple of 32)")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{entry} kernel writes bf16 or fp32, not {out_dtype}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    xi = torch.empty((M, C), dtype=torch.int8, device=x.device)
+    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
+    lib = _build.library("qmatmul", "qmm_quantize_rows", _QUANTIZE_ARGTYPES)
+    code = lib.qmm_quantize_rows(x.data_ptr(), int(x.dtype == torch.float32), xi.data_ptr(),
+                                 xs.data_ptr(), M, C, stream)
+    _build.check(lib, code, "qmm_quantize_rows")
+    out = torch.empty((M, out_width), dtype=out_dtype, device=x.device)
+    lib = _build.library("qmatmul", entry, _ARGTYPES)
+    code = getattr(lib, entry)(
+        xi.data_ptr(), xs.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.float32), M, C, Wn, nG, F, int(layer), out_width, out_width,
+        int(riffle), stream,
+    )
+    _build.check(lib, code, entry)
+    return out
+
+
+def launch_quantized_matmul_packed(x, q, scale, layer, out_dtype=None, interleave=True,
+                                   out_width=None):
+    """K6 on the card: [M, out_width] as :func:`quantized_matmul_packed_plain`."""
+    _check_cuda("quantized_matmul_packed", x, q, scale)
+    scale = _scales3(scale)
+    width = out_width or 2 * q.shape[-1]
+    if not 0 < width <= 2 * q.shape[-1]:
+        raise ValueError(f"quantized_matmul_packed kernel: out_width {width} out of range")
+    out = _launch("qmm_w4a8", x.contiguous(), q, scale, layer, out_dtype or x.dtype, width,
+                  not interleave)
+    launch_quantized_matmul_packed.launches += 1
+    return out
+
+
+launch_quantized_matmul_packed.launches = 0
+
+
+def quantized_matmul_packed(x, q, scale, layer, out_dtype=None, interleave=True,
+                            out_width=None):
+    """W4A8 matmul: x [M, C] bf16/fp32 against layer ``layer`` of the
+    stacked packed weight q [Lf, C, Oh] with paired scales [Lf, (nG,) Oh].
+    Returns [M, out_width] (default 2*Oh) in ``out_dtype`` (default x's):
+    canonical column order when ``interleave`` (classic packing), the
+    [evens | odds] halves otherwise (riffle packing: also canonical). Output
+    columns past ``out_width`` (lane-alignment padding) are not written."""
+    if x.is_cuda:
+        return launch_quantized_matmul_packed(x, q, scale, layer, out_dtype, interleave,
+                                              out_width)
+    return quantized_matmul_packed_plain(x, q, scale, layer, out_dtype, interleave, out_width)
+
+
+def _check_int8_shape(x, q, scale):
+    M, C = x.shape
+    O = q.shape[-1]
+    nG = _scales3(scale).shape[1]
+    if not qmm_supported(C, O, nG, M) or O % 128:
+        raise ValueError(f"quantized_matmul_int8: unsupported shape C={C}, O={O}, nG={nG}, "
+                         f"M={M} (needs O%128==0, a legal C block, M<=256)")
+
+
+def quantized_matmul_int8_plain(x, q, scale, layer, out_dtype=None):
+    """Plain version of K7 (see :func:`quantized_matmul_int8`)."""
+    _check_int8_shape(x, q, scale)
+    acc, _, xs = _fold_loop(x, q, _scales3(scale), layer, packed=False)
+    return (acc * xs[:, None]).to(out_dtype or x.dtype)
+
+
+def launch_quantized_matmul_int8(x, q, scale, layer, out_dtype=None):
+    """K7 on the card: [M, O] as :func:`quantized_matmul_int8_plain`."""
+    _check_cuda("quantized_matmul_int8", x, q, scale)
+    _check_int8_shape(x, q, scale)
+    out = _launch("qmm_w8a8", x.contiguous(), q, _scales3(scale), layer,
+                  out_dtype or x.dtype, q.shape[-1], False)
+    launch_quantized_matmul_int8.launches += 1
+    return out
+
+
+launch_quantized_matmul_int8.launches = 0
+
+
+def quantized_matmul_int8(x, q, scale, layer, out_dtype=None):
+    """W8A8 matmul: x [M, C] against layer ``layer`` of int8 weights
+    q [Lf, C, O] with scales [Lf, (nG,) O]. As in the JAX package, no model
+    path routes to it: int8 weight-only matmuls dequantize into a plain
+    dot."""
+    if x.is_cuda:
+        return launch_quantized_matmul_int8(x, q, scale, layer, out_dtype)
+    return quantized_matmul_int8_plain(x, q, scale, layer, out_dtype)

@@ -22,6 +22,10 @@ NEG_INF = -1e30
 # dense [B, Hq, S_c, T_h] scores are replaced by an online softmax over
 # HIST_BLOCK-token blocks (memory ~ S_c * HIST_BLOCK instead of S_c * T_h).
 HIST_BLOCK = 2048
+# An int8 KV pool's scales: one merged bf16 row of SCALE_LANES per (layer,
+# token), K scales in lanes [0, Hkv), V scales in [SCALE_HALF, SCALE_HALF + Hkv).
+SCALE_LANES = 128
+SCALE_HALF = SCALE_LANES // 2
 
 
 def cdiv_int(a: int, b: int) -> int:
@@ -110,11 +114,23 @@ def prefill_attention(q, k, v, seq_lens, sm_scale=None):
     return out.to(q.dtype)
 
 
+def byte_view(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor as its uint8 bits (indexing and selects run on those on
+    every device), any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def pool_rows(pages: torch.Tensor, layer: int, rows: torch.Tensor) -> torch.Tensor:
+    """``pages[layer][:, rows]``: both planes' token rows of one layer."""
+    return byte_view(pages)[layer][:, rows].view(pages.dtype)
+
+
 def gather_kv_pages(kv_pool, layer: int, page_table: torch.Tensor, max_seq_len: int):
     """Gather one layer's K/V rows for each request out of the paged pool into
-    dense [B, Hkv, max_seq_len, D] views. Page ids past a request's live
-    pages may be anything; they are clamped into the pool (the callers mask
-    those positions)."""
+    dense [B, Hkv, max_seq_len, D] views, in the pool's dtype, or dequantized
+    to fp32 for an int8 pool. Page ids past a request's live pages may be
+    anything; they are clamped into the pool (the callers mask those
+    positions)."""
     pages = kv_pool.pages
     L, _, T, HD = pages.shape
     Hkv, D = kv_pool.num_kv_heads, kv_pool.head_dim
@@ -124,7 +140,12 @@ def gather_kv_pages(kv_pool, layer: int, page_table: torch.Tensor, max_seq_len: 
     off = torch.arange(ps, device=pages.device)
     rows = (pt[:, :, None] * ps + off).reshape(pt.shape[0], n * ps).clamp(0, T - 1)
     B, S = rows.shape
-    kv = pages[layer][:, rows].reshape(2, B, S, Hkv, D).transpose(2, 3)
+    kv = pool_rows(pages, layer, rows).reshape(2, B, S, Hkv, D)
+    if kv_pool.scales is not None:
+        srow = kv_pool.scales[layer][rows]  # [B, S, SCALE_LANES]
+        sc = torch.stack([srow[..., :Hkv], srow[..., SCALE_HALF:SCALE_HALF + Hkv]])
+        kv = kv.float() * sc.float()[..., None]
+    kv = kv.transpose(2, 3)
     return kv[0], kv[1]
 
 

@@ -18,10 +18,13 @@ Loading safetensors checkpoints is not ported yet.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Mapping
 
 import numpy as np
 import torch
+
+from ..quant.qtensor import QTensor
 
 
 def _get(sd: Mapping, key: str) -> np.ndarray:
@@ -33,9 +36,27 @@ def _get(sd: Mapping, key: str) -> np.ndarray:
 
 def params_from_numpy(tree, cfg, device="cuda"):
     """A nested dict of array-likes (numpy, or anything ``np.asarray`` reads,
-    bf16 included) -> the same dict of ``cfg.dtype`` tensors on ``device``."""
+    bf16 included) -> the same dict of ``cfg.dtype`` tensors on ``device``.
+
+    Quantized leaves come as ``QTensor``s whose ``q`` and ``scale`` are numpy
+    arrays (the JAX quantizer's output, with its static fields): ``q`` int8
+    stays int8, ``q`` uint8 is the bit pattern of float8_e4m3fn (numpy has
+    no fp8 type), scales stay fp32. Riffle blocks for tensor parallelism
+    (``riffle_groups > 1``) are refused."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, cfg, device) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        if tree.riffle_groups > 1 or tree.fused_tp > 1:
+            raise NotImplementedError("tensor-parallel riffle/fused layouts wait for multi-GPU")
+        q = np.ascontiguousarray(tree.q)
+        if q.dtype == np.uint8:
+            qt = torch.from_numpy(q).to(device).view(torch.float8_e4m3fn)
+        elif q.dtype == np.int8:
+            qt = torch.from_numpy(q).to(device)
+        else:
+            raise ValueError(f"quantized q must be int8, or uint8 fp8 bits; got {q.dtype}")
+        scale = torch.from_numpy(np.ascontiguousarray(tree.scale, dtype=np.float32)).to(device)
+        return dataclasses.replace(tree, q=qt, scale=scale, layer=None)
     arr = np.ascontiguousarray(np.asarray(tree, dtype=np.float32))
     return torch.from_numpy(arr).to(device=device, dtype=cfg.dtype)
 

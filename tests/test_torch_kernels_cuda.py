@@ -1,14 +1,17 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card, in bf16, at Llama-3.2-3B (D=128, Nq=24, Hkv=8) and Llama-3.2-1B
-(D=64, Nq=32, Hkv=8) head shapes, plus the refusals that keep the card off
-the plain code. This file imports no JAX, so it runs on a machine with a
+(D=64, Nq=32, Hkv=8) head shapes, the quantized kernels (K6 W4A8, K7 W8A8,
+K1q / K5q on int8 and fp8 pools) included, plus the refusals that keep the
+card off the plain code. This file imports no JAX, so it runs on a machine with a
 card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
 Tolerance on the card: |kernel - plain| <= 1e-2 + 1e-2 * |plain| for bf16
 outputs (one bf16 step is 2^-8 relative; the kernels and the plain versions
-round q, P and the output at different points). chip_smoke.py runs the same
+round q, P and the output at different points). K6 and K7 with fp32 output
+are held to equality: both sides run exact integer dots and the same fp32
+folds in the same order. chip_smoke.py runs the same
 comparisons at the main path's full shapes.
 """
 
@@ -32,6 +35,9 @@ from lite_llama_tpu_torch.ops.attention_prefill import (  # noqa: E402
     launch_flash_prefill,
     launch_flash_prefill_chunked,
 )
+from lite_llama_tpu_torch.executor import kv_cache as tkv  # noqa: E402
+from lite_llama_tpu_torch.ops import qmatmul as qmm  # noqa: E402
+from lite_llama_tpu_torch.quant.qtensor import quantize  # noqa: E402
 
 
 def _within(got, want):
@@ -187,3 +193,122 @@ def test_swiglu_kernel_matches_plain_on_strided_views(cuda):
     gu = torch.randn((12, 2, 8192), generator=g, device=cuda).bfloat16()
     gate, up = gu[:, 0], gu[:, 1]  # row-strided views
     assert _within(ops.swiglu(gate, up), ref.swiglu(gate, up))
+
+
+def _qmm_weights(dev, qdtype, C, O, gs, riffle, Lf=2, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((Lf, C, O), generator=g, device=dev).mul_(0.02).bfloat16()
+    return quantize(w, (1,), qdtype, group_size=gs, riffle_blocks=1 if riffle else 0)
+
+
+@pytest.mark.parametrize("M", [12, 64, 200])
+@pytest.mark.parametrize("C,O,gs,riffle", [(3072, 1024, 128, True), (3072, 1024, 128, False),
+                                           (8192, 512, None, True), (1024, 8448, 128, True),
+                                           (1024, 8448, 64, False)])
+def test_w4a8_kernel_matches_plain(cuda, M, C, O, gs, riffle):
+    qt = _qmm_weights(cuda, "int4", C, O, gs, riffle)
+    x = torch.randn((M, C), device=cuda).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = qmm.quantized_matmul_packed(x, qt.q, qt.scale, 1, out_dtype, not riffle, O)
+        want = qmm.quantized_matmul_packed_plain(x, qt.q, qt.scale, 1, out_dtype, not riffle, O)
+        assert got.shape == (M, O) and got.dtype == out_dtype
+        if out_dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            assert _within(got, want)
+
+
+@pytest.mark.parametrize("M,C,O,gs", [(12, 3072, 1024, 128), (64, 8192, 512, None),
+                                      (200, 1024, 512, 64)])
+def test_w8a8_kernel_matches_plain(cuda, M, C, O, gs):
+    qt = _qmm_weights(cuda, "int8", C, O, gs, False)
+    x = torch.randn((M, C), device=cuda).bfloat16()
+    got = qmm.quantized_matmul_int8(x, qt.q, qt.scale, 1, torch.float32)
+    assert torch.equal(got, qmm.quantized_matmul_int8_plain(x, qt.q, qt.scale, 1, torch.float32))
+    got = qmm.quantized_matmul_int8(x, qt.q, qt.scale, 0)
+    assert _within(got, qmm.quantized_matmul_int8_plain(x, qt.q, qt.scale, 0))
+
+
+def test_quantized_matmul_kernels_refuse_what_they_do_not_take(cuda):
+    qt = _qmm_weights(cuda, "int4", 256, 256, 16, True)  # 16-row groups: no mma k-step
+    x = torch.randn((4, 256), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="unsupported"):
+        qmm.quantized_matmul_packed(x, qt.q, qt.scale, 0, interleave=False)
+    qt = _qmm_weights(cuda, "int4", 256, 256, 32, True)
+    with pytest.raises(ValueError, match="unsupported"):
+        qmm.quantized_matmul_packed(torch.randn((300, 256), device=cuda).bfloat16(), qt.q,
+                                    qt.scale, 0, interleave=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmm.quantized_matmul_packed(x, qt.q.cpu(), qt.scale.cpu(), 0)
+
+
+def _quant_pool(dev, kv, Hkv, D, P, ps, seed=6):
+    """A pool of two layers filled through the port's own prefill writes
+    (real int8 values and scales, or saturated fp8), page ids shuffled."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = tkv.create_kv_cache(2, Hkv, D, P, page_size=ps, max_reqs=1, max_seq_len=P * ps,
+                                device=dev, quantized=kv)
+    table = torch.randperm(P, generator=g, device=dev).view(1, P).int()
+    n = torch.tensor([P * ps], dtype=torch.int32, device=dev)
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    for layer in range(2):
+        k = torch.randn((1, P * ps, Hkv, D), generator=g, device=dev).bfloat16()
+        v = torch.randn((1, P * ps, Hkv, D), generator=g, device=dev).bfloat16()
+        tkv.kv_write_prefill(cache.kv_pages, layer, k, v, table, z, n)
+    return cache.kv_pages
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("D,Nq,Hkv", [(128, 24, 8), (64, 32, 8)])
+def test_quantized_pool_decode_kernel_matches_plain(cuda, kv, D, Nq, Hkv):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, ps, P, ppr = 5, 16, 64, 8
+    pool = _quant_pool(cuda, kv, Hkv, D, P, ps)
+    lens = torch.tensor([0, 1, 16, 77, 128], dtype=torch.int32, device=cuda)
+    table = torch.randperm(P, generator=g, device=cuda)[: B * ppr].view(B, ppr).int()
+    q = torch.randn((B, Nq, D), generator=g, device=cuda).bfloat16()
+    out, m, l = paged_flash_decode(q, pool, 1, table, lens, return_state=True)
+    po, pm, pl = paged_decode_state_plain(q, pool.pages, ps, 1, table, lens, D**-0.5,
+                                          pool.scales)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    assert torch.all(m[0] == -1e30) and torch.all(l[0] == 0) and torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("D,Nq,Hkv", [(128, 24, 8), (64, 32, 8)])
+def test_quantized_pool_chunked_prefill_kernel_matches_plain(cuda, kv, D, Nq, Hkv):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, S, ps, P = 4, 128, 16, 200
+    pool = _quant_pool(cuda, kv, Hkv, D, P, ps)
+    ppr = 50
+    start = torch.tensor([0, 16, 500, 700], dtype=torch.int32, device=cuda)
+    clen = torch.tensor([S, 70, 0, S], dtype=torch.int32, device=cuda)
+    table = torch.randperm(P, generator=g, device=cuda)[: B * ppr].view(B, ppr).int()
+    q = torch.randn((B, S, Nq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    out, m, l = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table, return_state=True)
+    po, pm, pl = chunked_prefill_state_plain(q, k, v, clen, start, pool.pages, ps, 1, table,
+                                             D**-0.5, pool.scales)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+
+
+def test_quantized_pool_kernels_refuse_a_pool_without_its_scales(cuda):
+    from lite_llama_tpu_torch.ops.attention_decode import launch_paged_decode_int8
+    from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_chunked_int8
+
+    pool = _quant_pool(cuda, "int8", 8, 128, 4, 16)
+    q = torch.zeros((1, 24, 128), device=cuda).bfloat16()
+    t = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        launch_paged_decode_int8(q, pool.pages, 16, 0, t, one, 0.1)
+    with pytest.raises(ValueError, match="scales"):
+        launch_flash_prefill_chunked_int8(q[None], q[None, :, :8], q[None, :, :8], one, one,
+                                          pool.pages, 16, 0, t, 0.1)
+    with pytest.raises(ValueError, match="bf16"):  # a bf16 launcher handed an int8 pool
+        launch_paged_decode(q, pool.pages, 16, 0, t, one, 0.1)

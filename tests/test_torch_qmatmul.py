@@ -1,0 +1,127 @@
+"""K6 (W4A8, ``quantized_matmul_packed``) and K7 (W8A8,
+``quantized_matmul_int8``): their plain versions (the CPU path, and what the
+CUDA kernels are held against on the card) against the JAX package's Pallas
+kernels in interpret mode, on the CPU, with the same numpy inputs; the
+activation quantizer and the routing predicate against JAX's.
+
+Tolerance: 1e-5 relative to the largest output, fp32. The integer dots are
+exact on both sides and the folds run in the same order; what remains is
+fp32 rounding where XLA contracts a multiply and an add, or multiplies by a
+reciprocal, and the port does not.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from lite_llama_tpu.ops import qmatmul as jm  # noqa: E402
+from lite_llama_tpu.quant import qtensor as jq  # noqa: E402
+from lite_llama_tpu_torch.ops import qmatmul as tm  # noqa: E402
+from lite_llama_tpu_torch.quant import qtensor as tq  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _close(got, want, tol=1e-5):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=tol * max(float(np.abs(want).max()), 1e-30))
+
+
+def _weights(qdtype, C, O, gs, rb=0, seed=0, Lf=3):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((Lf, C, O)) * 0.05).astype(np.float32)
+    j = jq.quantize(jnp.asarray(w), (1,), {"int4": jnp.int4, "int8": jnp.int8}[qdtype],
+                    group_size=gs, riffle_blocks=rb)
+    t = tq.quantize(torch.from_numpy(w), (1,), qdtype, group_size=gs, riffle_blocks=rb)
+    return j, t
+
+
+W4A8_CASES = [  # (M, C, O, group_size, riffle)
+    (12, 256, 512, 32, 1),
+    (12, 256, 512, 32, 0),
+    (5, 256, 256, None, 0),   # per-channel: one fold per C block
+    (3, 3072, 256, None, 1),  # per-channel, three 1024-row C blocks
+    (64, 512, 256, 128, 0),
+    (7, 128, 8448, 32, 1),    # padded stored width
+]
+
+
+@pytest.mark.parametrize("M,C,O,gs,rb", W4A8_CASES)
+def test_w4a8_plain_matches_jax_kernel(M, C, O, gs, rb):
+    j, t = _weights("int4", C, O, gs, rb, seed=M)
+    x = np.random.default_rng(M + 1).standard_normal((M, C)).astype(np.float32)
+    for layer in (0, 2):
+        want = jm.quantized_matmul_packed(jnp.asarray(x), j.q, j.scale, layer, interpret=True,
+                                          out_dtype=jnp.float32, interleave=not rb)
+        got = tm.quantized_matmul_packed(torch.from_numpy(x), t.q, t.scale, layer,
+                                         out_dtype=torch.float32, interleave=not rb)
+        assert got.shape == want.shape
+        _close(got, want)
+        # Written straight to the logical width: the pad columns are dropped.
+        part = tm.quantized_matmul_packed(torch.from_numpy(x), t.q, t.scale, layer,
+                                          out_dtype=torch.float32, interleave=not rb,
+                                          out_width=O)
+        assert torch.equal(part, got[:, :O])
+
+
+@pytest.mark.parametrize("M,C,O,gs", [(12, 256, 256, 32), (5, 256, 128, None),
+                                      (3, 3072, 128, None), (64, 512, 256, 128)])
+def test_w8a8_plain_matches_jax_kernel(M, C, O, gs):
+    j, t = _weights("int8", C, O, gs, seed=M)
+    x = np.random.default_rng(M + 2).standard_normal((M, C)).astype(np.float32)
+    for layer in (0, 1):
+        want = jm.quantized_matmul_int8(jnp.asarray(x), j.q, j.scale, layer, interpret=True,
+                                        out_dtype=jnp.float32)
+        got = tm.quantized_matmul_int8(torch.from_numpy(x), t.q, t.scale, layer,
+                                       out_dtype=torch.float32)
+        _close(got, want)
+
+
+def test_w8a8_refuses_unsupported_shapes():
+    _, t = _weights("int8", 256, 200, None)  # O % 128 != 0
+    with pytest.raises(ValueError, match="unsupported"):
+        tm.quantized_matmul_int8(torch.zeros(2, 256), t.q, t.scale, 0)
+
+
+def test_activation_quantizer_matches_jax():
+    """As the kernels' wrappers run it, inside jit (XLA turns the division
+    by 127 into a product with its fp32 reciprocal there)."""
+    x = np.random.default_rng(3).standard_normal((9, 256)).astype(np.float32) * 3
+    jxi, jxs, jsx = jax.jit(jm.quantize_activations, static_argnums=1)(jnp.asarray(x), 8)
+    txi, txs, tsx = tm.quantize_activations(torch.from_numpy(x), 8)
+    np.testing.assert_array_equal(txi.numpy(), np.asarray(jxi))
+    np.testing.assert_array_equal(txs.numpy(), np.asarray(jxs))
+    np.testing.assert_array_equal(tsx.numpy(), np.asarray(jsx))
+
+
+def test_routing_predicate_matches_jax():
+    for C in (64, 128, 256, 3072, 4096, 8192, 12288, 96 * 64):
+        for ng in (None, 1, 2, C // 128 if C >= 128 else None, C // 32, C // 16):
+            assert tm._pick_bc(C, ng) == jm._pick_bc(C, ng), (C, ng)
+            for Oh in (64, 128, 2560, 4224, 64512):
+                for M in (1, 12, 256, 257):
+                    assert tm.qmm_supported(C, Oh, ng, M) == jm.qmm_supported(C, Oh, ng, M)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    _, t4 = _weights("int4", 256, 256, 32, 1)
+    _, t8 = _weights("int8", 256, 256, 32)
+    before = (tm.launch_quantized_matmul_packed.launches,
+              tm.launch_quantized_matmul_int8.launches)
+    x = torch.randn(4, 256)
+    tm.quantized_matmul_packed(x, t4.q, t4.scale, 1, interleave=False)
+    tm.quantized_matmul_int8(x, t8.q, t8.scale, 1)
+    assert (tm.launch_quantized_matmul_packed.launches,
+            tm.launch_quantized_matmul_int8.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.launch_quantized_matmul_packed(x, t4.q, t4.scale, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.launch_quantized_matmul_int8(x, t8.q, t8.scale, 0)
