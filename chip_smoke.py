@@ -11,13 +11,15 @@ Phases, in order; any failure exits non-zero:
    nvcc per source, in parallel) and the Triton kernels at their first launch.
 3. Kernels: each kernel's wrapper against its plain PyTorch version on the
    card in bf16, at the main-path shapes of Llama-3.2-3B (D=128, Nq=24,
-   Hkv=8) and Llama-3.2-1B (D=64, Nq=32, Hkv=8): max abs error against the
+   Hkv=8), Llama-3.2-1B (D=64, Nq=32, Hkv=8), OpenLLaMA-3B v2 (D=100,
+   Nq=Hkv=32) and SmolLM2-360M (D=64, Nq=15, Hkv=5), and at D=80 and D=96
+   with four query heads per kv head: max abs error against the
    stated tolerance, device time from CUDA events with the inputs rotated
    through HBM (and, beside it, replayed warm in L2), the least time the
    card could take (bytes over 3.35 TB/s or bf16 operations over 989
    TFLOP/s), the plain version's time and one PyTorch library call's time
    where one computes the same function (timed here only; the port never
-   calls it).
+   calls it), with the device kernels that call ran (which SDPA backend).
 4. Batch slice: Llama-3.2-3B at full width and depth with random bf16
    weights from a seeded generator; InferenceEngine +
    TextGenerator.generate_tokens on 12 prompts of 25 random ids, greedy,
@@ -45,7 +47,14 @@ Phases, in order; any failure exits non-zero:
    phase 5's serving waves (K5q-int8 must launch) and prefill invariants
    under the int8 pool; before those, a short fp8-KV run with the bf16
    weights (K5q-fp8 and K1q-fp8 must launch).
-7. Summary: one JSON line with every kernel, then the last line
+7. OpenLLaMA-3B v2 (open_llama_phase): head dim 100, which the TPU package
+   sends to _flash_prefill_vmem (K8 here), at full width and depth with
+   random bf16 weights from the seed: the phase-4 batch run (K8, K1, K3, K4
+   must launch, K2 must not) with its decode-vs-re-prefill invariant and K1
+   faults, one serving wave (8 x 1500 ids and the shared-prefix prompt,
+   prefix cache on; K5 must launch) and the chunked-vs-single-shot prefill
+   invariant with K5 faults.
+8. Summary: one JSON line with every kernel, then the last line
    {"ok": true, "device": {...}}.
 
 Phase 3 also holds the quantized kernels against their plain versions: K6
@@ -58,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -92,6 +102,7 @@ PREFILL_MAX_ABS = 0.12
 WAVE_GEN = 64  # max_gen_len of every serving request
 GEN_REPEATS = 3  # generate_tokens runs timed (host time varies run to run)
 SPLIT_REPEATS = 5  # prefill + decode runs timed apart
+OPEN_LLAMA_REPEATS = (2, 3)  # phase 7's, cut to keep the script near half its time limit
 SEED = 0
 
 NORM_NO_RESIDUAL = 3  # index of K3's no-residual case in kernel_phase()
@@ -134,6 +145,10 @@ KERNELS = {
         route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:650",
         branch="fp8 pools: the JAX dispatcher's reference (ops/__init__.py:96-117)"),
+    "flash_prefill_vmem": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        replaces="lite_llama_tpu/ops/attention_prefill.py:376",
+        branch="head dims that do not pack into 128 lanes (flash_prefill, :628-637)"),
 }
 # The kernels each main path must launch: batch generation of short prompts
 # (phase 4) and serving (phase 5; K2 runs there only for a prompt batch
@@ -148,6 +163,8 @@ QUANT_BATCH_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8", "flash
 QUANT_SERVING_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8", "rms_norm", "swiglu",
                       "flash_prefill_chunked_int8")
 FP8_KV_PATH = ("flash_prefill_chunked_fp8", "paged_flash_decode_fp8")
+# Phase 7, head dim 100: fresh prefill takes K8, never K2.
+OPEN_LLAMA_BATCH_PATH = ("paged_flash_decode", "flash_prefill_vmem", "rms_norm", "swiglu")
 # The 3B projections K6 serves at decode: (C, logical O, fp32 output).
 QMM_SHAPES = {
     "gate_up": (3072, 16384, False),
@@ -178,9 +195,23 @@ QLOGITS_MAX_ABS = 0.45
 # with a W4A16 prefill of 608).
 QPREFILL_REL_RMS = 0.3
 QPREFILL_MAX_ABS = 0.3
-MODELS = {  # head_dim, query heads, kv heads, hidden, intermediate
-    "llama-3.2-3b": dict(D=128, Nq=24, Hkv=8, H=3072, I=8192),
-    "llama-3.2-1b": dict(D=64, Nq=32, Hkv=8, H=2048, I=8192),
+# Phase-7 limits (OpenLLaMA-3B, bf16), relative RMS and max |difference| over
+# max |logit|, between the plain versions' reading and the smallest planted
+# fault, as read on an H100 (PERF.md): decode vs re-prefill after 127 steps
+# (K1 faults), plain 0.036 / 0.031, kernels 0.045 / 0.040, smallest fault
+# (two pages swapped) 0.153 / 0.151; chunked (K5) vs single-shot (K8)
+# prefill of the 1500-token prompts (K5 faults), kernels 0 / 0, plain
+# 0.030 / 0.034, smallest fault 0.479 / 0.721. Phase 4's and 5's limits sit
+# between both pairs too.
+OPEN_LLAMA_INVARIANT = (INVARIANT_REL_RMS, INVARIANT_MAX_ABS)
+OPEN_LLAMA_PREFILL = (PREFILL_REL_RMS, PREFILL_MAX_ABS)
+MODELS = {  # head_dim, query heads, kv heads (attention shapes of phase 3)
+    "llama-3.2-3b": dict(D=128, Nq=24, Hkv=8),
+    "llama-3.2-1b": dict(D=64, Nq=32, Hkv=8),
+    "open-llama-3b-v2": dict(D=100, Nq=32, Hkv=32),
+    "smollm2-360m": dict(D=64, Nq=15, Hkv=5),  # odd Hkv: the TPU cannot pack D=64
+    "D=80 G=4": dict(D=80, Nq=32, Hkv=8),  # head dims that do not divide 128,
+    "D=96 G=4": dict(D=96, Nq=32, Hkv=8),  # with grouped queries
 }
 
 
@@ -250,11 +281,25 @@ def graph_ms(fn, copies, min_calls=20):
     return start.elapsed_time(end) / (reps * len(calls))
 
 
+def device_kernels(fn, args):
+    """Names of the device kernels one call of ``fn`` runs (for SDPA: which
+    backend it took); empty when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sorted({e.key[:70] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0})
+
+
 def timings(kernel, plain, args, touched_bytes, library=None, plain_in_graph=True):
     """ms, eager_ms, plain_ms and library_ms on inputs rotated through HBM
     (see input_copies); l2_warm_ms is the kernel on one input set replayed,
     which stays in L2. ``kernel`` and ``plain`` take ``args``; ``library`` is
-    (fn, its own args, the bytes it touches) or None."""
+    (fn, its own args, the bytes it touches) or None; an SDPA library call's
+    device kernels are recorded too (``library_kernels``)."""
     copies = input_copies(args, touched_bytes)
     t = dict(
         ms=graph_ms(kernel, copies),
@@ -269,7 +314,19 @@ def timings(kernel, plain, args, touched_bytes, library=None, plain_in_graph=Tru
     if library is not None:
         fn, lib_args, lib_bytes = library
         t["library_ms"] = graph_ms(fn, input_copies(lib_args, lib_bytes))
+        if getattr(fn, "sdpa", False):
+            t["library_kernels"] = device_kernels(fn, lib_args)
     return t
+
+
+def sdpa(**kw):
+    """F.scaled_dot_product_attention with ``kw``, marked for timings() to
+    record which backend it ran."""
+    def call(q, k, v, mask=None):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **kw)
+
+    call.sdpa = True
+    return call
 
 
 def bound(bytes_moved, flops):
@@ -368,8 +425,7 @@ def decode_case(model, lens, ps=16, kv=None):
         kernel,
         plain,  # reads max(kv_lens) on the host: timed eagerly
         args, bytes_moved,
-        (lambda qd, kd, vd, mask: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-         lib_args, sum(a.numel() * a.element_size() for a in lib_args)),
+        (sdpa(), lib_args, sum(a.numel() * a.element_size() for a in lib_args)),
         plain_in_graph=False,
     )
     return dict(model=model, shape=f"B={B} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
@@ -381,7 +437,10 @@ def decode_case(model, lens, ps=16, kv=None):
 
 
 def prefill_case(model, B, S, lens):
+    """ops.prefill_attention (K2 at head dims 64 and 128, K8 at the others)
+    against its plain version; ``ran`` names the kernel that launched."""
     from lite_llama_tpu_torch import ops
+    from lite_llama_tpu_torch.ops import attention_prefill as ap
     from lite_llama_tpu_torch.ops import ref
 
     m = MODELS[model]
@@ -392,13 +451,25 @@ def prefill_case(model, B, S, lens):
     k = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
     v = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    launchers = {"flash_prefill": ap.launch_flash_prefill,
+                 "flash_prefill_vmem": ap.launch_flash_prefill_vmem}
+    before = {n: f.launches for n, f in launchers.items()}
     got = ops.prefill_attention(q, k, v, sl)
+    ran = [n for n, f in launchers.items() if f.launches != before[n]]
     want = ref.prefill_attention(q, k, v, sl)
     torch.cuda.synchronize()
-    err, ok = 0.0, True
+    # The kernels round sm_scale*log2(e)*q to bf16; the plain version and the
+    # TPU's _flash_prefill_vmem keep it in fp32. The plain version on that
+    # rounded q (natural-domain scale 1/log2(e)) isolates the rounding.
+    q_r = (q.float() * (D**-0.5 * ref.LOG2E)).bfloat16()
+    want_r = ref.prefill_attention(q_r, k, v, sl, sm_scale=1.0 / ref.LOG2E)
+    torch.cuda.synchronize()
+    err, ok, err_r, gap = 0.0, True, 0.0, 0.0
     for b, n in enumerate(lens):  # pad rows are never read
         e, o = max_err(got[b, :n], want[b, :n])
         err, ok = max(err, e), ok and o
+        err_r = max(err_r, max_err(got[b, :n], want_r[b, :n])[0])
+        gap = max(gap, max_err(want_r[b, :n], want[b, :n])[0])
     pairs = sum(n * (n + 1) // 2 for n in lens)
     # Rows past seq_lens[b] are neither read nor needed: q, out, k and v
     # count only each request's own rows.
@@ -407,10 +478,12 @@ def prefill_case(model, B, S, lens):
     lib_args = (q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(Nq // Hkv, 1),
                 v.transpose(1, 2).repeat_interleave(Nq // Hkv, 1))
     t = timings(ops.prefill_attention, ref.prefill_attention, (q, k, v, sl), bytes_moved,
-                (lambda qt, kt, vt: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-                 lib_args, sum(a.numel() * a.element_size() for a in lib_args)))
+                (sdpa(is_causal=True), lib_args,
+                 sum(a.numel() * a.element_size() for a in lib_args)))
     return dict(model=model, shape=f"B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} lens={lens}",
-                max_abs_err=err, ok=ok, **t, bound_ms=t_bound, bound_by=by,
+                ran=ran[0] if len(ran) == 1 else ran,
+                max_abs_err=err, ok=ok, max_abs_err_q_rounded=err_r, q_rounding_gap=gap,
+                **t, bound_ms=t_bound, bound_by=by,
                 library="F.scaled_dot_product_attention (is_causal, full length S)")
 
 
@@ -505,8 +578,7 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
     lib_args = (q.transpose(1, 2).contiguous(), kd, vd, mask)
     t = timings(
         kernel, plain, args, bytes_moved,
-        (lambda qd, kd, vd, mask: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-         lib_args, sum(a.numel() * a.element_size() for a in lib_args)),
+        (sdpa(), lib_args, sum(a.numel() * a.element_size() for a in lib_args)),
         plain_in_graph=False,  # the plain version reads max(start_pos) on the host
     )
     return dict(model=model, shape=f"B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
@@ -619,7 +691,9 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
 def kernel_phase():
     """Returns {kernel: [cases]}; the first case of each is the main path's
     own shape (Llama-3.2-3B decode step, its 12 x 25-token prefill, or the
-    serving phase's middle chunk of eight 1500-token prompts for K5). K3's
+    serving phase's middle chunk of eight 1500-token prompts for K5; for K8
+    OpenLLaMA-3B's 12 x 25-token prefill). The head-dim-100 cases of K1,
+    K1q, K5 and K5q follow the head-dim-128 and -64 cases of each. K3's
     case ``NORM_NO_RESIDUAL`` is its no-residual form at Qwen3-4B's q-norm
     shape (12 rows x 32 heads, width 128), reported on its own."""
     ragged = [0, 1, 15, 16, 17, 100, 255, 256, 511, 1000, 1537, 2048]  # B=12
@@ -628,11 +702,21 @@ def kernel_phase():
             decode_case("llama-3.2-3b", [88] * 12),
             decode_case("llama-3.2-3b", ragged),
             decode_case("llama-3.2-1b", ragged),
+            decode_case("open-llama-3b-v2", [88] * 12),  # D=100: the padded instances
+            decode_case("open-llama-3b-v2", ragged),
         ],
         "flash_prefill": [
             prefill_case("llama-3.2-3b", 12, 25, [25] * 12),
             *(prefill_case(model, 4, S, [S, 3 * S // 4 + 5, 37, 1])
-              for model in MODELS for S in (128, 512)),
+              for model in ("llama-3.2-3b", "llama-3.2-1b") for S in (128, 512)),
+            # D=64 with five kv heads: the TPU's K8 case, K2 in the port
+            prefill_case("smollm2-360m", 4, 512, [512, 389, 37, 1]),
+        ],
+        "flash_prefill_vmem": [  # K8: OpenLLaMA-3B's batch shape first
+            prefill_case("open-llama-3b-v2", 12, 25, [25] * 12),
+            prefill_case("open-llama-3b-v2", 4, 1024, [1024, 773, 37, 1]),
+            prefill_case("D=80 G=4", 4, 512, [512, 389, 37, 1]),
+            prefill_case("D=96 G=4", 4, 512, [512, 389, 37, 1]),
         ],
         "rms_norm": [
             norm_case(12, 3072, True),
@@ -645,7 +729,10 @@ def kernel_phase():
         "flash_prefill_chunked": [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8),
             *(chunked_case(model, [0, 16, 500, 1536], [512, 300, 0, 512], return_state=rs)
-              for model in MODELS for rs in (False, True)),
+              for model in ("llama-3.2-3b", "llama-3.2-1b") for rs in (False, True)),
+            chunked_case("open-llama-3b-v2", [512] * 8, [512] * 8),
+            chunked_case("open-llama-3b-v2", [0, 16, 500, 1536], [512, 300, 0, 512],
+                         return_state=True),
         ],
         "quantized_matmul_packed": [
             *(qmm_case(n, 12) for n in QMM_SHAPES),  # gate_up first: the main case
@@ -664,14 +751,18 @@ def kernel_phase():
         cases[f"paged_flash_decode_{kv}"] = [
             decode_case("llama-3.2-3b", [88] * 12, kv=kv),
             decode_case("llama-3.2-1b", ragged, kv=kv),
+            decode_case("open-llama-3b-v2", [88] * 12, kv=kv),
         ]
         cases[f"flash_prefill_chunked_{kv}"] = [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8, kv=kv),
             chunked_case("llama-3.2-1b", [0, 16, 500, 1536], [512, 300, 0, 512],
                          return_state=True, kv=kv),
+            chunked_case("open-llama-3b-v2", [512] * 8, [512] * 8, kv=kv),
         ]
     for name, cs in cases.items():
         for c in cs:
+            if c.get("ran", name) != name:
+                c["ok"] = False  # the router sent the case to another kernel
             line = f"  {name:18s} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} ok={c['ok']}"
             if "ms" in c:
                 lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.5f}"
@@ -679,6 +770,8 @@ def kernel_phase():
                          f"eager_ms={c['eager_ms']:.5f} plain_ms={c['plain_ms']:.5f} "
                          f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) library_ms={lib} "
                          f"copies={c['copies']}")
+            if "library_kernels" in c:
+                line += f" library_kernels={c['library_kernels']}"
             if "bit_equal" in c:
                 line += f" bit_equal={c['bit_equal']}"
             if "faults" in c:
@@ -708,6 +801,7 @@ def counters():
         "paged_flash_decode_fp8": attention_decode.launch_paged_decode_fp8,
         "flash_prefill_chunked_int8": attention_prefill.launch_flash_prefill_chunked_int8,
         "flash_prefill_chunked_fp8": attention_prefill.launch_flash_prefill_chunked_fp8,
+        "flash_prefill_vmem": attention_prefill.launch_flash_prefill_vmem,
     }
 
 
@@ -895,13 +989,15 @@ def batch_prompts(cfg, B=12, P=25):
 
 
 def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_PATH,
-                invariant=None):
-    """Llama-3.2-3B (``cfg``, ``params``) through InferenceEngine +
+                invariant=None, absent=(), repeats=(GEN_REPEATS, SPLIT_REPEATS)):
+    """Llama-3.2-3B (or another ``cfg``, ``params``) through InferenceEngine +
     TextGenerator on ``dev``: B prompts of P random ids, greedy,
     max_gen_len G. ``engine_kw`` goes to the engine (a quantized pool),
-    ``path`` names the kernels that must launch, ``invariant(prompts,
-    outputs)`` reads the decode invariant (default: bf16 decode vs
-    re-prefill with faults in K1's inputs)."""
+    ``path`` names the kernels that must launch and ``absent`` those that
+    must not, ``invariant(prompts, outputs)`` reads the decode invariant
+    (default: bf16 decode vs re-prefill with faults in K1's inputs);
+    ``repeats`` counts the timed generate_tokens runs and prefill + decode
+    runs."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.generate import TextGenerator
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
@@ -928,12 +1024,14 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
         f"launches {launches}")
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the batch path: {missing}")
+    stray = [k for k in absent if launches[k] != 0]
+    require(not stray, f"kernels launched that this path must not run: {stray}")
     for o in outs:
         require(1 <= len(o.token_ids) <= G, "output length out of range")
         require(all(0 <= t < cfg.vocab_size for t in o.token_ids), "token id out of range")
         require(all(math.isfinite(v) for v in o.logprobs), "non-finite logprob")
     n_tokens = sum(len(o.token_ids) for o in outs)
-    for _ in range(GEN_REPEATS - 1):  # the host's share varies: repeat, report the median
+    for _ in range(repeats[0] - 1):  # the host's share varies: repeat, report the median
         t0 = time.perf_counter()
         again = gen.generate_tokens(prompts, max_gen_len=G, temperature=0.0)
         sync(dev)
@@ -946,7 +1044,7 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     sampling = SamplingParams.make(B, temperature=0.0, device=dev)
     max_total = [P + G] * B
     prefill_ms, decode_ms = [], []
-    for rep in range(SPLIT_REPEATS):
+    for rep in range(repeats[1]):
         slots = engine.admit_requests(max_total)
         try:
             c0 = read_counts()
@@ -1061,7 +1159,7 @@ def run_wave(fe, reqs, threads=4):
 
 
 def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
-                  chunk_kernel="flash_prefill_chunked", profile=True):
+                  chunk_kernel="flash_prefill_chunked", profile=True, n_waves=2):
     """Llama-3.2-3B through ServingFrontend -> ContinuousBatchingScheduler
     -> engine sessions, with the prefix cache on. Wave 1: eight prompts of
     1500 random ids (three K5 chunks each at prefill_chunk 512) and one
@@ -1071,8 +1169,9 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
     each a prefix hit (K5 over 256 cached tokens); twelve greedy, four
     sampled (T 0.6, top_p 0.9). ``engine_kw`` goes to the engine,
     ``path`` names the kernels that must launch and ``chunk_kernel`` the
-    chunked-prefill instance every wave must launch; ``profile`` runs wave 2
-    again under the profiler."""
+    chunked-prefill instance every wave must launch; ``profile`` runs the
+    last wave again under the profiler; ``n_waves=1`` runs wave 1 only (no
+    prefix hit is then required)."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.executor.scheduler import ContinuousBatchingScheduler
     from lite_llama_tpu_torch.server import ServingFrontend
@@ -1086,7 +1185,7 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
         + [dict(tokens=prompts["prefix"] + prompts["tail"], temperature=0.0)],
         [dict(tokens=prompts["prefix"] + s, temperature=0.0 if i < 12 else 0.6)
          for i, s in enumerate(prompts["suffixes"])],
-    ]
+    ][:n_waves]
     fe = ServingFrontend(ContinuousBatchingScheduler(engine))
     out, launches = [], {k: 0 for k in KERNELS}
     try:
@@ -1125,14 +1224,15 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
             require(counts[chunk_kernel] > 0, f"wave {w}: {chunk_kernel} never launched")
             out.append(rec)
         if profile:
-            profile = profile_wave(fe, waves[1])
-            log(f"  serving wave 2 again, profiled: {json.dumps(profile)}")
+            profile = profile_wave(fe, waves[-1])
+            log(f"  serving wave {len(waves)} again, profiled: {json.dumps(profile)}")
     finally:
         fe.shutdown()
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the serving path: {missing}")
-    require(engine.stats.prefix_hits >= 16,
-            f"prefix hits {engine.stats.prefix_hits} < 16 in the serving phase")
+    if n_waves > 1:
+        require(engine.stats.prefix_hits >= 16,
+                f"prefix hits {engine.stats.prefix_hits} < 16 in the serving phase")
     return dict(waves=out, wave2_profile=profile, prefix_hits=engine.stats.prefix_hits,
                 prefill_tokens=engine.stats.prefill_tokens,
                 decode_tokens=engine.stats.decode_tokens, chunks=engine.stats.chunks), launches
@@ -1223,14 +1323,15 @@ def _last_logits(engine, prompts, prefix_prompts=()):
 
 
 def prefill_invariants(dev, cfg, params, engine_kw=None,
-                       limits=(PREFILL_REL_RMS, PREFILL_MAX_ABS)):
+                       limits=(PREFILL_REL_RMS, PREFILL_MAX_ABS), sides=("a", "b")):
     """(a) the last logits of the 1500-token prompts chunked through K5
-    (prefill_chunk 512) against one single-shot K2 prefill; (b) the first
-    logits of prefix-hit prefills (K5 over 256 cached tokens) against the
-    same prompts with the prefix cache off. Each read through the kernels,
-    through the plain versions patched in, and with faults planted in K5's
-    inputs; the kernels must hold the limit, every fault must break it.
-    ``engine_kw`` goes to every engine (a quantized pool)."""
+    (prefill_chunk 512) against one single-shot K2 (or K8) prefill; (b) the
+    first logits of prefix-hit prefills (K5 over 256 cached tokens) against
+    the same prompts with the prefix cache off. Each read through the
+    kernels, through the plain versions patched in, and with faults planted
+    in K5's inputs; the kernels must hold the limit, every fault must break
+    it. ``engine_kw`` goes to every engine (a quantized pool); ``sides``
+    picks the invariants read."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
 
     p = serving_prompts(cfg)
@@ -1243,14 +1344,19 @@ def prefill_invariants(dev, cfg, params, engine_kw=None,
                                num_pages=8 * 100, decode_chunk=32, **kw, **(engine_kw or {}))
 
     def read(patch):
+        r = {}
         with patched(patch):
-            chunked, _ = _last_logits(engine(prefill_chunk=512), longs)
-            single, _ = _last_logits(engine(prefill_chunk=2048), longs)
-            cached, hits = _last_logits(engine(prefill_chunk=512, prefix_cache=True), hit,
-                                        prefix_prompts=warm)
-            uncached, _ = _last_logits(engine(prefill_chunk=512), hit)
-        require(hits == len(hit), f"prefix-hit reading hit {hits} of {len(hit)} prompts")
-        return dict(a=compare_logits(chunked, single), b=compare_logits(cached, uncached))
+            if "a" in sides:
+                chunked, _ = _last_logits(engine(prefill_chunk=512), longs)
+                single, _ = _last_logits(engine(prefill_chunk=2048), longs)
+                r["a"] = compare_logits(chunked, single)
+            if "b" in sides:
+                cached, hits = _last_logits(engine(prefill_chunk=512, prefix_cache=True), hit,
+                                            prefix_prompts=warm)
+                uncached, _ = _last_logits(engine(prefill_chunk=512), hit)
+                require(hits == len(hit), f"prefix-hit reading hit {hits} of {len(hit)} prompts")
+                r["b"] = compare_logits(cached, uncached)
+        return r
 
     inv = {"kernels": read(None), "plain": read(plain_ops())}
     inv["faults"] = {name: read(dict(chunked_prefill_attention=f))
@@ -1259,7 +1365,7 @@ def prefill_invariants(dev, cfg, params, engine_kw=None,
     for name, r in [("kernels", inv["kernels"]), ("plain", inv["plain"]),
                     *inv["faults"].items()]:
         log(f"  prefill invariants, {name}: {json.dumps(r)}")
-    for side in ("a", "b"):
+    for side in sides:
         require(prefill_holds(inv["kernels"][side], limits), f"invariant ({side}) fails: {inv}")
         require(prefill_holds(inv["plain"][side], limits),
                 f"plain invariant ({side}) fails: {inv}")
@@ -1443,6 +1549,67 @@ def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: OpenLLaMA-3B v2, head dim 100
+
+
+def open_llama_3b_v2():
+    """OpenLLaMA-3B v2 as the published config.json of
+    openlm-research/open_llama_3b_v2 gives it: LlamaForCausalLM, hidden 3200,
+    intermediate 8640, 26 layers, 32 heads and 32 kv heads (head dim 100),
+    vocab 32000, rms_norm_eps 1e-6, 2048 positions, untied embeddings, bos 1,
+    eos 2, pad 0. The file names no rope_theta: the Llama default, 10000."""
+    from lite_llama_tpu_torch.config import load_config
+
+    return load_config(dict(
+        architectures=["LlamaForCausalLM"], model_type="llama", hidden_size=3200,
+        intermediate_size=8640, num_hidden_layers=26, num_attention_heads=32,
+        num_key_value_heads=32, vocab_size=32000, rms_norm_eps=1e-6, rope_theta=10000.0,
+        max_position_embeddings=2048, tie_word_embeddings=False, hidden_act="silu",
+        bos_token_id=1, eos_token_id=2, pad_token_id=0), dtype=torch.bfloat16)
+
+
+def free_device():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def open_llama_phase(dev):
+    """OpenLLaMA-3B v2 at full width and depth, random bf16 weights from the
+    seed: the phase-4 batch run (K8 for fresh prefill, never K2) with the
+    decode-vs-re-prefill invariant and K1 faults, one serving wave (wave 1
+    of phase 5; K5 at head dim 100) and the chunked-vs-single-shot prefill
+    invariant (single shot through K8) with K5 faults. Returns (summary,
+    launches on this path)."""
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+
+    t0 = time.perf_counter()
+    cfg = open_llama_3b_v2()
+    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"], params["final_norm"],
+                                        *params["layers"].values()])
+    log(f"  {n_params / 1e9:.3f} G parameters, {weight_bytes(params) / 1e9:.3f} GB in bf16; "
+        f"head_dim {cfg.head_dim}")
+
+    def invariant(prompts, outs):
+        return check_invariant(dev, cfg, params, prompts[:2], [o.token_ids for o in outs[:2]],
+                               limits=OPEN_LLAMA_INVARIANT)
+
+    out = dict(params=n_params)
+    out["batch"], batch = slice_phase(dev, cfg, params, path=OPEN_LLAMA_BATCH_PATH,
+                                      invariant=invariant, absent=("flash_prefill",),
+                                      repeats=OPEN_LLAMA_REPEATS)
+    log("OpenLLaMA batch: " + json.dumps(out["batch"]))
+    free_device()
+    out["serving"], serving = serving_phase(dev, cfg, params, profile=False, n_waves=1)
+    free_device()
+    out["serving"]["prefill_invariants"] = prefill_invariants(
+        dev, cfg, params, limits=OPEN_LLAMA_PREFILL, sides=("a",))
+    out["seconds"] = time.perf_counter() - t0
+    log("OpenLLaMA serving: " + json.dumps(out["serving"]))
+    return out, {k: batch[k] + serving[k] for k in batch}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1480,8 +1647,11 @@ def main() -> int:
     log(f"  nvcc builds {built}; all kernels ready in {build_s:.1f} s")
 
     log("phase 3: kernels against their plain versions (bf16)")
+    t0 = time.perf_counter()
     cases = kernel_phase()
-    by_path = {p: {k: None for k in KERNELS} for p in ("batch", "serving", "quantized", "fp8_kv")}
+    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
+    by_path = {p: {k: None for k in KERNELS}
+               for p in ("batch", "serving", "quantized", "fp8_kv", "open_llama")}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
@@ -1523,6 +1693,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, by_path["quantized"] = quantized_phase(dev, cfg, qparams, bf16_logits)
         log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+        del qparams  # phase 7 needs the card's memory
+        free_device()
+        log("phase 7: OpenLLaMA-3B v2 (head dim 100)")
+        summary, by_path["open_llama"] = open_llama_phase(dev)
+        log(f"  phase 7 took {summary['seconds']:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():

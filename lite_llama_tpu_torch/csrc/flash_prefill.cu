@@ -1,12 +1,18 @@
 // Ragged causal GQA flash attention (prefill) for Hopper (sm_90a), fresh
-// (K2) and chunked over the paged pool's history (K5): one kernel template,
-// as the TPU has one _prefill_kernel for both.
+// (K2, K8) and chunked over the paged pool's history (K5): one kernel
+// template, as the TPU has one _prefill_kernel for its streamed forms.
 //
 // Replaces the TPU kernels of lite_llama_tpu/ops/attention_prefill.py:
 // - K2, flash_prefill -> _flash_prefill_impl / _prefill_kernel
 //   (has_history=False): causal attention over a padded [B, S] batch with
 //   per-request lengths; padded keys are masked and padded query rows are
-//   never read by any caller.
+//   never read by any caller. Head dims 64 and 128.
+// - K8, flash_prefill -> _flash_prefill_vmem / _prefill_kernel_vmem: the
+//   same function for head dims the TPU cannot pack into 128 lanes (D = 80,
+//   96, 100, ...). Here it is the fresh instance of the padded template
+//   below, for every even D from 16 to 128 other than 64 and 128. The TPU
+//   kernel keeps the whole key stream of a head in VMEM (capped near S ~ 8k);
+//   this one streams 64-key tiles like K2 and has no such cap.
 // - K5, flash_prefill_chunked -> the same kernel with has_history=True:
 //   chunk query row s of request b attends the pool history
 //   [0, start_pos[b]) through table_rows[b] (no mask there), then the chunk's
@@ -14,8 +20,10 @@
 //   phases. A request with no history and an empty chunk writes out = 0,
 //   m = -1e30, l = 0; chunk_lens = 0 with a history is a walk over the
 //   history only. With m/l pointers the kernel also writes each query row's
-//   online-softmax state (exp2 domain) for a later LSE combine.
-// Query head n attends kv head n // G in both.
+//   online-softmax state (exp2 domain) for a later LSE combine. Any even
+//   head dim from 16 to 128 (the JAX dispatcher sends unpackable ones to its
+//   XLA reference; the function is the same).
+// Query head n attends kv head n // G in all of them.
 //
 // What bounds them: tensor-core operations once prompts or histories are
 // long, about 4 * Nq * D * sum_b(chunk_b * hist_b + chunk_b^2 / 2) FLOPs
@@ -25,8 +33,17 @@
 // Design:
 // - Grid (q tile, kv head, request). A block holds the G query heads of one
 //   kv head: warp w computes 16 query rows of head w / QW, QW = 8 / G warps
-//   per head, so one BK x D tile of K and V in shared memory serves all
+//   per head, so one BK x DP tile of K and V in shared memory serves all
 //   G * 16 * QW query rows of the group.
+// - Head dims: one template over the padded width DP = round_up(D, 16), the
+//   mma k-step, with the true D a runtime argument (EXACT instances, D = DP
+//   = 64 or 128, know it at compile time and are K2's and K5's original
+//   code). Q fragments and the K/V tiles hold zeros in lanes D..DP-1, so the
+//   QK product is exact; the PV product runs DP/8 n-tiles and columns >= D
+//   are never stored. A head starts at byte 2 * h * D, which for D = 100 is
+//   only 8-byte aligned, so tile loads move VEC = 8, 4 or 2 values (the
+//   largest power of two dividing D that the pointers' alignment allows)
+//   instead of always 16 bytes; the pool keeps its layout.
 // - K5's history phase is a loop over BK-row tiles that runs before the
 //   chunk loop. Each tile row is gathered through the page table
 //   (row = page * page_size + offset of the [L, 2, T, Hkv*D] pool), so any
@@ -36,7 +53,8 @@
 //   and reused in registers as the A operand of the PV product (as the TPU
 //   kernel rounds P before its PV dot); the row sums l use the unrounded P.
 // - fp32 online softmax in the exp2 domain, sm_scale*log2(e) folded into q
-//   (rounded to bf16 after the scale, as on the TPU).
+//   (rounded to bf16 after the scale, as the streamed TPU kernel does; its
+//   VMEM form keeps q in fp32, a difference of one bf16 step at most).
 // - The causal mask and the ragged length mask are applied per tile; key
 //   tiles above a warp's diagonal are skipped, key tiles past the causal
 //   frontier or past the chunk length are never loaded.
@@ -65,6 +83,7 @@ enum KvType { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
 constexpr int BK = 64;    // keys per tile
 constexpr int KPAD = 8;   // shared-memory row padding (bf16) against bank conflicts
 constexpr int MAX_WARPS = 8;
+constexpr int MAX_D = 128;
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -83,13 +102,39 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Eight 1-byte pool values (int8 times a scale, or fp8) as eight bf16.
-template <int KV>
-__device__ __forceinline__ uint4 dequant8(uint2 raw, float sc) {
-  uint32_t w[4];
+// VEC bf16 values moved as one load or store: 16, 8 or 4 bytes.
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<8> {
+  using T = uint4;
+};
+template <>
+struct Vec<4> {
+  using T = uint2;
+};
+template <>
+struct Vec<2> {
+  using T = uint32_t;
+};
+
+// VEC consecutive 1-byte pool values (int8 times a scale, or fp8) as VEC bf16.
+template <int KV, int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T dequant(const uint8_t* p, float sc) {
+  uint32_t raw[2] = {0u, 0u};
+  if constexpr (VEC == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    raw[0] = r.x;
+    raw[1] = r.y;
+  } else if constexpr (VEC == 4) {
+    raw[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    raw[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+  uint32_t w[VEC / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t src = i < 2 ? raw.x : raw.y;
+  for (int i = 0; i < VEC / 2; ++i) {
+    const uint32_t src = raw[i >> 1];
     float f[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -104,7 +149,13 @@ __device__ __forceinline__ uint4 dequant8(uint2 raw, float sc) {
     }
     w[i] = pack2(f[0], f[1]);
   }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+  if constexpr (VEC == 8) {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (VEC == 4) {
+    return make_uint2(w[0], w[1]);
+  } else {
+    return w[0];
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -118,15 +169,15 @@ __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi)
 // scores, mask, online-softmax update, PV. CAUSAL: key j0 + i is visible to
 // row p iff it is <= p and < limit (the chunk phase); otherwise iff it is
 // < limit (the history phase).
-template <int D, bool CAUSAL>
-__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4],
-                                            float (&o)[D / 8][4], float (&mrow)[2],
+template <int DP, bool CAUSAL>
+__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[DP / 16][4],
+                                            float (&o)[DP / 8][4], float (&mrow)[2],
                                             float (&lrow)[2], const __nv_bfloat16* sK,
                                             const __nv_bfloat16* sV, int j0, int limit, int p0,
                                             int r, int c) {
-  constexpr int KS = D + KPAD;
-  constexpr int KT = D / 16;
-  constexpr int DT = D / 8;
+  constexpr int KS = DP + KPAD;
+  constexpr int KT = DP / 16;
+  constexpr int DT = DP / 8;
   float s[BK / 8][4];
 #pragma unroll
   for (int nt = 0; nt < BK / 8; ++nt) {
@@ -191,7 +242,66 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4],
   }
 }
 
-template <int D, bool HAS_HISTORY, int KV>
+// One BK x DP tile of the chunk's own K and V into shared memory, VEC values
+// per load; rows at or past kv_hi and lanes D..DP-1 are zeros.
+template <int DP, bool EXACT, int VEC>
+__device__ __forceinline__ void chunk_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
+                                           const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+                                           long long ks, int j0, int kv_hi, int D) {
+  using T = typename Vec<VEC>::T;
+  constexpr int KS = DP + KPAD;
+  constexpr int NCH = DP / VEC;  // loads per tile row
+  for (int idx = threadIdx.x; idx < BK * NCH; idx += blockDim.x) {
+    const int row = idx / NCH;
+    const int ch = (idx % NCH) * VEC;
+    const int pos = j0 + row;
+    T kv{}, vv{};
+    if (pos < kv_hi && (EXACT || ch < D)) {
+      kv = *reinterpret_cast<const T*>(kb + pos * ks + ch);
+      vv = *reinterpret_cast<const T*>(vb + pos * ks + ch);
+    }
+    *reinterpret_cast<T*>(&sK[row * KS + ch]) = kv;
+    *reinterpret_cast<T*>(&sV[row * KS + ch]) = vv;
+  }
+}
+
+// One BK x DP tile of pool history gathered through the page table (and
+// dequantized whole, for a 1-byte pool); rows at or past hist and lanes
+// D..DP-1 are zeros.
+template <int DP, bool EXACT, int VEC, int KV>
+__device__ __forceinline__ void history_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
+                                             const uint8_t* kpool, const uint8_t* vpool,
+                                             const __nv_bfloat16* sbase, const int* tb,
+                                             long long ks, int j0, int hist, int ps, int ppr,
+                                             int D) {
+  using T = typename Vec<VEC>::T;
+  constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
+  constexpr int KS = DP + KPAD;
+  constexpr int NCH = DP / VEC;
+  for (int idx = threadIdx.x; idx < BK * NCH; idx += blockDim.x) {
+    const int row = idx / NCH;
+    const int ch = (idx % NCH) * VEC;
+    const int pos = j0 + row;
+    T kv{}, vv{};
+    if (pos < hist && (EXACT || ch < D)) {
+      const long long pr = (long long)tb[min(pos / ps, ppr - 1)] * ps + pos % ps;
+      const long long off = EB * (pr * ks + ch);
+      if constexpr (KV == KV_BF16) {
+        kv = *reinterpret_cast<const T*>(kpool + off);
+        vv = *reinterpret_cast<const T*>(vpool + off);
+      } else {
+        const float ksc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128]) : 1.f;
+        const float vsc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128 + 64]) : 1.f;
+        kv = dequant<KV, VEC>(kpool + off, ksc);
+        vv = dequant<KV, VEC>(vpool + off, vsc);
+      }
+    }
+    *reinterpret_cast<T*>(&sK[row * KS + ch]) = kv;
+    *reinterpret_cast<T*>(&sV[row * KS + ch]) = vv;
+  }
+}
+
+template <int DP, bool EXACT, bool HAS_HISTORY, int KV>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
                      const __nv_bfloat16* __restrict__ k,      // [B, S, Hkv, D]
@@ -204,11 +314,12 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
                      __nv_bfloat16* __restrict__ out,          // [B, S, Nq, D]
                      float* __restrict__ m_out,                // [B, S, Nq] or null
                      float* __restrict__ l_out,                // [B, S, Nq] or null
-                     int S, int Nq, int Hkv, int QW, float qscale, long long T, int layer,
-                     int ps, int ppr) {
-  constexpr int KS = D + KPAD;  // shared-memory row stride
-  constexpr int KT = D / 16;    // k-steps of the QK product
-  constexpr int DT = D / 8;     // n-tiles of the PV product
+                     int S, int Nq, int Hkv, int head_dim, int vec, int QW, float qscale,
+                     long long T, int layer, int ps, int ppr) {
+  constexpr int KS = DP + KPAD;  // shared-memory row stride
+  constexpr int KT = DP / 16;    // k-steps of the QK product
+  constexpr int DT = DP / 8;     // n-tiles of the PV product
+  const int D = EXACT ? DP : head_dim;  // the true head dim; lanes D..DP-1 are padding
   // Raw 16-bit storage: a __shared__ array of a class type is not portable.
   __shared__ __align__(16) unsigned short sK_raw[BK * KS];
   __shared__ __align__(16) unsigned short sV_raw[BK * KS];
@@ -235,7 +346,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
   float* mb = m_out ? m_out + (long long)b * S * Nq + n : nullptr;
   float* lb = l_out ? l_out + (long long)b * S * Nq + n : nullptr;
 
-  // K2: a q tile wholly past the request's length is padding. K5: a row
+  // K2/K8: a q tile wholly past the request's length is padding. K5: a row
   // attends something unless the request has neither history nor chunk.
   const bool empty = HAS_HISTORY ? (hist <= 0 && len <= 0) : (q0 >= len);
   if (empty) {  // uniform over the block
@@ -250,7 +361,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
     return;
   }
 
-  // This warp's 16 query rows as A fragments, scaled and rounded to bf16.
+  // This warp's 16 query rows as A fragments, scaled and rounded to bf16;
+  // lanes D..DP-1 are zeros.
   const __nv_bfloat16* qb = q + (long long)b * S * qs + (long long)n * D;
   uint32_t qa[KT][4];
 #pragma unroll
@@ -260,7 +372,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
       const int pos = p0 + r + ((j & 1) ? 8 : 0);
       const int d = kk * 16 + 2 * c + ((j & 2) ? 8 : 0);
       float2 f = make_float2(0.f, 0.f);
-      if (pos < S)
+      if (pos < S && (EXACT || d < D))
         f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qb + pos * qs + d));
       qa[kk][j] = pack2(f.x * qscale, f.y * qscale);
     }
@@ -285,29 +397,17 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
     for (int t = 0; t < n_hist; ++t) {
       const int j0 = t * BK;
       __syncthreads();  // the previous tile is consumed
-      for (int idx = threadIdx.x; idx < BK * (D / 8); idx += blockDim.x) {
-        const int row = idx / (D / 8);
-        const int ch = (idx % (D / 8)) * 8;
-        const int pos = j0 + row;
-        uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-        if (pos < hist) {
-          const long long pr = (long long)tb[min(pos / ps, ppr - 1)] * ps + pos % ps;
-          const long long off = EB * (pr * ks + ch);
-          if (KV == KV_BF16) {
-            kv4 = *reinterpret_cast<const uint4*>(kpool + off);
-            vv4 = *reinterpret_cast<const uint4*>(vpool + off);
-          } else {
-            const float ksc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128]) : 1.f;
-            const float vsc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128 + 64]) : 1.f;
-            kv4 = dequant8<KV>(*reinterpret_cast<const uint2*>(kpool + off), ksc);
-            vv4 = dequant8<KV>(*reinterpret_cast<const uint2*>(vpool + off), vsc);
-          }
-        }
-        *reinterpret_cast<uint4*>(&sK[row * KS + ch]) = kv4;
-        *reinterpret_cast<uint4*>(&sV[row * KS + ch]) = vv4;
+      if constexpr (EXACT) {
+        history_tile<DP, true, 8, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
+      } else if (vec == 8) {
+        history_tile<DP, false, 8, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
+      } else if (vec == 4) {
+        history_tile<DP, false, 4, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
+      } else {
+        history_tile<DP, false, 2, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
       }
       __syncthreads();
-      attend_tile<D, false>(qa, o, mrow, lrow, sK, sV, j0, hist, p0, r, c);
+      attend_tile<DP, false>(qa, o, mrow, lrow, sK, sV, j0, hist, p0, r, c);
     }
   }
 
@@ -320,21 +420,18 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
   for (int t = 0; t < n_tiles; ++t) {
     const int j0 = t * BK;
     __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < BK * (D / 8); idx += blockDim.x) {
-      const int row = idx / (D / 8);
-      const int ch = (idx % (D / 8)) * 8;
-      const int pos = j0 + row;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (pos < kv_hi) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + pos * ks + ch);
-        vv4 = *reinterpret_cast<const uint4*>(vb + pos * ks + ch);
-      }
-      *reinterpret_cast<uint4*>(&sK[row * KS + ch]) = kv4;
-      *reinterpret_cast<uint4*>(&sV[row * KS + ch]) = vv4;
+    if constexpr (EXACT) {
+      chunk_tile<DP, true, 8>(sK, sV, kb, vb, ks, j0, kv_hi, D);
+    } else if (vec == 8) {
+      chunk_tile<DP, false, 8>(sK, sV, kb, vb, ks, j0, kv_hi, D);
+    } else if (vec == 4) {
+      chunk_tile<DP, false, 4>(sK, sV, kb, vb, ks, j0, kv_hi, D);
+    } else {
+      chunk_tile<DP, false, 2>(sK, sV, kb, vb, ks, j0, kv_hi, D);
     }
     __syncthreads();
     if (j0 > p0 + 15) continue;  // tile entirely above this warp's diagonal
-    attend_tile<D, true>(qa, o, mrow, lrow, sK, sV, j0, len, p0, r, c);
+    attend_tile<DP, true>(qa, o, mrow, lrow, sK, sV, j0, len, p0, r, c);
   }
 
   float lt[2], inv[2];
@@ -350,6 +447,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const int d = dt * 8 + 2 * c;
+    if (!EXACT && d >= D) continue;  // a padding column: never stored
     if (pr0 < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + pr0 * qs + d) =
           __floats2bfloat162_rn(o[dt][0] * inv[0], o[dt][1] * inv[0]);
@@ -369,14 +467,34 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
   }
 }
 
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
+}
+
+// padded: K8's instances, the padded template even where D = DP; otherwise
+// D = 64 and 128 take the EXACT instances (K2, K5) and other head dims the
+// padded ones (K5 only).
 template <bool HAS_HISTORY, int KV>
 int launch(const void* q, const void* k, const void* v, const void* chunk_lens,
            const void* start_pos, const void* pages, const void* scales, const void* table,
-           void* out, void* m, void* l, int B, int S, int Nq, int Hkv, int D, float qscale,
-           long long T, int layer, int ps, int ppr, void* stream) {
+           void* out, void* m, void* l, int B, int S, int Nq, int Hkv, int D, bool padded,
+           float qscale, long long T, int layer, int ps, int ppr, void* stream) {
+  constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
   if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_WARPS) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D > MAX_D || D % 2 != 0) return (int)cudaErrorInvalidValue;
   if (HAS_HISTORY && (ps <= 0 || ppr <= 0)) return (int)cudaErrorInvalidValue;
   if (KV == KV_INT8 && (scales == nullptr || Hkv > 64)) return (int)cudaErrorInvalidValue;
+  // Values per tile load: the largest power of two up to 8 that divides D
+  // and that the K/V (and pool) pointers' alignment allows.
+  int vec = 8;
+  while (vec > 2 && (D % vec != 0 || !aligned(k, 2 * vec) || !aligned(v, 2 * vec) ||
+                     (HAS_HISTORY && !aligned(pages, EB * vec))))
+    vec /= 2;
+  if (!aligned(q, 4) || !aligned(k, 2 * vec) || !aligned(v, 2 * vec) ||
+      (HAS_HISTORY && !aligned(pages, EB * vec)))
+    return (int)cudaErrorMisalignedAddress;
+  const bool exact = !padded && (D == 64 || D == 128);
+  if (exact && vec != 8) return (int)cudaErrorMisalignedAddress;
   const int G = Nq / Hkv;
   const int QW = MAX_WARPS / G;  // warps (16-row slices) per query head
   const int BQ = 16 * QW;
@@ -393,15 +511,27 @@ int launch(const void* q, const void* k, const void* v, const void* chunk_lens,
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* mp = static_cast<float*>(m);
   auto* lp = static_cast<float*>(l);
-  if (D == 128) {
-    flash_prefill_kernel<128, HAS_HISTORY, KV><<<grid, block, 0, st>>>(
-        qp, kp, vp, cl, sp, pages, sc, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
-  } else if (D == 64) {
-    flash_prefill_kernel<64, HAS_HISTORY, KV><<<grid, block, 0, st>>>(
-        qp, kp, vp, cl, sp, pages, sc, tp, op, mp, lp, S, Nq, Hkv, QW, qscale, T, layer, ps, ppr);
+#define PREFILL_INSTANCE(DP, EXACT)                                                            \
+  flash_prefill_kernel<DP, EXACT, HAS_HISTORY, KV><<<grid, block, 0, st>>>(                   \
+      qp, kp, vp, cl, sp, pages, sc, tp, op, mp, lp, S, Nq, Hkv, D, vec, QW, qscale, T, layer, \
+      ps, ppr)
+  if (exact && D == 128) {
+    PREFILL_INSTANCE(128, true);
+  } else if (exact) {
+    PREFILL_INSTANCE(64, true);
   } else {
-    return (int)cudaErrorInvalidValue;
+    switch ((D + 15) / 16 * 16) {  // DP: D padded to the mma k-step
+      case 16: PREFILL_INSTANCE(16, false); break;
+      case 32: PREFILL_INSTANCE(32, false); break;
+      case 48: PREFILL_INSTANCE(48, false); break;
+      case 64: PREFILL_INSTANCE(64, false); break;
+      case 80: PREFILL_INSTANCE(80, false); break;
+      case 96: PREFILL_INSTANCE(96, false); break;
+      case 112: PREFILL_INSTANCE(112, false); break;
+      default: PREFILL_INSTANCE(128, false); break;
+    }
   }
+#undef PREFILL_INSTANCE
   return (int)cudaGetLastError();
 }
 
@@ -411,17 +541,29 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K2: fresh prefill, no history.
+// K2: fresh prefill, no history, head dims 64 and 128.
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* seq_lens, void* out, int B, int S, int Nq,
                                   int Hkv, int D, float qscale, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   return launch<false, KV_BF16>(q, k, v, seq_lens, nullptr, nullptr, nullptr, nullptr, out,
-                                nullptr, nullptr, B, S, Nq, Hkv, D, qscale, 0, 0, 0, 0, stream);
+                                nullptr, nullptr, B, S, Nq, Hkv, D, false, qscale, 0, 0, 0, 0,
+                                stream);
 }
 
-// K5 (bf16 pool) and K5q (int8 / fp8 pool): a chunk over the pool's history.
-// scales: the int8 pool's merged [L, T, 128] bf16 slab, null otherwise. m
-// and l may be null (no state out).
+// K8: fresh prefill through the padded instances, any even head dim up to
+// 128 (the callers send it the dims other than 64 and 128).
+extern "C" int flash_prefill_vmem_bf16(const void* q, const void* k, const void* v,
+                                       const void* seq_lens, void* out, int B, int S, int Nq,
+                                       int Hkv, int D, float qscale, void* stream) {
+  return launch<false, KV_BF16>(q, k, v, seq_lens, nullptr, nullptr, nullptr, nullptr, out,
+                                nullptr, nullptr, B, S, Nq, Hkv, D, true, qscale, 0, 0, 0, 0,
+                                stream);
+}
+
+// K5 (bf16 pool) and K5q (int8 / fp8 pool): a chunk over the pool's history,
+// any even head dim up to 128. scales: the int8 pool's merged [L, T, 128]
+// bf16 slab, null otherwise. m and l may be null (no state out).
 #define CHUNKED_ENTRY(NAME, KV)                                                                \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* chunk_lens,    \
                       const void* start_pos, const void* pages, const void* scales,           \
@@ -430,7 +572,7 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                       void* stream) {                                                          \
     if ((m == nullptr) != (l == nullptr)) return (int)cudaErrorInvalidValue;                  \
     return launch<true, KV>(q, k, v, chunk_lens, start_pos, pages, scales, table, out, m, l,  \
-                            B, S, Nq, Hkv, D, qscale, T, layer, ps, ppr, stream);              \
+                            B, S, Nq, Hkv, D, false, qscale, T, layer, ps, ppr, stream);       \
   }
 
 CHUNKED_ENTRY(flash_prefill_chunked_bf16, KV_BF16)

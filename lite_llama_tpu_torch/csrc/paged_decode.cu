@@ -16,11 +16,18 @@
 // - One block per (kv head, request). The G = Nq / Hkv query heads of the
 //   group live in registers of every warp, so each K/V row is loaded once
 //   and used G times.
-// - A warp owns whole tokens: its 32 lanes split one head row (D/32 values
-//   each, 8- or 4-byte loads, neighbouring lanes on neighbouring addresses)
-//   and reduce the G dot products with shuffles. Eight warps take tokens
-//   round robin, UNR tokens each per iteration, so 8 * UNR rows per block are
-//   in flight to hide device-memory latency.
+// - A warp owns whole tokens: its 32 lanes split one head row and reduce
+//   the G dot products with shuffles. A lane holds NV values in groups of
+//   VW consecutive ones (8- or 4-byte loads, neighbouring lanes on
+//   neighbouring addresses): group j of lane t starts at value VW*(t + 32j).
+//   D = 128 and D = 64 are the EXACT instances (NV = VW = D/32, one load a
+//   lane). Any other even D up to 128 takes a padded instance with D a
+//   runtime argument, where groups at or past D are masked lanes: NV = 2
+//   for D <= 64, else NV = 4 with VW = 4 where D % 4 == 0 (D = 80, 96, 100:
+//   a head starts at 2 * h * D bytes, 8-byte aligned) and VW = 2 otherwise
+//   (D = 98: only 4-byte aligned), so no load is wider than the alignment.
+//   Eight warps take tokens round robin, UNR tokens each per iteration, so
+//   8 * UNR rows per block are in flight to hide device-memory latency.
 // - The block resolves its own pages through the page table (no
 //   prefetched index list) and handles any page_size.
 // - Each warp keeps an fp32 online softmax (m, l, acc) per query head in the
@@ -67,7 +74,7 @@ __device__ __forceinline__ float fp8_to_float(uint32_t byte) {
 
 // VPL consecutive 1-byte pool values as floats (exact for int8 and e4m3).
 template <int VPL, int KV>
-__device__ __forceinline__ void load_bytes(const uint8_t* p, float (&f)[VPL]) {
+__device__ __forceinline__ void load_bytes(const uint8_t* p, float* f) {
   const uint32_t raw = VPL == 4 ? *reinterpret_cast<const uint32_t*>(p)
                                 : (uint32_t)*reinterpret_cast<const uint16_t*>(p);
 #pragma unroll
@@ -78,21 +85,23 @@ __device__ __forceinline__ void load_bytes(const uint8_t* p, float (&f)[VPL]) {
 }
 
 template <int VPL>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&f)[VPL]) {
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* f) {
   if constexpr (VPL == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
     f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
   } else {
-    static_assert(VPL == 2, "head_dim must be 64 or 128");
+    static_assert(VPL == 2, "a lane loads 2 or 4 values at a time");
     const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
     f[0] = a.x; f[1] = a.y;
   }
 }
 
-template <int D, int KV>
+// NV values per lane in groups of VW; DC the head dim when it is a
+// compile-time constant (the EXACT instances, DC = 32 * NV), else 0.
+template <int NV, int VW, int DC, int KV>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
                     const void* __restrict__ pages,            // [L, 2, T, Hkv*D]
@@ -102,10 +111,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
                     __nv_bfloat16* __restrict__ out,           // [B, Nq, D]
                     float* __restrict__ m_out,                 // [B, Nq]
                     float* __restrict__ l_out,                 // [B, Nq]
-                    int Nq, int Hkv, long long T, int layer, int ps, int ppr,
+                    int Nq, int Hkv, int head_dim, long long T, int layer, int ps, int ppr,
                     float qscale) {
-  constexpr int VPL = D / 32;
+  constexpr int NG = NV / VW;   // value groups per lane
+  constexpr int DMAX = 32 * NV; // widest head this instance covers
+  constexpr bool EXACT = DC == DMAX;
   constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
+  const int D = DC ? DC : head_dim;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Nq / Hkv;
@@ -114,60 +126,75 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
   const long long HD = (long long)Hkv * D;
   const int len = kv_lens[b];
   const int* pt = page_table + (long long)b * ppr;
+  int goff[NG];   // first value of each of this lane's groups
+  bool gok[NG];   // the group lies inside the head (always, when EXACT)
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    goff[j] = VW * (lane + 32 * j);
+    gok[j] = EXACT || goff[j] < D;
+  }
   const uint8_t* kbase = static_cast<const uint8_t*>(pages) +
-                         EB * ((long long)layer * 2 * T * HD + (long long)h * D + lane * VPL);
+                         EB * ((long long)layer * 2 * T * HD + (long long)h * D);
   const uint8_t* vbase = kbase + EB * T * HD;
   const __nv_bfloat16* sbase = KV == KV_INT8 ? scales + (long long)layer * T * 128 + h : nullptr;
 
-  float qf[MAX_G][VPL];
+  float qf[MAX_G][NV];
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g) {
-    float t[VPL];
-    if (g < G) {
-      load_row<VPL>(q + ((long long)b * Nq + h * G + g) * D + lane * VPL, t);
-    } else {
+    float t[NV];
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) t[i] = 0.f;
+    for (int j = 0; j < NG; ++j) {
+      if (g < G && gok[j]) {
+        load_row<VW>(q + ((long long)b * Nq + h * G + g) * D + goff[j], t + j * VW);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VW; ++i) t[j * VW + i] = 0.f;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < VPL; ++i)
+    for (int i = 0; i < NV; ++i)
       qf[g][i] = __bfloat162float(__float2bfloat16(t[i] * qscale));
   }
 
-  float m[MAX_G], l[MAX_G], acc[MAX_G][VPL];
+  float m[MAX_G], l[MAX_G], acc[MAX_G][NV];
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g) {
     m[g] = NEG;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < NV; ++i) acc[g][i] = 0.f;
   }
 
-  // len is uniform over the block, so every branch below is warp-uniform.
+  // len is uniform over the block, so every branch below is warp-uniform
+  // (gok differs between lanes only around a load).
   for (int t0 = warp * UNR; t0 < len; t0 += WARPS * UNR) {
-    float kf[UNR][VPL], vf[UNR][VPL], ksc[UNR], vsc[UNR];
+    float kf[UNR][NV], vf[UNR][NV], ksc[UNR], vsc[UNR];
     bool ok[UNR];
 #pragma unroll
     for (int u = 0; u < UNR; ++u) {
       const int t = t0 + u;
       ok[u] = t < len;
       ksc[u] = vsc[u] = 1.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) kf[u][i] = vf[u][i] = 0.f;
       if (ok[u]) {
         const long long row = (long long)pt[t / ps] * ps + (t % ps);
-        if (KV == KV_BF16) {
-          load_row<VPL>(reinterpret_cast<const __nv_bfloat16*>(kbase + EB * row * HD), kf[u]);
-          load_row<VPL>(reinterpret_cast<const __nv_bfloat16*>(vbase + EB * row * HD), vf[u]);
-        } else {
-          load_bytes<VPL, KV>(kbase + row * HD, kf[u]);
-          load_bytes<VPL, KV>(vbase + row * HD, vf[u]);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          if (!gok[j]) continue;
+          const long long off = EB * (row * HD + goff[j]);
+          if (KV == KV_BF16) {
+            load_row<VW>(reinterpret_cast<const __nv_bfloat16*>(kbase + off), kf[u] + j * VW);
+            load_row<VW>(reinterpret_cast<const __nv_bfloat16*>(vbase + off), vf[u] + j * VW);
+          } else {
+            load_bytes<VW, KV>(kbase + off, kf[u] + j * VW);
+            load_bytes<VW, KV>(vbase + off, vf[u] + j * VW);
+          }
         }
         if (KV == KV_INT8) {
           ksc[u] = __bfloat162float(sbase[row * 128]);
           vsc[u] = __bfloat162float(sbase[row * 128 + 64]);
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < VPL; ++i) kf[u][i] = vf[u][i] = 0.f;
       }
     }
     float s[UNR][MAX_G];
@@ -177,7 +204,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
       for (int g = 0; g < MAX_G; ++g) {
         float a = 0.f;
 #pragma unroll
-        for (int i = 0; i < VPL; ++i) a += qf[g][i] * kf[u][i];
+        for (int i = 0; i < NV; ++i) a += qf[g][i] * kf[u][i];
         s[u][g] = a;
       }
     }
@@ -218,7 +245,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
         }
         l[g] = l[g] * corr + psum;
 #pragma unroll
-        for (int i = 0; i < VPL; ++i) {
+        for (int i = 0; i < NV; ++i) {
           float a = acc[g][i] * corr;
 #pragma unroll
           for (int u = 0; u < UNR; ++u) a += p[u] * vf[u][i];
@@ -232,7 +259,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
   // Merge the eight warps' partial states.
   __shared__ float sm_m[WARPS][MAX_G];
   __shared__ float sm_l[WARPS][MAX_G];
-  __shared__ float sm_acc[WARPS][MAX_G][D];
+  __shared__ float sm_acc[WARPS][MAX_G][DMAX];
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g) {
     if (g < G) {
@@ -241,7 +268,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) sm_acc[warp][g][lane * VPL + i] = acc[g][i];
+      for (int j = 0; j < NG; ++j) {
+        if (!gok[j]) continue;
+#pragma unroll
+        for (int i = 0; i < VW; ++i) sm_acc[warp][g][goff[j] + i] = acc[g][j * VW + i];
+      }
     }
   }
   __syncthreads();
@@ -267,12 +298,21 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B, Nq, D]
   }
 }
 
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
+}
+
 template <int KV>
 int launch(const void* q, const void* pages, const void* scales, const void* page_table,
            const void* kv_lens, void* out, void* m, void* l, int B, int Nq, int Hkv, int D,
            long long T, int layer, int ps, int ppr, float qscale, void* stream) {
+  constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
   if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_G) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D > 128 || D % 2 != 0) return (int)cudaErrorInvalidValue;
   if (KV == KV_INT8 && (scales == nullptr || Hkv > 64)) return (int)cudaErrorInvalidValue;
+  // Values per load (VW): 4 where D % 4 == 0 and D > 64, else 2.
+  const int vw = (D > 64 && D % 4 == 0) ? 4 : 2;
+  if (!aligned(q, 2 * vw) || !aligned(pages, EB * vw)) return (int)cudaErrorMisalignedAddress;
   const dim3 grid(Hkv, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -282,15 +322,22 @@ int launch(const void* q, const void* pages, const void* scales, const void* pag
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* mp = static_cast<float*>(m);
   auto* lo = static_cast<float*>(l);
+#define DECODE_INSTANCE(NV, VW, DC)                                                          \
+  paged_decode_kernel<NV, VW, DC, KV><<<grid, THREADS, 0, st>>>(qp, pages, sp, tp, lp, op, mp, \
+                                                                 lo, Nq, Hkv, D, T, layer, ps, \
+                                                                 ppr, qscale)
   if (D == 128) {
-    paged_decode_kernel<128, KV><<<grid, THREADS, 0, st>>>(qp, pages, sp, tp, lp, op, mp, lo,
-                                                           Nq, Hkv, T, layer, ps, ppr, qscale);
+    DECODE_INSTANCE(4, 4, 128);
   } else if (D == 64) {
-    paged_decode_kernel<64, KV><<<grid, THREADS, 0, st>>>(qp, pages, sp, tp, lp, op, mp, lo, Nq,
-                                                          Hkv, T, layer, ps, ppr, qscale);
+    DECODE_INSTANCE(2, 2, 64);
+  } else if (D < 64) {
+    DECODE_INSTANCE(2, 2, 0);
+  } else if (vw == 4) {
+    DECODE_INSTANCE(4, 4, 0);
   } else {
-    return (int)cudaErrorInvalidValue;
+    DECODE_INSTANCE(4, 2, 0);
   }
+#undef DECODE_INSTANCE
   return (int)cudaGetLastError();
 }
 
@@ -302,7 +349,8 @@ extern "C" const char* error_string(int code) {
 
 // kv_lens: tokens present in the pool per request (the caller passes
 // seq_len - 1 when the newest token rides separately). scales: the int8
-// pool's merged [L, T, 128] bf16 slab, null for bf16 and fp8 pools.
+// pool's merged [L, T, 128] bf16 slab, null for bf16 and fp8 pools. Any
+// even head dim up to 128.
 #define PAGED_DECODE_ENTRY(NAME, KV)                                                          \
   extern "C" int NAME(const void* q, const void* pages, const void* scales,                   \
                       const void* page_table, const void* kv_lens, void* out, void* m, void* l, \

@@ -2,8 +2,10 @@
 
 K1 replaces the TPU kernel ``paged_flash_decode`` / ``_decode_kernel`` with
 the CUDA kernel ``csrc/paged_decode.cu`` (its header says what bounds it and
-how it is laid out); K1q, its int8 and fp8 pool instances, replace the
-kernel's quantized-pool branches (one launcher and launch count each). The kernel reads K/V through the page table straight
+how it is laid out), at every even head dim from 16 to 128, as the TPU
+kernel's wide form takes any; K1q, its int8 and fp8 pool instances, replace
+the kernel's quantized-pool branches (one launcher and launch count each).
+The kernel reads K/V through the page table straight
 out of the pool ``[L, 2, T, Hkv*D]`` and returns ``out`` with the
 online-softmax state ``(m, l)``; the newest token of a decode step is not in
 the pool yet and is folded in outside the kernel (``ref.fold_new_token``),
@@ -85,9 +87,11 @@ def _decode_launcher(pool_dtype):
                              f"{q.dtype} and {pages.dtype}")
         if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
             raise ValueError("paged_decode kernel: page_table and kv_lens must be int32")
-        if D not in (64, 128) or two != 2 or HD % D or Nq % (HD // D) or Nq // (HD // D) > 8:
+        if (D not in _build.HEAD_DIMS or two != 2 or HD % D or Nq % (HD // D)
+                or Nq // (HD // D) > 8):
             raise ValueError(f"paged_decode kernel: unsupported shape q={tuple(q.shape)} "
-                             f"pool={tuple(pages.shape)}")
+                             f"pool={tuple(pages.shape)} (head dims: even, 16 to 128; at most "
+                             "8 query heads per kv head)")
         if not (q.is_contiguous() and pages.is_contiguous() and page_table.is_contiguous()
                 and kv_lens.is_contiguous()) or page_table.shape[0] != B or kv_lens.shape != (B,):
             raise ValueError("paged_decode kernel: contiguous q [B,Nq,D], page_table [B,ppr], "

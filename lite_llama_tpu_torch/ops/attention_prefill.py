@@ -3,16 +3,19 @@ paged pool's history (port of ``lite_llama_tpu/ops/attention_prefill.py``,
 the ``flash_prefill`` and ``flash_prefill_chunked`` entries, bf16, int8 and fp8
 pools).
 
-Both TPU entries run one kernel, ``_prefill_kernel``, and so do their
-ports: ``csrc/flash_prefill.cu`` (its header says what bounds it and how it
-is laid out) is instantiated without history for K2 (``flash_prefill`` ->
-``_flash_prefill_impl``, ``has_history=False``) and with it for K5
-(``flash_prefill_chunked``, ``has_history=True``) and K5q, its int8 and fp8
-pool instances (one launcher and launch count each).
+The TPU runs its streamed forms through one kernel, ``_prefill_kernel``,
+and unpackable head dims through ``_flash_prefill_vmem``; the port runs all
+of them through one template, ``csrc/flash_prefill.cu`` (its header says
+what bounds it and how it is laid out): without history for K2
+(``flash_prefill`` -> ``_flash_prefill_impl``, head dims 64 and 128) and K8
+(``flash_prefill`` -> ``_flash_prefill_vmem``, every other even head dim
+from 16 to 128, padded to the mma k-step), with history for K5
+(``flash_prefill_chunked``) and K5q, its int8 and fp8 pool instances (one
+launcher and launch count each).
 
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
-takes the plain version: ``ops/ref.py`` ``prefill_attention`` for K2,
-:func:`chunked_prefill_state_plain` for K5. Pad query rows of K2
+takes the plain version: ``ops/ref.py`` ``prefill_attention`` for K2 and K8,
+:func:`chunked_prefill_state_plain` for K5. Pad query rows of K2 and K8
 (s >= seq_lens[b]) hold garbage in both and are never read.
 """
 
@@ -37,45 +40,63 @@ def _check_qkv(what, q, k, v):
     Hkv = k.shape[2]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"{what} kernel takes bf16 q/k/v")
-    if (D not in (64, 128) or k.shape != (B, S, Hkv, D) or v.shape != k.shape
+    if (D not in _build.HEAD_DIMS or k.shape != (B, S, Hkv, D) or v.shape != k.shape
             or Nq % Hkv or Nq // Hkv > 8):
         raise ValueError(f"{what} kernel: unsupported shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)}")
+                         f"k={tuple(k.shape)} (head dims: even, 16 to 128; at most 8 "
+                         "query heads per kv head)")
 
 
-def launch_flash_prefill(q, k, v, seq_lens, sm_scale):
-    """K2 on the card: q [B, S, Nq, D], k/v [B, S, Hkv, D] bf16,
-    seq_lens [B] int32 -> [B, S, Nq, D] bf16."""
-    B, S, Nq, D = q.shape
-    Hkv = k.shape[2]
-    if not all(t.is_cuda and t.device == q.device for t in (q, k, v, seq_lens)):
-        raise ValueError("flash_prefill kernel: all tensors must be on one CUDA device")
-    _check_qkv("flash_prefill", q, k, v)
-    if seq_lens.dtype != torch.int32 or seq_lens.shape != (B,):
-        raise ValueError("flash_prefill kernel takes int32 seq_lens [B]")
-    q, k, v, seq_lens = (t.contiguous() for t in (q, k, v, seq_lens))
-    out = torch.empty_like(q)
-    if B and S:
-        lib = _build.library("flash_prefill", "flash_prefill_bf16", _ARGTYPES)
-        code = lib.flash_prefill_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, S, Nq, Hkv, D, float(sm_scale * LOG2E),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-        _build.check(lib, code, "flash_prefill")
-        launch_flash_prefill.launches += 1
-    return out
+def _fresh_launcher(entry, what, head_dims):
+    """K2 (``flash_prefill_bf16``, head dims 64 and 128) or K8
+    (``flash_prefill_vmem_bf16``, the padded instances)."""
+
+    def launch(q, k, v, seq_lens, sm_scale):
+        B, S, Nq, D = q.shape
+        Hkv = k.shape[2]
+        if not all(t.is_cuda and t.device == q.device for t in (q, k, v, seq_lens)):
+            raise ValueError(f"{what} kernel: all tensors must be on one CUDA device")
+        _check_qkv(what, q, k, v)
+        if D not in head_dims:
+            raise ValueError(f"{what} kernel: head dim {D} is not one of its instances")
+        if seq_lens.dtype != torch.int32 or seq_lens.shape != (B,):
+            raise ValueError(f"{what} kernel takes int32 seq_lens [B]")
+        q, k, v, seq_lens = (t.contiguous() for t in (q, k, v, seq_lens))
+        out = torch.empty_like(q)
+        if B and S:
+            lib = _build.library("flash_prefill", entry, _ARGTYPES)
+            code = getattr(lib, entry)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                B, S, Nq, Hkv, D, float(sm_scale * LOG2E),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+            _build.check(lib, code, what)
+            launch.launches += 1
+        return out
+
+    launch.__name__ = f"launch_{what}"
+    launch.__doc__ = (f"{what} on the card: q [B, S, Nq, D], k/v [B, S, Hkv, D] bf16, "
+                      "seq_lens [B] int32 -> [B, S, Nq, D] bf16.")
+    launch.launches = 0
+    return launch
 
 
-launch_flash_prefill.launches = 0
+# K2 takes the head dims the TPU streams unpadded; K8 every even one (the
+# router sends it all but 64 and 128, and its instances are the padded ones).
+launch_flash_prefill = _fresh_launcher("flash_prefill_bf16", "flash_prefill", (64, 128))
+launch_flash_prefill_vmem = _fresh_launcher("flash_prefill_vmem_bf16", "flash_prefill_vmem",
+                                            _build.HEAD_DIMS)
 
 
 def flash_prefill(q, k, v, seq_lens, sm_scale=None):
-    """Fresh prefill: causal ragged GQA attention over one padded chunk."""
+    """Fresh prefill: causal ragged GQA attention over one padded chunk. On
+    the card head dims 64 and 128 take K2, every other even one up to 128
+    K8 (the TPU's ``_flash_prefill_vmem``); anything else raises."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
-        return launch_flash_prefill(q, k, v, seq_lens.to(torch.int32), sm_scale)
+        launch = launch_flash_prefill if q.shape[-1] in (64, 128) else launch_flash_prefill_vmem
+        return launch(q, k, v, seq_lens.to(torch.int32), sm_scale)
     return ref.prefill_attention(q, k, v, seq_lens, sm_scale)
 
 

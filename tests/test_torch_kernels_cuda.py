@@ -1,8 +1,10 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card, in bf16, at Llama-3.2-3B (D=128, Nq=24, Hkv=8) and Llama-3.2-1B
 (D=64, Nq=32, Hkv=8) head shapes, the quantized kernels (K6 W4A8, K7 W8A8,
-K1q / K5q on int8 and fp8 pools) included, plus the refusals that keep the
-card off the plain code. This file imports no JAX, so it runs on a machine with a
+K1q / K5q on int8 and fp8 pools) included, the attention kernels at the
+other head dims (K8, and K1 / K1q / K5 / K5q at D = 16 ... 112 with 1 to 8
+query heads per kv head), plus the refusals that keep the card off the
+plain code. This file imports no JAX, so it runs on a machine with a
 card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -312,3 +314,128 @@ def test_quantized_pool_kernels_refuse_a_pool_without_its_scales(cuda):
                                           pool.pages, 16, 0, t, 0.1)
     with pytest.raises(ValueError, match="bf16"):  # a bf16 launcher handed an int8 pool
         launch_paged_decode(q, pool.pages, 16, 0, t, one, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# Head dims other than 64 and 128: K8, and the padded K1 / K5 instances
+
+HEAD_DIMS = [16, 40, 80, 96, 100, 112]
+GROUPS = [1, 3, 4, 8]
+HKV = 3  # kv heads 0, 1, 2: an odd head starts at a 2 * D-byte offset
+
+
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_padded_prefill_kernel_matches_plain(cuda, D, G):
+    """K8 (ops.prefill_attention routes every head dim but 64 and 128 to
+    it) against its plain version on every valid row of ragged requests."""
+    from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_vmem
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    B, S, Nq = 3, 150, G * HKV
+    q = torch.randn((B, S, Nq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, HKV, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, HKV, D), generator=g, device=cuda).bfloat16()
+    lens = [150, 67, 1]
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    k8, k2 = launch_flash_prefill_vmem.launches, launch_flash_prefill.launches
+    got = ops.prefill_attention(q, k, v, sl)
+    assert (launch_flash_prefill_vmem.launches, launch_flash_prefill.launches) == (k8 + 1, k2)
+    want = ref.prefill_attention(q, k, v, sl)
+    for b, n in enumerate(lens):  # pad rows are never read
+        assert _within(got[b, :n], want[b, :n]), b
+
+
+@pytest.mark.parametrize("D,Nq,Hkv", [(128, 24, 8), (64, 32, 8), (64, 15, 5)])
+def test_padded_prefill_template_equals_k2_where_nothing_is_padded(cuda, D, Nq, Hkv):
+    """K8's padded instances at D = DP compute what K2's exact ones do, bit
+    for bit (the same tiles in the same order)."""
+    from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_vmem
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    B, S = 2, 100
+    q = torch.randn((B, S, Nq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    sl = torch.tensor([100, 37], dtype=torch.int32, device=cuda)
+    a = launch_flash_prefill_vmem(q, k, v, sl, D**-0.5)
+    b = launch_flash_prefill(q, k, v, sl, D**-0.5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1, :37], b[1, :37])
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_padded_decode_kernel_matches_plain(cuda, kv, D, G):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, ps, P, ppr = 5, 16, 48, 8
+    pool = _quant_pool(cuda, kv, HKV, D, P, ps)
+    lens = torch.tensor([0, 1, 16, 77, 128], dtype=torch.int32, device=cuda)
+    table = torch.randperm(P, generator=g, device=cuda)[: B * ppr].view(B, ppr).int()
+    q = torch.randn((B, G * HKV, D), generator=g, device=cuda).bfloat16()
+    out, m, l = paged_flash_decode(q, pool, 1, table, lens, return_state=True)
+    po, pm, pl = paged_decode_state_plain(q, pool.pages, ps, 1, table, lens, D**-0.5,
+                                          pool.scales)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    assert torch.all(m[0] == -1e30) and torch.all(l[0] == 0) and torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_padded_chunked_prefill_kernel_matches_plain(cuda, kv, D, G):
+    """K5 / K5q at the padded head dims on out, m and l: histories of 0, 16,
+    500 and 700 tokens under shuffled pages, a history-only walk and a
+    request with neither history nor chunk."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, S, ps, P, ppr = 5, 96, 16, 240, 48
+    pool = _quant_pool(cuda, kv, HKV, D, P, ps)
+    start = torch.tensor([0, 16, 500, 700, 0], dtype=torch.int32, device=cuda)
+    clen = torch.tensor([S, 70, 0, S, 0], dtype=torch.int32, device=cuda)
+    table = torch.randperm(P, generator=g, device=cuda)[: B * ppr].view(B, ppr).int()
+    Nq = G * HKV
+    q = torch.randn((B, S, Nq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, HKV, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, HKV, D), generator=g, device=cuda).bfloat16()
+    out, m, l = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table, return_state=True)
+    po, pm, pl = chunked_prefill_state_plain(q, k, v, clen, start, pool.pages, ps, 1, table,
+                                             D**-0.5, pool.scales)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    assert torch.all(m[4] == -1e30) and torch.all(l[4] == 0) and torch.all(out[4] == 0)
+
+
+@pytest.mark.parametrize("D", [99, 130, 8])
+def test_attention_kernels_refuse_head_dims_they_do_not_take(cuda, D):
+    """Odd, too wide or too narrow head dims raise on the card: nothing
+    falls back to a plain version."""
+    q = torch.zeros((1, 4, 2, D), device=cuda).bfloat16()
+    kv = torch.zeros((1, 4, 1, D), device=cuda).bfloat16()
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.prefill_attention(q, kv, kv, one)
+    pool = KVPool(torch.zeros((1, 2, 16, D), device=cuda).bfloat16(), 16, 1, D)
+    t = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        paged_flash_decode(q[:, 0], pool, 0, t, one)
+    with pytest.raises(ValueError, match="unsupported"):
+        flash_prefill_chunked(q, kv, kv, one, one, pool, 0, t)
+
+
+def test_prefill_at_head_dim_100_runs_k8_and_never_the_plain_version(cuda, monkeypatch):
+    from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_vmem
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "prefill_attention", no_plain)
+    q = torch.randn((2, 40, 32, 100), device=cuda).bfloat16()
+    kv = torch.randn((2, 40, 32, 100), device=cuda).bfloat16()
+    before = launch_flash_prefill_vmem.launches
+    out = ops.prefill_attention(q, kv, kv, torch.tensor([40, 9], device=cuda))
+    torch.cuda.synchronize()
+    assert launch_flash_prefill_vmem.launches == before + 1
+    assert out.shape == q.shape and bool(torch.isfinite(out[1, :9]).all())
