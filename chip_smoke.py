@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero:
    card could take (bytes over 3.35 TB/s or bf16 operations over 989
    TFLOP/s), the plain version's time and one PyTorch library call's time
    where one computes the same function (timed here only; the port never
-   calls it), with the device kernels that call ran (which SDPA backend).
+   calls it), with the device kernels that call ran (which SDPA backend);
+   K5 / K5q cases also print TFLOP/s beside the library call's, and phase 2
+   prints each chunked-prefill instance's registers, spills and dynamic
+   shared memory.
 4. Batch slice: Llama-3.2-3B at full width and depth with random bf16
    weights from a seeded generator; InferenceEngine +
    TextGenerator.generate_tokens on 12 prompts of 25 random ids, greedy,
@@ -93,10 +96,12 @@ INVARIANT_MAX_ABS = 0.08
 # Chunked or prefix-hit prefill against a single-shot prefill of the same
 # prompts (first-token logits): relative RMS of the difference and max
 # |difference| over max |logit|. On an H100 (PERF.md) the kernels read 0 /
-# 0 (K5 walks the same 64-key tiles in the same order as K2), the plain
-# versions 0.030 / 0.033, the smallest planted fault (start_pos one page
-# short) 0.452 / 0.510. The limits sit near the geometric mean of the last
-# two, ~4x from either side.
+# 0: K5's wgmma tiles differ from K2's mma.sync fragments, but each row still
+# walks the same 64-key tiles (chunks start at multiples of 512) in the same
+# order with the same fp32 online softmax, and the logits agree bit for bit.
+# The plain versions read 0.030 / 0.033, the smallest planted fault
+# (start_pos one page short) 0.452 / 0.510. The limits sit near the
+# geometric mean of the last two, ~4x from either side.
 PREFILL_REL_RMS = 0.12
 PREFILL_MAX_ABS = 0.12
 WAVE_GEN = 64  # max_gen_len of every serving request
@@ -121,7 +126,7 @@ KERNELS = {
         route="triton", source="lite_llama_tpu_torch/ops/norms.py",
         replaces="lite_llama_tpu/ops/norms.py:115"),
     "flash_prefill_chunked": dict(
-        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:650"),
     "quantized_matmul_packed": dict(
         route="cuda", source="lite_llama_tpu_torch/csrc/qmatmul.cu",
@@ -138,11 +143,11 @@ KERNELS = {
         replaces="lite_llama_tpu/ops/attention_decode.py:345",
         branch="lite_llama_tpu/ops/attention_decode.py:300-311 (fp8 page tiles)"),
     "flash_prefill_chunked_int8": dict(
-        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:650",
         branch="lite_llama_tpu/ops/attention_prefill.py:200-245 (quantized=True)"),
     "flash_prefill_chunked_fp8": dict(
-        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:650",
         branch="fp8 pools: the JAX dispatcher's reference (ops/__init__.py:96-117)"),
     "flash_prefill_vmem": dict(
@@ -190,9 +195,10 @@ QUANT_INVARIANT_MAX_ABS = 0.45
 QLOGITS_REL_RMS = 0.45
 QLOGITS_MAX_ABS = 0.45
 # chunked vs single-shot and prefix-hit vs uncached prefill under the int8
-# pool (K5q faults): kernels (a) 0.064 / 0.067, (b) 0.181 / 0.174, smallest
-# fault (a) 0.460 / 0.554 ((b) compares a W4A8 tail of 96 rows
-# with a W4A16 prefill of 608).
+# pool (K5q faults): kernels (a) 0.064 / 0.067, (b) 0.181 / 0.174 (the
+# redesigned K5q reads the same), plain (a) 0.065 / 0.065, (b) 0.174 /
+# 0.175, smallest fault (a) 0.460 / 0.554 ((b) compares a W4A8 tail of 96
+# rows with a W4A16 prefill of 608).
 QPREFILL_REL_RMS = 0.3
 QPREFILL_MAX_ABS = 0.3
 # Phase-7 limits (OpenLLaMA-3B, bf16), relative RMS and max |difference| over
@@ -200,8 +206,9 @@ QPREFILL_MAX_ABS = 0.3
 # fault, as read on an H100 (PERF.md): decode vs re-prefill after 127 steps
 # (K1 faults), plain 0.036 / 0.031, kernels 0.045 / 0.040, smallest fault
 # (two pages swapped) 0.153 / 0.151; chunked (K5) vs single-shot (K8)
-# prefill of the 1500-token prompts (K5 faults), kernels 0 / 0, plain
-# 0.030 / 0.034, smallest fault 0.479 / 0.721. Phase 4's and 5's limits sit
+# prefill of the 1500-token prompts (K5 faults), kernels 0 / 0 (as for K2
+# at 3B: the same tiles in the same order), plain 0.030 / 0.034, smallest
+# fault 0.479 / 0.721. Phase 4's and 5's limits sit
 # between both pairs too.
 OPEN_LLAMA_INVARIANT = (INVARIANT_REL_RMS, INVARIANT_MAX_ABS)
 OPEN_LLAMA_PREFILL = (PREFILL_REL_RMS, PREFILL_MAX_ABS)
@@ -327,6 +334,18 @@ def sdpa(**kw):
 
     call.sdpa = True
     return call
+
+
+def chunked_smem(D, kv):
+    """Dynamic shared memory of the K5 / K5q instance for head dim D and
+    pool type ``kv`` (0 bf16, 1 int8, 2 fp8), from the built library."""
+    import ctypes
+
+    from lite_llama_tpu_torch.ops import _build
+
+    lib = _build.library("flash_prefill_chunked", "flash_prefill_chunked_smem",
+                         [ctypes.c_int, ctypes.c_int])
+    return lib.flash_prefill_chunked_smem(D, kv)
 
 
 def bound(bytes_moved, flops):
@@ -581,10 +600,13 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
         (sdpa(), lib_args, sum(a.numel() * a.element_size() for a in lib_args)),
         plain_in_graph=False,  # the plain version reads max(start_pos) on the host
     )
+    starts_s = list(starts) if len(set(starts)) > 1 else f"{starts[0]} x {B}"
+    clens_s = list(clens) if len(set(clens)) > 1 else f"{clens[0]} x {B}"
     return dict(model=model, shape=f"B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
-                                   f"start_pos={list(starts)} chunk_lens={list(clens)} "
+                                   f"start_pos={starts_s} chunk_lens={clens_s} "
                                    f"return_state={return_state} pool={kv or 'bf16'}",
                 max_abs_err=err, ok=ok, **t, bound_ms=t_bound, bound_by=by,
+                tflops=flops / t["ms"] / 1e9, library_tflops=flops / t["library_ms"] / 1e9,
                 library="F.scaled_dot_product_attention (history gathered dense"
                         + (" and dequantized to bf16" if kv else "") + " + chunk, boolean mask)")
 
@@ -728,6 +750,7 @@ def kernel_phase():
         "swiglu": [swiglu_case(12, 8192), swiglu_case(300, 8192)],
         "flash_prefill_chunked": [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8),
+            chunked_case("llama-3.2-3b", [256] * 16, [8] * 16, S=8),  # phase 5's wave 2
             *(chunked_case(model, [0, 16, 500, 1536], [512, 300, 0, 512], return_state=rs)
               for model in ("llama-3.2-3b", "llama-3.2-1b") for rs in (False, True)),
             chunked_case("open-llama-3b-v2", [512] * 8, [512] * 8),
@@ -755,6 +778,7 @@ def kernel_phase():
         ]
         cases[f"flash_prefill_chunked_{kv}"] = [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8, kv=kv),
+            chunked_case("llama-3.2-3b", [256] * 16, [8] * 16, S=8, kv=kv),
             chunked_case("llama-3.2-1b", [0, 16, 500, 1536], [512, 300, 0, 512],
                          return_state=True, kv=kv),
             chunked_case("open-llama-3b-v2", [512] * 8, [512] * 8, kv=kv),
@@ -770,6 +794,8 @@ def kernel_phase():
                          f"eager_ms={c['eager_ms']:.5f} plain_ms={c['plain_ms']:.5f} "
                          f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) library_ms={lib} "
                          f"copies={c['copies']}")
+            if "tflops" in c:
+                line += f" TFLOP/s={c['tflops']:.1f} library_TFLOP/s={c['library_tflops']:.1f}"
             if "library_kernels" in c:
                 line += f" library_kernels={c['library_kernels']}"
             if "bit_equal" in c:
@@ -1169,9 +1195,10 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
     each a prefix hit (K5 over 256 cached tokens); twelve greedy, four
     sampled (T 0.6, top_p 0.9). ``engine_kw`` goes to the engine,
     ``path`` names the kernels that must launch and ``chunk_kernel`` the
-    chunked-prefill instance every wave must launch; ``profile`` runs the
-    last wave again under the profiler; ``n_waves=1`` runs wave 1 only (no
-    prefix hit is then required)."""
+    chunked-prefill instance every wave must launch; ``profile`` runs each
+    wave again under the profiler (wave 1's repeat finds its prompts' full
+    pages in the prefix cache, so its chunk steps are prefix hits);
+    ``n_waves=1`` runs wave 1 only (no prefix hit is then required)."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.executor.scheduler import ContinuousBatchingScheduler
     from lite_llama_tpu_torch.server import ServingFrontend
@@ -1223,9 +1250,10 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
             log(f"  serving wave {w}: {json.dumps(rec)}")
             require(counts[chunk_kernel] > 0, f"wave {w}: {chunk_kernel} never launched")
             out.append(rec)
-        if profile:
-            profile = profile_wave(fe, waves[-1])
-            log(f"  serving wave {len(waves)} again, profiled: {json.dumps(profile)}")
+        profiles = {}
+        for w, reqs in enumerate(waves if profile else (), 1):
+            profiles[f"wave{w}_profile"] = prof = profile_wave(fe, reqs)
+            log(f"  serving wave {w} again, profiled: {json.dumps(prof)}")
     finally:
         fe.shutdown()
     missing = [k for k in path if launches[k] == 0]
@@ -1233,7 +1261,7 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
     if n_waves > 1:
         require(engine.stats.prefix_hits >= 16,
                 f"prefix hits {engine.stats.prefix_hits} < 16 in the serving phase")
-    return dict(waves=out, wave2_profile=profile, prefix_hits=engine.stats.prefix_hits,
+    return dict(waves=out, **profiles, prefix_hits=engine.stats.prefix_hits,
                 prefill_tokens=engine.stats.prefill_tokens,
                 decode_tokens=engine.stats.decode_tokens, chunks=engine.stats.chunks), launches
 
@@ -1242,7 +1270,8 @@ def profile_wave(fe, reqs):
     """One wave under torch.profiler: the device's busy share of the wave's
     wall time and device time by kernel name (device-side events of the
     whole process, the serving thread's included). "not measured" (None)
-    when the profiler records no device time. Launch counts of this run are
+    when the profiler records no device time; ``chunked_prefill`` sums the
+    rows of K5 / K5q (device ms and launches). Launch counts of this run are
     not part of any wave's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1254,8 +1283,11 @@ def profile_wave(fe, reqs):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(r[1] for r in rows)
     top = sorted(rows, key=lambda r: -r[1])[:12]
+    chunked = [(us, n) for k, us, n in rows if "chunked_prefill_kernel" in k]
     return dict(wall_s=wall, device_ms=device_us / 1e3 if device_us else None,
                 device_busy_share=device_us / 1e6 / wall if device_us else None,
+                chunked_prefill=dict(ms=sum(us for us, _ in chunked) / 1e3,
+                                     launches=sum(n for _, n in chunked)),
                 top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n) for k, us, n in top])
 
 
@@ -1636,9 +1668,15 @@ def main() -> int:
     for name in _build.SOURCES:
         report = (_build.BUILD_DIR / f"{name}.log")
         if report.exists():
+            fn = ""
             for line in report.read_text().splitlines():
+                if "Compiling entry function" in line:
+                    fn = line.split("'")[1] if "'" in line else line
                 if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+                    log(f"  ptxas {name} ...{fn[-40:]}: {line.strip()}")
+    log("  flash_prefill_chunked dynamic shared memory (bytes): " + json.dumps(
+        {f"D={D} {kv}": chunked_smem(D, i) for D in (64, 100, 128)
+         for i, kv in enumerate(("bf16", "int8", "fp8"))}))
     x = torch.ones((2, 128), dtype=torch.bfloat16, device="cuda")
     norms.launch_rms_norm(x, x, x[0], 1e-5)  # Triton compiles at the first launch
     norms.launch_swiglu(x, x)

@@ -1,6 +1,7 @@
-// Ragged causal GQA flash attention (prefill) for Hopper (sm_90a), fresh
-// (K2, K8) and chunked over the paged pool's history (K5): one kernel
-// template, as the TPU has one _prefill_kernel for its streamed forms.
+// Ragged causal GQA flash attention (fresh prefill, no history) for Hopper
+// (sm_90a): K2 and K8, one kernel template, as the TPU has one
+// _prefill_kernel for its streamed forms. The chunked form over the paged
+// pool's history (K5 / K5q) is csrc/flash_prefill_chunked.cu.
 //
 // Replaces the TPU kernels of lite_llama_tpu/ops/attention_prefill.py:
 // - K2, flash_prefill -> _flash_prefill_impl / _prefill_kernel
@@ -9,26 +10,15 @@
 //   never read by any caller. Head dims 64 and 128.
 // - K8, flash_prefill -> _flash_prefill_vmem / _prefill_kernel_vmem: the
 //   same function for head dims the TPU cannot pack into 128 lanes (D = 80,
-//   96, 100, ...). Here it is the fresh instance of the padded template
-//   below, for every even D from 16 to 128 other than 64 and 128. The TPU
-//   kernel keeps the whole key stream of a head in VMEM (capped near S ~ 8k);
-//   this one streams 64-key tiles like K2 and has no such cap.
-// - K5, flash_prefill_chunked -> the same kernel with has_history=True:
-//   chunk query row s of request b attends the pool history
-//   [0, start_pos[b]) through table_rows[b] (no mask there), then the chunk's
-//   own keys p <= s, p < chunk_lens[b]. One online-softmax state spans both
-//   phases. A request with no history and an empty chunk writes out = 0,
-//   m = -1e30, l = 0; chunk_lens = 0 with a history is a walk over the
-//   history only. With m/l pointers the kernel also writes each query row's
-//   online-softmax state (exp2 domain) for a later LSE combine. Any even
-//   head dim from 16 to 128 (the JAX dispatcher sends unpackable ones to its
-//   XLA reference; the function is the same).
-// Query head n attends kv head n // G in all of them.
+//   96, 100, ...). Here it is the padded instance of the template below, for
+//   every even D from 16 to 128 other than 64 and 128. The TPU kernel keeps
+//   the whole key stream of a head in VMEM (capped near S ~ 8k); this one
+//   streams 64-key tiles like K2 and has no such cap.
+// Query head n attends kv head n // G in both.
 //
-// What bounds them: tensor-core operations once prompts or histories are
-// long, about 4 * Nq * D * sum_b(chunk_b * hist_b + chunk_b^2 / 2) FLOPs
-// against 989 TFLOP/s in bf16; for short ones the bytes of the history K/V,
-// q, k, v and out against 3.35 TB/s.
+// What bounds them: tensor-core operations once prompts are long, about
+// 4 * Nq * D * sum_b(len_b^2 / 2) FLOPs against 989 TFLOP/s in bf16; for
+// short ones the bytes of q, k, v and out against 3.35 TB/s.
 //
 // Design:
 // - Grid (q tile, kv head, request). A block holds the G query heads of one
@@ -37,17 +27,13 @@
 //   G * 16 * QW query rows of the group.
 // - Head dims: one template over the padded width DP = round_up(D, 16), the
 //   mma k-step, with the true D a runtime argument (EXACT instances, D = DP
-//   = 64 or 128, know it at compile time and are K2's and K5's original
-//   code). Q fragments and the K/V tiles hold zeros in lanes D..DP-1, so the
-//   QK product is exact; the PV product runs DP/8 n-tiles and columns >= D
-//   are never stored. A head starts at byte 2 * h * D, which for D = 100 is
-//   only 8-byte aligned, so tile loads move VEC = 8, 4 or 2 values (the
-//   largest power of two dividing D that the pointers' alignment allows)
-//   instead of always 16 bytes; the pool keeps its layout.
-// - K5's history phase is a loop over BK-row tiles that runs before the
-//   chunk loop. Each tile row is gathered through the page table
-//   (row = page * page_size + offset of the [L, 2, T, Hkv*D] pool), so any
-//   page size works; the TPU's BK % page_size rule was a DMA constraint.
+//   = 64 or 128, know it at compile time and are K2's original code). Q
+//   fragments and the K/V tiles hold zeros in lanes D..DP-1, so the QK
+//   product is exact; the PV product runs DP/8 n-tiles and columns >= D are
+//   never stored. A head starts at byte 2 * h * D, which for D = 100 is only
+//   8-byte aligned, so tile loads move VEC = 8, 4 or 2 values (the largest
+//   power of two dividing D that the pointers' alignment allows) instead of
+//   always 16 bytes.
 // - QK^T and PV run on the tensor cores through mma.sync m16n8k16
 //   (bf16 inputs, fp32 accumulate). The score fragment is rounded to bf16
 //   and reused in registers as the A operand of the PV product (as the TPU
@@ -57,28 +43,16 @@
 //   VMEM form keeps q in fp32, a difference of one bf16 step at most).
 // - The causal mask and the ragged length mask are applied per tile; key
 //   tiles above a warp's diagonal are skipped, key tiles past the causal
-//   frontier or past the chunk length are never loaded.
+//   frontier or past the length are never loaded.
 // - Head packing for D=64 (a TPU 128-lane DMA device) is not carried over:
 //   D = 64 and D = 128 are template instances.
-// - K5q, the quantized pools of the same TPU kernel (quantized=True, and the
-//   fp8 pools the JAX dispatcher sends to its XLA reference), are history
-//   instances templated on the pool type. Each gathered history row is
-//   dequantized whole on its way into shared memory, as the TPU kernel does:
-//   int8 as bf16(float(k_int8) * float(scale_bf16)), a product exact in fp32
-//   and so rounded once, as JAX's bf16 x bf16; fp8 e4m3 converts exactly. The
-//   per-(token, head) scales come from the merged [L, T, 128] slab (K in lane
-//   h, V in lane 64 + h). The chunk phase reads the chunk's own bf16 K/V.
-// Simple first: one K/V buffer, no cp.async/TMA pipelining, no wgmma; every
-// q tile of a request walks the whole history (from L2 after the first).
+// Simple first: one K/V buffer, no cp.async/TMA pipelining, no wgmma.
 
 #include <cuda_bf16.h>
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-enum KvType { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
 
 constexpr int BK = 64;    // keys per tile
 constexpr int KPAD = 8;   // shared-memory row padding (bf16) against bank conflicts
@@ -118,46 +92,6 @@ struct Vec<2> {
   using T = uint32_t;
 };
 
-// VEC consecutive 1-byte pool values (int8 times a scale, or fp8) as VEC bf16.
-template <int KV, int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T dequant(const uint8_t* p, float sc) {
-  uint32_t raw[2] = {0u, 0u};
-  if constexpr (VEC == 8) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    raw[0] = r.x;
-    raw[1] = r.y;
-  } else if constexpr (VEC == 4) {
-    raw[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else {
-    raw[0] = *reinterpret_cast<const uint16_t*>(p);
-  }
-  uint32_t w[VEC / 2];
-#pragma unroll
-  for (int i = 0; i < VEC / 2; ++i) {
-    const uint32_t src = raw[i >> 1];
-    float f[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const uint32_t b = (src >> (16 * (i & 1) + 8 * j)) & 0xFFu;
-      if (KV == KV_INT8) {
-        f[j] = (float)(int8_t)b * sc;  // exact: 8 x 8 significant bits
-      } else {
-        __nv_fp8_e4m3 v;
-        v.__x = static_cast<__nv_fp8_storage_t>(b);
-        f[j] = static_cast<float>(v);
-      }
-    }
-    w[i] = pack2(f[0], f[1]);
-  }
-  if constexpr (VEC == 8) {
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (VEC == 4) {
-    return make_uint2(w[0], w[1]);
-  } else {
-    return w[0];
-  }
-}
-
 __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   __nv_bfloat162 v;
   v.x = lo;
@@ -167,9 +101,8 @@ __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi)
 
 // One warp's 16 query rows against one BK-key tile in shared memory:
 // scores, mask, online-softmax update, PV. CAUSAL: key j0 + i is visible to
-// row p iff it is <= p and < limit (the chunk phase); otherwise iff it is
-// < limit (the history phase).
-template <int DP, bool CAUSAL>
+// row p iff it is <= p and < limit.
+template <int DP>
 __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[DP / 16][4],
                                             float (&o)[DP / 8][4], float (&mrow)[2],
                                             float (&lrow)[2], const __nv_bfloat16* sK,
@@ -197,7 +130,7 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[DP / 16][4],
     for (int e = 0; e < 4; ++e) {
       const int key = j0 + nt * 8 + 2 * c + (e & 1);
       const int prow = p0 + r + ((e & 2) ? 8 : 0);
-      const bool ok = CAUSAL ? (key <= prow && key < limit) : (key < limit);
+      const bool ok = key <= prow && key < limit;
       s[nt][e] = ok ? s[nt][e] : NEG;
       mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
     }
@@ -242,10 +175,10 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[DP / 16][4],
   }
 }
 
-// One BK x DP tile of the chunk's own K and V into shared memory, VEC values
-// per load; rows at or past kv_hi and lanes D..DP-1 are zeros.
+// One BK x DP tile of K and V into shared memory, VEC values per load;
+// rows at or past kv_hi and lanes D..DP-1 are zeros.
 template <int DP, bool EXACT, int VEC>
-__device__ __forceinline__ void chunk_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
+__device__ __forceinline__ void kv_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
                                            const __nv_bfloat16* kb, const __nv_bfloat16* vb,
                                            long long ks, int j0, int kv_hi, int D) {
   using T = typename Vec<VEC>::T;
@@ -265,57 +198,14 @@ __device__ __forceinline__ void chunk_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
   }
 }
 
-// One BK x DP tile of pool history gathered through the page table (and
-// dequantized whole, for a 1-byte pool); rows at or past hist and lanes
-// D..DP-1 are zeros.
-template <int DP, bool EXACT, int VEC, int KV>
-__device__ __forceinline__ void history_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
-                                             const uint8_t* kpool, const uint8_t* vpool,
-                                             const __nv_bfloat16* sbase, const int* tb,
-                                             long long ks, int j0, int hist, int ps, int ppr,
-                                             int D) {
-  using T = typename Vec<VEC>::T;
-  constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
-  constexpr int KS = DP + KPAD;
-  constexpr int NCH = DP / VEC;
-  for (int idx = threadIdx.x; idx < BK * NCH; idx += blockDim.x) {
-    const int row = idx / NCH;
-    const int ch = (idx % NCH) * VEC;
-    const int pos = j0 + row;
-    T kv{}, vv{};
-    if (pos < hist && (EXACT || ch < D)) {
-      const long long pr = (long long)tb[min(pos / ps, ppr - 1)] * ps + pos % ps;
-      const long long off = EB * (pr * ks + ch);
-      if constexpr (KV == KV_BF16) {
-        kv = *reinterpret_cast<const T*>(kpool + off);
-        vv = *reinterpret_cast<const T*>(vpool + off);
-      } else {
-        const float ksc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128]) : 1.f;
-        const float vsc = KV == KV_INT8 ? __bfloat162float(sbase[pr * 128 + 64]) : 1.f;
-        kv = dequant<KV, VEC>(kpool + off, ksc);
-        vv = dequant<KV, VEC>(vpool + off, vsc);
-      }
-    }
-    *reinterpret_cast<T*>(&sK[row * KS + ch]) = kv;
-    *reinterpret_cast<T*>(&sV[row * KS + ch]) = vv;
-  }
-}
-
-template <int DP, bool EXACT, bool HAS_HISTORY, int KV>
+template <int DP, bool EXACT>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
                      const __nv_bfloat16* __restrict__ k,      // [B, S, Hkv, D]
                      const __nv_bfloat16* __restrict__ v,      // [B, S, Hkv, D]
-                     const int* __restrict__ chunk_lens,       // [B]
-                     const int* __restrict__ start_pos,        // [B] (history only)
-                     const void* __restrict__ pages,           // [L, 2, T, Hkv*D] (history only)
-                     const __nv_bfloat16* __restrict__ scales, // [L, T, 128] (int8 history only)
-                     const int* __restrict__ table,            // [B, ppr] (history only)
+                     const int* __restrict__ seq_lens,         // [B]
                      __nv_bfloat16* __restrict__ out,          // [B, S, Nq, D]
-                     float* __restrict__ m_out,                // [B, S, Nq] or null
-                     float* __restrict__ l_out,                // [B, S, Nq] or null
-                     int S, int Nq, int Hkv, int head_dim, int vec, int QW, float qscale,
-                     long long T, int layer, int ps, int ppr) {
+                     int S, int Nq, int Hkv, int head_dim, int vec, int QW, float qscale) {
   constexpr int KS = DP + KPAD;  // shared-memory row stride
   constexpr int KT = DP / 16;    // k-steps of the QK product
   constexpr int DT = DP / 8;     // n-tiles of the PV product
@@ -338,25 +228,15 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
   const int p0 = q0 + (warp % QW) * 16; // first position of this warp's rows
   const int r = lane >> 2;              // fragment row group
   const int c = lane & 3;               // fragment column pair
-  const int len = chunk_lens[b];
-  const int hist = HAS_HISTORY ? start_pos[b] : 0;
+  const int len = seq_lens[b];
   const long long qs = (long long)Nq * D;   // position stride of q / out
-  const long long ks = (long long)Hkv * D;  // position stride of k / v (and pool rows)
+  const long long ks = (long long)Hkv * D;  // position stride of k / v
   __nv_bfloat16* ob = out + (long long)b * S * qs + (long long)n * D;
-  float* mb = m_out ? m_out + (long long)b * S * Nq + n : nullptr;
-  float* lb = l_out ? l_out + (long long)b * S * Nq + n : nullptr;
 
-  // K2/K8: a q tile wholly past the request's length is padding. K5: a row
-  // attends something unless the request has neither history nor chunk.
-  const bool empty = HAS_HISTORY ? (hist <= 0 && len <= 0) : (q0 >= len);
-  if (empty) {  // uniform over the block
+  if (q0 >= len) {  // a q tile wholly past the request's length is padding
     for (int i = lane; i < 16 * D; i += 32) {
       const int pos = p0 + i / D;
       if (pos < S) ob[pos * qs + i % D] = __float2bfloat16(0.f);
-    }
-    if (mb && lane < 16 && p0 + lane < S) {
-      mb[(long long)(p0 + lane) * Nq] = NEG;
-      lb[(long long)(p0 + lane) * Nq] = 0.f;
     }
     return;
   }
@@ -384,34 +264,6 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
   float mrow[2] = {NEG, NEG};
   float lrow[2] = {0.f, 0.f};
 
-  if (HAS_HISTORY) {
-    // History phase: every key precedes the whole chunk, so no causal mask.
-    constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
-    const uint8_t* kpool =
-        static_cast<const uint8_t*>(pages) + EB * ((long long)layer * 2 * T * ks + (long long)h * D);
-    const uint8_t* vpool = kpool + EB * T * ks;
-    const __nv_bfloat16* sbase =
-        KV == KV_INT8 ? scales + (long long)layer * T * 128 + h : nullptr;
-    const int* tb = table + (long long)b * ppr;
-    const int n_hist = (hist + BK - 1) / BK;
-    for (int t = 0; t < n_hist; ++t) {
-      const int j0 = t * BK;
-      __syncthreads();  // the previous tile is consumed
-      if constexpr (EXACT) {
-        history_tile<DP, true, 8, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
-      } else if (vec == 8) {
-        history_tile<DP, false, 8, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
-      } else if (vec == 4) {
-        history_tile<DP, false, 4, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
-      } else {
-        history_tile<DP, false, 2, KV>(sK, sV, kpool, vpool, sbase, tb, ks, j0, hist, ps, ppr, D);
-      }
-      __syncthreads();
-      attend_tile<DP, false>(qa, o, mrow, lrow, sK, sV, j0, hist, p0, r, c);
-    }
-  }
-
-  // Chunk phase: the causal prefix of the chunk's own keys.
   const int kv_hi = min(q0 + BQ, len);  // keys any row of this tile may see
   const int n_tiles = kv_hi > 0 ? (kv_hi + BK - 1) / BK : 0;
   const __nv_bfloat16* kb = k + (long long)b * S * ks + (long long)h * D;
@@ -421,17 +273,17 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
     const int j0 = t * BK;
     __syncthreads();  // the previous tile is consumed
     if constexpr (EXACT) {
-      chunk_tile<DP, true, 8>(sK, sV, kb, vb, ks, j0, kv_hi, D);
+      kv_tile<DP, true, 8>(sK, sV, kb, vb, ks, j0, kv_hi, D);
     } else if (vec == 8) {
-      chunk_tile<DP, false, 8>(sK, sV, kb, vb, ks, j0, kv_hi, D);
+      kv_tile<DP, false, 8>(sK, sV, kb, vb, ks, j0, kv_hi, D);
     } else if (vec == 4) {
-      chunk_tile<DP, false, 4>(sK, sV, kb, vb, ks, j0, kv_hi, D);
+      kv_tile<DP, false, 4>(sK, sV, kb, vb, ks, j0, kv_hi, D);
     } else {
-      chunk_tile<DP, false, 2>(sK, sV, kb, vb, ks, j0, kv_hi, D);
+      kv_tile<DP, false, 2>(sK, sV, kb, vb, ks, j0, kv_hi, D);
     }
     __syncthreads();
     if (j0 > p0 + 15) continue;  // tile entirely above this warp's diagonal
-    attend_tile<DP, true>(qa, o, mrow, lrow, sK, sV, j0, len, p0, r, c);
+    attend_tile<DP>(qa, o, mrow, lrow, sK, sV, j0, len, p0, r, c);
   }
 
   float lt[2], inv[2];
@@ -455,16 +307,6 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,      // [B, S, Nq, D]
       *reinterpret_cast<__nv_bfloat162*>(ob + pr1 * qs + d) =
           __floats2bfloat162_rn(o[dt][2] * inv[1], o[dt][3] * inv[1]);
   }
-  if (mb && c == 0) {
-    if (pr0 < S) {
-      mb[(long long)pr0 * Nq] = mrow[0];
-      lb[(long long)pr0 * Nq] = lt[0];
-    }
-    if (pr1 < S) {
-      mb[(long long)pr1 * Nq] = mrow[1];
-      lb[(long long)pr1 * Nq] = lt[1];
-    }
-  }
 }
 
 bool aligned(const void* p, int bytes) {
@@ -472,26 +314,16 @@ bool aligned(const void* p, int bytes) {
 }
 
 // padded: K8's instances, the padded template even where D = DP; otherwise
-// D = 64 and 128 take the EXACT instances (K2, K5) and other head dims the
-// padded ones (K5 only).
-template <bool HAS_HISTORY, int KV>
-int launch(const void* q, const void* k, const void* v, const void* chunk_lens,
-           const void* start_pos, const void* pages, const void* scales, const void* table,
-           void* out, void* m, void* l, int B, int S, int Nq, int Hkv, int D, bool padded,
-           float qscale, long long T, int layer, int ps, int ppr, void* stream) {
-  constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
+// D = 64 and 128 take the EXACT instances (K2).
+int launch(const void* q, const void* k, const void* v, const void* seq_lens, void* out, int B,
+           int S, int Nq, int Hkv, int D, bool padded, float qscale, void* stream) {
   if (Hkv <= 0 || Nq % Hkv != 0 || Nq / Hkv > MAX_WARPS) return (int)cudaErrorInvalidValue;
   if (D <= 0 || D > MAX_D || D % 2 != 0) return (int)cudaErrorInvalidValue;
-  if (HAS_HISTORY && (ps <= 0 || ppr <= 0)) return (int)cudaErrorInvalidValue;
-  if (KV == KV_INT8 && (scales == nullptr || Hkv > 64)) return (int)cudaErrorInvalidValue;
   // Values per tile load: the largest power of two up to 8 that divides D
-  // and that the K/V (and pool) pointers' alignment allows.
+  // and that the K/V pointers' alignment allows.
   int vec = 8;
-  while (vec > 2 && (D % vec != 0 || !aligned(k, 2 * vec) || !aligned(v, 2 * vec) ||
-                     (HAS_HISTORY && !aligned(pages, EB * vec))))
-    vec /= 2;
-  if (!aligned(q, 4) || !aligned(k, 2 * vec) || !aligned(v, 2 * vec) ||
-      (HAS_HISTORY && !aligned(pages, EB * vec)))
+  while (vec > 2 && (D % vec != 0 || !aligned(k, 2 * vec) || !aligned(v, 2 * vec))) vec /= 2;
+  if (!aligned(q, 4) || !aligned(k, 2 * vec) || !aligned(v, 2 * vec))
     return (int)cudaErrorMisalignedAddress;
   const bool exact = !padded && (D == 64 || D == 128);
   if (exact && vec != 8) return (int)cudaErrorMisalignedAddress;
@@ -504,17 +336,11 @@ int launch(const void* q, const void* k, const void* v, const void* chunk_lens,
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* cl = static_cast<const int*>(chunk_lens);
-  const auto* sp = static_cast<const int*>(start_pos);
-  const auto* sc = static_cast<const __nv_bfloat16*>(scales);
-  const auto* tp = static_cast<const int*>(table);
+  const auto* sl = static_cast<const int*>(seq_lens);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* mp = static_cast<float*>(m);
-  auto* lp = static_cast<float*>(l);
-#define PREFILL_INSTANCE(DP, EXACT)                                                            \
-  flash_prefill_kernel<DP, EXACT, HAS_HISTORY, KV><<<grid, block, 0, st>>>(                   \
-      qp, kp, vp, cl, sp, pages, sc, tp, op, mp, lp, S, Nq, Hkv, D, vec, QW, qscale, T, layer, \
-      ps, ppr)
+#define PREFILL_INSTANCE(DP, EXACT)                                                       \
+  flash_prefill_kernel<DP, EXACT><<<grid, block, 0, st>>>(qp, kp, vp, sl, op, S, Nq, Hkv, D, \
+                                                          vec, QW, qscale)
   if (exact && D == 128) {
     PREFILL_INSTANCE(128, true);
   } else if (exact) {
@@ -546,9 +372,7 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* seq_lens, void* out, int B, int S, int Nq,
                                   int Hkv, int D, float qscale, void* stream) {
   if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  return launch<false, KV_BF16>(q, k, v, seq_lens, nullptr, nullptr, nullptr, nullptr, out,
-                                nullptr, nullptr, B, S, Nq, Hkv, D, false, qscale, 0, 0, 0, 0,
-                                stream);
+  return launch(q, k, v, seq_lens, out, B, S, Nq, Hkv, D, false, qscale, stream);
 }
 
 // K8: fresh prefill through the padded instances, any even head dim up to
@@ -556,25 +380,5 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
 extern "C" int flash_prefill_vmem_bf16(const void* q, const void* k, const void* v,
                                        const void* seq_lens, void* out, int B, int S, int Nq,
                                        int Hkv, int D, float qscale, void* stream) {
-  return launch<false, KV_BF16>(q, k, v, seq_lens, nullptr, nullptr, nullptr, nullptr, out,
-                                nullptr, nullptr, B, S, Nq, Hkv, D, true, qscale, 0, 0, 0, 0,
-                                stream);
+  return launch(q, k, v, seq_lens, out, B, S, Nq, Hkv, D, true, qscale, stream);
 }
-
-// K5 (bf16 pool) and K5q (int8 / fp8 pool): a chunk over the pool's history,
-// any even head dim up to 128. scales: the int8 pool's merged [L, T, 128]
-// bf16 slab, null otherwise. m and l may be null (no state out).
-#define CHUNKED_ENTRY(NAME, KV)                                                                \
-  extern "C" int NAME(const void* q, const void* k, const void* v, const void* chunk_lens,    \
-                      const void* start_pos, const void* pages, const void* scales,           \
-                      const void* table, void* out, void* m, void* l, int B, int S, int Nq,    \
-                      int Hkv, int D, float qscale, long long T, int layer, int ps, int ppr,   \
-                      void* stream) {                                                          \
-    if ((m == nullptr) != (l == nullptr)) return (int)cudaErrorInvalidValue;                  \
-    return launch<true, KV>(q, k, v, chunk_lens, start_pos, pages, scales, table, out, m, l,  \
-                            B, S, Nq, Hkv, D, false, qscale, T, layer, ps, ppr, stream);       \
-  }
-
-CHUNKED_ENTRY(flash_prefill_chunked_bf16, KV_BF16)
-CHUNKED_ENTRY(flash_prefill_chunked_int8, KV_INT8)
-CHUNKED_ENTRY(flash_prefill_chunked_fp8, KV_FP8)

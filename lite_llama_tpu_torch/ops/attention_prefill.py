@@ -4,14 +4,15 @@ the ``flash_prefill`` and ``flash_prefill_chunked`` entries, bf16, int8 and fp8
 pools).
 
 The TPU runs its streamed forms through one kernel, ``_prefill_kernel``,
-and unpackable head dims through ``_flash_prefill_vmem``; the port runs all
-of them through one template, ``csrc/flash_prefill.cu`` (its header says
-what bounds it and how it is laid out): without history for K2
-(``flash_prefill`` -> ``_flash_prefill_impl``, head dims 64 and 128) and K8
-(``flash_prefill`` -> ``_flash_prefill_vmem``, every other even head dim
-from 16 to 128, padded to the mma k-step), with history for K5
-(``flash_prefill_chunked``) and K5q, its int8 and fp8 pool instances (one
-launcher and launch count each).
+and unpackable head dims through ``_flash_prefill_vmem``. The port's fresh
+prefill is one template, ``csrc/flash_prefill.cu``: K2 (``flash_prefill``
+-> ``_flash_prefill_impl``, head dims 64 and 128) and K8 (``flash_prefill``
+-> ``_flash_prefill_vmem``, every other even head dim from 16 to 128,
+padded to the mma k-step). The chunked form, K5 (``flash_prefill_chunked``)
+and K5q, its int8 and fp8 pool instances (one launcher and launch count
+each), is ``csrc/flash_prefill_chunked.cu``: packed GQA rows, an
+asynchronous K/V ring and ldmatrix fragments (its header says what bounds
+it and how it is laid out).
 
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version: ``ops/ref.py`` ``prefill_attention`` for K2 and K8,
@@ -202,7 +203,7 @@ def _chunked_launcher(pool_dtype):
             m = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
             l = torch.empty((B, S, Nq), dtype=torch.float32, device=q.device)
         if B and S:
-            lib = _build.library("flash_prefill", entry, _CHUNKED_ARGTYPES)
+            lib = _build.library("flash_prefill_chunked", entry, _CHUNKED_ARGTYPES)
             code = getattr(lib, entry)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), chunk_lens.data_ptr(),
                 start_pos.data_ptr(), pages.data_ptr(),

@@ -3,8 +3,8 @@ the card, in bf16, at Llama-3.2-3B (D=128, Nq=24, Hkv=8) and Llama-3.2-1B
 (D=64, Nq=32, Hkv=8) head shapes, the quantized kernels (K6 W4A8, K7 W8A8,
 K1q / K5q on int8 and fp8 pools) included, the attention kernels at the
 other head dims (K8, and K1 / K1q / K5 / K5q at D = 16 ... 112 with 1 to 8
-query heads per kv head), plus the refusals that keep the card off the
-plain code. This file imports no JAX, so it runs on a machine with a
+query heads per kv head), K5 / K5q over page sizes 7 to 80 and at the
+prefix-hit shape, plus the refusals that keep the card off the plain code. This file imports no JAX, so it runs on a machine with a
 card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -406,6 +406,65 @@ def test_padded_chunked_prefill_kernel_matches_plain(cuda, kv, D, G):
     assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
     assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
     assert torch.all(m[4] == -1e30) and torch.all(l[4] == 0) and torch.all(out[4] == 0)
+
+
+# K5 / K5q: packed GQA rows over the K/V ring (csrc/flash_prefill_chunked.cu)
+
+CHUNK_DIMS = [64, 100, 128]
+
+
+def _chunked_against_plain(dev, kv, D, G, S, starts, clens, page_size, seed):
+    """K5 / K5q on random q, k, v over a pool of HKV kv heads with shuffled
+    page ids, against its plain version on out, m and l for every row; two
+    calls give equal bytes (no atomics). Returns (out, m, l)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(starts)
+    ppr = -(-(max(starts) + S) // page_size)
+    P = B * ppr
+    pool = _quant_pool(dev, kv, HKV, D, P, page_size)
+    table = torch.randperm(P, generator=g, device=dev).view(B, ppr).int()
+    Nq = G * HKV
+    q = torch.randn((B, S, Nq, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, HKV, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, HKV, D), generator=g, device=dev).bfloat16()
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    out, m, l = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table, return_state=True)
+    again = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table, return_state=True)
+    assert all(torch.equal(x, y) for x, y in zip(again, (out, m, l)))
+    po, pm, pl = chunked_prefill_state_plain(q, k, v, clen, start, pool.pages, page_size, 1,
+                                             table, D**-0.5, pool.scales)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    return out, m, l
+
+
+@pytest.mark.parametrize("page_size", [7, 16, 80])
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", CHUNK_DIMS)
+def test_chunked_prefill_kernel_matches_plain_over_groups_and_pages(cuda, D, G, kv, page_size):
+    """Histories of 0, 16, 500 and 1536 tokens through pages of 7, 16 and 80
+    tokens (one larger than a 64-key tile); a 75-position chunk, so the
+    last q tile of 128 packed rows straddles the chunk's end, of lengths 75,
+    45 (not a multiple of a q tile) and 0 (a history-only walk); and a
+    request with neither history nor chunk."""
+    out, m, l = _chunked_against_plain(cuda, kv, D, G, 75, [0, 16, 500, 1536, 0],
+                                       [75, 45, 0, 75, 0], page_size, 13)
+    assert torch.all(m[4] == -1e30) and torch.all(l[4] == 0) and torch.all(out[4] == 0)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", CHUNK_DIMS)
+def test_chunked_prefill_kernel_matches_plain_at_the_prefix_hit_shape(cuda, D, G, kv, rows):
+    """A 1- or 8-row chunk over histories of 1536, 256 and 16 tokens (a
+    prefix hit), beside an empty request."""
+    out, m, l = _chunked_against_plain(cuda, kv, D, G, rows, [1536, 256, 16, 0],
+                                       [rows, rows, rows, 0], 16, 14)
+    assert torch.all(m[3] == -1e30) and torch.all(l[3] == 0) and torch.all(out[3] == 0)
 
 
 @pytest.mark.parametrize("D", [99, 130, 8])
