@@ -61,9 +61,13 @@ Phases, in order; any failure exits non-zero:
    {"ok": true, "device": {...}}.
 
 Phase 3 also holds the quantized kernels against their plain versions: K6
-(W4A8) and K7 (W8A8) at the 3B projection shapes, with faults planted in
-K6's inputs that must fail the tolerance, and K1q / K5q on int8 and fp8
-pools at K1's and K5's main shapes.
+(W4A8) and K7 (W8A8) at the 3B projection shapes (scale groups of 128, 16
+and 8 rows, and per-channel), with faults planted in K6's inputs that must
+fail the tolerance, and K1q / K5q on int8 and fp8 pools at K1's and K5's
+main shapes. Each K6 / K7 case prints its split of C, grid, shared memory
+and ptxas line (``launch``); the timed split cases also time every split
+count the planner allows (``ms_by_splits``). Phase 6's decode profile gives
+K6's device time per step (``k6_device_ms_per_step``).
 """
 
 from __future__ import annotations
@@ -649,6 +653,44 @@ def planted_k6_faults():
             "the neighbouring pair's scale": neighbour}
 
 
+def ptxas_report(name):
+    """{entry function: its ptxas lines (registers, spills)} from the build
+    log of csrc/<name>.cu."""
+    from lite_llama_tpu_torch.ops import _build
+
+    report, fn = {}, None
+    log_file = _build.BUILD_DIR / f"{name}.log"
+    for line in (log_file.read_text().splitlines() if log_file.exists() else ()):
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif fn and ("registers" in line or "spill" in line):
+            report.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    return report
+
+
+def qmm_launch_info(C, nG, Wn, M, packed, fp32):
+    """K6 / K7's launch at this shape: split count, grid, dynamic shared
+    memory (from the built library) and the instance's ptxas report."""
+    import ctypes
+
+    from lite_llama_tpu_torch.ops import _build
+    from lite_llama_tpu_torch.ops import qmatmul as qmm
+
+    S, rows = qmm.plan_splits(C, nG, Wn, M, torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    F = qmm._fold_span(C, nG)
+    MT, rt = qmm._row_tiles(M)
+    nspan = max((b - a for a, b in zip(rows[1:], rows[2:])), default=0) // F
+    lib = _build.library("qmatmul", "qmm_smem_bytes", [ctypes.c_int] * 3)
+    # Itanium mangling of qmm_kernel<MT, PACKED, KSTEP, OutT>
+    inst = (f"qmm_kernelILi{MT}ELb{int(packed)}ELi{qmm._kstep(F)}E"
+            f"{'f' if fp32 else '13__nv_bfloat16'}E")
+    ptxas = [v for k, v in ptxas_report("qmatmul").items() if inst in k]
+    return dict(splits=S, rows=rows, grid=[Wn // 32, rt, S],
+                smem_bytes=lib.qmm_smem_bytes(MT, F, nspan),
+                ptxas=ptxas[0] if ptxas else "not found")
+
+
 def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
     """K6 (``packed``) or K7 on the 3B projection ``name`` at M rows: a
     two-layer stack quantized by the port from seeded bf16 weights, layer 1
@@ -685,7 +727,9 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
     rec = dict(shape=f"{name} M={M} C={C} O={O} stored={qt.q.shape[-1]} group={gs} "
                      f"{'int4 ' + ('riffle' if riffle else 'classic') if packed else 'int8'} "
                      f"out={str(out_dtype).split('.')[-1]}",
-               max_abs_err=err, ok=ok, bit_equal=bool(torch.equal(got, want)))
+               max_abs_err=err, ok=ok, bit_equal=bool(torch.equal(got, want)),
+               launch=qmm_launch_info(C, qt.scale.shape[-2] if qt.scale.ndim == 3 else 1,
+                                      qt.q.shape[-1], M, packed, fp32))
     if packed:
         rec["faults"] = {}
         for fname, fault in planted_k6_faults().items():
@@ -705,6 +749,14 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
     t = timings(kernel, plain, args, bytes_moved,
                 (lambda x, w: x @ w, (x, wd), M * C * 2 + C * O * 2 + M * O * 2),
                 plain_in_graph=False)
+    if packed and rec["launch"]["splits"] > 1:  # the split rule's evidence: every allowed S
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        copies = input_copies(args, bytes_moved)
+        rec["ms_by_splits"] = {
+            S: graph_ms(lambda x, q, s, S=S: qmm.launch_quantized_matmul_packed(
+                x, q, s, 1, out_dtype, not riffle, O, _splits=S), copies)
+            for S in qmm.allowed_splits(C, qt.scale.shape[-2], qt.q.shape[-1], M, sms)}
+        del copies
     return dict(rec, model="llama-3.2-3b", **t, bound_ms=t_bound, bound_by=by,
                 library="torch.matmul in bf16 on the dequantized weight (cuBLAS; the "
                         "bf16 product the quantization replaces)")
@@ -763,11 +815,14 @@ def kernel_phase():
             *(qmm_case(n, 64, timed=False) for n in QMM_SHAPES if n != "gate_up"),
             *(qmm_case(n, M, riffle=False, timed=False) for n in QMM_SHAPES for M in (12, 64)),
             qmm_case("down", 12, gs=None, timed=False),  # per-channel scales
+            qmm_case("down", 12, gs=16, timed=False),  # m16n8k16 steps
+            qmm_case("down", 12, gs=8, timed=False),  # half-masked m16n8k16 passes
         ],
         "quantized_matmul_int8": [
             qmm_case("gate_up", 12, packed=False),
             qmm_case("down", 12, packed=False, gs=None, timed=False),
             qmm_case("wqkv", 64, packed=False, timed=False),
+            qmm_case("down", 12, packed=False, gs=16, timed=False),
         ],
     }
     for kv in ("int8", "fp8"):
@@ -802,6 +857,10 @@ def kernel_phase():
                 line += f" bit_equal={c['bit_equal']}"
             if "faults" in c:
                 line += f" faults={json.dumps(c['faults'])}"
+            if "launch" in c:
+                line += f" launch={json.dumps(c['launch'])}"
+            if "ms_by_splits" in c:
+                line += f" ms_by_splits={json.dumps(c['ms_by_splits'])}"
             log(line)
     bad = [(n, c["shape"]) for n, cs in cases.items() for c in cs if not c["ok"]]
     require(not bad, f"kernels disagree with their plain versions beyond tolerance: {bad}")
@@ -1001,9 +1060,13 @@ def profile_decode(engine, prompts, steps=16):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(r[1] for r in rows)
     top = sorted(rows, key=lambda r: -r[1])[:12]
+    # K6: its matmul kernel and its activation quantizer (no model path runs K7)
+    k6_us = sum(r[1] for r in rows if "qmm_kernel" in r[0] or "quantize_rows_kernel" in r[0])
     return dict(
         steps=steps, profiled_wall_ms=wall_us / 1e3,
         device_ms=device_us / 1e3 if device_us else None,
+        device_ms_per_step=device_us / 1e3 / steps if device_us else None,
+        k6_device_ms_per_step=k6_us / 1e3 / steps if k6_us else None,
         device_busy_share_profiled=device_us / wall_us if device_us else None,
         top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n) for k, us, n in top],
     )
@@ -1100,6 +1163,9 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
 
     prof = profile_decode(engine, prompts)
     log(f"  profile of {prof['steps']} decode steps: {json.dumps(prof)}")
+    if prof["k6_device_ms_per_step"] is not None:
+        log(f"  K6 (W4A8 matmul + activation quantizer) device ms per decode step: "
+            f"{prof['k6_device_ms_per_step']:.4f} of {prof['device_ms_per_step']:.4f}")
     if prof["device_ms"] is not None:  # against the decode steps timed without the profiler
         prof["device_busy_share"] = prof["device_ms"] / prof["steps"] / decode_ms_per_step
 

@@ -21,13 +21,22 @@ with exact float64 dots, so kernel and plain version agree bit for bit.
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version. The routing predicate ``qmm_supported`` is the JAX
 package's at its default caps; its ``LITE_LLAMA_TPU_QMM_*`` switches are not
-ported.
+ported. On the card the kernels take scale groups (and fold spans) of any
+multiple of 8 rows and C a multiple of 32.
+
+Where the output tiles alone leave SMs idle, the kernels split C across
+blocks (:func:`plan_splits`) and fold the splits' fp32 terms in order
+through a small workspace kept per (device, stream) (:func:`_workspace`): its
+counters return to 0 at the end of every launch, so it needs no clear and a
+CUDA graph can capture and replay the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,7 +45,8 @@ from . import _build
 _BO_MAX = 512  # output-block ceiling of the TPU kernel
 _BC_MAX = 4096  # contraction-block ceiling of the TPU kernel
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + [ctypes.c_void_p] * 3)
 _QUANTIZE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -89,6 +99,107 @@ def _fold_span(C: int, nG: int) -> int:
     if nG > 1:
         return C // nG
     return _pick_bc(C, None) or C
+
+
+# The kernels' blocks and shared memory (csrc/qmatmul.cu), for the planner.
+_THREADS = 128
+_BN = 32  # byte columns per block
+_KC = 256  # contraction rows per shared-memory chunk
+_STAGES = 3  # cp.async ring stages
+_MAX_SPLITS = 16
+_SMEM_PER_SM = 233472  # H100: 228 KB per SM, 1 KB of it reserved per block
+_BLOCKS_BY_REGISTERS = 2  # __launch_bounds__(128, 2): at least 2 blocks fit
+
+
+def _kstep(F: int) -> int:
+    """Rows between fold checks: 32 (m16n8k32 steps), 16 (m16n8k16) or 8
+    (m16n8k16 with half the A lanes zeroed)."""
+    return 32 if F % 32 == 0 else 16 if F % 16 == 0 else 8
+
+
+def _smem_bytes(MT: int, kstep: int, nspan: int) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in the source):
+    the ring, each stage a weight chunk, an activation chunk and the chunk's
+    fold scales, and the fp32 terms of ``nspan`` held fold spans."""
+    stage = _KC * _BN + 16 * MT * (_KC + 16) + (_KC // kstep) * _BN * 4
+    return _STAGES * stage + nspan * MT * 8 * _THREADS * 4
+
+
+def _row_tiles(M: int) -> Tuple[int, int]:
+    """(MT, row tiles): 16*MT activation rows per block."""
+    MT = min(4, -(-M // 16))
+    return MT, -(-M // (16 * MT))
+
+
+def _split_rows(C: int, F: int, S: int) -> List[int]:
+    """Contraction rows of S splits: whole fold spans on 32-row steps (units
+    of lcm(F, 32) rows), as even as the units allow, in order."""
+    unit = math.lcm(F, 32)
+    n = C // unit
+    return [s * n // S * unit for s in range(S + 1)]
+
+
+def allowed_splits(C: int, nG: int, Wn: int, M: int, sm_count: int) -> List[int]:
+    """Split counts the kernels take at this shape: at most one split per
+    unit of rows and ``_MAX_SPLITS``, and a grid that is co-resident on
+    ``sm_count`` SMs (a split waits for its predecessor), by the shared
+    memory each block needs."""
+    F = _fold_span(C, nG)
+    MT, rt = _row_tiles(M)
+    tiles = Wn // _BN * rt
+    out = [1]
+    for S in range(2, min(C // math.lcm(F, 32), _MAX_SPLITS) + 1):
+        rows = _split_rows(C, F, S)
+        nspan = max(b - a for a, b in zip(rows[1:], rows[2:])) // F
+        per_sm = min(_BLOCKS_BY_REGISTERS,
+                     _SMEM_PER_SM // (_smem_bytes(MT, _kstep(F), nspan) + 1024))
+        if per_sm * sm_count >= tiles * S:
+            out.append(S)
+    return out
+
+
+@functools.lru_cache(maxsize=None)  # once per shape: the launch path is host-bound
+def plan_splits(C: int, nG: int, Wn: int, M: int, sm_count: int,
+                splits: Optional[int] = None) -> Tuple[int, Tuple[int, ...]]:
+    """(S, rows): the split of C the kernels run, split s owning contraction
+    rows [rows[s], rows[s+1]). S is the smallest allowed count whose grid
+    covers the SMs (1 where the column and row tiles already do), else the
+    largest allowed one. ``splits`` forces a count (tests; it must be
+    allowed)."""
+    allowed = allowed_splits(C, nG, Wn, M, sm_count)
+    if splits is not None:
+        if splits not in allowed:
+            raise ValueError(f"qmm: {splits} splits not allowed at C={C} nG={nG} Wn={Wn} "
+                             f"M={M} (allowed {allowed})")
+        S = splits
+    else:
+        tiles = Wn // _BN * _row_tiles(M)[1]
+        S = next((s for s in allowed if tiles * s >= sm_count), allowed[-1])
+    return S, tuple(_split_rows(C, _fold_span(C, nG), S))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int):
+    """The split workspace of (device, stream): running fp32 sums [tiles,
+    MT*8, 128] and one counter per tile, allocated zeroed once and never
+    cleared again (the last split of each tile sets its counter back to 0).
+    A split grid is co-resident, at most ``_BLOCKS_BY_REGISTERS`` blocks per
+    SM, so with S >= 2 it has at most one tile per SM, of at most 4 row
+    tiles."""
+    key = (device.index, stream)
+    if key not in _workspaces:
+        sms = _sm_count(device.index)
+        _workspaces[key] = (
+            torch.zeros(sms * 4 * 8 * _THREADS, dtype=torch.float32, device=device),
+            torch.zeros(sms, dtype=torch.int32, device=device))
+    return _workspaces[key]
 
 
 def _quantize_rows(x: torch.Tensor):
@@ -170,20 +281,22 @@ def _check_cuda(what, x, q, scale):
         raise ValueError(f"{what} kernel takes contiguous weights and fp32 scales")
 
 
-def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle):
+def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle, splits=None):
     M, C = x.shape
     Lf, Cq, Wn = q.shape
     nG = scale.shape[1]
     F = _fold_span(C, nG)
-    if (Cq != C or scale.shape != (Lf, nG, Wn) or not 1 <= M <= 256 or C % nG
-            or (C // nG) % 32 or F % 32 or C % F or Wn % 32 or not 0 <= int(layer) < Lf):
+    if (Cq != C or scale.shape != (Lf, nG, Wn) or not 1 <= M <= 256 or C % 32 or C % nG
+            or (C // nG) % 8 or F % 8 or C % F or Wn % 32 or not 0 <= int(layer) < Lf):
         raise ValueError(f"{entry} kernel: unsupported shape x={tuple(x.shape)} "
                          f"q={tuple(q.shape)} scale={tuple(scale.shape)} layer={layer} "
-                         "(needs M <= 256, scale groups and C a multiple of 32 rows, "
-                         "a stored width that is a multiple of 32)")
+                         "(needs M <= 256, scale groups a multiple of 8 rows, C a multiple "
+                         "of 32, a stored width that is a multiple of 32)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{entry} kernel writes bf16 or fp32, not {out_dtype}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.data_ptr() % 32:  # the quantizer reads 16- / 32-byte vectors
+        x = x.clone()
     xi = torch.empty((M, C), dtype=torch.int8, device=x.device)
     xs = torch.empty((M,), dtype=torch.float32, device=x.device)
     lib = _build.library("qmatmul", "qmm_quantize_rows", _QUANTIZE_ARGTYPES)
@@ -191,26 +304,31 @@ def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle):
                                  xs.data_ptr(), M, C, stream)
     _build.check(lib, code, "qmm_quantize_rows")
     out = torch.empty((M, out_width), dtype=out_dtype, device=x.device)
+    S, rows = plan_splits(C, nG, Wn, M, _sm_count(x.device.index), splits)
+    ws, counters = _workspace(x.device, stream) if S > 1 else (None, None)
     lib = _build.library("qmatmul", entry, _ARGTYPES)
     code = getattr(lib, entry)(
         xi.data_ptr(), xs.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.float32), M, C, Wn, nG, F, int(layer), out_width, out_width,
-        int(riffle), stream,
+        int(riffle), (ctypes.c_int * (S + 1))(*rows), S,
+        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        stream,
     )
     _build.check(lib, code, entry)
     return out
 
 
 def launch_quantized_matmul_packed(x, q, scale, layer, out_dtype=None, interleave=True,
-                                   out_width=None):
-    """K6 on the card: [M, out_width] as :func:`quantized_matmul_packed_plain`."""
+                                   out_width=None, _splits=None):
+    """K6 on the card: [M, out_width] as :func:`quantized_matmul_packed_plain`.
+    ``_splits`` forces the split count (tests)."""
     _check_cuda("quantized_matmul_packed", x, q, scale)
     scale = _scales3(scale)
     width = out_width or 2 * q.shape[-1]
     if not 0 < width <= 2 * q.shape[-1]:
         raise ValueError(f"quantized_matmul_packed kernel: out_width {width} out of range")
     out = _launch("qmm_w4a8", x.contiguous(), q, scale, layer, out_dtype or x.dtype, width,
-                  not interleave)
+                  not interleave, _splits)
     launch_quantized_matmul_packed.launches += 1
     return out
 
@@ -248,12 +366,13 @@ def quantized_matmul_int8_plain(x, q, scale, layer, out_dtype=None):
     return (acc * xs[:, None]).to(out_dtype or x.dtype)
 
 
-def launch_quantized_matmul_int8(x, q, scale, layer, out_dtype=None):
-    """K7 on the card: [M, O] as :func:`quantized_matmul_int8_plain`."""
+def launch_quantized_matmul_int8(x, q, scale, layer, out_dtype=None, _splits=None):
+    """K7 on the card: [M, O] as :func:`quantized_matmul_int8_plain`.
+    ``_splits`` forces the split count (tests)."""
     _check_cuda("quantized_matmul_int8", x, q, scale)
     _check_int8_shape(x, q, scale)
     out = _launch("qmm_w8a8", x.contiguous(), q, _scales3(scale), layer,
-                  out_dtype or x.dtype, q.shape[-1], False)
+                  out_dtype or x.dtype, q.shape[-1], False, _splits)
     launch_quantized_matmul_int8.launches += 1
     return out
 

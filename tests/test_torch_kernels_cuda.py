@@ -232,8 +232,12 @@ def test_w8a8_kernel_matches_plain(cuda, M, C, O, gs):
 
 
 def test_quantized_matmul_kernels_refuse_what_they_do_not_take(cuda):
-    qt = _qmm_weights(cuda, "int4", 256, 256, 16, True)  # 16-row groups: no mma k-step
+    qt = _qmm_weights(cuda, "int4", 256, 256, 16, True)  # 16-row groups: m16n8k16 steps
     x = torch.randn((4, 256), device=cuda).bfloat16()
+    got = qmm.quantized_matmul_packed(x, qt.q, qt.scale, 0, torch.float32, False)
+    assert torch.equal(got, qmm.quantized_matmul_packed_plain(x, qt.q, qt.scale, 0,
+                                                              torch.float32, False))
+    qt = _qmm_weights(cuda, "int4", 256, 256, 4, True)  # 4-row groups: no mma k-step
     with pytest.raises(ValueError, match="unsupported"):
         qmm.quantized_matmul_packed(x, qt.q, qt.scale, 0, interleave=False)
     qt = _qmm_weights(cuda, "int4", 256, 256, 32, True)
@@ -242,6 +246,98 @@ def test_quantized_matmul_kernels_refuse_what_they_do_not_take(cuda):
                                     qt.scale, 0, interleave=False)
     with pytest.raises(ValueError, match="CUDA"):
         qmm.quantized_matmul_packed(x, qt.q.cpu(), qt.scale.cpu(), 0)
+
+
+@pytest.mark.parametrize("M", [12, 64])
+@pytest.mark.parametrize("gs,riffle", [(8, True), (16, False), (48, True), (16, True)])
+def test_w4a8_kernel_matches_plain_at_small_groups(cuda, M, gs, riffle):
+    """Scale groups that are not a multiple of 32 rows: m16n8k16 steps, and
+    for 8 and 48 rows (odd multiples of 8) half-masked k16 passes."""
+    C, O = 3072, 1024
+    qt = _qmm_weights(cuda, "int4", C, O, gs, riffle)
+    x = torch.randn((M, C), device=cuda).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = qmm.quantized_matmul_packed(x, qt.q, qt.scale, 1, out_dtype, not riffle, O)
+        want = qmm.quantized_matmul_packed_plain(x, qt.q, qt.scale, 1, out_dtype, not riffle, O)
+        if out_dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            assert _within(got, want)
+
+
+def test_w8a8_kernel_matches_plain_at_16_row_groups(cuda):
+    qt = _qmm_weights(cuda, "int8", 1024, 512, 16, False)
+    x = torch.randn((12, 1024), device=cuda).bfloat16()
+    got = qmm.quantized_matmul_int8(x, qt.q, qt.scale, 1, torch.float32)
+    assert torch.equal(got, qmm.quantized_matmul_int8_plain(x, qt.q, qt.scale, 1, torch.float32))
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("M", [12, 64])
+@pytest.mark.parametrize("gs", [128, None])
+def test_w4a8_kernel_matches_plain_at_every_split(cuda, M, gs):
+    """Llama-3.2-3B's down projection (C 8192, O 3072) at every split count
+    the planner allows, K7 beside it: the in-order fold across splits keeps
+    the fp32 output bit-equal."""
+    C, O = 8192, 3072
+    qt = _qmm_weights(cuda, "int4", C, O, gs, True)
+    q8 = _qmm_weights(cuda, "int8", C, O, gs, False)
+    x = torch.randn((M, C), device=cuda).bfloat16()
+    nG = qt.scale.shape[-2] if qt.scale.ndim == 3 else 1
+    want = qmm.quantized_matmul_packed_plain(x, qt.q, qt.scale, 1, torch.float32, False, O)
+    want8 = qmm.quantized_matmul_int8_plain(x, q8.q, q8.scale, 1, torch.float32)
+    allowed = qmm.allowed_splits(C, nG, O // 2, M, _sms(cuda))
+    assert qmm.plan_splits(C, nG, O // 2, M, _sms(cuda))[0] in allowed
+    for S in allowed:
+        got = qmm.launch_quantized_matmul_packed(x, qt.q, qt.scale, 1, torch.float32, False, O,
+                                                 _splits=S)
+        assert torch.equal(got, want), S
+        if S in qmm.allowed_splits(C, nG, O, M, _sms(cuda)):
+            got8 = qmm.launch_quantized_matmul_int8(x, q8.q, q8.scale, 1, torch.float32,
+                                                    _splits=S)
+            assert torch.equal(got8, want8), S
+
+
+def test_w4a8_split_kernel_replays_in_a_cuda_graph(cuda):
+    """K6 split over C, captured once and replayed three times on new
+    inputs: each replay equals the plain version, so the counters the last
+    split resets are ready for the next replay."""
+    C, O = 8192, 3072
+    qt = _qmm_weights(cuda, "int4", C, O, 128, True)
+    assert qmm.plan_splits(C, C // 128, O // 2, 12, _sms(cuda))[0] > 1
+    x = torch.randn((12, C), device=cuda).bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qmm.quantized_matmul_packed(x, qt.q, qt.scale, 1, torch.float32, False, O)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmm.quantized_matmul_packed(x, qt.q, qt.scale, 1, torch.float32, False, O)
+    for seed in range(3):
+        x.copy_(torch.randn((12, C), device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(seed)).bfloat16())
+        graph.replay()
+        want = qmm.quantized_matmul_packed_plain(x, qt.q, qt.scale, 1, torch.float32, False, O)
+        assert torch.equal(out, want), seed
+
+
+def test_w4a8_split_kernel_back_to_back_on_one_stream(cuda):
+    """Two split launches queued with no synchronisation between them share
+    the stream's workspace; each must see the counters the other left at 0."""
+    C, O = 3072, 3072  # o_proj: three splits
+    qt = _qmm_weights(cuda, "int4", C, O, 128, True)
+    xa = torch.randn((12, C), device=cuda).bfloat16()
+    xb = torch.randn((12, C), device=cuda).bfloat16()
+    a = qmm.quantized_matmul_packed(xa, qt.q, qt.scale, 0, torch.float32, False, O)
+    b = qmm.quantized_matmul_packed(xb, qt.q, qt.scale, 1, torch.float32, False, O)
+    assert torch.equal(a, qmm.quantized_matmul_packed_plain(xa, qt.q, qt.scale, 0,
+                                                            torch.float32, False, O))
+    assert torch.equal(b, qmm.quantized_matmul_packed_plain(xb, qt.q, qt.scale, 1,
+                                                            torch.float32, False, O))
 
 
 def _quant_pool(dev, kv, Hkv, D, P, ps, seed=6):

@@ -51,6 +51,9 @@ W4A8_CASES = [  # (M, C, O, group_size, riffle)
     (3, 3072, 256, None, 1),  # per-channel, three 1024-row C blocks
     (64, 512, 256, 128, 0),
     (7, 128, 8448, 32, 1),    # padded stored width
+    (12, 256, 512, 16, 1),    # groups of 16 and 8 rows: m16n8k16 steps on the card
+    (12, 384, 512, 48, 0),
+    (12, 256, 512, 8, 1),
 ]
 
 
@@ -125,3 +128,53 @@ def test_cpu_tensors_take_the_plain_versions():
         tm.launch_quantized_matmul_packed(x, t4.q, t4.scale, 0)
     with pytest.raises(ValueError, match="CUDA"):
         tm.launch_quantized_matmul_int8(x, t8.q, t8.scale, 0)
+
+
+# 3B projections at decode (C, stored width Wn, M): the split each gets.
+_SPLIT_SHAPES = {"gate_up": (3072, 8192), "wqkv": (3072, 2560), "o_proj": (3072, 1536),
+                 "down": (8192, 1536), "lm_head": (3072, 64512)}
+
+
+@pytest.mark.parametrize("C,gs,Wn,M", [
+    (3072, 128, 8192, 12), (3072, 128, 2560, 12), (3072, 128, 1536, 12), (8192, 128, 1536, 12),
+    (3072, 128, 64512, 12), (8192, 128, 1536, 64), (8192, None, 1536, 12), (8192, 16, 1536, 12),
+    (384, 48, 256, 12), (256, 8, 256, 12), (256, 16, 256, 3),
+])
+def test_split_planner_covers_every_span_once_in_order(C, gs, Wn, M):
+    nG = C // gs if gs else 1
+    F = tm._fold_span(C, nG)
+    for S in tm.allowed_splits(C, nG, Wn, M, 132):
+        got_S, rows = tm.plan_splits(C, nG, Wn, M, 132, splits=S)
+        assert got_S == S and len(rows) == S + 1
+        assert rows[0] == 0 and rows[-1] == C
+        assert all(a < b for a, b in zip(rows, rows[1:]))  # in order, none empty
+        assert all(r % F == 0 and r % 32 == 0 for r in rows)  # whole spans, 32-row steps
+        assert S <= C // F
+    S, _ = tm.plan_splits(C, nG, Wn, M, 132)
+    assert S in tm.allowed_splits(C, nG, Wn, M, 132)
+    with pytest.raises(ValueError, match="not allowed"):
+        tm.plan_splits(C, nG, Wn, M, 132, splits=tm._MAX_SPLITS + 1)
+
+
+def test_split_planner_picks_the_predicted_counts():
+    """Llama-3.2-3B at M 12 on 132 SMs: no split where the tiles already
+    fill the card (gate_up 256 tiles, lm_head 2016), else the smallest count
+    whose grid covers the SMs and stays co-resident (down: 3 splits would
+    hold 22 spans of terms beside the ring, one block per SM, 144 blocks)."""
+    want = {"gate_up": 1, "lm_head": 1, "wqkv": 2, "o_proj": 3, "down": 4}
+    for name, (C, Wn) in _SPLIT_SHAPES.items():
+        S, rows = tm.plan_splits(C, C // 128, Wn, 12, 132)
+        assert S == want[name], name
+    # 64 rows: four row tiles of terms do not fit beside a split grid.
+    assert tm.plan_splits(8192, 64, 1536, 64, 132)[0] == 1
+    # down at S 4: 16 scale groups each.
+    assert tm.plan_splits(8192, 64, 1536, 12, 132)[1] == (0, 2048, 4096, 6144, 8192)
+
+
+@pytest.mark.parametrize("gs", [8, 16, 48])
+def test_split_planner_takes_spans_of_8_16_and_48_rows(gs):
+    C = 96 * 32  # a multiple of 8, 16, 48 and 32 rows
+    for S in tm.allowed_splits(C, C // gs, 128, 12, 132):
+        _, rows = tm.plan_splits(C, C // gs, 128, 12, 132, splits=S)
+        assert all(r % gs == 0 and r % 32 == 0 for r in rows)
+    assert tm._kstep(gs) == {8: 8, 16: 16, 48: 16}[gs]
