@@ -20,9 +20,10 @@ Phases, in order; any failure exits non-zero:
    TFLOP/s), the plain version's time and one PyTorch library call's time
    where one computes the same function (timed here only; the port never
    calls it), with the device kernels that call ran (which SDPA backend);
-   K5 / K5q cases also print TFLOP/s beside the library call's, and phase 2
-   prints each chunked-prefill instance's registers, spills and dynamic
-   shared memory.
+   K2 / K8 / K5 / K5q cases also print TFLOP/s beside the library call's,
+   and phase 2 prints each source's build seconds and each prefill instance's
+   registers, spills and dynamic shared memory (K2 / K8 are the fresh
+   instances of csrc/flash_prefill_chunked.cu).
 4. Batch slice: Llama-3.2-3B at full width and depth with random bf16
    weights from a seeded generator; InferenceEngine +
    TextGenerator.generate_tokens on 12 prompts of 25 random ids, greedy,
@@ -100,9 +101,10 @@ INVARIANT_MAX_ABS = 0.08
 # Chunked or prefix-hit prefill against a single-shot prefill of the same
 # prompts (first-token logits): relative RMS of the difference and max
 # |difference| over max |logit|. On an H100 (PERF.md) the kernels read 0 /
-# 0: K5's wgmma tiles differ from K2's mma.sync fragments, but each row still
-# walks the same 64-key tiles (chunks start at multiples of 512) in the same
-# order with the same fp32 online softmax, and the logits agree bit for bit.
+# 0: single-shot prefill (K2 / K8) is the no-history instance of K5's
+# template, and each row walks the same 64-key tiles (chunks start at
+# multiples of 512) in the same order with the same arithmetic, so the
+# logits agree bit for bit by construction.
 # The plain versions read 0.030 / 0.033, the smallest planted fault
 # (start_pos one page short) 0.452 / 0.510. The limits sit near the
 # geometric mean of the last two, ~4x from either side.
@@ -120,7 +122,7 @@ KERNELS = {
         route="cuda", source="lite_llama_tpu_torch/csrc/paged_decode.cu",
         replaces="lite_llama_tpu/ops/attention_decode.py:345"),
     "flash_prefill": dict(
-        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:614"),
     "rms_norm": dict(
         route="triton", source="lite_llama_tpu_torch/ops/norms.py",
@@ -155,7 +157,7 @@ KERNELS = {
         replaces="lite_llama_tpu/ops/attention_prefill.py:650",
         branch="fp8 pools: the JAX dispatcher's reference (ops/__init__.py:96-117)"),
     "flash_prefill_vmem": dict(
-        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill.cu",
+        route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:376",
         branch="head dims that do not pack into 128 lanes (flash_prefill, :628-637)"),
 }
@@ -342,7 +344,8 @@ def sdpa(**kw):
 
 def chunked_smem(D, kv):
     """Dynamic shared memory of the K5 / K5q instance for head dim D and
-    pool type ``kv`` (0 bf16, 1 int8, 2 fp8), from the built library."""
+    pool type ``kv`` (0 bf16, 1 int8, 2 fp8), or of the fresh K2 / K8
+    instance (3), from the built library."""
     import ctypes
 
     from lite_llama_tpu_torch.ops import _build
@@ -494,10 +497,11 @@ def prefill_case(model, B, S, lens):
         err_r = max(err_r, max_err(got[b, :n], want_r[b, :n])[0])
         gap = max(gap, max_err(want_r[b, :n], want[b, :n])[0])
     pairs = sum(n * (n + 1) // 2 for n in lens)
+    flops = 4 * Nq * D * pairs
     # Rows past seq_lens[b] are neither read nor needed: q, out, k and v
     # count only each request's own rows.
     bytes_moved = sum(lens) * (2 * Nq * D * 2 + 2 * Hkv * D * 2) + B * 4
-    t_bound, by = bound(bytes_moved, 4 * Nq * D * pairs)
+    t_bound, by = bound(bytes_moved, flops)
     lib_args = (q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(Nq // Hkv, 1),
                 v.transpose(1, 2).repeat_interleave(Nq // Hkv, 1))
     t = timings(ops.prefill_attention, ref.prefill_attention, (q, k, v, sl), bytes_moved,
@@ -507,6 +511,7 @@ def prefill_case(model, B, S, lens):
                 ran=ran[0] if len(ran) == 1 else ran,
                 max_abs_err=err, ok=ok, max_abs_err_q_rounded=err_r, q_rounding_gap=gap,
                 **t, bound_ms=t_bound, bound_by=by,
+                tflops=flops / t["ms"] / 1e9, library_tflops=flops / t["library_ms"] / 1e9,
                 library="F.scaled_dot_product_attention (is_causal, full length S)")
 
 
@@ -783,6 +788,8 @@ def kernel_phase():
             prefill_case("llama-3.2-3b", 12, 25, [25] * 12),
             *(prefill_case(model, 4, S, [S, 3 * S // 4 + 5, 37, 1])
               for model in ("llama-3.2-3b", "llama-3.2-1b") for S in (128, 512)),
+            # the engine's default prefill_chunk: a 2048-token prompt batch
+            prefill_case("llama-3.2-3b", 4, 2048, [2048, 1541, 37, 1]),
             # D=64 with five kv heads: the TPU's K8 case, K2 in the port
             prefill_case("smollm2-360m", 4, 512, [512, 389, 37, 1]),
         ],
@@ -1742,7 +1749,7 @@ def main() -> int:
                     log(f"  ptxas {name} ...{fn[-40:]}: {line.strip()}")
     log("  flash_prefill_chunked dynamic shared memory (bytes): " + json.dumps(
         {f"D={D} {kv}": chunked_smem(D, i) for D in (64, 100, 128)
-         for i, kv in enumerate(("bf16", "int8", "fp8"))}))
+         for i, kv in enumerate(("bf16", "int8", "fp8", "fresh"))}))
     x = torch.ones((2, 128), dtype=torch.bfloat16, device="cuda")
     norms.launch_rms_norm(x, x, x[0], 1e-5)  # Triton compiles at the first launch
     norms.launch_swiglu(x, x)

@@ -1,10 +1,24 @@
-// Chunked causal GQA prefill over the paged pool's history for Hopper
-// (sm_90a): K5 (bf16 pool) and K5q (int8 and fp8 pools).
+// Causal GQA prefill for Hopper (sm_90a), one kernel template with four
+// instances by KV source: K5 (over a bf16 pool's history), K5q (int8 and fp8
+// pools), and fresh prefill with no history and no pool (KV_NONE), which is
+// K2 and K8.
 //
-// Replaces the TPU kernel lite_llama_tpu/ops/attention_prefill.py
-// flash_prefill_chunked -> _prefill_kernel with has_history=True (bf16 pools,
-// and the int8 branch, quantized=True); fp8 pools are the JAX dispatcher's
-// XLA reference (lite_llama_tpu/ops/__init__.py:96-117), the same function.
+// Replaces the TPU kernels of lite_llama_tpu/ops/attention_prefill.py:
+// - K5 / K5q: flash_prefill_chunked -> _prefill_kernel with has_history=True
+//   (bf16 pools, and the int8 branch, quantized=True); fp8 pools are the JAX
+//   dispatcher's XLA reference (lite_llama_tpu/ops/__init__.py:96-117), the
+//   same function.
+// - K2: flash_prefill -> _flash_prefill_impl / _prefill_kernel with
+//   has_history=False, head dims 64 and 128.
+// - K8: flash_prefill -> _flash_prefill_vmem / _prefill_kernel_vmem, the
+//   same function for head dims the TPU cannot pack into 128 lanes (there
+//   the whole key stream of a head sits in VMEM, capped near S ~ 8k; here it
+//   streams like the rest and has no cap).
+// Fresh prefill is chunked prefill with start_pos = 0, chunk_lens = seq_lens
+// and no pool: the KV_NONE instance compiles the history out. Its q tiles
+// wholly past a request's length, and its rows past it, are padding that no
+// caller reads: they are neither computed nor stored.
+//
 // Chunk query row s of request b attends the pool history [0, start_pos[b])
 // through table_rows[b] (no mask there), then the chunk's own keys p <= s,
 // p < chunk_lens[b]. One online-softmax state spans both phases. Pad rows
@@ -22,15 +36,22 @@
 // TFLOP/s in bf16 (main shape, 8 x 512 rows over 512 tokens: 38.7 GFLOP,
 // 0.039 ms); the bytes of the history K/V, q, k, v and out against 3.35 TB/s
 // for short chunks (a prefix hit, 8 rows over 256 tokens: 16.9 MB, 0.005 ms).
+// Fresh prefill is the same count with no history: operations for long
+// prompts (Llama-3.2-3B, lens 2048 / 1541 / 37 / 1: 40.4 GFLOP, 0.041 ms),
+// bytes of q, k, v and out for the short batch prompts (12 x 25 tokens:
+// 4.9 MB, 0.0015 ms), where one tile per item leaves it latency-bound.
 //
-// Design. A work item is one (request, kv head, q tile). The grid is
-// persistent, one block per SM taking one item in each pass over the grid
-// (passes alternate in direction, see nth_item), and a block has
-// three warpgroups: a producer that fills a ring of K/V tiles in shared
-// memory and two consumers of 64 rows each. The producer runs on into the
-// block's next item while the consumers finish one, so no SM waits for a
-// block to start. The numbers name what held the first kernel back (a
-// HAS_HISTORY instance of csrc/flash_prefill.cu before):
+// Design. A work item is one (request, kv head, q tile). A block has three
+// warpgroups: a producer that fills a ring of K/V tiles in shared memory and
+// two consumers of 64 rows each. With a history the grid is persistent, one
+// block per SM taking one item in each pass over the grid (passes alternate
+// in direction, see nth_item), and the producer runs on into the block's
+// next item while the consumers finish one, so no SM waits for a block to
+// start. Fresh prefill launches one block per item instead: its ragged
+// batches hold many empty padding items, which the static passes spread
+// unevenly (PERF.md). The numbers name what held the first kernels back
+// (the v1 template that K2 / K8 ran until they became this kernel's KV_NONE
+// instance, and K5 with it before):
 // 1. Packed GQA rows (it had 16 * 8/G positions x G heads per block, 96 rows
 //    at G 3). The block's BM = 128 rows are (position, query head) pairs of
 //    the G heads that share the kv head, flat index f = position * G + g over
@@ -86,7 +107,10 @@
 
 namespace {
 
-enum KvType { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
+// Where the history comes from: a bf16, int8 or fp8 pool, or nowhere (fresh
+// prefill, K2 / K8).
+enum KvType { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2, KV_NONE = 3 };
+__host__ __device__ constexpr bool one_byte_kv(int kv) { return kv == KV_INT8 || kv == KV_FP8; }
 
 constexpr int BK = 64;             // keys per tile
 constexpr int WARPGROUPS = 2;      // consumers, 64 packed rows each
@@ -137,7 +161,8 @@ struct Args {
   const __nv_bfloat16* q;       // [B, S, Nq, D]
   const __nv_bfloat16* k;       // [B, S, Hkv, D]
   const __nv_bfloat16* v;       // [B, S, Hkv, D]
-  const int* chunk_lens;        // [B]
+  const int* chunk_lens;        // [B] (fresh prefill: seq_lens)
+  // The history, null in fresh prefill:
   const int* start_pos;         // [B]
   const uint8_t* pages;         // [L, 2, T, Hkv*D] of bf16, int8 or fp8
   const __nv_bfloat16* scales;  // [L, T, 128] (int8 pools only)
@@ -147,7 +172,7 @@ struct Args {
   float* l_out;                 // [B, S, Nq] or null
   int B, S, Nq, Hkv, D;
   int n_qt;                     // q tiles of BM packed rows per (request, kv head)
-  int ub_hist, ub_chunk;        // bytes per copy: pool rows, chunk rows
+  int ub_hist, ub_chunk, ub_q;  // bytes per copy or load: pool rows, chunk rows, q rows
   float qscale;
   long long T;
   int layer, ps, ppr;
@@ -546,6 +571,9 @@ struct Work {
   int n_tiles;
 };
 
+// HIST false (fresh prefill): no history, and a q tile wholly past the
+// request's length is padding with no tiles.
+template <bool HIST>
 __device__ __forceinline__ Work work_item(const Args& a, int i, int G) {
   Work w;
   const int n_bh = a.B * a.Hkv;
@@ -555,11 +583,12 @@ __device__ __forceinline__ Work work_item(const Args& a, int i, int G) {
   w.h = x % a.Hkv;
   w.b = x / a.Hkv;
   w.len = a.chunk_lens[w.b];
-  w.hist = a.start_pos[w.b];
+  w.hist = HIST ? a.start_pos[w.b] : 0;
   const int last = min(w.qt * BM + BM - 1, a.S * G - 1) / G;  // the q tile's last position
   w.n_hist = w.hist > 0 ? (w.hist + BK - 1) / BK : 0;
   w.kv_hi = min(last + 1, w.len);
   w.n_tiles = w.n_hist + (w.kv_hi > 0 ? (w.kv_hi + BK - 1) / BK : 0);
+  if (!HIST && w.qt * BM / G >= w.len) w.n_tiles = 0;
   return w;
 }
 
@@ -579,8 +608,9 @@ template <int DP, int KV>
 __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args a) {
   using L = Layout<DP>;
   constexpr int DT = DP / 8;
-  constexpr int EB = KV == KV_BF16 ? 2 : 1;
-  constexpr bool ONE_BYTE = KV != KV_BF16;
+  constexpr bool HIST = KV != KV_NONE;
+  constexpr bool ONE_BYTE = one_byte_kv(KV);
+  constexpr int EB = ONE_BYTE ? 1 : 2;
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
   uint64_t* empty = full + STAGES;
@@ -613,16 +643,17 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
     uint32_t* scl = reinterpret_cast<uint32_t*>(smem + L::OFF_SCL);
     int g = 0;  // ring tiles filled, over every item of the block
     for (int j = 0, item; (item = nth_item(j, n_items)) >= 0; ++j) {
-      const Work w = work_item(a, item, G);
+      const Work w = work_item<HIST>(a, item, G);
       const uint8_t* kpool =
-          a.pages + EB * ((long long)a.layer * 2 * a.T * ks + (long long)w.h * D);
-      const uint8_t* vpool = kpool + EB * a.T * ks;
-      const int* tb = a.table + (long long)w.b * a.ppr;
+          HIST ? a.pages + EB * ((long long)a.layer * 2 * a.T * ks + (long long)w.h * D) : nullptr;
+      const uint8_t* vpool = HIST ? kpool + EB * a.T * ks : nullptr;
+      const int* tb = HIST ? a.table + (long long)w.b * a.ppr : nullptr;
       const __nv_bfloat16* kb = a.k + (long long)w.b * S * ks + (long long)w.h * D;
       const __nv_bfloat16* vb = a.v + (long long)w.b * S * ks + (long long)w.h * D;
       // The pool rows of history tile t (-1 past hist): the thread of a
       // page's first key in the tile reads the page's entry, then each key's
-      // thread forms its row.
+      // thread forms its row. Neither this nor history() runs without a
+      // history (n_hist is 0).
       auto fill_rows = [&](int t) {
         const int pos = t * BK + pt;
         const int page = pos / a.ps;
@@ -634,16 +665,18 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
         producer_sync();
       };
       auto history = [&](uint8_t* dst, uint32_t* sc) {
-        if (a.ub_hist == 16) {
-          load_history<DP, KV, 16>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
-        } else if (a.ub_hist == 8) {
-          load_history<DP, KV, 8>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
-        } else if constexpr (KV == KV_BF16) {
-          load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
-        } else if (a.ub_hist == 4) {
-          load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
-        } else {  // a 1-byte pool at D = 2 mod 4
-          load_history<DP, KV, 2>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+        if constexpr (HIST) {
+          if (a.ub_hist == 16) {
+            load_history<DP, KV, 16>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+          } else if (a.ub_hist == 8) {
+            load_history<DP, KV, 8>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+          } else if constexpr (KV == KV_BF16) {
+            load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+          } else if (a.ub_hist == 4) {
+            load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+          } else {  // a 1-byte pool at D = 2 mod 4
+            load_history<DP, KV, 2>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+          }
         }
       };
       if (ONE_BYTE && w.n_hist > 0) {  // raw tile 0 in flight before the loop
@@ -705,34 +738,95 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
   int g = 0;  // ring tiles taken, over every item of the block
   if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
   for (int j = 0, item; (item = nth_item(j, n_items)) >= 0; ++j) {
-    const Work w = work_item(a, item, G);
+    const Work w = work_item<HIST>(a, item, G);
+    if (!HIST && w.n_tiles == 0) continue;  // fresh prefill: a q tile of padding
     const int gf = w.qt * BM + wg * 64;  // the warpgroup's first row
-    const bool group_live = gf < rows;
     const int group_first = gf / G;                     // the warpgroup's first position
     const int group_last = min(gf + 63, rows - 1) / G;  // and its last
+    // Fresh prefill computes no row past the length (padding, never read).
+    const bool group_live = gf < rows && (HIST || group_first < w.len);
 
     // The warpgroup's q rows, scaled and rounded to bf16, into shared memory
-    // (core-matrix layout), once its products of the last item are done with
-    // them; lanes D..DP-1 and rows past the request are zeros.
-    if (j > 0) asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-    for (int u = threadIdx.x & 127; u < 64 * (DP / 8); u += 128) {
-      const int m = ((u >> 3) / (DP / 8)) * 8 + (u & 7);
-      const int p = (u >> 3) % (DP / 8);
-      const int f = gf + m;
-      uint32_t q4[4] = {0u, 0u, 0u, 0u};
-      if (f < rows) {
-        const __nv_bfloat16* qrow =
-            a.q + ((long long)w.b * S + f / G) * qs + (long long)(w.h * G + f % G) * D;
+    // (core-matrix layout); lanes D..DP-1 and rows past the request are
+    // zeros; the stores wait until the warpgroup's products of the last
+    // item are done with the tile.
+    if constexpr (ONE_BYTE) {
+      // One piece of 8 values at a time: with a 1-byte pool the producer's
+      // dequantization sets the pace, and the unrolled loads below cost it
+      // 3-7 % (PERF.md).
+      if (j > 0) asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+      for (int u = threadIdx.x & 127; u < 64 * (DP / 8); u += 128) {
+        const int m = ((u >> 3) / (DP / 8)) * 8 + (u & 7);
+        const int p = (u >> 3) % (DP / 8);
+        const int f = gf + m;
+        uint32_t q4[4] = {0u, 0u, 0u, 0u};
+        if (f < rows) {
+          const __nv_bfloat16* qrow =
+              a.q + ((long long)w.b * S + f / G) * qs + (long long)(w.h * G + f % G) * D;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int d = 8 * p + 2 * i;
-          if (d < D) {
-            const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qrow + d));
-            q4[i] = pack2(v.x * a.qscale, v.y * a.qscale);
+          for (int i = 0; i < 4; ++i) {
+            const int d = 8 * p + 2 * i;
+            if (d < D) {
+              const float2 v =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qrow + d));
+              q4[i] = pack2(v.x * a.qscale, v.y * a.qscale);
+            }
+          }
+        }
+        *reinterpret_cast<uint4*>(q_s + L::k_off(m, p)) = make_uint4(q4[0], q4[1], q4[2], q4[3]);
+      }
+    } else {
+      // Each thread loads its QU pieces of 8 values (piece p of row m) first,
+      // in loads of ub_q bytes, so that they take one trip to memory. Row m
+      // is flat row gf + m: position p0 + x / G and head g0 + m - (x / G) *
+      // G for x = g0 + m < 72, where x / G is (x * rG) >> 10 (exact below
+      // 209 for G <= 8).
+      constexpr int QU = DP / 16;
+      const int p0 = gf / G, g0 = gf - p0 * G;
+      const int rG = (1024 + G - 1) / G;
+      uint32_t q4[QU][4];
+#pragma unroll
+      for (int k = 0; k < QU; ++k) {
+        const int u = (threadIdx.x & 127) + 128 * k;
+        const int m = ((u >> 3) / (DP / 8)) * 8 + (u & 7);
+        const int p = (u >> 3) % (DP / 8);
+        const int x = g0 + m;
+        const int dx = (x * rG) >> 10;
+        q4[k][0] = q4[k][1] = q4[k][2] = q4[k][3] = 0u;
+        if (gf + m < rows && (HIST || p0 + dx < w.len) && 8 * p < D) {
+          const __nv_bfloat16* qp = a.q + ((long long)w.b * S + p0 + dx) * qs +
+                                    (long long)(w.h * G + x - dx * G) * D + 8 * p;
+          if (a.ub_q == 16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(qp);
+            q4[k][0] = v.x, q4[k][1] = v.y, q4[k][2] = v.z, q4[k][3] = v.w;
+          } else if (a.ub_q == 8) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (8 * p + 4 * i < D) {
+                const uint2 v = *reinterpret_cast<const uint2*>(qp + 4 * i);
+                q4[k][2 * i] = v.x, q4[k][2 * i + 1] = v.y;
+              }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (8 * p + 2 * i < D) q4[k][i] = *reinterpret_cast<const uint32_t*>(qp + 2 * i);
           }
         }
       }
-      *reinterpret_cast<uint4*>(q_s + L::k_off(m, p)) = make_uint4(q4[0], q4[1], q4[2], q4[3]);
+      if (j > 0) asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+#pragma unroll
+      for (int k = 0; k < QU; ++k) {
+        const int u = (threadIdx.x & 127) + 128 * k;
+        uint32_t w4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // zeros stay zeros
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q4[k][i]));
+          w4[i] = pack2(v.x * a.qscale, v.y * a.qscale);
+        }
+        *reinterpret_cast<uint4*>(q_s + L::k_off(((u >> 3) / (DP / 8)) * 8 + (u & 7),
+                                                 (u >> 3) % (DP / 8))) =
+            make_uint4(w4[0], w4[1], w4[2], w4[3]);
+      }
     }
     fence_async_smem();
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
@@ -790,7 +884,7 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int f = wf + r + 8 * i;
-      if (f >= rows) continue;
+      if (f >= rows || (!HIST && pos[i] >= w.len)) continue;  // fresh: padding is not stored
       // element offset of the row's head in q / out
       const long long qoff = ((long long)w.b * S + pos[i]) * qs + (long long)(w.h * G + f % G) * D;
       __nv_bfloat16* orow = a.out + qoff;
@@ -816,7 +910,7 @@ bool aligned(const void* p, int bytes) {
 
 template <int DP, int KV>
 int run(const Args& a, dim3 grid, cudaStream_t st) {
-  constexpr int bytes = Layout<DP>::bytes(KV != KV_BF16);
+  constexpr int bytes = Layout<DP>::bytes(one_byte_kv(KV));
   static bool ready = false;  // the attribute is set once per instance
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -838,28 +932,34 @@ int copy_bytes(int D, int EB, const void* p, int min_bytes) {
 
 template <int KV>
 int launch(Args a, void* stream) {
-  constexpr int EB = KV == KV_BF16 ? 2 : 1;
   if (a.Hkv <= 0 || a.Nq % a.Hkv != 0 || a.Nq / a.Hkv > MAX_G) return (int)cudaErrorInvalidValue;
   if (a.D <= 0 || a.D > MAX_D || a.D % 2 != 0) return (int)cudaErrorInvalidValue;
-  if (a.ps <= 0 || a.ppr <= 0) return (int)cudaErrorInvalidValue;
   if ((a.m_out == nullptr) != (a.l_out == nullptr)) return (int)cudaErrorInvalidValue;
-  if (KV == KV_INT8 && (a.scales == nullptr || a.Hkv > SCALE_LANES / 2 || !aligned(a.scales, 4)))
-    return (int)cudaErrorInvalidValue;
+  if constexpr (KV != KV_NONE) {  // the pool
+    if (a.ps <= 0 || a.ppr <= 0) return (int)cudaErrorInvalidValue;
+    if (KV == KV_INT8 && (a.scales == nullptr || a.Hkv > SCALE_LANES / 2 || !aligned(a.scales, 4)))
+      return (int)cudaErrorInvalidValue;
+    a.ub_hist = copy_bytes(a.D, one_byte_kv(KV) ? 1 : 2, a.pages, KV == KV_BF16 ? 4 : 2);
+    if (a.ub_hist == 0) return (int)cudaErrorMisalignedAddress;
+  }
   a.ub_chunk = copy_bytes(a.D, 2, reinterpret_cast<const void*>(
                                       reinterpret_cast<uintptr_t>(a.k) |
                                       reinterpret_cast<uintptr_t>(a.v)), 4);
-  a.ub_hist = copy_bytes(a.D, EB, a.pages, KV == KV_BF16 ? 4 : 2);
-  if (a.ub_chunk == 0 || a.ub_hist == 0 || !aligned(a.q, 4)) return (int)cudaErrorMisalignedAddress;
+  a.ub_q = copy_bytes(a.D, 2, a.q, 4);
+  if (a.ub_chunk == 0 || a.ub_q == 0) return (int)cudaErrorMisalignedAddress;
   const long long n_qt = ((long long)a.S * (a.Nq / a.Hkv) + BM - 1) / BM;
   const long long n_items = n_qt * a.B * a.Hkv;
   if (n_items > INT_MAX) return (int)cudaErrorInvalidValue;
   a.n_qt = (int)n_qt;
-  // A persistent grid: one block per SM (the shared memory allows no more).
+  // With a history, a persistent grid: one block per SM (the shared memory
+  // or the registers allow no more). Fresh prefill: one block per item, in
+  // the hardware's order (the longest q tiles first), which balances ragged
+  // batches, whose padding items are empty, better than the static passes.
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)std::min<long long>(n_items, sms));
+  const dim3 grid((unsigned)(KV == KV_NONE ? n_items : std::min<long long>(n_items, sms)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((a.D + 15) / 16 * 16) {  // DP: D padded to the mma k-step
     case 16: return run<16, KV>(a, grid, st);
@@ -880,9 +980,9 @@ extern "C" const char* error_string(int code) {
 }
 
 // Dynamic shared memory (bytes) of the instance that takes head dim D for a
-// pool of kv type 0 (bf16), 1 (int8) or 2 (fp8).
+// pool of kv type 0 (bf16), 1 (int8) or 2 (fp8), or 3 for no pool (K2 / K8).
 extern "C" int flash_prefill_chunked_smem(int D, int kv) {
-  const bool one_byte = kv != KV_BF16;
+  const bool one_byte = one_byte_kv(kv);
   switch ((D + 15) / 16 * 16) {
     case 16: return Layout<16>::bytes(one_byte);
     case 32: return Layout<32>::bytes(one_byte);
@@ -933,3 +1033,32 @@ extern "C" int flash_prefill_chunked_smem(int D, int kv) {
 CHUNKED_ENTRY(flash_prefill_chunked_bf16, KV_BF16)
 CHUNKED_ENTRY(flash_prefill_chunked_int8, KV_INT8)
 CHUNKED_ENTRY(flash_prefill_chunked_fp8, KV_FP8)
+
+// K2 and K8: fresh prefill, the instance with no history (chunk_lens =
+// seq_lens, no pool, no state out). K2 takes head dims 64 and 128, K8 any
+// even one up to 128 (the callers send it the others); both launch the same
+// instances. Rows at or past seq_lens[b] are left as they were.
+extern "C" int flash_prefill_vmem_bf16(const void* q, const void* k, const void* v,
+                                       const void* seq_lens, void* out, int B, int S, int Nq,
+                                       int Hkv, int D, float qscale, void* stream) {
+  Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.chunk_lens = static_cast<const int*>(seq_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B;
+  a.S = S;
+  a.Nq = Nq;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.qscale = qscale;
+  return launch<KV_NONE>(a, stream);
+}
+
+extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
+                                  const void* seq_lens, void* out, int B, int S, int Nq,
+                                  int Hkv, int D, float qscale, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  return flash_prefill_vmem_bf16(q, k, v, seq_lens, out, B, S, Nq, Hkv, D, qscale, stream);
+}

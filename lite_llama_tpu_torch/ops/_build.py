@@ -25,9 +25,9 @@ from typing import Dict, Iterable, Set, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("paged_decode", "flash_prefill", "flash_prefill_chunked", "qmatmul")
+SOURCES = ("paged_decode", "flash_prefill_chunked", "qmatmul")
 # Head dims the attention sources take: every even one from 16 to 128
-# (csrc/flash_prefill.cu and csrc/flash_prefill_chunked.cu pad each to the
+# (csrc/flash_prefill_chunked.cu, fresh and chunked prefill, pads each to the
 # mma k-step of 16, csrc/paged_decode.cu masks the lanes past it).
 HEAD_DIMS = range(16, 129, 2)
 

@@ -4,20 +4,28 @@ the ``flash_prefill`` and ``flash_prefill_chunked`` entries, bf16, int8 and fp8
 pools).
 
 The TPU runs its streamed forms through one kernel, ``_prefill_kernel``,
-and unpackable head dims through ``_flash_prefill_vmem``. The port's fresh
-prefill is one template, ``csrc/flash_prefill.cu``: K2 (``flash_prefill``
--> ``_flash_prefill_impl``, head dims 64 and 128) and K8 (``flash_prefill``
--> ``_flash_prefill_vmem``, every other even head dim from 16 to 128,
-padded to the mma k-step). The chunked form, K5 (``flash_prefill_chunked``)
-and K5q, its int8 and fp8 pool instances (one launcher and launch count
-each), is ``csrc/flash_prefill_chunked.cu``: packed GQA rows, an
-asynchronous K/V ring and ldmatrix fragments (its header says what bounds
-it and how it is laid out).
+and unpackable head dims through ``_flash_prefill_vmem``. The port runs all
+of them through one template, ``csrc/flash_prefill_chunked.cu`` (its header
+says what bounds it and how it is laid out): packed GQA rows (128 (position,
+query head) pairs of one kv head per q tile), a producer warpgroup filling
+a ring of K/V tiles by cp.async, and two consumer warpgroups reading the
+tiles through wgmma descriptors. Its instances:
+
+- K5 (``flash_prefill_chunked``) and K5q, its int8 and fp8 pool instances
+  (one launcher and launch count each): a chunk over the pool's history,
+  on a persistent grid.
+- Fresh prefill, the instance with no history and no pool (chunk_lens =
+  seq_lens), one block per (request, kv head, q tile): K2 (``flash_prefill``
+  -> ``_flash_prefill_impl``, head dims 64 and 128) and K8
+  (``flash_prefill`` -> ``_flash_prefill_vmem``, every other even head dim
+  from 16 to 128, padded to the mma k-step), one launcher and launch count
+  each, both launching the same instances.
 
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version: ``ops/ref.py`` ``prefill_attention`` for K2 and K8,
 :func:`chunked_prefill_state_plain` for K5. Pad query rows of K2 and K8
-(s >= seq_lens[b]) hold garbage in both and are never read.
+(s >= seq_lens[b]) are never read: the plain version computes them, the
+kernel leaves them as they were.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ def _check_qkv(what, q, k, v):
 
 def _fresh_launcher(entry, what, head_dims):
     """K2 (``flash_prefill_bf16``, head dims 64 and 128) or K8
-    (``flash_prefill_vmem_bf16``, the padded instances)."""
+    (``flash_prefill_vmem_bf16``, any even head dim): the fresh instance of
+    ``csrc/flash_prefill_chunked.cu``."""
 
     def launch(q, k, v, seq_lens, sm_scale):
         B, S, Nq, D = q.shape
@@ -65,7 +74,7 @@ def _fresh_launcher(entry, what, head_dims):
         q, k, v, seq_lens = (t.contiguous() for t in (q, k, v, seq_lens))
         out = torch.empty_like(q)
         if B and S:
-            lib = _build.library("flash_prefill", entry, _ARGTYPES)
+            lib = _build.library("flash_prefill_chunked", entry, _ARGTYPES)
             code = getattr(lib, entry)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                 B, S, Nq, Hkv, D, float(sm_scale * LOG2E),
@@ -83,7 +92,7 @@ def _fresh_launcher(entry, what, head_dims):
 
 
 # K2 takes the head dims the TPU streams unpadded; K8 every even one (the
-# router sends it all but 64 and 128, and its instances are the padded ones).
+# router sends it all but 64 and 128).
 launch_flash_prefill = _fresh_launcher("flash_prefill_bf16", "flash_prefill", (64, 128))
 launch_flash_prefill_vmem = _fresh_launcher("flash_prefill_vmem_bf16", "flash_prefill_vmem",
                                             _build.HEAD_DIMS)

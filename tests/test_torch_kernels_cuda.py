@@ -3,9 +3,11 @@ the card, in bf16, at Llama-3.2-3B (D=128, Nq=24, Hkv=8) and Llama-3.2-1B
 (D=64, Nq=32, Hkv=8) head shapes, the quantized kernels (K6 W4A8, K7 W8A8,
 K1q / K5q on int8 and fp8 pools) included, the attention kernels at the
 other head dims (K8, and K1 / K1q / K5 / K5q at D = 16 ... 112 with 1 to 8
-query heads per kv head), K5 / K5q over page sizes 7 to 80 and at the
-prefix-hit shape, plus the refusals that keep the card off the plain code. This file imports no JAX, so it runs on a machine with a
-card and without JAX:
+query heads per kv head), fresh prefill (K2 / K8, the no-history instance
+of K5's template) at every G from 1 to 8 and S up to 2048 and against K5
+with no history, K5 / K5q over page sizes 7 to 80 and at the prefix-hit
+shape, plus the refusals that keep the card off the plain code. This file
+imports no JAX, so it runs on a machine with a card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
@@ -109,12 +111,12 @@ def test_library_declares_each_entry_of_a_source(monkeypatch, tmp_path):
     monkeypatch.setattr(ctypes, "CDLL", Lib)
     a = [ctypes.c_void_p, ctypes.c_int]
     b = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-    lib = _build.library("flash_prefill", "entry_a", a)
-    assert _build.library("flash_prefill", "entry_b", b) is lib
+    lib = _build.library("flash_prefill_chunked", "entry_a", a)
+    assert _build.library("flash_prefill_chunked", "entry_b", b) is lib
     assert lib.entry_a.argtypes == a and lib.entry_b.argtypes == b
     assert lib.entry_a.restype is ctypes.c_int and lib.entry_b.restype is ctypes.c_int
     assert lib.error_string.restype is ctypes.c_char_p
-    _build.library("flash_prefill", "entry_a", b)  # declared once, not redeclared
+    _build.library("flash_prefill_chunked", "entry_a", b)  # declared once, not redeclared
     assert lib.entry_a.argtypes == a
 
 
@@ -444,8 +446,8 @@ def test_padded_prefill_kernel_matches_plain(cuda, D, G):
 
 @pytest.mark.parametrize("D,Nq,Hkv", [(128, 24, 8), (64, 32, 8), (64, 15, 5)])
 def test_padded_prefill_template_equals_k2_where_nothing_is_padded(cuda, D, Nq, Hkv):
-    """K8's padded instances at D = DP compute what K2's exact ones do, bit
-    for bit (the same tiles in the same order)."""
+    """K8's launcher at D = 64 and 128 computes what K2's does, bit for bit
+    (both launch the fresh instance of one template)."""
     from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_vmem
 
     g = torch.Generator(device=cuda).manual_seed(10)
@@ -502,6 +504,62 @@ def test_padded_chunked_prefill_kernel_matches_plain(cuda, kv, D, G):
     assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
     assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
     assert torch.all(m[4] == -1e30) and torch.all(l[4] == 0) and torch.all(out[4] == 0)
+
+
+# Fresh prefill (K2 / K8): the no-history instance of K5's template
+
+FRESH_DIMS = [16, 40, 64, 80, 96, 100, 128]
+
+
+def _fresh_inputs(dev, D, G, S, lens, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Nq = len(lens), G * HKV
+    q = torch.randn((B, S, Nq, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, HKV, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, HKV, D), generator=g, device=dev).bfloat16()
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 2048])
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("D", FRESH_DIMS)
+def test_fresh_prefill_kernel_matches_plain(cuda, D, G, S):
+    """ops.prefill_attention (K2 at D 64 / 128, K8 at the others) against its
+    plain version on every valid row: requests of S tokens, of about 3/4 of
+    S, of one token and of none; two calls give equal bytes."""
+    from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_vmem
+
+    lens = [S, S * 3 // 4 + 1, 1, 0]
+    q, k, v, sl = _fresh_inputs(cuda, D, G, S, lens, 15)
+    fresh = launch_flash_prefill if D in (64, 128) else launch_flash_prefill_vmem
+    before = fresh.launches
+    got = ops.prefill_attention(q, k, v, sl)
+    assert fresh.launches == before + 1
+    again = ops.prefill_attention(q, k, v, sl)
+    want = ref.prefill_attention(q, k, v, sl)
+    for b, n in enumerate(lens):  # pad rows are never read
+        assert _within(got[b, :n], want[b, :n]), b
+        assert torch.equal(got[b, :n], again[b, :n]), b
+
+
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_fresh_prefill_equals_chunked_prefill_with_no_history(cuda, D, G):
+    """Fresh prefill (K2 / K8) equals K5 on the same batch with start_pos = 0
+    over a pool of random pages, bit for bit on every valid row: chunked and
+    single-shot prefill agree by construction."""
+    S, ps = 300, 16
+    lens = [300, 129, 64, 1, 0]
+    q, k, v, sl = _fresh_inputs(cuda, D, G, S, lens, 16)
+    B = len(lens)
+    P = 8 * B
+    pages = torch.randn((2, 2, P * ps, HKV * D), device=cuda).bfloat16()
+    table = torch.randperm(P, device=cuda).view(B, 8).int()
+    zero = torch.zeros(B, dtype=torch.int32, device=cuda)
+    got = ops.prefill_attention(q, k, v, sl)
+    want, _, _ = launch_flash_prefill_chunked(q, k, v, sl, zero, pages, ps, 1, table, D**-0.5)
+    for b, n in enumerate(lens):
+        assert torch.equal(got[b, :n], want[b, :n]), b
 
 
 # K5 / K5q: packed GQA rows over the K/V ring (csrc/flash_prefill_chunked.cu)
