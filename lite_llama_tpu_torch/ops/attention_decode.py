@@ -11,6 +11,15 @@ online-softmax state ``(m, l)``; the newest token of a decode step is not in
 the pool yet and is folded in outside the kernel (``ref.fold_new_token``),
 so the pool stays read-only while the layers run.
 
+The kernel splits each request's KV walk across blocks (flash decoding).
+:func:`plan_decode_splits` fixes, from static shapes only, the most splits a
+request may take and the least span of one; the kernel decides each
+request's split on the device from all kv_lens and its grid's slots, as
+:func:`decode_spans` does here, and combines the splits' partials in split
+order as :func:`combine_decode_splits` does. The partials go through a
+workspace kept per (device, stream), so a launch reads no device value on
+the host and can be captured in a CUDA graph.
+
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes :func:`paged_decode_state_plain`, which computes the same function.
 """
@@ -18,19 +27,82 @@ takes :func:`paged_decode_state_plain`, which computes the same function.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from . import _build
 from .ref import LOG2E, NEG_INF, SCALE_HALF, cdiv_int, fold_new_token, pool_rows
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 # Pool dtype -> the kernel instance (C entry) that reads it.
 _ENTRIES = {torch.bfloat16: "paged_decode_bf16", torch.int8: "paged_decode_int8",
             torch.float8_e4m3fn: "paged_decode_fp8"}
+
+# The split plan's rules: the least span of a split (tokens, rounded up to
+# whole pages) and the most splits of one request (csrc/paged_decode.cu
+# MAX_SPLITS).
+DECODE_MIN_SPAN_TOKENS = 128
+DECODE_MAX_SPLITS = 16
+
+
+class DecodePlan(NamedTuple):
+    s_max: int     # the most splits of one request
+    min_span: int  # pages: the least span of a split
+
+
+@functools.lru_cache(maxsize=None)  # once per shape: the launch path is host-bound
+def plan_decode_splits(table_width: int, page_size: int) -> DecodePlan:
+    """The split plan of a K1 / K1q launch, from static shapes only (no
+    tensor value): a request may take up to ``s_max`` splits, as many as its
+    table's reach (``table_width`` pages) holds spans of ``min_span`` pages
+    and at most DECODE_MAX_SPLITS. The device decides the rest from kv_lens
+    (:func:`decode_spans`)."""
+    min_span = max(1, cdiv_int(DECODE_MIN_SPAN_TOKENS, page_size))
+    return DecodePlan(max(1, min(DECODE_MAX_SPLITS, cdiv_int(table_width, min_span))), min_span)
+
+
+def decode_spans(kv_lens: Sequence[int], page_size: int, s_max: int, min_span: int,
+                 slots: int) -> List[List[Tuple[int, int]]]:
+    """The token spans [t0, t1) of each request's live splits, in split
+    order, as the kernel decides them on the device from all kv_lens, its
+    grid holding ``slots`` items per wave: a request of n pages among the
+    launch's N takes its share of the slots, floor(slots * n / N), at least
+    1, at most s_max and at most one per min_span pages, as spans of
+    cdiv(n, live) whole pages, the last one shorter (none for an empty
+    request)."""
+    pages = [cdiv_int(n, page_size) for n in kv_lens]
+    total = sum(pages)
+    out = []
+    for n_tok, n in zip(kv_lens, pages):
+        if n == 0:
+            out.append([])
+            continue
+        live = min(max(1, slots * n // total), s_max, cdiv_int(n, min_span))
+        span = cdiv_int(n, live) * page_size
+        out.append([(t0, min(n_tok, t0 + span)) for t0 in range(0, n_tok, span)])
+    return out
+
+
+def combine_decode_splits(parts: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]):
+    """The LSE combine of split partials ``(out, m, l)`` (out normalised, m
+    and l in the exp2 domain), in split order, as the kernel's last block
+    combines its splits and as ``fold_new_token`` folds one token: m = max
+    m_s, l = sum l_s 2^(m_s - m), out = sum out_s l_s 2^(m_s - m) / l."""
+    m = parts[0][1]
+    for _, ms, _ in parts[1:]:
+        m = torch.maximum(m, ms)
+    l = torch.zeros_like(m)
+    num = torch.zeros_like(parts[0][0], dtype=torch.float32)
+    for out, ms, ls in parts:
+        w = ls * torch.exp2(ms - m)
+        l = l + w
+        num = num + out.float() * w[..., None]
+    return (num / torch.clamp(l, min=1e-30)[..., None]).to(parts[0][0].dtype), m, l
 
 
 def paged_decode_state_plain(q, pages, page_size, layer, page_table, kv_lens, sm_scale,
@@ -73,6 +145,43 @@ def paged_decode_state_plain(q, pages, page_size, layer, page_table, kv_lens, sm
     return out.reshape(B, Nq, D).to(q.dtype), m.reshape(B, Nq), l.reshape(B, Nq)
 
 
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_outgrown: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+
+def _workspace(device: torch.device, stream: int, floats: int, counters: int):
+    """The split workspace of (device, stream): fp32 partials and one counter
+    per (request, kv head), the counters allocated zeroed and never cleared
+    again (the last split of each sets its counter back to 0). It grows when
+    a launch needs more; an outgrown one is kept, since a captured CUDA graph
+    may still point at it."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < counters:
+        if ws is not None:
+            _outgrown.append(ws)
+            floats, counters = max(floats, ws[0].numel()), max(counters, ws[1].numel())
+        ws = (torch.empty(floats, dtype=torch.float32, device=device),
+              torch.zeros(counters, dtype=torch.int32, device=device))
+        _workspaces[key] = ws
+    return ws
+
+
+_KV_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def decode_grid_slots(head_dim: int, pool_dtype, batch: int, kv_heads: int, s_max: int) -> int:
+    """The items per wave of a launch on the current card (the grid's y:
+    the instance's resident blocks per SM times the SMs over the kv heads,
+    at most batch * s_max), which :func:`decode_spans` takes as ``slots``."""
+    lib = _build.library("paged_decode", "paged_decode_grid_y", [ctypes.c_int] * 5)
+    slots = lib.paged_decode_grid_y(head_dim, _KV_CODES[pool_dtype], batch, kv_heads, s_max)
+    if slots < 1:
+        raise RuntimeError("paged_decode_grid_y: no grid for this launch")
+    return slots
+
+
 def _decode_launcher(pool_dtype):
     entry = _ENTRIES[pool_dtype]
 
@@ -110,12 +219,22 @@ def _decode_launcher(pool_dtype):
         m = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
         l = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
         if B:
+            Hkv, ppr = HD // D, page_table.shape[1]
+            plan = plan_decode_splits(ppr, page_size)
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            ws = counters = None
+            if plan.s_max > 1:
+                # a split's partial: acc [G, D] padded to 4 floats, then 16 floats of (m, l)
+                sw = -(-(Nq // Hkv * D) // 4) * 4 + 16
+                ws, counters = _workspace(q.device, stream, B * Hkv * plan.s_max * sw, B * Hkv)
             lib = _build.library("paged_decode", entry, _ARGTYPES)
             code = getattr(lib, entry)(
                 q.data_ptr(), pages.data_ptr(), None if scales is None else scales.data_ptr(),
                 page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), m.data_ptr(),
-                l.data_ptr(), B, Nq, HD // D, D, T, int(layer), page_size, page_table.shape[1],
-                float(sm_scale * LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
+                l.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), B, Nq, Hkv, D, T,
+                int(layer), page_size, ppr, float(sm_scale * LOG2E), plan.s_max, plan.min_span,
+                stream,
             )
             _build.check(lib, code, entry)
             launch.launches += 1

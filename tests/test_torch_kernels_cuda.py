@@ -6,8 +6,11 @@ other head dims (K8, and K1 / K1q / K5 / K5q at D = 16 ... 112 with 1 to 8
 query heads per kv head), fresh prefill (K2 / K8, the no-history instance
 of K5's template) at every G from 1 to 8 and S up to 2048 and against K5
 with no history, K5 / K5q over page sizes 7 to 80 and at the prefix-hit
-shape, plus the refusals that keep the card off the plain code. This file
-imports no JAX, so it runs on a machine with a card and without JAX:
+shape, K1 / K1q's split KV walk (flash decoding) at kv_lens around every
+page and split edge, at every G from 1 to 8 and at serving's width, bit for
+bit across launches and under CUDA-graph replay, plus the refusals that
+keep the card off the plain code. This file imports no JAX, so it runs on a
+machine with a card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
@@ -29,9 +32,12 @@ from lite_llama_tpu_torch import ops  # noqa: E402
 from lite_llama_tpu_torch.executor.kv_cache import KVPool  # noqa: E402
 from lite_llama_tpu_torch.ops import _build, norms, ref  # noqa: E402
 from lite_llama_tpu_torch.ops.attention_decode import (  # noqa: E402
+    decode_grid_slots,
+    decode_spans,
     launch_paged_decode,
     paged_decode_state_plain,
     paged_flash_decode,
+    plan_decode_splits,
 )
 from lite_llama_tpu_torch.ops.attention_prefill import (  # noqa: E402
     chunked_prefill_state_plain,
@@ -652,3 +658,175 @@ def test_prefill_at_head_dim_100_runs_k8_and_never_the_plain_version(cuda, monke
     torch.cuda.synchronize()
     assert launch_flash_prefill_vmem.launches == before + 1
     assert out.shape == q.shape and bool(torch.isfinite(out[1, :9]).all())
+
+
+# ---------------------------------------------------------------------------
+# K1 / K1q's split KV walk: lengths around every page and split edge, page
+# sizes that divide no span, G 1-8, serving's width, determinism and graphs
+
+
+def _decode_against_plain(dev, kv, D, G, lens, ps, ppr, seed, Hkv=HKV):
+    """K1 / K1q on a table ``ppr`` pages wide (zeros past each request's
+    pages, as the engine leaves them) against the plain version; returns
+    (out, m, l) and the inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens)
+    used = [-(-n // ps) for n in lens]
+    P = sum(used) + 1
+    pool = _quant_pool(dev, kv, Hkv, D, P, ps, seed)
+    perm = torch.randperm(P, generator=g, device=dev).int()
+    table = torch.zeros((B, ppr), dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(used):
+        table[b, :n] = perm[at: at + n]
+        at += n
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((B, G * Hkv, D), generator=g, device=dev).bfloat16()
+    out, m, l = paged_flash_decode(q, pool, 1, table, kv_lens, return_state=True)
+    po, pm, pl = paged_decode_state_plain(q, pool.pages, ps, 1, table, kv_lens, D**-0.5,
+                                          pool.scales)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    empty = kv_lens == 0
+    assert torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0)
+    assert torch.all(out[empty] == 0)
+    return (out, m, l), (q, pool, table, kv_lens)
+
+
+def _edge_lens(ps, ppr):
+    """0, 1, around one page, around the edges of the least span (where a
+    request's split count changes) and its multiples up to s_max of them,
+    around s_max spans plus a page, and the table's reach."""
+    plan = plan_decode_splits(ppr, ps)
+    reach = ppr * ps
+    span = plan.min_span * ps
+    edges = {0, 1, ps - 1, ps, ps + 1, reach - 1, reach}
+    for k in (1, 2, 3, plan.s_max - 1, plan.s_max):
+        edges.update(k * span + d for d in (-1, 0, 1))
+    edges.update(plan.s_max * span + ps + d for d in (-1, 0, 1))
+    return sorted(n for n in edges if 0 <= n <= reach)
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("ps", [16, 7])
+@pytest.mark.parametrize("D,G", [(128, 3), (100, 1), (64, 4)])
+def test_decode_kernel_matches_plain_around_page_and_split_edges(cuda, D, G, ps, kv):
+    """The engine's table width (2048 tokens), a request at each edge
+    length, in one batch (where the slots' shares set the long requests'
+    splits) and each alone (where the least span sets them); page size 7
+    divides no span of the plan."""
+    ppr = -(-2048 // ps)
+    lens = _edge_lens(ps, ppr)
+    plan = plan_decode_splits(ppr, ps)
+    dtype = {False: torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
+    slots = decode_grid_slots(D, dtype, len(lens), HKV, plan.s_max)
+    spans = decode_spans(lens, ps, plan.s_max, plan.min_span, slots)
+    assert max(len(s) for s in spans) > 2  # the walk really splits
+    _decode_against_plain(cuda, kv, D, G, lens, ps, ppr, 15)
+    for n in lens:
+        _decode_against_plain(cuda, kv, D, G, [n], ps, ppr, 15)
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("D", [16, 64, 80, 98, 100, 128])
+def test_decode_kernel_matches_plain_at_every_group_and_head_dim(cuda, D, G, kv):
+    """One-token, one-page, split and empty requests on a 1024-token table."""
+    _decode_against_plain(cuda, kv, D, G, [0, 1, 16, 77, 300, 1000], 16, 64, 16)
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+def test_decode_kernel_matches_plain_at_serving_width(cuda, kv):
+    """Serving decodes all 64 slots: 8 of 1,820 tokens, 56 empty
+    (Llama-3.2-3B's heads)."""
+    lens = [1820] * 8 + [0] * 56
+    _decode_against_plain(cuda, kv, 128, 3, lens, 16, 128, 17, Hkv=8)
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("ps,ppr", [(16, 8), (16, 4), (7, 2), (80, 1), (16, 9), (80, 3)])
+def test_decode_kernel_matches_plain_on_narrow_tables(cuda, ps, ppr, kv):
+    """Tables that reach one least span or less never split (s_max 1),
+    down to a reach shorter than one chunk of the ring; nine pages of 16 is
+    the narrowest table that splits, and three pages of 80 split into spans
+    of three chunks (the ring refills)."""
+    reach = ps * ppr
+    plan = plan_decode_splits(ppr, ps)
+    assert (plan.s_max == 1) == (ppr <= plan.min_span)
+    lens = sorted({0, 1, ps - 1, ps, ps + 1, reach // 2, reach - 1, reach} & set(range(reach + 1)))
+    _decode_against_plain(cuda, kv, 128, 3, lens, ps, ppr, 18)
+    for n in lens:
+        _decode_against_plain(cuda, kv, 128, 3, [n], ps, ppr, 18)
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+@pytest.mark.parametrize("B", [257, 600])
+def test_decode_kernel_matches_plain_past_one_scan_group(cuda, B, kv):
+    """Batches past the item scan's group of 256 requests (the engine's
+    ``max_reqs`` may be set that high): long, short and empty requests in
+    every group, so the item list and the empty requests cross groups."""
+    lens = [(0, 1, 300, 17, 0, 1000, 64)[b % 7] for b in range(B)]
+    _decode_against_plain(cuda, kv, 64, 2, lens, 16, 64, 22, Hkv=2)
+
+
+@pytest.mark.parametrize("kv", [False, "int8", "fp8"])
+def test_decode_kernel_result_of_a_request_holds_when_its_batch_changes(cuda, kv):
+    """The device splits a request by its share of the launch's pages, so
+    the last bits of its result depend on the other lengths of its batch:
+    its out, m and l stay within the plain version's tolerance of their
+    values with the request alone, beside short requests, beside long ones
+    that take most of the grid, and at serving's width."""
+    ps, ppr, Hkv, D, G = 16, 128, 8, 128, 3
+    P = 8 * ppr
+    pool = _quant_pool(cuda, kv, Hkv, D, P, ps, seed=23)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    table = torch.randperm(P, generator=g, device=cuda).int().view(8, ppr)
+    q = torch.randn((8, G * Hkv, D), generator=g, device=cuda).bfloat16()
+    alone = None
+    for others in ([], [88] * 11, [2048] * 7, [1820] * 7 + [0] * 56):
+        B = 1 + len(others)
+        rows = torch.arange(B, device=cuda) % 8
+        kv_lens = torch.tensor([1820] + others, dtype=torch.int32, device=cuda)
+        got = paged_flash_decode(q[rows], pool, 1, table[rows].contiguous(), kv_lens,
+                                 return_state=True)
+        got = tuple(x[:1] for x in got)
+        if alone is None:
+            alone = got
+            want = paged_decode_state_plain(q[:1], pool.pages, ps, 1, table[:1], kv_lens[:1],
+                                            D**-0.5, pool.scales)
+            assert _within(got[0], want[0])
+        assert _within(got[0], alone[0]), others
+        assert torch.allclose(got[1], alone[1], rtol=1e-3, atol=1e-3)
+        assert torch.allclose(got[2], alone[2], rtol=1e-3, atol=1e-6)
+
+
+def test_decode_kernel_is_bit_identical_across_launches(cuda):
+    (out, m, l), (q, pool, table, kv_lens) = _decode_against_plain(
+        cuda, False, 128, 3, [1820] * 4 + [0, 5, 88, 2048], 16, 128, 19, Hkv=8)
+    for _ in range(2):
+        o2, m2, l2 = paged_flash_decode(q, pool, 1, table, kv_lens, return_state=True)
+        assert torch.equal(out, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+
+
+def test_decode_kernel_replays_in_a_cuda_graph(cuda):
+    """K1 split over blocks, captured once and replayed three times on new
+    queries: each replay is bit-equal to an eager launch, so the counters
+    the last split resets are ready for the next replay."""
+    _, (q, pool, table, kv_lens) = _decode_against_plain(
+        cuda, False, 128, 3, [1820] * 8 + [0] * 8, 16, 128, 20, Hkv=8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_flash_decode(q, pool, 1, table, kv_lens, return_state=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, m, l = paged_flash_decode(q, pool, 1, table, kv_lens, return_state=True)
+    for seed in range(3):
+        q.copy_(torch.randn(q.shape, device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(seed)).bfloat16())
+        graph.replay()
+        want = paged_flash_decode(q, pool, 1, table, kv_lens, return_state=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((out, m, l), want)), seed
