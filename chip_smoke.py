@@ -62,12 +62,16 @@ Phases, in order; any failure exits non-zero:
    {"ok": true, "device": {...}}.
 
 Phase 3 also holds the quantized kernels against their plain versions: K6
-(W4A8) and K7 (W8A8) at the 3B projection shapes (scale groups of 128, 16
-and 8 rows, and per-channel), with faults planted in K6's inputs that must
-fail the tolerance, and K1q / K5q on int8 and fp8 pools at K1's and K5's
-main shapes. Each K6 / K7 case prints its split of C, grid, shared memory
-and ptxas line (``launch``); the timed split cases also time every split
-count the planner allows (``ms_by_splits``). Phase 6's decode profile gives
+(W4A8) and K7 (W8A8) at the 3B projection shapes (scale groups of 128, 48,
+16 and 8 rows, and per-channel), an fp32 output (and every K7 output)
+equal to the plain version's bit for bit, with faults planted in their
+inputs that must fail the tolerance, and K1q / K5q on int8 and fp8 pools
+at K1's and K5's main shapes. K6 / K7 count their integer operations
+against the int8 peak (1,979 TOP/s). Each K6 / K7 case prints its split of
+C (and K7's k-warps), grid, shared memory and ptxas line (``launch``); the
+timed K6 split cases also time every split count the planner allows
+(``ms_by_splits``), the timed K7 cases above 16 rows ``torch._int_mm`` on
+the same int8 bytes (``int8_library_ms``). Phase 6's decode profile gives
 K6's device time per step (``k6_device_ms_per_step``). K1 / K1q run on the
 engine's page-table width (2048 positions) at the decode batch, ragged
 batches and serving's width (64 slots, 8 of 1,820 tokens); each case prints
@@ -93,8 +97,10 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores (K6 / K7's integer dots)
 L2_BYTES = 50 * 2**20  # H100 SXM L2
 COLD_BYTES = 4 * L2_BYTES  # inputs one timed pass rotates through
+WARM_MS = 20.0  # device time a timed graph runs before, and at least while, it is timed
 ATOL, RTOL = 1e-2, 1e-2  # bf16 outputs: one bf16 step is 2^-8 relative
 # Decode vs re-prefill after 127 steps: relative RMS of the logit difference
 # and max |difference| over max |logit|. On an H100 (PERF.md) the plain
@@ -274,9 +280,10 @@ def graph_ms(fn, copies, min_calls=20):
     """Device milliseconds per call: one call per input copy (repeated to at
     least ``min_calls``) captured back to back in one CUDA graph and replayed
     between CUDA events, so the host's launch overhead is not in the number
-    (eager calls of these small kernels measure the host, not the card)."""
+    (eager calls of these small kernels measure the host, not the card). The
+    graph runs for ``WARM_MS`` before the timed replays, which last as long
+    at least (a 5 ms window read most K6 / K7 cases 1-5 % higher)."""
     calls = copies * math.ceil(min_calls / len(copies))
-    reps = max(3, math.ceil(200 / len(calls)))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -287,10 +294,16 @@ def graph_ms(fn, copies, min_calls=20):
     with torch.cuda.graph(graph):
         for args in calls:
             fn(*args)
-    graph.replay()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    per_replay = max(start.elapsed_time(end), 1e-3)
+    for _ in range(math.ceil(WARM_MS / per_replay)):
+        graph.replay()
+    reps = max(3, math.ceil(200 / len(calls)), math.ceil(WARM_MS / per_replay))
     start.record()
     for _ in range(reps):
         graph.replay()
@@ -360,9 +373,9 @@ def chunked_smem(D, kv):
     return lib.flash_prefill_chunked_smem(D, kv)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, ops_per_s=BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -690,6 +703,28 @@ def swiglu_case(rows, I):
                 bound_ms=t_bound, bound_by=by, library=None)
 
 
+def planted_k7_faults(x):
+    """K7 handed its weight with the scale rows shifted one group, each
+    column the neighbouring column's scale, or the sign bit of one k-row's
+    weights flipped (the row where x peaks, so the fault shows in every
+    case): (q, scale) -> faulty (q, scale) of one layer."""
+    k = int(x.float().abs().amax(dim=0).argmax())
+
+    def shifted(q, s):
+        return q, s.roll(1, dims=-2)
+
+    def neighbour(q, s):
+        return q, s.roll(1, dims=-1)
+
+    def sign_flipped(q, s):
+        q = q.clone()
+        q[..., k, :] ^= -128
+        return q, s
+
+    return {"scale rows shifted one group": shifted, "the neighbouring column's scale": neighbour,
+            f"sign bit of k-row {k} flipped": sign_flipped}
+
+
 def planted_k6_faults():
     """K6 handed its weight with the scale rows shifted one group, the two
     nibbles of every byte swapped, or each byte column the neighbouring
@@ -726,32 +761,45 @@ def ptxas_report(name):
 
 
 def qmm_launch_info(C, nG, Wn, M, packed, fp32):
-    """K6 / K7's launch at this shape: split count, grid, dynamic shared
-    memory (from the built library) and the instance's ptxas report."""
+    """K6 / K7's launch at this shape: split count (and K7's k-warps per
+    column), grid, dynamic shared memory (from the built library) and the
+    instance's ptxas report."""
     import ctypes
 
     from lite_llama_tpu_torch.ops import _build
     from lite_llama_tpu_torch.ops import qmatmul as qmm
 
-    S, rows = qmm.plan_splits(C, nG, Wn, M, torch.cuda.get_device_properties(0)
-                              .multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     F = qmm._fold_span(C, nG)
     MT, rt = qmm._row_tiles(M)
-    nspan = max((b - a for a, b in zip(rows[1:], rows[2:])), default=0) // F
-    lib = _build.library("qmatmul", "qmm_smem_bytes", [ctypes.c_int] * 3)
-    # Itanium mangling of qmm_kernel<MT, PACKED, KSTEP, OutT>
-    inst = (f"qmm_kernelILi{MT}ELb{int(packed)}ELi{qmm._kstep(F)}E"
-            f"{'f' if fp32 else '13__nv_bfloat16'}E")
+    out = "f" if fp32 else "13__nv_bfloat16"
+    if packed:
+        S, rows = qmm.plan_splits(C, nG, Wn, M, sms)
+        lib = _build.library("qmatmul", "qmm_smem_bytes", [ctypes.c_int] * 3)
+        smem = lib.qmm_smem_bytes(MT, F, qmm._held_spans(rows, F))
+        grid = [Wn // 32, rt, S]
+        # Itanium mangling of qmm_kernel<MT, KSTEP, OutT>
+        inst, plan = f"qmm_kernelILi{MT}ELi{qmm._kstep(F)}E{out}E", {}
+    else:
+        kw, S, rows = qmm.plan_w8a8(C, nG, Wn, M, sms)
+        lib = _build.library("qmatmul", "qmm_w8a8_smem_bytes", [ctypes.c_int] * 4)
+        smem = lib.qmm_w8a8_smem_bytes(MT, F, kw, qmm._held_spans(rows, F))
+        grid = [rt, Wn // 128, S]
+        # w8a8_kernel<MT, KSTEP, KW, OutT>
+        inst, plan = f"w8a8_kernelILi{MT}ELi{qmm._kstep(F)}ELi{kw}E{out}E", dict(kw=kw)
     ptxas = [v for k, v in ptxas_report("qmatmul").items() if inst in k]
-    return dict(splits=S, rows=rows, grid=[Wn // 32, rt, S],
-                smem_bytes=lib.qmm_smem_bytes(MT, F, nspan),
+    return dict(splits=S, rows=rows, **plan, grid=grid, smem_bytes=smem,
                 ptxas=ptxas[0] if ptxas else "not found")
 
 
 def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
     """K6 (``packed``) or K7 on the 3B projection ``name`` at M rows: a
     two-layer stack quantized by the port from seeded bf16 weights, layer 1
-    read by index. K6 with every planted fault must fail the tolerance."""
+    read by index. An fp32 output, and any output of K7 (whose bf16 rounds
+    the same fp32 product as the plain version's), must equal the plain
+    version's bit for bit, and every planted fault must fail the tolerance.
+    Timed K7 cases above 16 rows also time ``torch._int_mm`` on the same
+    int8 bytes (``int8_library_ms``)."""
     from lite_llama_tpu_torch.ops import qmatmul as qmm
     from lite_llama_tpu_torch.quant.qtensor import quantize
 
@@ -781,39 +829,50 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err, ok = max_err(got, want)
+    bit_equal = bool(torch.equal(got, want))
+    nG = qt.scale.shape[-2] if qt.scale.ndim == 3 else 1
     rec = dict(shape=f"{name} M={M} C={C} O={O} stored={qt.q.shape[-1]} group={gs} "
                      f"{'int4 ' + ('riffle' if riffle else 'classic') if packed else 'int8'} "
                      f"out={str(out_dtype).split('.')[-1]}",
-               max_abs_err=err, ok=ok, bit_equal=bool(torch.equal(got, want)),
-               launch=qmm_launch_info(C, qt.scale.shape[-2] if qt.scale.ndim == 3 else 1,
-                                      qt.q.shape[-1], M, packed, fp32))
-    if packed:
-        rec["faults"] = {}
-        for fname, fault in planted_k6_faults().items():
-            if gs is None and "group" in fname:
-                continue  # per-channel scales have one group
-            fq, fs = fault(qt.q[1:2], qt.scale[1:2])
+               max_abs_err=err, ok=ok and (bit_equal or (packed and not fp32)),
+               bit_equal=bit_equal,
+               launch=qmm_launch_info(C, nG, qt.q.shape[-1], M, packed, fp32))
+    rec["faults"] = {}
+    faults = planted_k6_faults() if packed else planted_k7_faults(x)
+    for fname, fault in faults.items():
+        if gs is None and "group" in fname:
+            continue  # per-channel scales have one group
+        fq, fs = fault(qt.q[1:2], qt.scale[1:2])
+        if packed:
             bad = qmm.quantized_matmul_packed(x, fq, fs, 0, out_dtype, not riffle, O)
-            ferr, fok = max_err(bad, want)
-            rec["faults"][fname] = dict(max_abs_err=ferr, caught=not fok)
-            rec["ok"] = rec["ok"] and not fok
+        else:
+            bad = qmm.quantized_matmul_int8(x, fq, fs, 0, out_dtype)
+        ferr, fok = max_err(bad, want)
+        rec["faults"][fname] = dict(max_abs_err=ferr, caught=not fok)
+        rec["ok"] = rec["ok"] and not fok
     if not timed:
         return rec
     layer_bytes = qt.q[1].numel() + qt.scale[1].numel() * 4
     bytes_moved = M * C * 2 + layer_bytes + M * O * got.element_size()
-    t_bound, by = bound(bytes_moved, 2 * M * C * O)
+    t_bound, by = bound(bytes_moved, 2 * M * C * O, INT8_OPS_PER_S)
     wd = qt.dequant(torch.bfloat16)[1].reshape(C, O)  # the bf16 product it replaces
     t = timings(kernel, plain, args, bytes_moved,
                 (lambda x, w: x @ w, (x, wd), M * C * 2 + C * O * 2 + M * O * 2),
                 plain_in_graph=False)
+    del wd
     if packed and rec["launch"]["splits"] > 1:  # the split rule's evidence: every allowed S
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         copies = input_copies(args, bytes_moved)
         rec["ms_by_splits"] = {
             S: graph_ms(lambda x, q, s, S=S: qmm.launch_quantized_matmul_packed(
                 x, q, s, 1, out_dtype, not riffle, O, _splits=S), copies)
-            for S in qmm.allowed_splits(C, qt.scale.shape[-2], qt.q.shape[-1], M, sms)}
+            for S in qmm.allowed_splits(C, nG, qt.q.shape[-1], M, sms)}
         del copies
+    if not packed and M > 16:  # torch._int_mm takes more than 16 rows
+        xi = qmm.quantize_activations(x, 1)[0]
+        t["int8_library_ms"] = graph_ms(torch._int_mm, input_copies(
+            (xi, qt.q[1]), M * C + C * O + M * O * 4))
+        t["int8_library"] = "torch._int_mm on the quantized rows and int8 weight (int32 out)"
     return dict(rec, model="llama-3.2-3b", **t, bound_ms=t_bound, bound_by=by,
                 library="torch.matmul in bf16 on the dequantized weight (cuBLAS; the "
                         "bf16 product the quantization replaces)")
@@ -881,10 +940,14 @@ def kernel_phase():
             qmm_case("down", 12, gs=8, timed=False),  # half-masked m16n8k16 passes
         ],
         "quantized_matmul_int8": [
-            qmm_case("gate_up", 12, packed=False),
-            qmm_case("down", 12, packed=False, gs=None, timed=False),
-            qmm_case("wqkv", 64, packed=False, timed=False),
-            qmm_case("down", 12, packed=False, gs=16, timed=False),
+            *(qmm_case(n, 12, packed=False) for n in QMM_SHAPES),  # gate_up first: the main case
+            qmm_case("gate_up", 64, packed=False),
+            qmm_case("gate_up", 256, packed=False),  # large M: the int8 operations near the bytes
+            *(qmm_case(n, 64, packed=False, timed=False) for n in QMM_SHAPES if n != "gate_up"),
+            qmm_case("down", 12, packed=False, gs=None, timed=False),  # per-channel scales
+            qmm_case("down", 12, packed=False, gs=16, timed=False),  # m16n8k16 steps
+            qmm_case("down", 12, packed=False, gs=8, timed=False),  # half-masked k16 passes
+            qmm_case("o_proj", 12, packed=False, gs=48, timed=False),
         ],
     }
     for kv in ("int8", "fp8"):
@@ -924,6 +987,8 @@ def kernel_phase():
                 line += f" launch={json.dumps(c['launch'])}"
             if "ms_by_splits" in c:
                 line += f" ms_by_splits={json.dumps(c['ms_by_splits'])}"
+            if "int8_library_ms" in c:
+                line += f" int8_library_ms={c['int8_library_ms']:.5f}"
             log(line)
     bad = [(n, c["shape"]) for n, cs in cases.items() for c in cs if not c["ok"]]
     require(not bad, f"kernels disagree with their plain versions beyond tolerance: {bad}")

@@ -1,27 +1,29 @@
-// W4A8 and W8A8 weight matmuls for Hopper (sm_90a), one kernel template.
+// W4A8 and W8A8 weight matmuls for Hopper (sm_90a): K6 (qmm_kernel) and K7
+// (w8a8_kernel), with the activation quantizer they share.
 //
 // Replaces the TPU kernels of lite_llama_tpu/ops/qmatmul.py:
-// - K6, quantized_matmul_packed -> _qmm_kernel (PACKED): int8 activations
-//   [M, C] against packed int4 weight bytes [Lf, C, Wn] (byte = 16*hi +
-//   (lo + 8), paired fp32 scales [Lf, nG, Wn]). Per scale group the kernel
-//   runs the TPU kernel's integer identity on the RAW bytes:
+// - K6, quantized_matmul_packed -> _qmm_kernel: int8 activations [M, C]
+//   against packed int4 weight bytes [Lf, C, Wn] (byte = 16*hi + (lo + 8),
+//   paired fp32 scales [Lf, nG, Wn]). Per scale group the kernel runs the
+//   TPU kernel's integer identity on the RAW bytes:
 //       g0 = x . b,  g1 = x . (b & 0x0F)          (exact int32 dots)
 //       acc_e += (g1 - 8 * sum(x_g)) * s          (even / lo columns)
 //       acc_o += (g0 - g1) * (s * 0.0625)         (odd / hi columns)
 //   and multiplies by the row's activation scale on the way out.
-// - K7, quantized_matmul_int8 -> _qmm8_kernel (!PACKED): int8 weights
-//   [Lf, C, Wn]; acc += (x . w) * s per group.
+// - K7, quantized_matmul_int8 -> _qmm8_kernel: int8 weights [Lf, C, Wn];
+//   acc += (x . w) * s per group.
 // Per-channel weights (nG = 1) fold at every F-row contraction block, the
 // TPU kernel's C block, so the fp32 sums are taken in its order; the fold
 // uses __fmul_rn / __fadd_rn (no fused multiply-add) and matches the plain
 // version (ops/qmatmul.py) bit for bit.
 //
-// What bounds it: device-memory bytes. At decode (M = 12..64 rows) every
+// What bounds both: device-memory bytes. At decode (M = 12..64 rows) every
 // weight byte is read once for 2*M integer operations, far below the ~590
-// int8 operations per byte at which the tensor cores would be the limit.
-// So the levers are blocks on the card and weight bytes in flight.
+// int8 operations per byte at which the tensor cores would be the limit
+// (M = 256 comes within 2x of it). So the levers are SMs streaming, weight
+// bytes in flight, and few instructions per weight byte.
 //
-// Design:
+// K6 (qmm_kernel):
 // - Grid (Wn / 32 byte columns, M / (16*MT) row tiles, S splits of C); 4
 //   warps, warp w owns byte columns [8w, 8w + 8) of the block. The layer
 //   index selects the layer's slice of the stacked weight by a pointer
@@ -49,7 +51,7 @@
 //   chunk, filled by cp.async.cg 16-byte copies: STAGES - 1 chunks are in
 //   flight while one is computed, and one block barrier per chunk.
 // - int8 tensor cores via mma.sync.m16n8k32.s32.s8.s8.s32 on the raw bytes
-//   and, for int4, on b & 0x0F0F0F0F (one 32-bit AND per four bytes).
+//   and on b & 0x0F0F0F0F (one 32-bit AND per four bytes).
 //   A fragments load from shared memory as 32-bit words; B fragments gather
 //   four k-rows of one column. A weight row is 32 bytes (a cp.async
 //   destination must be 16-byte aligned, which rules out a conflict-free
@@ -76,7 +78,50 @@
 // - The epilogue writes straight into the final columns: classic packing
 //   interleaved (2j, 2j+1), riffle packing [evens | odds], pad columns past
 //   the logical width skipped, bf16 or fp32.
+//
+// K7 (w8a8_kernel), designed for the weight stream alone:
+// - Strips of 128 weight bytes (columns): each weight row a block reads is
+//   128 contiguous bytes. The grid is (row tiles, strips, splits); the row
+//   tiles of one strip run side by side and share its bytes in L2.
+// - A producer warp and 4 * KW consumer warps. One producer thread streams
+//   every chunk (128 * KW rows of the strip) by TMA into a ring of stages:
+//   the weight tile, the activation tiles and the scale row of each fold
+//   that ends in the chunk, all counted on the stage's full barrier; the
+//   consumers give the stage back through its empty barrier. A chunk costs
+//   the producer a handful of instructions (per-thread cp.async copies with
+//   their address and predicate arithmetic held one block to ~20 GB/s on an
+//   H100 whatever the ring's depth). The tensor maps' encoder is looked up
+//   at run time (cudaGetDriverEntryPoint): no link against libcuda.
+// - Weight fragments from 32-bit shared loads and byte permutes: consumer
+//   warp cw's 32 columns are four n8 tiles over interleaved columns (tile
+//   j: columns 4g + j), so one lane's 32-bit load is four neighbouring
+//   columns of one k-row, one per tile; a 4 x 4 byte transpose (prmt) of
+//   four such loads gives each tile its B register (four k-rows of one
+//   column). Per 32-row k-step a lane makes 8 shared loads for 4 mma (K6: 8
+//   byte loads for 1), and one A fragment feeds the four tiles. Under the
+//   TMA's 128-byte swizzle, lanes tq >= 2 load their rows 0-1 and 2-3 in
+//   swapped order (undone by their own prmt selectors), so a load's 32
+//   lanes hit 32 banks.
+// - More warps on a strip: with KW = 2 each column has two k-warps, taking
+//   rows [0, 128) and [128, 256) of every chunk; at the chunk's end k-warp
+//   1 hands its int32 dots to k-warp 0 through shared memory (a named
+//   barrier per column, two slots alternating), which folds, in row order,
+//   the spans that end at either half. An int32 sum is exact in any order,
+//   so the fp32 folds, and bit-equality, stand. It needs fold spans of
+//   whole 128-row runs.
+// - Splits over C (S > 1, whole chunks, at most 8): the S splits of a tile
+//   are a thread-block cluster. Split s > 0 holds its spans' fp32 terms,
+//   waits for split s - 1's running sums to arrive in its own shared memory
+//   (written there by s - 1 through distributed shared memory, then an
+//   arrival on s's barrier), continues them in order and hands them to
+//   s + 1; the last split writes the output. No workspace, no counter.
+// - The launch is the quantizer's programmatic dependent: the first weight
+//   tiles are in flight while the quantizer finishes.
+// - The epilogue puts the interleaved columns back: fragment i of tile j
+//   is column 8 tq + 4 (i & 1) + j, so a lane writes 4 + 4 neighbouring
+//   columns of a row as two vector stores.
 
+#include <cuda.h>  // CUtensorMap (its encoder is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,7 +205,7 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+__device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
@@ -177,7 +222,7 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <int MT, bool PACKED, int KSTEP, typename OutT>
+template <int MT, int KSTEP, typename OutT>
 __global__ void __launch_bounds__(THREADS, 2)
 qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
            const float* __restrict__ xs,      // [M] activation row scales
@@ -275,20 +320,15 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float sc = (i & 1) ? s.y : s.x;
-        float te, to = 0.f;
-        if (PACKED) {
-          te = __fmul_rn((float)(g1[mt][i] - 8 * xr[i >> 1]), sc);
-          to = __fmul_rn((float)(g0[mt][i] - g1[mt][i]), sc * 0.0625f);
-        } else {
-          te = __fmul_rn((float)g0[mt][i], sc);
-        }
+        const float te = __fmul_rn((float)(g1[mt][i] - 8 * xr[i >> 1]), sc);
+        const float to = __fmul_rn((float)(g0[mt][i] - g1[mt][i]), sc * 0.0625f);
         if (split == 0) {
           acc_e[mt][i] = __fadd_rn(acc_e[mt][i], te);
-          if (PACKED) acc_o[mt][i] = __fadd_rn(acc_o[mt][i], to);
+          acc_o[mt][i] = __fadd_rn(acc_o[mt][i], to);
         } else {
           float* t = sT + ((nf * MT + mt) * 8 + i) * THREADS + tid;
           t[0] = te;
-          if (PACKED) t[4 * THREADS] = to;
+          t[4 * THREADS] = to;
         }
         g0[mt][i] = g1[mt][i] = 0;
       }
@@ -346,13 +386,11 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_s8(g0[mt], a[mt], b0, b1);
-          if (PACKED) {
-            mma_s8(g1[mt], a[mt], l0, l1);
-            xsum[mt][0] = __dp4a((int)a[mt][0], 0x01010101, xsum[mt][0]);
-            xsum[mt][0] = __dp4a((int)a[mt][2], 0x01010101, xsum[mt][0]);
-            xsum[mt][1] = __dp4a((int)a[mt][1], 0x01010101, xsum[mt][1]);
-            xsum[mt][1] = __dp4a((int)a[mt][3], 0x01010101, xsum[mt][1]);
-          }
+          mma_s8(g1[mt], a[mt], l0, l1);
+          xsum[mt][0] = __dp4a((int)a[mt][0], 0x01010101, xsum[mt][0]);
+          xsum[mt][0] = __dp4a((int)a[mt][2], 0x01010101, xsum[mt][0]);
+          xsum[mt][1] = __dp4a((int)a[mt][1], 0x01010101, xsum[mt][1]);
+          xsum[mt][1] = __dp4a((int)a[mt][3], 0x01010101, xsum[mt][1]);
         }
         if (c0 + k0 + 32 == next_fold) {
           fold(ks);
@@ -369,11 +407,9 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
             for (int mt = 0; mt < MT; ++mt) {
               const uint32_t a0 = keep ? a[mt][2 * h] : 0u, a1 = keep ? a[mt][2 * h + 1] : 0u;
               mma_s8_k16(g0[mt], a0, a1, h ? b1 : b0);
-              if (PACKED) {
-                mma_s8_k16(g1[mt], a0, a1, h ? l1 : l0);
-                xsum[mt][0] = __dp4a((int)a0, 0x01010101, xsum[mt][0]);
-                xsum[mt][1] = __dp4a((int)a1, 0x01010101, xsum[mt][1]);
-              }
+              mma_s8_k16(g1[mt], a0, a1, h ? l1 : l0);
+              xsum[mt][0] = __dp4a((int)a0, 0x01010101, xsum[mt][0]);
+              xsum[mt][1] = __dp4a((int)a1, 0x01010101, xsum[mt][1]);
             }
             const int end = k0 + 16 * h + (KSTEP == 8 ? 8 * (p + 1) : 16);
             if (c0 + end == next_fold) {
@@ -401,7 +437,7 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc_e[mt][i] = __ldcg(wsp + (mt * 8 + i) * THREADS);
-          if (PACKED) acc_o[mt][i] = __ldcg(wsp + (mt * 8 + 4 + i) * THREADS);
+          acc_o[mt][i] = __ldcg(wsp + (mt * 8 + 4 + i) * THREADS);
         }
       }
       for (int f = 0; f < nf; ++f) {
@@ -411,7 +447,7 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
           for (int i = 0; i < 4; ++i) {
             const float* t = sT + ((f * MT + mt) * 8 + i) * THREADS + tid;
             acc_e[mt][i] = __fadd_rn(acc_e[mt][i], t[0]);
-            if (PACKED) acc_o[mt][i] = __fadd_rn(acc_o[mt][i], t[4 * THREADS]);
+            acc_o[mt][i] = __fadd_rn(acc_o[mt][i], t[4 * THREADS]);
           }
         }
       }
@@ -422,7 +458,7 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           __stcg(wsp + (mt * 8 + i) * THREADS, acc_e[mt][i]);
-          if (PACKED) __stcg(wsp + (mt * 8 + 4 + i) * THREADS, acc_o[mt][i]);
+          __stcg(wsp + (mt * 8 + 4 + i) * THREADS, acc_o[mt][i]);
         }
       }
       __syncthreads();  // every thread's sums are written
@@ -444,14 +480,10 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
       const float xr = xs[r];
       const int j = jcol + (i & 1);
       OutT* orow = out + (long long)r * ldo;
-      if (PACKED) {
-        const int ce = riffle ? j : 2 * j;
-        const int co = riffle ? Wn + j : 2 * j + 1;
-        if (ce < width) store(orow + ce, __fmul_rn(acc_e[mt][i], xr));
-        if (co < width) store(orow + co, __fmul_rn(acc_o[mt][i], xr));
-      } else if (j < width) {
-        store(orow + j, __fmul_rn(acc_e[mt][i], xr));
-      }
+      const int ce = riffle ? j : 2 * j;
+      const int co = riffle ? Wn + j : 2 * j + 1;
+      if (ce < width) store(orow + ce, __fmul_rn(acc_e[mt][i], xr));
+      if (co < width) store(orow + co, __fmul_rn(acc_o[mt][i], xr));
     }
   }
 }
@@ -520,7 +552,7 @@ struct Args {
   const int8_t* w;
   const float* scale;
   void* out;
-  int M, C, Wn, nG, F, width, ldo, riffle, S;
+  int M, C, Wn, nG, F, width, ldo, riffle, S, kw;  // kw: K7's k-warps
   Splits sp;
   float* ws;
   int* counters;
@@ -533,16 +565,21 @@ int held_spans(const Args& a) {
   return n;
 }
 
-template <int MT, bool PACKED, int KSTEP, typename OutT>
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool& ready) {
+  if (ready) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  ready = e == cudaSuccess;
+  return e;
+}
+
+template <int MT, int KSTEP, typename OutT>
 int launch_mt(const Args& a, cudaStream_t st) {
-  auto kernel = qmm_kernel<MT, PACKED, KSTEP, OutT>;
+  auto kernel = qmm_kernel<MT, KSTEP, OutT>;
   static bool ready = false;  // one per instance
-  if (!ready) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (e != cudaSuccess) return (int)e;
-    ready = true;
-  }
+  const cudaError_t ready_e = allow_smem(kernel, ready);
+  if (ready_e != cudaSuccess) return (int)ready_e;
   const int smem = smem_bytes(MT, KSTEP, held_spans(a));
   const dim3 grid(a.Wn / BN, (a.M + 16 * MT - 1) / (16 * MT), a.S);
   if (a.S > 1) {  // a split waits on its predecessor: the whole grid must be resident
@@ -567,8 +604,8 @@ int launch_mt(const Args& a, cudaStream_t st) {
   // while the quantizer before them in the stream runs, and wait for it
   // (griddepcontrol.wait) only before they read its output. A split grid is
   // small (tiles * S near the SM count) and its launch latency shows; on
-  // the large unsplit grids (gate_up, K7) early blocks measured ~8 % slower
-  // on an H100.
+  // the large unsplit grids (gate_up) early blocks measured ~8 % slower on
+  // an H100.
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
@@ -585,49 +622,592 @@ int launch_mt(const Args& a, cudaStream_t st) {
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <bool PACKED, int KSTEP, typename OutT>
+template <int KSTEP, typename OutT>
 int launch_k(const Args& a, cudaStream_t st) {
   switch (min(4, (a.M + 15) / 16)) {
-    case 1: return launch_mt<1, PACKED, KSTEP, OutT>(a, st);
-    case 2: return launch_mt<2, PACKED, KSTEP, OutT>(a, st);
-    case 3: return launch_mt<3, PACKED, KSTEP, OutT>(a, st);
-    default: return launch_mt<4, PACKED, KSTEP, OutT>(a, st);
+    case 1: return launch_mt<1, KSTEP, OutT>(a, st);
+    case 2: return launch_mt<2, KSTEP, OutT>(a, st);
+    case 3: return launch_mt<3, KSTEP, OutT>(a, st);
+    default: return launch_mt<4, KSTEP, OutT>(a, st);
   }
 }
 
-template <bool PACKED, typename OutT>
+template <typename OutT>
 int launch_t(const Args& a, cudaStream_t st) {
   switch (kstep_of(a.F)) {
-    case 32: return launch_k<PACKED, 32, OutT>(a, st);
-    case 16: return launch_k<PACKED, 16, OutT>(a, st);
-    default: return launch_k<PACKED, 8, OutT>(a, st);
+    case 32: return launch_k<32, OutT>(a, st);
+    case 16: return launch_k<16, OutT>(a, st);
+    default: return launch_k<8, OutT>(a, st);
   }
 }
 
-template <bool PACKED>
-int launch(const void* x, const void* xs, const void* w, const void* scale, void* out,
-           int out_fp32, int M, int C, int Wn, int nG, int F, int layer, int width, int ldo,
-           int riffle, const int* rows, int S, void* ws, void* counters, void* stream) {
-  if (M < 1 || M > 256 || C % 32 || nG < 1 || C % nG || (C / nG) % 8 || F % 8 || F < 8 ||
-      C % F || Wn % BN || width < 1 || ldo < width || S < 1 || S > MAX_SPLITS || !rows ||
-      (S > 1 && (!ws || !counters)))
+// ---------------------------------------------------------------------------
+// K7: the W8A8 kernel (int8 weights), its own design.
+
+constexpr int W8_BN = 128;     // byte columns of a strip: four column warps of 32
+constexpr int W8_RANGE = 128;  // rows of a chunk each k-warp takes (four 32-row steps)
+constexpr int W8_MAX_SPLITS = 8;  // a portable cluster (ops/qmatmul.py _W8_MAX_SPLITS)
+
+// Ring stages: 64 KB of weights in the ring at one k-warp, 96 KB at two.
+__host__ __device__ constexpr int w8_stages(int KW) { return KW == 1 ? 4 : 3; }
+
+// Dynamic shared memory of one K7 block (ops/qmatmul.py _w8_smem_bytes):
+// 1 KB to align the tiles (the 128-byte TMA swizzle repeats every 1 KB),
+// per stage the weight tile (KC = 128 * KW rows of 128 bytes), the
+// activation tiles (KW of 16 * MT rows x 128 bytes), the fold-scale slots
+// (a 128-float row per KSTEP rows) and the full and empty barriers; the
+// split hand-over's barrier; the k-warps' int32 exchange (two slots at two
+// k-warps), the slot the previous split's sums arrive in and the fp32 terms
+// of nspan held fold spans (splits s > 0); a slot is one fragment set of
+// the 128 accumulator threads (16 * MT words each).
+__host__ __device__ constexpr int w8_smem_bytes(int MT, int KSTEP, int KW, int nspan) {
+  return 1024 + 16 +
+         w8_stages(KW) * (W8_RANGE * KW * W8_BN + KW * 16 * MT * W8_BN +
+                          (W8_RANGE * KW / KSTEP) * W8_BN * 4 + 16) +
+         (2 * (KW - 1) + 1 + nspan) * 16 * MT * W8_BN * 4;
+}
+
+// A 4 x 4 byte transpose: w[r] holds byte columns c = 0..3 of k-row r (rows
+// 0-1 and 2-3 trade places when `swapped`); b[c] gets k-rows 0..3 of column
+// c (row r in byte r), an mma B register. The second stage's selectors are
+// the lane's own (f_lo 0x5410 / 0x1054, f_hi 0x7632 / 0x3276), so the swap
+// costs nothing.
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&b)[4],
+                                           uint32_t f_lo, uint32_t f_hi) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);  // r0c0 r1c0 r0c1 r1c1
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);  // r0c2 r1c2 r0c3 r1c3
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);  // the same of rows 2-3
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  b[0] = __byte_perm(t0, t2, f_lo);
+  b[1] = __byte_perm(t0, t2, f_hi);
+  b[2] = __byte_perm(t1, t3, f_lo);
+  b[3] = __byte_perm(t1, t3, f_hi);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Arrives and adds `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > 20000000000LL) __trap();  // ~10 s: a lost arrival, not a wait
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// A 2D tile (column x, row y) of the tensor map into shared memory, its
+// bytes counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared-memory address of `p` in the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+// Arrives on a barrier in another block of the cluster, after (release)
+// this thread's stores to it.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits for phase 0 of a barrier that other blocks of the cluster arrive on.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > 20000000000LL) __trap();  // ~10 s: a lost split, not a wait
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// Grid (row tiles, Wn / 128 strips, S splits); 32 * (4 KW + 1) threads:
+// consumer warp w = cw + 4 kw (column warp cw, k-warp kw) and, last, the
+// producer warp. Column warp cw owns byte columns [32 cw, 32 cw + 32) of the
+// strip as four n8 tiles over interleaved columns (tile j: columns 4 g + j);
+// k-warp kw takes rows [128 kw, 128 kw + 128) of every chunk. KW 2 needs
+// fold spans of whole 128-row runs. Splits are whole chunks.
+template <int MT, int KSTEP, int KW, typename OutT>
+__global__ void __launch_bounds__(32 * (4 * KW + 1))
+w8a8_kernel(const __grid_constant__ CUtensorMap wmap,  // this layer's weights [C, Wn]
+            const __grid_constant__ CUtensorMap xmap,  // int8 activations [M, C]
+            const __grid_constant__ CUtensorMap smap,  // this layer's scales [nG, Wn]
+            const float* __restrict__ xs,      // [M] activation row scales
+            OutT* __restrict__ out,            // [M, Wn]
+            int M, int C, int Wn, int nG, int F, const Splits sp) {
+  constexpr int BN = W8_BN;
+  constexpr int KC = W8_RANGE * KW;  // contraction rows per chunk
+  constexpr int ST = w8_stages(KW);
+  constexpr int CONS = 4 * KW;       // consumer warps
+  constexpr int NS = KC / KSTEP;     // fold-scale slots per chunk
+  constexpr int WBYTES = KC * BN;
+  constexpr int ATILE = 16 * MT * BN;  // one k-warp's activation tile
+  constexpr int SBYTES = NS * BN * 4;
+  constexpr int FRAG = 16 * MT;  // int32 dots / fp32 sums per thread
+  static_assert(KSTEP == 32 || KW == 1, "k-warps need 32-row k-steps");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sA = smem + ST * WBYTES;              // [ST][KW] activation tiles
+  uint8_t* sSc = sA + ST * KW * ATILE;           // [ST] fold-scale slots
+  uint64_t* full = reinterpret_cast<uint64_t*>(sSc + ST * SBYTES);
+  uint64_t* empty = full + ST;
+  uint64_t* handed = empty + ST;  // the previous split's sums are in sIn
+  int* sE = reinterpret_cast<int*>(handed + 2);                // [2][FRAG][128] (KW 2)
+  float* sIn = reinterpret_cast<float*>(sE + 2 * (KW - 1) * FRAG * BN);  // [128][FRAG]
+  float* sT = sIn + FRAG * BN;                                 // [span][FRAG][128]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;  // fragment row group
+  const int tq = lane & 3;   // fragment column quad
+  const int cw = warp & 3;
+  const int kw = KW == 1 ? 0 : warp >> 2;
+  const int own = cw * 32 + lane;
+  const int m_blk = blockIdx.x * 16 * MT;
+  const int n_blk = blockIdx.y * BN;
+  const int split = blockIdx.z;
+  const int S = gridDim.z;
+  const int r_lo = sp.row[split], r_hi = sp.row[split + 1];
+  const int nch = (r_hi - r_lo + KC - 1) / KC;
+  const bool producer = warp == CONS;
+
+  if (tid == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 2);      // the producer's two arrivals with the stage's bytes
+      mbar_init(&empty[st], CONS);  // one arrival per consumer warp
+    }
+    mbar_init(handed, BN);  // one arrival per accumulator thread of the previous split
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // A split grid is a cluster of the S splits of one tile: every block's
+  // barriers are initialised before any other block may arrive on them.
+  if (S > 1) asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+
+  // The producer (one thread): chunk c into stage c % ST by TMA, the weight
+  // tile, the activation tiles and the scale row of every fold that ends in
+  // the chunk (slot j: the fold that ends at row c0 + KSTEP * (j + 1)). The
+  // tensor maps zero-fill past C and past M; splits are whole chunks, so
+  // nothing past r_hi but C's end is read.
+  int next_end = r_lo + F, next_group = nG > 1 ? r_lo / F : 0;  // the next fold's end row and scale row
+  auto load_chunk = [&](int c, bool weights, bool rest) {
+    const int st = c % ST, c0 = r_lo + c * KC, c1 = min(c0 + KC, r_hi);
+    if (weights) {
+      mbar_expect(&full[st], WBYTES);
+      tma_load_2d(smem + st * WBYTES, &wmap, n_blk, c0, &full[st]);
+    }
+    if (rest) {
+      int folds = 0;
+      for (int e = next_end; e <= c1; e += F) ++folds;
+      mbar_expect(&full[st], KW * ATILE + folds * BN * 4);
+#pragma unroll
+      for (int k = 0; k < KW; ++k)
+        tma_load_2d(sA + (st * KW + k) * ATILE, &xmap, c0 + k * W8_RANGE, m_blk, &full[st]);
+      for (; next_end <= c1; next_end += F, next_group += nG > 1 ? 1 : 0)
+        tma_load_2d(sSc + st * SBYTES + ((next_end - c0) / KSTEP - 1) * BN * 4, &smap, n_blk,
+                    next_group, &full[st]);
+    }
+  };
+  // Each stage's barrier completes with two arrivals of the producer (the
+  // weights, then the rest) and all their bytes.
+  if (producer && lane == 0) {
+    // The first chunks' weights need nothing from the quantizer launched just
+    // before this kernel: they are in flight while it finishes.
+    for (int c = 0; c < ST && c < nch; ++c) load_chunk(c, true, false);
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // x, xs and the workspace are ready
+  if (producer && lane == 0) {
+    for (int c = 0; c < nch; ++c) {
+      if (c >= ST) mbar_wait(&empty[c % ST], (c / ST - 1) & 1);  // chunk c - ST is consumed
+      load_chunk(c, c >= ST, true);
+    }
+  }
+  __syncwarp();  // the producer warp reconverges before any block barrier
+
+  int g[MT][4][4];      // int32 dots of the open fold span [row tile][n8 tile][fragment]
+  float acc[MT][4][4];  // fp32 running sums (k-warp 0)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        g[mt][j][i] = 0;
+        acc[mt][j][i] = 0.f;
+      }
+
+  // Fold the span that just ended with the scales of slot `slot` of the
+  // chunk's stage (k-warp 0): split 0 into its accumulators, a later split
+  // into held terms.
+  int nf = 0;
+  auto fold = [&](const float* sS, int slot) {
+    // Columns 8 tq + 4 h + j of the column warp: fragment i of tile j
+    // holds column 4 (2 tq + (i & 1)) + j.
+    const float4 s0 = *reinterpret_cast<const float4*>(&sS[slot * BN + cw * 32 + tq * 8]);
+    const float4 s1 = *reinterpret_cast<const float4*>(&sS[slot * BN + cw * 32 + tq * 8 + 4]);
+    const float sc[2][4] = {{s0.x, s0.y, s0.z, s0.w}, {s1.x, s1.y, s1.z, s1.w}};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float t = __fmul_rn((float)g[mt][j][i], sc[i & 1][j]);
+          if (split == 0)
+            acc[mt][j][i] = __fadd_rn(acc[mt][j][i], t);
+          else
+            sT[(nf * FRAG + (mt * 4 + j) * 4 + i) * BN + own] = t;
+          g[mt][j][i] = 0;
+        }
+    ++nf;
+  };
+
+  if (!producer) {
+    // Per-thread shared-memory offsets: the weight row 4 tq + i' of a 32-row
+    // step under the TMA's 128-byte swizzle (16-byte piece p of row r at
+    // piece p ^ (r & 7)), where lanes tq >= 2 read rows 0-1 and 2-3 traded
+    // (i' = i ^ 2), so the 32 lanes of a load hit 32 banks; a step only adds
+    // its first row times 128. And the activation words.
+    const bool swapped = tq >= 2;
+    const uint32_t f_lo = swapped ? 0x1054 : 0x5410, f_hi = swapped ? 0x3276 : 0x7632;
+    int b_row[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tq * 4 + (i ^ (swapped ? 2 : 0)), col = cw * 32 + gq * 4;
+      b_row[i] = r * BN + ((((col >> 4) ^ (r & 7)) << 4) | (col & 15)) + kw * W8_RANGE * BN;
+    }
+    // The activation tiles carry the same swizzle: row r (r & 7 = gq) holds
+    // the 16-byte piece p of its 128 columns at piece p ^ gq.
+    const int a_row = gq * BN + tq * 4, a_swz = gq << 4;
+    int next_fold = r_lo + F;  // the row at which the current fold span ends
+    for (int c = 0; c < nch; ++c) {
+      const int st = c % ST;
+      mbar_wait(&full[st], (c / ST) & 1);
+      const int c0 = r_lo + c * KC;
+      const uint8_t* bB = smem + st * WBYTES;
+      const uint8_t* aX = sA + (st * KW + kw) * ATILE + a_row;
+      const float* sS = reinterpret_cast<const float*>(sSc + st * SBYTES);
+      // No early exit: a last chunk's rows past C are zeros, so its steps add
+      // exact zeros, and the loop stays straight-line code whose loads the
+      // compiler can hoist.
+#pragma unroll
+      for (int s4 = 0; s4 < W8_RANGE / 32; ++s4) {
+        const int k0 = s4 * 32;  // the step's first row within this k-warp's range
+        uint32_t b[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = ld32(bB + (k0 + 16 * h) * BN + b_row[i]);
+          transpose4(v, b[h], f_lo, f_hi);
+        }
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint8_t* x0 = aX + mt * 16 * BN;  // rows gq and gq + 8 share the swizzle
+          a[mt][0] = ld32(x0 + ((k0 & ~15) ^ a_swz));
+          a[mt][1] = ld32(x0 + 8 * BN + ((k0 & ~15) ^ a_swz));
+          a[mt][2] = ld32(x0 + ((k0 + 16) ^ a_swz));
+          a[mt][3] = ld32(x0 + 8 * BN + ((k0 + 16) ^ a_swz));
+        }
+        if (KSTEP == 32) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_s8(g[mt][j], a[mt], b[0][j], b[1][j]);
+          if (KW == 1 && c0 + k0 + 32 == next_fold && next_fold <= r_hi) {
+            fold(sS, k0 / 32);
+            next_fold += F;
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int p = 0; p < (KSTEP == 8 ? 2 : 1); ++p) {
+              // KSTEP 8: pass p keeps k 8p .. 8p + 7 of the k16 step (lanes tq < 2 hold k 0-7)
+              const bool keep = KSTEP == 16 || (tq >= 2) == (p == 1);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                const uint32_t a0 = keep ? a[mt][2 * h] : 0u, a1 = keep ? a[mt][2 * h + 1] : 0u;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) mma_s8_k16(g[mt][j], a0, a1, b[h][j]);
+              }
+              const int end = k0 + 16 * h + (KSTEP == 8 ? 8 * (p + 1) : 16);
+              if (c0 + end == next_fold && next_fold <= r_hi) {
+                fold(sS, end / KSTEP - 1);
+                next_fold += F;
+              }
+            }
+          }
+        }
+      }
+      if (KW > 1) {
+        // k-warp 1 hands its int32 dots to k-warp 0 (an exact sum in any
+        // order), which folds, in row order, any span that ends at its own
+        // range's end and then any that ends at the chunk's. Slot c & 1 is
+        // written again two chunks later, after the next barrier, which
+        // k-warp 0 reaches only once it has read it.
+        int* e = sE + (c & 1) * FRAG * BN + own;
+        if (kw > 0) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                e[((mt * 4 + j) * 4 + i) * BN] = g[mt][j][i];
+                g[mt][j][i] = 0;
+              }
+        }
+        bar_sync(1 + cw, 64);
+        if (kw == 0) {
+          if (c0 + W8_RANGE == next_fold && next_fold <= r_hi) {
+            fold(sS, W8_RANGE / 32 - 1);
+            next_fold += F;
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) g[mt][j][i] += e[((mt * 4 + j) * 4 + i) * BN];
+          if (c0 + KC == next_fold && next_fold <= r_hi) {
+            fold(sS, KC / 32 - 1);
+            next_fold += F;
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    }
+  }
+
+  if (S > 1) {
+    // The in-order fold across splits, through the cluster: split s > 0
+    // takes the running sums split s - 1 wrote into its sIn, continues them
+    // with its held terms, in order, and writes them into split s + 1's sIn
+    // (each accumulator thread its own, then an arrival on s + 1's barrier);
+    // the last split writes the output. Every float is rounded as the plain
+    // version rounds it.
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    if (!producer && kw == 0) {
+      float4* in = reinterpret_cast<float4*>(sIn + own * FRAG);
+      if (split > 0) {
+        mbar_wait_cluster(handed);
+#pragma unroll
+        for (int v = 0; v < FRAG / 4; ++v) {  // acc[mt][j][0..3] is in[4 mt + j]
+          const float4 t = in[v];
+          acc[v >> 2][v & 3][0] = t.x, acc[v >> 2][v & 3][1] = t.y;
+          acc[v >> 2][v & 3][2] = t.z, acc[v >> 2][v & 3][3] = t.w;
+        }
+        for (int f = 0; f < nf; ++f)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[mt][j][i] = __fadd_rn(acc[mt][j][i],
+                                          sT[(f * FRAG + (mt * 4 + j) * 4 + i) * BN + own]);
+      }
+      if (split < S - 1) {
+        const uint32_t to = cluster_addr(in, split + 1);
+#pragma unroll
+        for (int v = 0; v < FRAG / 4; ++v)
+          st_cluster(to + 16 * v, make_float4(acc[v >> 2][v & 3][0], acc[v >> 2][v & 3][1],
+                                              acc[v >> 2][v & 3][2], acc[v >> 2][v & 3][3]));
+        mbar_arrive_cluster(cluster_addr(handed, split + 1));
+      }
+    }
+    if (split < S - 1) return;
+  }
+  if (producer || kw != 0) return;
+
+  // Fragment (mt, j, i) is row gq + 8 (i >> 1) and column 8 tq + 4 (i & 1) + j
+  // of the column warp: each thread writes 4 + 4 neighbouring columns a row.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m_blk + mt * 16 + gq + 8 * r;
+      if (row >= M) continue;
+      const float xr = xs[row];
+      OutT* o = out + (long long)row * Wn + n_blk + cw * 32 + tq * 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(acc[mt][j][2 * r + h], xr);
+        store4(o + 4 * h, v);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link against
+// libcuda); null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <int MT, int KSTEP, int KW, typename OutT>
+int launch_w8(const Args& a, cudaStream_t st) {
+  auto kernel = w8a8_kernel<MT, KSTEP, KW, OutT>;
+  static bool ready = false;  // one per instance
+  cudaError_t e = allow_smem(kernel, ready);
+  if (e != cudaSuccess) return (int)e;
+  // Tensor maps: the layer's weights (rows of Wn bytes; tiles of a chunk's
+  // 128 * KW rows x 128 bytes), the int8 activations (rows of C bytes;
+  // tiles of 16 * MT rows x 128 bytes), both with the 128-byte swizzle, and
+  // the layer's scales (rows of Wn floats; tiles of one row x 128).
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  CUtensorMap wmap, xmap, smap;
+  const cuuint32_t elem[2] = {1, 1};
+  const cuuint64_t wdims[2] = {(cuuint64_t)a.Wn, (cuuint64_t)a.C}, wstride[1] = {(cuuint64_t)a.Wn};
+  const cuuint64_t xdims[2] = {(cuuint64_t)a.C, (cuuint64_t)a.M}, xstride[1] = {(cuuint64_t)a.C};
+  const cuuint64_t sdims[2] = {(cuuint64_t)a.Wn, (cuuint64_t)a.nG},
+                   sstride[1] = {(cuuint64_t)a.Wn * 4};
+  const cuuint32_t wbox[2] = {W8_BN, W8_RANGE * KW}, xbox[2] = {W8_BN, 16 * MT},
+                   sbox[2] = {W8_BN, 1};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(a.w), wdims, wstride,
+             wbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(a.x), xdims, xstride,
+             xbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a.scale), sdims,
+             sstride, sbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const int8_t*>(x),
-         static_cast<const float*>(xs),
-         static_cast<const int8_t*>(w) + (long long)layer * C * Wn,
-         static_cast<const float*>(scale) + (long long)layer * nG * Wn,
-         out, M, C, Wn, nG, F, width, ldo, riffle, S, {}, static_cast<float*>(ws),
-         static_cast<int*>(counters)};
-  // The splits: whole fold spans on 32-row steps, in order, covering [0, C).
-  if (rows[0] != 0 || rows[S] != C) return (int)cudaErrorInvalidValue;
-  for (int s = 0; s <= S; ++s) {
-    if (rows[s] % 32 || rows[s] % F || (s > 0 && rows[s] <= rows[s - 1]))
-      return (int)cudaErrorInvalidValue;
+  const int smem = w8_smem_bytes(MT, KSTEP, KW, held_spans(a));
+  // Row tiles fastest: the blocks that read one strip run together (L2). The
+  // S splits of a tile form a cluster, scheduled together.
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (a.S > 1) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = 1;
+    attr[n].val.clusterDim.y = 1;
+    attr[n++].val.clusterDim.z = a.S;
+  }
+  // Always a programmatic dependent of the quantizer: the producer's first
+  // weight tiles are in flight while it finishes (~1 us on an H100).
+  attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[n++].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.M + 16 * MT - 1) / (16 * MT), a.Wn / W8_BN, a.S);
+  cfg.blockDim = dim3(32 * (4 * KW + 1));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  e = cudaLaunchKernelEx(&cfg, kernel, wmap, xmap, smap, a.xs, static_cast<OutT*>(a.out), a.M,
+                         a.C, a.Wn, a.nG, a.F, a.sp);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <int MT, int KSTEP, typename OutT>
+int launch_w8_kw(const Args& a, cudaStream_t st) {
+  if constexpr (KSTEP == 32)
+    if (a.kw == 2) return launch_w8<MT, KSTEP, 2, OutT>(a, st);
+  if (a.kw != 1) return (int)cudaErrorInvalidValue;
+  return launch_w8<MT, KSTEP, 1, OutT>(a, st);
+}
+
+template <int KSTEP, typename OutT>
+int launch_w8_k(const Args& a, cudaStream_t st) {
+  switch (min(4, (a.M + 15) / 16)) {
+    case 1: return launch_w8_kw<1, KSTEP, OutT>(a, st);
+    case 2: return launch_w8_kw<2, KSTEP, OutT>(a, st);
+    case 3: return launch_w8_kw<3, KSTEP, OutT>(a, st);
+    default: return launch_w8_kw<4, KSTEP, OutT>(a, st);
+  }
+}
+
+template <typename OutT>
+int launch_w8_t(const Args& a, cudaStream_t st) {
+  switch (kstep_of(a.F)) {
+    case 32: return launch_w8_k<32, OutT>(a, st);
+    case 16: return launch_w8_k<16, OutT>(a, st);
+    default: return launch_w8_k<8, OutT>(a, st);
+  }
+}
+
+// Checks the shape and the splits shared by K6 and K7 and fills a.sp: whole
+// fold spans on 32-row steps, in order, covering [0, C).
+bool take_splits(Args& a, const int* rows) {
+  if (a.M < 1 || a.M > 256 || a.C % 32 || a.nG < 1 || a.C % a.nG || (a.C / a.nG) % 8 ||
+      a.F % 8 || a.F < 8 || a.C % a.F || a.S < 1 || a.S > MAX_SPLITS || !rows ||
+      rows[0] != 0 || rows[a.S] != a.C)
+    return false;
+  for (int s = 0; s <= a.S; ++s) {
+    if (rows[s] % 32 || rows[s] % a.F || (s > 0 && rows[s] <= rows[s - 1])) return false;
     a.sp.row[s] = rows[s];
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_fp32) return launch_t<PACKED, float>(a, st);
-  return launch_t<PACKED, __nv_bfloat16>(a, st);
+  return true;
 }
 
 }  // namespace
@@ -661,21 +1241,47 @@ extern "C" int qmm_w4a8(const void* x, const void* xs, const void* w, const void
                         void* out, int out_fp32, int M, int C, int Wn, int nG, int F, int layer,
                         int width, int ldo, int riffle, const int* rows, int S, void* ws,
                         void* counters, void* stream) {
-  return launch<true>(x, xs, w, scale, out, out_fp32, M, C, Wn, nG, F, layer, width, ldo,
-                      riffle, rows, S, ws, counters, stream);
+  Args a{static_cast<const int8_t*>(x),
+         static_cast<const float*>(xs),
+         static_cast<const int8_t*>(w) + (long long)layer * C * Wn,
+         static_cast<const float*>(scale) + (long long)layer * nG * Wn,
+         out, M, C, Wn, nG, F, width, ldo, riffle, S, 1, {}, static_cast<float*>(ws),
+         static_cast<int*>(counters)};
+  if (!take_splits(a, rows) || (S > 1 && (!ws || !counters)) || Wn % BN || width < 1 ||
+      ldo < width)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_fp32 ? launch_t<float>(a, st) : launch_t<__nv_bfloat16>(a, st);
 }
 
-// K7: int8 weights.
+// K7: int8 weights [Lf, C, Wn], output [M, Wn]. kw: k-warps on each
+// column (1, or 2 where fold spans are whole 128-row runs); rows [S + 1]:
+// the splits' contraction rows (ops/qmatmul.py plan_w8a8), whole chunks of
+// 128 * kw rows, at most W8_MAX_SPLITS (a cluster).
 extern "C" int qmm_w8a8(const void* x, const void* xs, const void* w, const void* scale,
                         void* out, int out_fp32, int M, int C, int Wn, int nG, int F, int layer,
-                        int width, int ldo, int riffle, const int* rows, int S, void* ws,
-                        void* counters, void* stream) {
-  return launch<false>(x, xs, w, scale, out, out_fp32, M, C, Wn, nG, F, layer, width, ldo,
-                       riffle, rows, S, ws, counters, stream);
+                        int kw, const int* rows, int S, void* stream) {
+  Args a{static_cast<const int8_t*>(x),
+         static_cast<const float*>(xs),
+         static_cast<const int8_t*>(w) + (long long)layer * C * Wn,
+         static_cast<const float*>(scale) + (long long)layer * nG * Wn,
+         out, M, C, Wn, nG, F, Wn, Wn, 0, S, kw, {}, nullptr, nullptr};
+  if (S > W8_MAX_SPLITS || !take_splits(a, rows) || (kw != 1 && kw != 2) || Wn % W8_BN ||
+      (kw == 2 && F % W8_RANGE) || (nG > 1 && F != C / nG))
+    return (int)cudaErrorInvalidValue;
+  for (int s = 1; s < S; ++s)  // splits are whole chunks
+    if (rows[s] % (W8_RANGE * kw)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_fp32 ? launch_w8_t<float>(a, st) : launch_w8_t<__nv_bfloat16>(a, st);
 }
 
 // Dynamic shared memory of one block at MT row tiles, fold span F and nspan
-// held spans (chip_smoke.py prints it beside each case).
+// held spans (chip_smoke.py prints it beside each case): K6, and K7 at kw
+// k-warps.
 extern "C" int qmm_smem_bytes(int MT, int F, int nspan) {
   return smem_bytes(MT, kstep_of(F), nspan);
+}
+
+extern "C" int qmm_w8a8_smem_bytes(int MT, int F, int kw, int nspan) {
+  return w8_smem_bytes(MT, kstep_of(F), kw, nspan);
 }

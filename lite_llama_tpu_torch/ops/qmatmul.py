@@ -1,8 +1,9 @@
 """W4A8 and W8A8 weight matmuls (port of ``lite_llama_tpu/ops/qmatmul.py``).
 
 K6 replaces the TPU kernel ``quantized_matmul_packed`` / ``_qmm_kernel`` and
-K7 ``quantized_matmul_int8`` / ``_qmm8_kernel``; both are the CUDA kernel of
-``csrc/qmatmul.cu`` (its header says what bounds it and how it is laid out).
+K7 ``quantized_matmul_int8`` / ``_qmm8_kernel``, two CUDA kernels of
+``csrc/qmatmul.cu`` (its header says what bounds them and how each is laid
+out).
 Activations are quantized per row to int8 (``quantize_activations``, which
 the JAX package leaves to XLA: plain PyTorch on the CPU, one small kernel of
 the same source on the card, which the plain version's arithmetic pins);
@@ -25,10 +26,12 @@ ported. On the card the kernels take scale groups (and fold spans) of any
 multiple of 8 rows and C a multiple of 32.
 
 Where the output tiles alone leave SMs idle, the kernels split C across
-blocks (:func:`plan_splits`) and fold the splits' fp32 terms in order
-through a small workspace kept per (device, stream) (:func:`_workspace`): its
-counters return to 0 at the end of every launch, so it needs no clear and a
-CUDA graph can capture and replay the launch.
+blocks and fold the splits' fp32 terms in order: K6 (:func:`plan_splits`)
+through a small workspace kept per (device, stream) (:func:`_workspace`),
+whose counters return to 0 at the end of every launch, so it needs no clear
+and a CUDA graph can capture and replay the launch; K7 (:func:`plan_w8a8`)
+inside a thread-block cluster per output tile, with nothing kept between
+launches.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ _BC_MAX = 4096  # contraction-block ceiling of the TPU kernel
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
              + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + [ctypes.c_void_p] * 3)
+_W8A8_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
 _QUANTIZE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -101,14 +106,23 @@ def _fold_span(C: int, nG: int) -> int:
     return _pick_bc(C, None) or C
 
 
-# The kernels' blocks and shared memory (csrc/qmatmul.cu), for the planner.
+# K6's blocks and shared memory (csrc/qmatmul.cu qmm_kernel), for its planner.
 _THREADS = 128
 _BN = 32  # byte columns per block
 _KC = 256  # contraction rows per shared-memory chunk
 _STAGES = 3  # cp.async ring stages
 _MAX_SPLITS = 16
 _SMEM_PER_SM = 233472  # H100: 228 KB per SM, 1 KB of it reserved per block
+_SMEM_PER_BLOCK = 232448  # the most dynamic shared memory one block may take
 _BLOCKS_BY_REGISTERS = 2  # __launch_bounds__(128, 2): at least 2 blocks fit
+
+# K7's blocks (csrc/qmatmul.cu w8a8_kernel), for its planner: strips of 128
+# byte columns, a producer warp and 4 * kw consumer warps (kw k-warps per
+# column, each taking 128 rows of every chunk).
+_W8_BN = 128
+_W8_RANGE = 128
+_W8_MAX_SPLITS = 8  # a tile's splits are one cluster (8 blocks: portable)
+_W8_SPLIT_SHARE = 0.75  # of the SMs a split grid may take
 
 
 def _kstep(F: int) -> int:
@@ -125,6 +139,40 @@ def _smem_bytes(MT: int, kstep: int, nspan: int) -> int:
     return _STAGES * stage + nspan * MT * 8 * _THREADS * 4
 
 
+def _w8_stages(kw: int) -> int:
+    return 4 if kw == 1 else 3
+
+
+def _w8_smem_bytes(MT: int, kstep: int, kw: int, nspan: int) -> int:
+    """Dynamic shared memory of one K7 block (``w8_smem_bytes`` in the
+    source): 1 KB to align the tiles and the split hand-over's barrier; per
+    ring stage the weight tile (128 * kw rows of 128 bytes), kw activation
+    tiles (16 * MT rows of 128 bytes), the fold-scale slots and two
+    barriers; the k-warps' int32 exchange (two slots at two k-warps), the
+    slot the previous split's sums arrive in and ``nspan`` held fold spans,
+    each slot one fragment set of the 128 accumulator threads (16 * MT words
+    each)."""
+    kc = _W8_RANGE * kw
+    stage = kc * _W8_BN + kw * 16 * MT * _W8_BN + (kc // kstep) * _W8_BN * 4 + 16
+    return (1024 + 16 + _w8_stages(kw) * stage
+            + (2 * (kw - 1) + 1 + nspan) * 16 * MT * _W8_BN * 4)
+
+
+def _w8_split_rows(C: int, F: int, S: int, kw: int) -> List[int]:
+    """K7's splits: whole chunks of 128 * kw rows of whole fold spans
+    (units of lcm(F, 32, 128 * kw) rows), as even as the units allow, in
+    order; the last ends at C."""
+    unit = math.lcm(F, 32, _W8_RANGE * kw)
+    n = C // unit
+    return [s * n // S * unit for s in range(S)] + [C]
+
+
+def _w8_kwarps(F: int) -> List[int]:
+    """k-warps per column K7 can run at fold span F: 1 always; 2 (each
+    taking 128 rows of a chunk) where the spans are whole 128-row runs."""
+    return [1] + ([2] if F % _W8_RANGE == 0 else [])
+
+
 def _row_tiles(M: int) -> Tuple[int, int]:
     """(MT, row tiles): 16*MT activation rows per block."""
     MT = min(4, -(-M // 16))
@@ -139,6 +187,11 @@ def _split_rows(C: int, F: int, S: int) -> List[int]:
     return [s * n // S * unit for s in range(S + 1)]
 
 
+def _held_spans(rows, F: int) -> int:
+    """The most fold spans one split s > 0 holds as terms."""
+    return max((b - a for a, b in zip(rows[1:], rows[2:])), default=0) // F
+
+
 def allowed_splits(C: int, nG: int, Wn: int, M: int, sm_count: int) -> List[int]:
     """Split counts the kernels take at this shape: at most one split per
     unit of rows and ``_MAX_SPLITS``, and a grid that is co-resident on
@@ -149,8 +202,7 @@ def allowed_splits(C: int, nG: int, Wn: int, M: int, sm_count: int) -> List[int]
     tiles = Wn // _BN * rt
     out = [1]
     for S in range(2, min(C // math.lcm(F, 32), _MAX_SPLITS) + 1):
-        rows = _split_rows(C, F, S)
-        nspan = max(b - a for a, b in zip(rows[1:], rows[2:])) // F
+        nspan = _held_spans(_split_rows(C, F, S), F)
         per_sm = min(_BLOCKS_BY_REGISTERS,
                      _SMEM_PER_SM // (_smem_bytes(MT, _kstep(F), nspan) + 1024))
         if per_sm * sm_count >= tiles * S:
@@ -178,6 +230,52 @@ def plan_splits(C: int, nG: int, Wn: int, M: int, sm_count: int,
     return S, tuple(_split_rows(C, _fold_span(C, nG), S))
 
 
+def w8a8_allowed_plans(C: int, nG: int, Wn: int, M: int, sm_count: int) -> List[Tuple[int, int]]:
+    """(kw, S) pairs K7 takes at this shape, by kw then S: k-warps the fold
+    span allows (:func:`_w8_kwarps`), at most one split per unit of rows
+    (:func:`_w8_split_rows`) and ``_W8_MAX_SPLITS``, and shared memory within
+    a block's. A split grid (its tiles' splits are clusters, one block per
+    SM) stays within ``_W8_SPLIT_SHARE`` of the SMs: beyond it the clusters
+    measured a second wave on an H100 (the SMs left in each GPC do not take
+    another cluster)."""
+    F = _fold_span(C, nG)
+    MT, rt = _row_tiles(M)
+    if Wn % _W8_BN:
+        return []
+    tiles = Wn // _W8_BN * rt
+    out = []
+    for kw in _w8_kwarps(F):
+        for S in range(1, max(1, min(C // math.lcm(F, 32, _W8_RANGE * kw), _W8_MAX_SPLITS)) + 1):
+            rows = _w8_split_rows(C, F, S, kw)
+            smem = _w8_smem_bytes(MT, _kstep(F), kw, _held_spans(rows, F))
+            if smem <= _SMEM_PER_BLOCK and (S == 1 or tiles * S <= _W8_SPLIT_SHARE * sm_count):
+                out.append((kw, S))
+    return out
+
+
+@functools.lru_cache(maxsize=None)  # once per shape: the launch path is host-bound
+def plan_w8a8(C: int, nG: int, Wn: int, M: int, sm_count: int,
+              splits: Optional[int] = None) -> Tuple[int, int, Tuple[int, ...]]:
+    """(kw, S, rows): K7's k-warps per column and split of C, split s owning
+    contraction rows [rows[s], rows[s+1]). The plan is the allowed one with
+    the most blocks; of two with as many, 2 k-warps where the grid is one
+    block per SM at most, else 1 (two blocks share an SM). ``splits`` forces
+    the split count (tests; it must be allowed)."""
+    plans = [p for p in w8a8_allowed_plans(C, nG, Wn, M, sm_count)
+             if splits is None or p[1] == splits]
+    if not plans:
+        raise ValueError(f"quantized_matmul_int8: {splits} splits not allowed at "
+                         f"C={C} nG={nG} Wn={Wn} M={M}")
+    tiles = Wn // _W8_BN * _row_tiles(M)[1]
+
+    def key(p):
+        blocks = tiles * p[1]
+        return blocks, p[0] if blocks <= sm_count else -p[0]
+
+    pick = max(plans, key=key)
+    return pick[0], pick[1], tuple(_w8_split_rows(C, _fold_span(C, nG), pick[1], pick[0]))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -187,12 +285,12 @@ _workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _workspace(device: torch.device, stream: int):
-    """The split workspace of (device, stream): running fp32 sums [tiles,
+    """K6's split workspace of (device, stream): running fp32 sums [tiles,
     MT*8, 128] and one counter per tile, allocated zeroed once and never
     cleared again (the last split of each tile sets its counter back to 0).
     A split grid is co-resident, at most ``_BLOCKS_BY_REGISTERS`` blocks per
     SM, so with S >= 2 it has at most one tile per SM, of at most 4 row
-    tiles."""
+    tiles. (K7's splits hand their sums over inside a cluster.)"""
     key = (device.index, stream)
     if key not in _workspaces:
         sms = _sm_count(device.index)
@@ -281,7 +379,7 @@ def _check_cuda(what, x, q, scale):
         raise ValueError(f"{what} kernel takes contiguous weights and fp32 scales")
 
 
-def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle, splits=None):
+def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle=False, splits=None):
     M, C = x.shape
     Lf, Cq, Wn = q.shape
     nG = scale.shape[1]
@@ -294,6 +392,11 @@ def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle, splits=None
                          "of 32, a stored width that is a multiple of 32)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{entry} kernel writes bf16 or fp32, not {out_dtype}")
+    sms = _sm_count(x.device.index)
+    if entry == "qmm_w8a8":
+        kw, S, rows = plan_w8a8(C, nG, Wn, M, sms, splits)
+    else:
+        S, rows = plan_splits(C, nG, Wn, M, sms, splits)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.data_ptr() % 32:  # the quantizer reads 16- / 32-byte vectors
         x = x.clone()
@@ -304,16 +407,18 @@ def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle, splits=None
                                  xs.data_ptr(), M, C, stream)
     _build.check(lib, code, "qmm_quantize_rows")
     out = torch.empty((M, out_width), dtype=out_dtype, device=x.device)
-    S, rows = plan_splits(C, nG, Wn, M, _sm_count(x.device.index), splits)
-    ws, counters = _workspace(x.device, stream) if S > 1 else (None, None)
-    lib = _build.library("qmatmul", entry, _ARGTYPES)
-    code = getattr(lib, entry)(
-        xi.data_ptr(), xs.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.float32), M, C, Wn, nG, F, int(layer), out_width, out_width,
-        int(riffle), (ctypes.c_int * (S + 1))(*rows), S,
-        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
-        stream,
-    )
+    args = (xi.data_ptr(), xs.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32), M, C, Wn, nG, F, int(layer))
+    rows_c = (ctypes.c_int * (S + 1))(*rows)
+    if entry == "qmm_w8a8":
+        lib = _build.library("qmatmul", entry, _W8A8_ARGTYPES)
+        code = lib.qmm_w8a8(*args, kw, rows_c, S, stream)
+    else:
+        ws, counters = _workspace(x.device, stream) if S > 1 else (None, None)
+        lib = _build.library("qmatmul", entry, _ARGTYPES)
+        code = lib.qmm_w4a8(*args, out_width, out_width, int(riffle), rows_c, S,
+                            None if ws is None else ws.data_ptr(),
+                            None if counters is None else counters.data_ptr(), stream)
     _build.check(lib, code, entry)
     return out
 
@@ -372,7 +477,7 @@ def launch_quantized_matmul_int8(x, q, scale, layer, out_dtype=None, _splits=Non
     _check_cuda("quantized_matmul_int8", x, q, scale)
     _check_int8_shape(x, q, scale)
     out = _launch("qmm_w8a8", x.contiguous(), q, _scales3(scale), layer,
-                  out_dtype or x.dtype, q.shape[-1], False, _splits)
+                  out_dtype or x.dtype, q.shape[-1], splits=_splits)
     launch_quantized_matmul_int8.launches += 1
     return out
 

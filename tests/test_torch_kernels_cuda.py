@@ -8,8 +8,9 @@ of K5's template) at every G from 1 to 8 and S up to 2048 and against K5
 with no history, K5 / K5q over page sizes 7 to 80 and at the prefix-hit
 shape, K1 / K1q's split KV walk (flash decoding) at kv_lens around every
 page and split edge, at every G from 1 to 8 and at serving's width, bit for
-bit across launches and under CUDA-graph replay, plus the refusals that
-keep the card off the plain code. This file imports no JAX, so it runs on a
+bit across launches and under CUDA-graph replay, K7 at Llama-3.2-3B's five
+projections from 1 to 256 rows, at every scale-group size and split, bit
+for bit in fp32 and bf16, plus the refusals that keep the card off the plain code. This file imports no JAX, so it runs on a
 machine with a card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -307,6 +308,115 @@ def test_w4a8_kernel_matches_plain_at_every_split(cuda, M, gs):
             got8 = qmm.launch_quantized_matmul_int8(x, q8.q, q8.scale, 1, torch.float32,
                                                     _splits=S)
             assert torch.equal(got8, want8), S
+
+
+# Llama-3.2-3B's projections (C, O), as K7 takes them.
+_K7_SHAPES = {"gate_up": (3072, 16384), "wqkv": (3072, 5120), "o_proj": (3072, 3072),
+              "down": (8192, 3072), "lm_head": (3072, 128256)}
+_k7_cache = {}
+
+
+def _k7_weights(dev, C, O, gs):
+    """A two-layer int8 stack, the last one asked for kept (lm_head's is
+    0.8 GB)."""
+    key = (C, O, gs)
+    if key not in _k7_cache:
+        _k7_cache.clear()
+        _k7_cache[key] = _qmm_weights(dev, "int8", C, O, gs, False)
+    return _k7_cache[key]
+
+
+def _k7_matches_plain(x, qt, **plan):
+    """K7 launched (the counter moves) equals its plain version bit for bit,
+    in fp32 and in bf16 (both round the same fp32 product once)."""
+    n = qmm.launch_quantized_matmul_int8.launches
+    got = qmm.launch_quantized_matmul_int8(x, qt.q, qt.scale, 1, torch.float32, **plan)
+    assert qmm.launch_quantized_matmul_int8.launches == n + 1
+    want = qmm.quantized_matmul_int8_plain(x, qt.q, qt.scale, 1, torch.float32)
+    assert got.shape == want.shape and torch.equal(got, want), plan
+    got = qmm.launch_quantized_matmul_int8(x, qt.q, qt.scale, 0, **plan)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, qmm.quantized_matmul_int8_plain(x, qt.q, qt.scale, 0)), plan
+
+
+@pytest.mark.parametrize("M", [1, 12, 17, 64, 256])
+@pytest.mark.parametrize("name", list(_K7_SHAPES))
+def test_w8a8_kernel_matches_plain_at_3b_projections(cuda, name, M):
+    C, O = _K7_SHAPES[name]
+    qt = _k7_weights(cuda, C, O, 128)
+    x = torch.randn((M, C), device=cuda, generator=torch.Generator(device=cuda).manual_seed(M))
+    _k7_matches_plain(x.bfloat16(), qt)
+
+
+@pytest.mark.parametrize("M", [12, 64])
+@pytest.mark.parametrize("gs", [8, 16, 48, 128, None])
+def test_w8a8_kernel_matches_plain_at_every_group_size_and_k_warp_count(cuda, gs, M):
+    """Groups of 8 (half-masked k16 passes), 16, 48 (k16 steps), 128 and
+    per-channel, as planned and unsplit. Unsplit at 12 rows, spans of 128
+    rows take two k-warps per column (summing their int32 dots before each
+    fold); smaller spans, and 64 rows (no room), take one."""
+    C, O = 3072, 1024
+    qt = _qmm_weights(cuda, "int8", C, O, gs, False)
+    x = torch.randn((M, C), device=cuda).bfloat16()
+    nG = qt.scale.shape[-2] if qt.scale.ndim == 3 else 1
+    kw = qmm.plan_w8a8(C, nG, O, M, _sms(cuda), 1)[0]
+    assert kw == (2 if gs in (128, None) and M == 12 else 1)
+    _k7_matches_plain(x, qt)
+    _k7_matches_plain(x, qt, _splits=1)
+
+
+@pytest.mark.parametrize("M", [12, 64])
+@pytest.mark.parametrize("gs", [128, None])
+def test_w8a8_kernel_matches_plain_at_every_split(cuda, M, gs):
+    """Llama-3.2-3B's down projection (C 8192, O 3072) at every split count
+    the planner allows: the in-order fold across splits keeps the output
+    bit-equal."""
+    C, O = _K7_SHAPES["down"]
+    qt = _k7_weights(cuda, C, O, gs)
+    x = torch.randn((M, C), device=cuda).bfloat16()
+    nG = qt.scale.shape[-2] if qt.scale.ndim == 3 else 1
+    splits = sorted({S for _, S in qmm.w8a8_allowed_plans(C, nG, O, M, _sms(cuda))})
+    assert (len(splits) > 1) == (M == 12)  # at 64 rows held spans leave no room
+    for S in splits:
+        _k7_matches_plain(x, qt, _splits=S)
+
+
+def test_w8a8_split_kernel_replays_in_a_cuda_graph(cuda):
+    """K7 split over C, captured once and replayed three times on new
+    inputs: each replay equals the plain version bit for bit."""
+    C, O = _K7_SHAPES["o_proj"]
+    qt = _k7_weights(cuda, C, O, 128)
+    assert qmm.plan_w8a8(C, C // 128, O, 12, _sms(cuda))[1] > 1
+    x = torch.randn((12, C), device=cuda).bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qmm.quantized_matmul_int8(x, qt.q, qt.scale, 1, torch.float32)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmm.quantized_matmul_int8(x, qt.q, qt.scale, 1, torch.float32)
+    for seed in range(3):
+        x.copy_(torch.randn((12, C), device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(seed)).bfloat16())
+        graph.replay()
+        want = qmm.quantized_matmul_int8_plain(x, qt.q, qt.scale, 1, torch.float32)
+        assert torch.equal(out, want), seed
+
+
+def test_w8a8_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.randn((4, 256), device=cuda).bfloat16()
+    qt = _qmm_weights(cuda, "int8", 256, 256, 4, False)  # 4-row groups: no mma k-step
+    with pytest.raises(ValueError, match="unsupported"):
+        qmm.quantized_matmul_int8(x, qt.q, qt.scale, 0)
+    qt = _qmm_weights(cuda, "int8", 256, 256, 32, False)
+    with pytest.raises(ValueError, match="unsupported"):
+        qmm.quantized_matmul_int8(torch.randn((300, 256), device=cuda).bfloat16(), qt.q,
+                                  qt.scale, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmm.quantized_matmul_int8(x, qt.q.cpu(), qt.scale.cpu(), 0)
+    with pytest.raises(ValueError, match="not allowed"):  # one split per 128 rows at most
+        qmm.launch_quantized_matmul_int8(x, qt.q, qt.scale, 0, _splits=3)
 
 
 def test_w4a8_split_kernel_replays_in_a_cuda_graph(cuda):

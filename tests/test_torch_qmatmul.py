@@ -178,3 +178,96 @@ def test_split_planner_takes_spans_of_8_16_and_48_rows(gs):
         _, rows = tm.plan_splits(C, C // gs, 128, 12, 132, splits=S)
         assert all(r % gs == 0 and r % 32 == 0 for r in rows)
     assert tm._kstep(gs) == {8: 8, 16: 16, 48: 16}[gs]
+
+
+@pytest.mark.parametrize("M,C,O,gs", [(12, 256, 256, 8), (12, 256, 256, 16), (12, 384, 256, 48),
+                                      (1, 256, 256, 32), (1, 3072, 128, None)])
+def test_w8a8_plain_matches_jax_kernel_at_small_groups_and_one_row(M, C, O, gs):
+    """Groups of 8, 16 and 48 rows (K7's k16 steps on the card) and a
+    single activation row."""
+    j, t = _weights("int8", C, O, gs, seed=M + C)
+    x = np.random.default_rng(M + 3).standard_normal((M, C)).astype(np.float32)
+    for layer in (0, 2):
+        want = jm.quantized_matmul_int8(jnp.asarray(x), j.q, j.scale, layer, interpret=True,
+                                        out_dtype=jnp.float32)
+        got = tm.quantized_matmul_int8(torch.from_numpy(x), t.q, t.scale, layer,
+                                       out_dtype=torch.float32)
+        assert got.shape == want.shape
+        _close(got, want)
+
+
+# K7 (int8, stored width = O) at Llama-3.2-3B's projections: (C, Wn).
+_W8_SHAPES = {"gate_up": (3072, 16384), "wqkv": (3072, 5120), "o_proj": (3072, 3072),
+              "down": (8192, 3072), "lm_head": (3072, 128256)}
+
+
+@pytest.mark.parametrize("C,gs,Wn,M", [
+    *((C, 128, Wn, M) for C, Wn in _W8_SHAPES.values() for M in (1, 12, 64, 256)),
+    (8192, None, 3072, 12), (8192, None, 3072, 64), (3072, None, 3072, 12),
+    (8192, 16, 3072, 12), (3072, 48, 3072, 12), (3072, 8, 1024, 64), (1024, 64, 512, 17),
+])
+def test_w8a8_planner_covers_every_span_once_in_order(C, gs, Wn, M):
+    """Every plan K7 allows: splits of whole fold spans in whole chunks (128
+    rows a k-warp), in order and none empty, the last ending at C; shared
+    memory within a block's; a split grid of one wave (a block per SM) and
+    splits of one cluster."""
+    nG = C // gs if gs else 1
+    F = tm._fold_span(C, nG)
+    MT, rt = tm._row_tiles(M)
+    plans = tm.w8a8_allowed_plans(C, nG, Wn, M, 132)
+    assert (1, 1) in plans
+    for kw, S in plans:
+        assert kw in tm._w8_kwarps(F)
+        kw_s, S_s, rows_s = tm.plan_w8a8(C, nG, Wn, M, 132, splits=S)
+        assert S_s == S and (kw_s, S) in plans and rows_s == tuple(tm._w8_split_rows(C, F, S, kw_s))
+        rows = tm._w8_split_rows(C, F, S, kw)
+        assert len(rows) == S + 1
+        assert rows[0] == 0 and rows[-1] == C
+        assert all(a < b for a, b in zip(rows, rows[1:]))
+        assert all(r % F == 0 and r % 32 == 0 and r % (128 * kw) == 0 for r in rows[:-1])
+        smem = tm._w8_smem_bytes(MT, tm._kstep(F), kw, tm._held_spans(rows, F))
+        assert smem <= tm._SMEM_PER_BLOCK
+        if S > 1:
+            assert Wn // 128 * rt * S <= 132 and S <= tm._W8_MAX_SPLITS
+    assert tm.plan_w8a8(C, nG, Wn, M, 132)[:2] in plans
+
+
+def test_w8a8_planner_takes_two_k_warps_only_where_spans_allow():
+    """Two k-warps per column (each taking 128 rows of a chunk) need fold
+    spans of whole 128-row runs; a split count it does not allow raises."""
+    assert tm._w8_kwarps(128) == tm._w8_kwarps(4096) == [1, 2]
+    assert tm._w8_kwarps(64) == tm._w8_kwarps(48) == tm._w8_kwarps(16) == [1]
+    assert {kw for kw, _ in tm.w8a8_allowed_plans(3072, 3072 // 32, 3072, 12, 132)} == {1}
+    assert {kw for kw, _ in tm.w8a8_allowed_plans(3072, 3072 // 128, 3072, 12, 132)} == {1, 2}
+    with pytest.raises(ValueError, match="not allowed"):
+        tm.plan_w8a8(3072, 24, 3072, 12, 132, splits=tm._W8_MAX_SPLITS + 1)
+
+
+def test_k6_plan_is_unchanged_beside_k7s():
+    """K7's planner is its own: K6's plans at the 3B projections (packed
+    widths) stay as they were before K7 had one."""
+    packed = {"gate_up": (3072, 8192), "wqkv": (3072, 2560), "o_proj": (3072, 1536),
+              "down": (8192, 1536), "lm_head": (3072, 64512)}
+    want = {12: {"gate_up": 1, "wqkv": 2, "o_proj": 3, "down": 4, "lm_head": 1},
+            64: {"gate_up": 1, "wqkv": 1, "o_proj": 1, "down": 1, "lm_head": 1}}
+    for M, counts in want.items():
+        for name, (C, Wn) in packed.items():
+            assert tm.plan_splits(C, C // 128, Wn, M, 132)[0] == counts[name], (name, M)
+    assert tm._smem_bytes(1, 32, 0) == 3 * (256 * 32 + 16 * 272 + 8 * 32 * 4)
+
+
+def test_w8a8_planner_picks_the_predicted_plans():
+    """Llama-3.2-3B at 132 SMs, (k-warps, splits): at 12 rows the tiles of
+    gate_up (128) and lm_head (1002) fill the card unsplit, two k-warps
+    where a block has its SM to itself; wqkv (40 tiles), o_proj and down
+    (24) split into clusters of up to three quarters of the SMs. At 64 rows
+    four row tiles of terms leave no room for a split or a second k-warp."""
+    want = {12: {"gate_up": (2, 1), "wqkv": (1, 2), "o_proj": (2, 4), "down": (1, 4),
+                 "lm_head": (1, 1)},
+            64: {"gate_up": (1, 1), "wqkv": (1, 1), "o_proj": (1, 1), "down": (1, 1),
+                 "lm_head": (1, 1)}}
+    for M, plans in want.items():
+        for name, (C, Wn) in _W8_SHAPES.items():
+            assert tm.plan_w8a8(C, C // 128, Wn, M, 132)[:2] == plans[name], (name, M)
+    # down at S 4: whole chunks of 16 scale groups each.
+    assert tm.plan_w8a8(8192, 64, 3072, 12, 132)[2] == (0, 2048, 4096, 6144, 8192)
