@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 1. Device: refuse to run without CUDA (there is no CPU fallback); print the
    card's name and power limit from nvidia-smi.
 2. Build: compile the CUDA kernels from csrc/ with nvcc for sm_90a (one
-   nvcc per source, in parallel) and the Triton kernels at their first launch.
+   nvcc per source, in parallel; each source with the headers it includes,
+   csrc/common.cuh).
 3. Kernels: each kernel's wrapper against its plain PyTorch version on the
    card in bf16, at the main-path shapes of Llama-3.2-3B (D=128, Nq=24,
    Hkv=8), Llama-3.2-1B (D=64, Nq=32, Hkv=8), OpenLLaMA-3B v2 (D=100,
@@ -61,6 +62,23 @@ Phases, in order; any failure exits non-zero:
 8. Summary: one JSON line with every kernel, then the last line
    {"ok": true, "device": {...}}.
 
+Phase 3 times K3 / K4 (csrc/norms.cu) at decode widths (12 and 64 rows),
+at the prefill widths of serving's chunk step (8 x 512 rows) and of a 4 x
+2048 prefill, and K3 at H 8192; the forms that also write K6's int8 rows
+where phase 6 runs them. A case is ``ok`` only if the residual sum and the
+int8 rows are bit-equal (to qmm_quantize_rows of the kernel's own output),
+K6 fed by those rows equals K6 fed by the output bit for bit, and, at the
+main case, a planted fault (the weight shifted one column) fails the
+tolerance. Beside them: the floor of one launch (an empty kernel through
+ctypes, with and without PDL, in the same graph harness), the host time one
+eager call takes to enqueue (``host_us``), the chain case: one 3B decode
+layer's sequence from o_proj to the next layer's norm (o_proj, K3,
+gate/up, K4, down, K3) captured in one graph over eight layers' weights,
+in bf16 and int4 (``chain``). Phase 4-7's decode profiles split K3, K4,
+K6 and K6's quantizer out of each step's device time; phase 6 requires K3 / K4
+to write the int8 rows of wqkv, gate_up, down and the head, so the
+quantizer runs once per layer (o_proj) and per step.
+
 Phase 3 also holds the quantized kernels against their plain versions: K6
 (W4A8) and K7 (W8A8) at the 3B projection shapes (scale groups of 128, 48,
 16 and 8 rows, and per-channel), an fp32 output (and every K7 output)
@@ -72,7 +90,8 @@ C (and K7's k-warps), grid, shared memory and ptxas line (``launch``); the
 timed K6 split cases also time every split count the planner allows
 (``ms_by_splits``), the timed K7 cases above 16 rows ``torch._int_mm`` on
 the same int8 bytes (``int8_library_ms``). Phase 6's decode profile gives
-K6's device time per step (``k6_device_ms_per_step``). K1 / K1q run on the
+K6's device time per step (``k6_device_ms_per_step``, its quantizer apart).
+K1 / K1q run on the
 engine's page-table width (2048 positions) at the decode batch, ragged
 batches and serving's width (64 slots, 8 of 1,820 tokens); each case prints
 its split plan, live splits per request, grid, shared memory and ptxas line
@@ -128,6 +147,17 @@ OPEN_LLAMA_REPEATS = (2, 3)  # phase 7's, cut to keep the script near half its t
 SEED = 0
 
 NORM_NO_RESIDUAL = 3  # index of K3's no-residual case in kernel_phase()
+# Kernel rows of a decode profile reported per step (profile_decode), by
+# substrings of their names: K1 / K1q; K3 (rows_kernel<0>, rows_loop_kernel<
+# 0>) and K4 (the rest of csrc/norms.cu); K6's matmul (no model path runs
+# K7) and, apart, its activation quantizer.
+PROFILE_KERNELS = {
+    "k1": ("paged_decode_kernel",),
+    "k3": ("rows_kernel<0", "rows_loop_kernel<0"),
+    "k4": ("swiglu_kernel", "rows_kernel<1", "rows_loop_kernel<1"),
+    "k6": ("qmm_kernel",),
+    "quantizer": ("quantize_rows_kernel",),
+}
 KERNELS = {
     "paged_flash_decode": dict(
         route="cuda", source="lite_llama_tpu_torch/csrc/paged_decode.cu",
@@ -136,11 +166,11 @@ KERNELS = {
         route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:614"),
     "rms_norm": dict(
-        route="triton", source="lite_llama_tpu_torch/ops/norms.py",
+        route="cuda", source="lite_llama_tpu_torch/csrc/norms.cu",
         replaces="lite_llama_tpu/ops/norms.py:83",
         also_replaces="lite_llama_tpu/ops/norms.py:61"),
     "swiglu": dict(
-        route="triton", source="lite_llama_tpu_torch/ops/norms.py",
+        route="cuda", source="lite_llama_tpu_torch/csrc/norms.cu",
         replaces="lite_llama_tpu/ops/norms.py:115"),
     "flash_prefill_chunked": dict(
         route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
@@ -580,26 +610,80 @@ def prefill_case(model, B, S, lens):
                 library="F.scaled_dot_product_attention (is_causal, full length S)")
 
 
-def norm_case(rows, H, residual):
+# K6 weights the int8-row cases feed, one per contraction width, made once.
+_K6_FOR_ROWS = {}
+
+
+def k6_on_rows(rows):
+    """K6 (a 2-layer int4 g128 riffle stack, 1024 columns) fed by the int8
+    rows of ``rows`` (ops/qmatmul.py QuantizedRows) and fed by its
+    activations: True where the fp32 outputs are bit-equal."""
+    from lite_llama_tpu_torch.ops import qmatmul as qmm
+    from lite_llama_tpu_torch.quant.qtensor import quantize
+
+    x2 = rows.x.reshape(-1, rows.x.shape[-1])
+    C = x2.shape[1]
+    if C not in _K6_FOR_ROWS:
+        g = torch.Generator(device=x2.device).manual_seed(SEED + 8)
+        w = torch.randn((2, C, 1024), generator=g, device=x2.device).mul_(0.02).bfloat16()
+        _K6_FOR_ROWS[C] = quantize(w, (1,), "int4", group_size=128, riffle_blocks=1)
+    qt = _K6_FOR_ROWS[C]
+    fed = qmm.quantized_matmul_packed(qmm.QuantizedRows(x2, rows.xi, rows.xs), qt.q, qt.scale,
+                                      1, torch.float32, False)
+    own = qmm.quantized_matmul_packed(x2, qt.q, qt.scale, 1, torch.float32, False)
+    return bool(torch.equal(fed, own))
+
+
+def int8_rows_checks(rows):
+    """The int8 rows a K3 / K4 call wrote beside its output: equal to K6's
+    own quantizer (qmm_quantize_rows) on that output, and K6 fed by them
+    equal to K6 fed by the output, bit for bit."""
+    from lite_llama_tpu_torch.ops import qmatmul as qmm
+
+    xi, xs = qmm.launch_quantize_rows(rows.x.reshape(-1, rows.x.shape[-1]))
+    return dict(int8_rows_bit_equal=bool(torch.equal(rows.xi, xi) and torch.equal(rows.xs, xs)),
+                k6_on_rows_bit_equal=k6_on_rows(rows))
+
+
+def norm_case(rows, H, residual, int8=False, fault=False):
+    """K3 (skip_rms_norm; rms_norm without ``residual``) at [rows, H]
+    against its plain version; the rounded residual sum must be exact.
+    ``int8``: the form that also writes K6's int8 rows (int8_rows_checks).
+    ``fault``: the weight shifted one column must fail the tolerance."""
     from lite_llama_tpu_torch import ops
-    from lite_llama_tpu_torch.ops import ref
+    from lite_llama_tpu_torch.ops import norms, ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     x = torch.randn((rows, H), generator=g, device=dev).bfloat16()
     r = torch.randn((rows, H), generator=g, device=dev).bfloat16() if residual else None
     w = (1 + 0.1 * torch.randn((H,), generator=g, device=dev)).bfloat16()
-    n, s = ops.skip_rms_norm(x, r, w)
+
+    def kernel(x, r, w):
+        return ops.skip_rms_norm(x, r, w, int8_rows=int8)
+
+    def plain(x, r, w):
+        return norms.skip_rms_norm_plain(x, r, w, int8_rows=int8)
+
+    n, s = kernel(x, r, w)
     pn, ps_ = ref.skip_rms_norm(x, r, w)
     torch.cuda.synchronize()
-    err, ok = max_err(n, pn)
-    ok = ok and bool(torch.equal(s, ps_))  # the rounded residual sum is exact
-    n_io = (4 if residual else 2) * rows * H * 2 + H * 2
+    err, ok = max_err(n.x if int8 else n, pn)
+    rec = dict(residual_bit_equal=bool(torch.equal(s, ps_)))  # the rounded sum is exact
+    if int8:
+        rec.update(int8_rows_checks(n))
+    if fault:
+        ferr, fok = max_err(ops.skip_rms_norm(x, r, w.roll(1))[0], pn)
+        rec["faults"] = {"weight shifted one column": dict(max_abs_err=ferr, caught=not fok)}
+    ok = (ok and all(v for k, v in rec.items() if k.endswith("bit_equal"))
+          and all(f["caught"] for f in rec.get("faults", {}).values()))
+    n_io = (4 if residual else 2) * rows * H * 2 + H * 2 + (rows * (H + 4) if int8 else 0)
     t_bound, by = bound(n_io, 4 * rows * H)
-    t = timings(ops.skip_rms_norm, ref.skip_rms_norm, (x, r, w), n_io,
+    t = timings(kernel, plain, (x, r, w), n_io,
                 (lambda x, w: F.rms_norm(x, (H,), w, 1e-5), (x, w), 2 * rows * H * 2 + H * 2))
-    return dict(shape=f"[{rows}, {H}] residual={residual}", max_abs_err=err, ok=ok, **t,
-                bound_ms=t_bound, bound_by=by,
+    return dict(shape=f"[{rows}, {H}] residual={residual}" + (" int8_rows" if int8 else ""),
+                max_abs_err=err, ok=ok, **rec, **t, bound_ms=t_bound, bound_by=by,
+                launch=norms.launch_shape("rms", x, r, w),
                 library="F.rms_norm (normalisation alone, no residual add)")
 
 
@@ -685,22 +769,159 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
                         + (" and dequantized to bf16" if kv else "") + " + chunk, boolean mask)")
 
 
-def swiglu_case(rows, I):
+def swiglu_case(rows, I, int8=False):
+    """K4 at [rows, I] against its plain version. ``int8``: on the row-strided
+    halves of one [rows, 2I] product (the int4 path's riffle gate_up), also
+    writing K6's int8 rows (int8_rows_checks)."""
     from lite_llama_tpu_torch import ops
-    from lite_llama_tpu_torch.ops import ref
+    from lite_llama_tpu_torch.ops import norms, ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    gate = torch.randn((rows, I), generator=g, device=dev).bfloat16()
-    up = torch.randn((rows, I), generator=g, device=dev).bfloat16()
-    got = ops.swiglu(gate, up)
+    if int8:
+        args = (torch.randn((rows, 2 * I), generator=g, device=dev).bfloat16(),)
+
+        def kernel(y):
+            return ops.swiglu(y[:, :I], y[:, I:], int8_rows=True)
+
+        def plain(y):
+            return norms.swiglu_plain(y[:, :I], y[:, I:], int8_rows=True)
+
+        gate, up = args[0][:, :I], args[0][:, I:]
+    else:
+        args = gate, up = (torch.randn((rows, I), generator=g, device=dev).bfloat16(),
+                           torch.randn((rows, I), generator=g, device=dev).bfloat16())
+        kernel, plain = ops.swiglu, norms.swiglu_plain
+    got = kernel(*args)
     want = ref.swiglu(gate, up)
     torch.cuda.synchronize()
-    err, ok = max_err(got, want)
-    t_bound, by = bound(3 * rows * I * 2, 5 * rows * I)
-    t = timings(ops.swiglu, ref.swiglu, (gate, up), 3 * rows * I * 2)
-    return dict(shape=f"[{rows}, {I}]", max_abs_err=err, ok=ok, **t,
-                bound_ms=t_bound, bound_by=by, library=None)
+    err, ok = max_err(got.x if int8 else got, want)
+    rec = int8_rows_checks(got) if int8 else {}
+    ok = ok and all(rec.values())
+    n_io = 3 * rows * I * 2 + (rows * (I + 4) if int8 else 0)
+    t_bound, by = bound(n_io, 5 * rows * I)
+    t = timings(kernel, plain, args, n_io)
+    return dict(shape=f"[{rows}, {I}]" + (" int8_rows (riffle halves)" if int8 else ""),
+                max_abs_err=err, ok=ok, **rec, **t, bound_ms=t_bound, bound_by=by,
+                launch=norms.launch_shape("swiglu", gate, up, int8_rows=int8), library=None)
+
+
+CHAIN_LAYERS = 8  # a chain graph walks 8 layers' weights: 1.4 GB bf16, 0.34 GB int4
+
+
+def chain_case(quantized):
+    """One Llama-3.2-3B decode layer's sequence from o_proj to the next
+    layer's attention norm at 12 rows, as decoder_decode runs it: o_proj,
+    K3 (the MLP norm), gate/up, K4, down, K3 (the next attention norm); in
+    bf16 (cuBLAS projections) or, with ``quantized``, int4 g128 riffle (K6,
+    fed the int8 rows K3 / K4 write where the decoder asks for them).
+    Captured in one graph over CHAIN_LAYERS layers' weights (rotated through
+    HBM). Returns ms per layer and the launches of one layer."""
+    import dataclasses
+
+    from lite_llama_tpu_torch import ops
+    from lite_llama_tpu_torch.models import decoder as dec
+    from lite_llama_tpu_torch.models.presets import llama32_3b
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(llama32_3b(dtype=torch.bfloat16), num_hidden_layers=CHAIN_LAYERS)
+    params = {"layers": dec.init_decoder_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED))["layers"]}
+    if quantized:
+        params = quantize_decoder_params(params, "int4", group_size=128, riffle=True)
+    layers = dec._unstack_layers(params)
+    rows_attn, rows_mlp, rows_down, _ = dec._int8_rows(params, 12)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    attn = torch.randn((12, cfg.num_attention_heads, cfg.head_dim), generator=g,
+                       device=dev).bfloat16()
+    residual = torch.randn((12, cfg.hidden_size), generator=g, device=dev).bfloat16()
+    eps = cfg.rms_norm_eps
+
+    def chain():
+        res = residual
+        for li, lp in enumerate(layers):
+            normed2, res = ops.skip_rms_norm(dec._attn_out(lp, attn), res, lp["mlp_norm"], eps,
+                                             int8_rows=rows_mlp)
+            x = dec._mlp(lp, normed2, rows_down)
+            nxt = layers[(li + 1) % len(layers)]
+            ops.skip_rms_norm(x, res, nxt["attn_norm"], eps, int8_rows=rows_attn)
+
+    reset_counts()
+    chain()
+    launches = {k: v / CHAIN_LAYERS for k, v in read_counts().items() if v}
+    ms = graph_ms(chain, [()], min_calls=1) / CHAIN_LAYERS
+    del params, layers
+    free_device()
+    return dict(weights="int4 g128 riffle" if quantized else "bf16", rows=12, ms_per_layer=ms,
+                launches_per_layer=launches)
+
+
+def launch_floor():
+    """Device ms per launch of an empty kernel of csrc/norms.cu (the PDL
+    handshake K3 / K4 make, nothing else) launched through ctypes as they
+    are, back to back in graph_ms, without and with PDL: at K3's decode
+    launch (12 blocks of 384 threads) and as one block; and with PDL at
+    K3's launch copying 16 bytes a thread after the handshake (K3's rows,
+    12 x 3072 bf16, rotated through HBM: the dependent load and store every
+    K3 / K4 makes)."""
+    from lite_llama_tpu_torch.ops import norms
+
+    out = {f"{blocks}x{threads} pdl={pdl}": graph_ms(
+        lambda b=blocks, t=threads, p=pdl: norms.launch_empty(b, t, p), [()])
+        for blocks, threads in ((12, 384), (1, 32)) for pdl in (False, True)}
+    src = torch.zeros((12 * 384, 8), dtype=torch.int16, device="cuda")
+    out["12x384 pdl=True copy"] = graph_ms(
+        lambda s, d: norms.launch_empty(12, 384, True, s, d),
+        input_copies((src, torch.empty_like(src)), 2 * src.numel() * 2))
+    return out
+
+
+def host_us(fn, args, calls=3000, warmup=200):
+    """Host microseconds one eager call of ``fn`` takes to enqueue its work
+    (no synchronize inside the timed loop), over ``calls`` calls after
+    ``warmup``."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def host_costs():
+    """host_us of K3 and K4 at the 3B decode shapes (and their int8 forms),
+    beside one eager PyTorch add of the same rows, and of the two ways to
+    get the stream handle a launch passes."""
+    from lite_llama_tpu_torch import ops
+    from lite_llama_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x, r = (torch.randn((12, 3072), generator=g, device=dev).bfloat16() for _ in range(2))
+    w = torch.ones((3072,), device=dev).bfloat16()
+    y = torch.randn((12, 2 * 8192), generator=g, device=dev).bfloat16()
+    return {
+        "K3 skip_rms_norm [12, 3072]": host_us(ops.skip_rms_norm, (x, r, w)),
+        "K3 int8_rows": host_us(lambda: ops.skip_rms_norm(x, r, w, int8_rows=True), ()),
+        "K4 swiglu [12, 8192] halves": host_us(ops.swiglu, (y[:, :8192], y[:, 8192:])),
+        "K4 int8_rows": host_us(lambda g, u: ops.swiglu(g, u, int8_rows=True),
+                                (y[:, :8192], y[:, 8192:])),
+        "torch.add [12, 3072] (eager PyTorch)": host_us(torch.add, (x, r)),
+        "stream handle, torch.cuda.current_stream(dev).cuda_stream": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream, ()),
+        "stream handle, _build.current_stream(dev)": host_us(_build.current_stream, (x.device,)),
+    }
+
+
+def norm_extras():
+    """Phase 3's K3 / K4 measurements beside the cases: the launch floor,
+    the chain in bf16 and int4, and the host cost of one eager call."""
+    return dict(launch_floor_ms=launch_floor(), chain=[chain_case(False), chain_case(True)],
+                host_us=host_costs())
 
 
 def planted_k7_faults(x):
@@ -914,13 +1135,20 @@ def kernel_phase():
             prefill_case("D=96 G=4", 4, 512, [512, 389, 37, 1]),
         ],
         "rms_norm": [
-            norm_case(12, 3072, True),
+            norm_case(12, 3072, True, fault=True),
             norm_case(300, 3072, True),
             norm_case(300, 3072, False),
             norm_case(12 * 32, 128, False),  # NORM_NO_RESIDUAL: Qwen3-4B q-norm rows
             norm_case(300 * 32, 128, True),
+            norm_case(4096, 3072, True),  # serving's chunk step, 8 x 512 rows
+            norm_case(8192, 3072, True),  # a 4 x 2048 prefill
+            norm_case(12, 8192, True),  # a width the Triton K3 refused
+            norm_case(12, 3072, True, int8=True),  # phase 6's decode step
+            norm_case(64, 3072, True, int8=True),  # phase 6's serving width
         ],
-        "swiglu": [swiglu_case(12, 8192), swiglu_case(300, 8192)],
+        "swiglu": [swiglu_case(12, 8192), swiglu_case(300, 8192), swiglu_case(4096, 8192),
+                   swiglu_case(8192, 8192), swiglu_case(12, 8192, int8=True),
+                   swiglu_case(64, 8192, int8=True)],
         "flash_prefill_chunked": [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8),
             chunked_case("llama-3.2-3b", [256] * 16, [8] * 16, S=8),  # phase 5's wave 2
@@ -979,8 +1207,8 @@ def kernel_phase():
                 line += f" TFLOP/s={c['tflops']:.1f} library_TFLOP/s={c['library_tflops']:.1f}"
             if "library_kernels" in c:
                 line += f" library_kernels={c['library_kernels']}"
-            if "bit_equal" in c:
-                line += f" bit_equal={c['bit_equal']}"
+            for k in (k for k in c if k.endswith("bit_equal")):
+                line += f" {k}={c[k]}"
             if "faults" in c:
                 line += f" faults={json.dumps(c['faults'])}"
             if "launch" in c:
@@ -1000,9 +1228,12 @@ def kernel_phase():
 
 
 def counters():
+    """{name: (launcher, counter attribute)}: each kernel of KERNELS, and
+    beside them K3 / K4's launches that also wrote K6's int8 rows and the
+    launches of K6's own activation quantizer."""
     from lite_llama_tpu_torch.ops import attention_decode, attention_prefill, norms, qmatmul
 
-    return {
+    launchers = {
         "paged_flash_decode": attention_decode.launch_paged_decode,
         "flash_prefill": attention_prefill.launch_flash_prefill,
         "rms_norm": norms.launch_rms_norm,
@@ -1015,16 +1246,21 @@ def counters():
         "flash_prefill_chunked_int8": attention_prefill.launch_flash_prefill_chunked_int8,
         "flash_prefill_chunked_fp8": attention_prefill.launch_flash_prefill_chunked_fp8,
         "flash_prefill_vmem": attention_prefill.launch_flash_prefill_vmem,
+        "quantize_rows": qmatmul.launch_quantize_rows,
     }
+    out = {k: (fn, "launches") for k, fn in launchers.items()}
+    out["rms_norm_int8_rows"] = (norms.launch_rms_norm, "int8_launches")
+    out["swiglu_int8_rows"] = (norms.launch_swiglu, "int8_launches")
+    return out
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def plain_ops():
@@ -1032,7 +1268,7 @@ def plain_ops():
     and K6's in ops/qmatmul.py), patched in by this script only: the
     invariants' reading when no kernel runs, the floor their limits sit
     above."""
-    from lite_llama_tpu_torch.ops import qmatmul, ref
+    from lite_llama_tpu_torch.ops import norms, qmatmul, ref
 
     def decode(q, pool, layer, table, seq_lens, sm_scale=None, k_new=None, v_new=None):
         return ref.paged_decode_attention(q, pool, layer, table, seq_lens, sm_scale=sm_scale,
@@ -1040,7 +1276,8 @@ def plain_ops():
 
     return dict(prefill_attention=ref.prefill_attention, paged_decode_attention=decode,
                 chunked_prefill_attention=ref.chunked_prefill_attention,
-                rms_norm=ref.rms_norm, skip_rms_norm=ref.skip_rms_norm, swiglu=ref.swiglu,
+                rms_norm=ref.rms_norm, skip_rms_norm=norms.skip_rms_norm_plain,
+                swiglu=norms.swiglu_plain,
                 quantized_matmul_packed=qmatmul.quantized_matmul_packed_plain)
 
 
@@ -1213,15 +1450,17 @@ def profile_decode(engine, prompts, steps=16):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(r[1] for r in rows)
     top = sorted(rows, key=lambda r: -r[1])[:12]
-    # K6: its matmul kernel and its activation quantizer (no model path runs K7)
-    k6_us = sum(r[1] for r in rows if "qmm_kernel" in r[0] or "quantize_rows_kernel" in r[0])
-    k1_us = sum(r[1] for r in rows if "paged_decode_kernel" in r[0])  # K1 / K1q
+    per_step = {}
+    for name, marks in PROFILE_KERNELS.items():
+        mine = [(us, n) for k, us, n in rows if any(m in k for m in marks)]
+        us = sum(u for u, _ in mine)
+        per_step[f"{name}_device_ms_per_step"] = us / 1e3 / steps if us else None
+        per_step[f"{name}_launches_per_step"] = sum(n for _, n in mine) / steps
     return dict(
         steps=steps, profiled_wall_ms=wall_us / 1e3,
         device_ms=device_us / 1e3 if device_us else None,
         device_ms_per_step=device_us / 1e3 / steps if device_us else None,
-        k6_device_ms_per_step=k6_us / 1e3 / steps if k6_us else None,
-        k1_device_ms_per_step=k1_us / 1e3 / steps if k1_us else None,
+        **per_step,
         device_busy_share_profiled=device_us / wall_us if device_us else None,
         top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n) for k, us, n in top],
     )
@@ -1318,12 +1557,12 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
 
     prof = profile_decode(engine, prompts)
     log(f"  profile of {prof['steps']} decode steps: {json.dumps(prof)}")
-    if prof["k1_device_ms_per_step"] is not None:
-        log(f"  K1 / K1q device ms per decode step ({prof['steps']} steps profiled): "
-            f"{prof['k1_device_ms_per_step']:.4f} of {prof['device_ms_per_step']:.4f}")
-    if prof["k6_device_ms_per_step"] is not None:
-        log(f"  K6 (W4A8 matmul + activation quantizer) device ms per decode step: "
-            f"{prof['k6_device_ms_per_step']:.4f} of {prof['device_ms_per_step']:.4f}")
+    for name in PROFILE_KERNELS:
+        ms = prof[f"{name}_device_ms_per_step"]
+        if ms is not None:
+            log(f"  {name} device ms per decode step ({prof['steps']} steps profiled): "
+                f"{ms:.4f} of {prof['device_ms_per_step']:.4f}, "
+                f"{prof[f'{name}_launches_per_step']:.2f} launches")
     if prof["device_ms"] is not None:  # against the decode steps timed without the profiler
         prof["device_busy_share"] = prof["device_ms"] / prof["steps"] / decode_ms_per_step
 
@@ -1743,6 +1982,14 @@ def quantized_phase(dev, cfg, qparams, bf16_logits):
     out["batch"], batch = slice_phase(dev, cfg, qparams, engine_kw=dict(kv_quant="int8"),
                                       path=QUANT_BATCH_PATH, invariant=invariant)
     log("quantized slice: " + json.dumps(out["batch"]))
+    # K3 / K4 write the int8 rows of wqkv, gate_up, down and the head; K6's
+    # own quantizer runs for o_proj alone.
+    L = cfg.num_hidden_layers
+    step = out["batch"]["launches_per_decode_step"]
+    want = dict(quantize_rows=L, rms_norm_int8_rows=2 * L + 1, swiglu_int8_rows=L)
+    got = {k: step[k] for k in want}
+    log(f"  launches per int4 decode step: {got} (want {want})")
+    require(got == want, f"int8-row launches per int4 decode step {got}, want {want}")
     out["logits"] = attempt("int4 logits invariant", logits_invariant, dev, cfg, qparams,
                             batch_prompts(cfg)[:8], bf16_logits)
     t0 = time.perf_counter()
@@ -1755,7 +2002,7 @@ def quantized_phase(dev, cfg, qparams, bf16_logits):
     out["serving"]["seconds"] = time.perf_counter() - t0
     log("quantized serving: " + json.dumps(out["serving"]))
     require(not problems, f"phase 6 invariants failed: {problems}")
-    return out, {k: batch[k] + serving[k] for k in batch}
+    return out, {k: batch[k] + serving[k] for k in KERNELS}
 
 
 def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
@@ -1863,7 +2110,7 @@ def open_llama_phase(dev):
         dev, cfg, params, limits=OPEN_LLAMA_PREFILL, sides=("a",))
     out["seconds"] = time.perf_counter() - t0
     log("OpenLLaMA serving: " + json.dumps(out["serving"]))
-    return out, {k: batch[k] + serving[k] for k in batch}
+    return out, {k: batch[k] + serving[k] for k in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -1878,7 +2125,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run on the card only",
               file=sys.stderr)
         return 1
-    from lite_llama_tpu_torch.ops import _build, norms
+    from lite_llama_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references stay fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1902,16 +2149,13 @@ def main() -> int:
     log("  flash_prefill_chunked dynamic shared memory (bytes): " + json.dumps(
         {f"D={D} {kv}": chunked_smem(D, i) for D in (64, 100, 128)
          for i, kv in enumerate(("bf16", "int8", "fp8", "fresh"))}))
-    x = torch.ones((2, 128), dtype=torch.bfloat16, device="cuda")
-    norms.launch_rms_norm(x, x, x[0], 1e-5)  # Triton compiles at the first launch
-    norms.launch_swiglu(x, x)
-    torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     log(f"  nvcc builds {built}; all kernels ready in {build_s:.1f} s")
 
     log("phase 3: kernels against their plain versions (bf16)")
     t0 = time.perf_counter()
     cases = kernel_phase()
+    log("  K3 / K4 launch floor, chain and host cost: " + json.dumps(norm_extras()))
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
     by_path = {p: {k: None for k in KERNELS}
                for p in ("batch", "serving", "quantized", "fp8_kv", "open_llama")}

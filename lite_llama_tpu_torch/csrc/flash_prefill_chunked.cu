@@ -105,6 +105,8 @@
 
 #include <algorithm>
 
+#include "common.cuh"  // smem_u32, mbarriers
+
 namespace {
 
 // Where the history comes from: a bf16, int8 or fp8 pool, or nowhere (fresh
@@ -178,9 +180,6 @@ struct Args {
   int layer, ps, ppr;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // UB bytes from global to shared memory; zeros when !valid. 16, 8 and 4
 // bytes go by cp.async; 2 bytes (a 1-byte pool at D = 2 mod 4) through a
@@ -299,32 +298,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// The barrier counts an arrival of this thread when its cp.asyncs so far land.
-__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    if (clock64() - t0 > 20000000000LL) __trap();  // ~10 s: a lost arrival, not a wait
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
 // Ping-pong: consumer warpgroup w issues its QK product after the other
 // one has issued its own (named barriers 4 + w, both warpgroups counted).
 __device__ __forceinline__ void turn_wait(int wg) {

@@ -69,10 +69,13 @@
 //   fragment quad at each fold: the same integers the quantizer produced.
 // - The activations are quantized by a small kernel of their own
 //   (quantize_rows_kernel, a block per row), the plain version's arithmetic:
-//   one launch where PyTorch's eager ops take nine. A split matmul grid is
-//   launched as its programmatic dependent: its blocks start while the
-//   quantizer runs, put their first weight chunks in flight, and wait
-//   (griddepcontrol.wait) only before they read the quantized rows.
+//   one launch where PyTorch's eager ops take nine; or they arrive quantized
+//   by the norm or SwiGLU that wrote them (csrc/norms.cu emits the int8 rows
+//   in the same pass, with the same rounding, common.cuh). A split matmul
+//   grid is launched as a programmatic dependent of the kernel before it:
+//   its blocks start while that kernel runs, put their first weight chunks
+//   in flight, and wait (griddepcontrol.wait) only before they read the
+//   quantized rows.
 // - A fold check compares the row reached with the next span's end (no
 //   integer division in the k-step loop).
 // - The epilogue writes straight into the final columns: classic packing
@@ -121,12 +124,9 @@
 //   is column 8 tq + 4 (i & 1) + j, so a lane writes 4 + 4 neighbouring
 //   columns of a row as two vector stores.
 
-#include <cuda.h>  // CUtensorMap (its encoder is looked up at run time)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <atomic>
+
+#include "common.cuh"  // mbarriers, TMA, PDL launches, the int8 row rounding
 
 namespace {
 
@@ -488,31 +488,14 @@ qmm_kernel(const int8_t* __restrict__ x,      // [M, C] int8 activations
   }
 }
 
-// Per-row symmetric int8 activations, as ops/qmatmul.py _quantize_rows:
-// xs = max(max|x|, 1e-30) * fp32(1/127) (XLA's product with the reciprocal
-// of a constant divisor), xi = clamp(round-half-even(x / xs), -127, 127).
-// Eight consecutive values (16- or 32-byte aligned) as floats.
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
+// Per-row symmetric int8 activations (common.cuh quant_scale / quant_int8),
+// one block per row.
 template <typename InT>
 __global__ void __launch_bounds__(256)
 quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xi, float* __restrict__ xs,
                      int C) {
   // The matmul launched after this kernel may start its weight loads now.
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  pdl_launch_dependents();
   __shared__ float red[8];
   const InT* xr = x + (long long)blockIdx.x * C;
   const int lane = threadIdx.x & 31;
@@ -530,7 +513,7 @@ quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xi, float* 
   amax = red[0];
 #pragma unroll
   for (int w = 1; w < 8; ++w) amax = fmaxf(amax, red[w]);
-  const float s = __fmul_rn(fmaxf(amax, 1e-30f), 1.0f / 127.0f);
+  const float s = quant_scale(amax);
   if (threadIdx.x == 0) xs[blockIdx.x] = s;
   int8_t* qr = xi + (long long)blockIdx.x * C;
   for (int c = threadIdx.x * 8; c < C; c += 256 * 8) {
@@ -539,7 +522,7 @@ quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xi, float* 
     uint32_t q[2] = {0u, 0u};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int v = (int)fminf(fmaxf(rintf(__fdiv_rn(f[i], s)), -127.f), 127.f);
+      const int v = quant_int8(f[i], s);
       q[i >> 2] |= (uint32_t)(v & 0xFF) << (8 * (i & 3));
     }
     *reinterpret_cast<uint2*>(qr + c) = make_uint2(q[0], q[1]);
@@ -606,19 +589,10 @@ int launch_mt(const Args& a, cudaStream_t st) {
   // small (tiles * S near the SM count) and its launch latency shows; on
   // the large unsplit grids (gate_up) early blocks measured ~8 % slower on
   // an H100.
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = a.S > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a.x, a.xs, a.w, a.scale,
-                                           static_cast<OutT*>(a.out), a.M, a.C, a.Wn, a.nG, a.F,
-                                           a.width, a.ldo, a.riffle, a.sp, a.ws, a.counters);
+  const cudaError_t e =
+      launch_kernel(kernel, {grid, dim3(THREADS), smem, st, a.S > 1}, a.x, a.xs, a.w, a.scale,
+                    static_cast<OutT*>(a.out), a.M, a.C, a.Wn, a.nG, a.F, a.width, a.ldo,
+                    a.riffle, a.sp, a.ws, a.counters);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -684,53 +658,6 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&b)
   b[3] = __byte_perm(t1, t3, f_hi);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Arrives and adds `bytes` to the transaction count the phase waits for.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    if (clock64() - t0 > 20000000000LL) __trap();  // ~10 s: a lost arrival, not a wait
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-// A 2D tile (column x, row y) of the tensor map into shared memory, its
-// bytes counted on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Shared-memory address of `p` in the block of cluster rank `rank`.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
 __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
                "f"(v.y), "f"(v.z), "f"(v.w)

@@ -21,7 +21,10 @@ Quantized weights (``quant/qtensor.py`` QTensor leaves, from
 each layer reads its slice of the stacked QTensor by index, so packed int4
 rides the W4A8 kernel (K6) without a per-layer copy. A fused ``wqkv``
 (``fuse_qkv_params``) and the flat riffle ``gate_up_proj`` [L, H, 2I] are
-taken as the JAX decoder takes them.
+taken as the JAX decoder takes them. Where a projection runs on K6, the
+norm or SwiGLU before it also writes the int8 rows K6 takes
+(``_int8_rows``), so K6 launches no quantizer of its own; o_proj's input is
+attention's output, and keeps K6's quantizer.
 
 Not ported yet, and refused with NotImplementedError: sharding (tp/cp/dp)
 and ``inputs_embeds`` (LLaVA).
@@ -36,7 +39,8 @@ import torch
 
 from .. import ops
 from ..executor.kv_cache import KVPool, kv_write_decode_all, kv_write_prefill
-from ..quant.qtensor import QTensor, qeinsum
+from ..ops.qmatmul import activations
+from ..quant.qtensor import QTensor, qeinsum, takes_int8_rows
 from .rotary import compute_inv_freq_dual
 
 
@@ -147,17 +151,18 @@ def _unstack_layers(params: dict):
 
 
 def _project_qkv(cfg, lp, x):
-    """x [..., H] -> q [..., Nq, D], k/v [..., Nkv, D], from wq + wkv or the
-    fused wqkv."""
+    """x [..., H] (or its ``QuantizedRows``, for QTensor weights) -> q [...,
+    Nq, D], k/v [..., Nkv, D], from wq + wkv or the fused wqkv."""
     Nq, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    H = x.shape[-1]
-    batch = x.shape[:-1]
+    xt = activations(x)
+    H = xt.shape[-1]
+    batch = xt.shape[:-1]
     if "wqkv" in lp:
         w = lp["wqkv"]
         if isinstance(w, QTensor):
             qkv = qeinsum("...h,hnd->...nd", x, w)
         else:
-            qkv = torch.matmul(x, w.reshape(H, -1)).view(*batch, Nq + 2 * Nkv, D)
+            qkv = torch.matmul(xt, w.reshape(H, -1)).view(*batch, Nq + 2 * Nkv, D)
         if "qkv_bias" in lp:
             qkv = qkv + lp["qkv_bias"]
         q, k, v = qkv[..., :Nq, :], qkv[..., Nq:Nq + Nkv, :], qkv[..., Nq + Nkv:, :]
@@ -166,11 +171,11 @@ def _project_qkv(cfg, lp, x):
         if isinstance(wq, QTensor):
             q = qeinsum("...h,hnd->...nd", x, wq)
         else:
-            q = torch.matmul(x, wq.reshape(H, Nq * D)).view(*batch, Nq, D)
+            q = torch.matmul(xt, wq.reshape(H, Nq * D)).view(*batch, Nq, D)
         if isinstance(wkv, QTensor):
             kv = qeinsum("...h,hcnd->...cnd", x, wkv)
         else:
-            kv = torch.matmul(x, wkv.reshape(H, 2 * Nkv * D)).view(*batch, 2, Nkv, D)
+            kv = torch.matmul(xt, wkv.reshape(H, 2 * Nkv * D)).view(*batch, 2, Nkv, D)
         if "q_bias" in lp:
             q = q + lp["q_bias"]
             kv = kv + lp["kv_bias"]
@@ -182,15 +187,36 @@ def _project_qkv(cfg, lp, x):
     return q, k, v
 
 
-def _mlp(lp, x):
+def _int8_rows(params: dict, M: int):
+    """Which kernels of a forward over M rows also write the int8 rows K6
+    takes (``ops.skip_rms_norm`` / ``ops.swiglu`` with ``int8_rows``): the
+    attention norm, the MLP norm, SwiGLU and the final norm, each where
+    every projection it feeds is a QTensor and one of them runs on K6 at M
+    rows (``takes_int8_rows``). Every layer has the same shapes, so layer
+    0 decides for all."""
+    layers = params["layers"]
+
+    def feeds(*keys):
+        ws = [layers[k] for k in keys if k in layers]
+        return (bool(ws) and all(isinstance(w, QTensor) for w in ws)
+                and any(takes_int8_rows(w.at_layer(0), M) for w in ws))
+
+    qkv = ("wqkv",) if "wqkv" in layers else ("wq", "wkv")
+    return (feeds(*qkv), feeds("gate_up_proj"), feeds("down_proj"),
+            takes_int8_rows(params.get("lm_head"), M))
+
+
+def _mlp(lp, x, int8_rows=False):
+    """SwiGLU MLP of x (or of ``QuantizedRows``, for a packed gate_up);
+    ``int8_rows``: SwiGLU also writes the int8 rows of down's input."""
     w = lp["gate_up_proj"]  # [2, H, I]; quantized riffle: flat [H, 2I] = [gate | up]
     if isinstance(w, QTensor) and w.n_stack == 1:
         y = qeinsum("...h,hj->...j", x, w)
         half = y.shape[-1] // 2
-        out = ops.swiglu(y[..., :half], y[..., half:])
+        out = ops.swiglu(y[..., :half], y[..., half:], int8_rows=int8_rows)
     elif isinstance(w, QTensor):
         gu = qeinsum("...h,chi->...ci", x, w)
-        out = ops.swiglu(gu[..., 0, :], gu[..., 1, :])
+        out = ops.swiglu(gu[..., 0, :], gu[..., 1, :], int8_rows=int8_rows)
     else:
         out = ops.swiglu(torch.matmul(x, w[0]), torch.matmul(x, w[1]))
     down = lp["down_proj"]
@@ -296,8 +322,10 @@ def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
     sm_scale = 1.0 / (cfg.head_dim**0.5)
     eps = cfg.rms_norm_eps
     x, residual = h, torch.zeros_like(h)
+    rows_attn, rows_mlp, rows_down, _ = _int8_rows(params, B * S)
     for li, lp in enumerate(_unstack_layers(params)):
-        normed, residual = ops.skip_rms_norm(x, residual, lp["attn_norm"], eps)
+        normed, residual = ops.skip_rms_norm(x, residual, lp["attn_norm"], eps,
+                                             int8_rows=rows_attn)
         q, k, v = _project_qkv(cfg, lp, normed)
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
@@ -310,13 +338,15 @@ def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
         else:
             attn = ops.prefill_attention(q, k, v, ctx.chunk_lens, sm_scale)
         normed2, residual = ops.skip_rms_norm(
-            _attn_out(lp, attn), residual, lp["mlp_norm"], eps
+            _attn_out(lp, attn), residual, lp["mlp_norm"], eps, int8_rows=rows_mlp
         )
-        x = _mlp(lp, normed2)
-    normed, _ = ops.skip_rms_norm(x, residual, params["final_norm"], eps)
-    if last_only:
+        x = _mlp(lp, normed2, rows_down)
+    if last_only:  # the norm is per row: normalise only the rows the head reads
         last = torch.clamp(ctx.chunk_lens.long() - 1, min=0)
-        normed = normed[torch.arange(B, device=h.device), last]
+        rows = torch.arange(B, device=h.device)
+        x, residual = x[rows, last], residual[rows, last]
+    normed, _ = ops.skip_rms_norm(x, residual, params["final_norm"], eps,
+                                  int8_rows=_int8_rows(params, x.numel() // x.shape[-1])[3])
     return _unembed(params, cfg, normed), kv_pages
 
 
@@ -336,8 +366,10 @@ def decoder_decode(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
     eps = cfg.rms_norm_eps
     x, residual = h, torch.zeros_like(h)
     ks, vs = [], []
+    rows_attn, rows_mlp, rows_down, rows_head = _int8_rows(params, h.shape[0])
     for li, lp in enumerate(_unstack_layers(params)):
-        normed, residual = ops.skip_rms_norm(x, residual, lp["attn_norm"], eps)
+        normed, residual = ops.skip_rms_norm(x, residual, lp["attn_norm"], eps,
+                                             int8_rows=rows_attn)
         q, k, v = _project_qkv(cfg, lp, normed)
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
@@ -345,13 +377,13 @@ def decoder_decode(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
             q, kv_pages, li, ctx.table_rows, ctx.seq_lens, sm_scale, k_new=k, v_new=v
         )
         normed2, residual = ops.skip_rms_norm(
-            _attn_out(lp, attn), residual, lp["mlp_norm"], eps
+            _attn_out(lp, attn), residual, lp["mlp_norm"], eps, int8_rows=rows_mlp
         )
-        x = _mlp(lp, normed2)
+        x = _mlp(lp, normed2, rows_down)
         ks.append(k)
         vs.append(v)
     kv_write_decode_all(
         kv_pages, torch.stack(ks), torch.stack(vs), ctx.table_rows, ctx.start_pos, ctx.active
     )
-    normed, _ = ops.skip_rms_norm(x, residual, params["final_norm"], eps)
+    normed, _ = ops.skip_rms_norm(x, residual, params["final_norm"], eps, int8_rows=rows_head)
     return _unembed(params, cfg, normed), kv_pages

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface under
 ``lite_llama_tpu_torch/build/`` and loaded with ``ctypes``. No PyTorch headers
 are involved, so a build takes seconds. The library's file name carries a
-hash of its source, so an edited source is never served by a stale build.
+hash of its source and of every header it includes (``csrc/common.cuh``),
+so an edited source or header is never served by a stale build.
 
 Every C entry point takes raw device pointers (``ctypes.c_void_p``) plus the
 current CUDA stream, launches without synchronising, and returns
@@ -16,16 +17,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Set, Tuple
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("paged_decode", "flash_prefill_chunked", "qmatmul")
+SOURCES = ("paged_decode", "flash_prefill_chunked", "qmatmul", "norms")
 # Head dims the attention sources take: every even one from 16 to 128
 # (csrc/flash_prefill_chunked.cu, fresh and chunked prefill, pads each to the
 # mma k-step of 16, csrc/paged_decode.cu masks the lanes past it).
@@ -51,8 +55,24 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(path: Path, seen: Set[Path]) -> bytes:
+    """The file's bytes followed by those of every header it includes from
+    ``csrc/`` (``#include "..."``), each once, depth first."""
+    seen.add(path)
+    text = path.read_bytes()
+    out = [text]
+    for inc in _INCLUDE.findall(text):
+        header = CSRC_DIR / inc.decode()
+        if header not in seen:
+            out.append(_source_bytes(header, seen))
+    return b"".join(out)
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC_DIR / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -112,6 +132,14 @@ def library(name: str, entry: str, argtypes) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _declared.add((name, entry))
     return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, which every C
+    entry takes: what ``torch.cuda.current_stream(device).cuda_stream``
+    gives, without making a Stream object at each launch (the eager launch
+    path is host-bound; chip_smoke.py ``host_costs`` times both)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

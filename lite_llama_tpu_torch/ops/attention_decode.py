@@ -221,7 +221,7 @@ def _decode_launcher(pool_dtype):
         if B:
             Hkv, ppr = HD // D, page_table.shape[1]
             plan = plan_decode_splits(ppr, page_size)
-            stream = torch.cuda.current_stream(q.device).cuda_stream
+            stream = _build.current_stream(q.device)
             ws = counters = None
             if plan.s_max > 1:
                 # a split's partial: acc [G, D] padded to 4 floats, then 16 floats of (m, l)

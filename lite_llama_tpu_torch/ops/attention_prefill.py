@@ -78,7 +78,7 @@ def _fresh_launcher(entry, what, head_dims):
             code = getattr(lib, entry)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                 B, S, Nq, Hkv, D, float(sm_scale * LOG2E),
-                torch.cuda.current_stream(q.device).cuda_stream,
+                _build.current_stream(q.device),
             )
             _build.check(lib, code, what)
             launch.launches += 1
@@ -220,7 +220,7 @@ def _chunked_launcher(pool_dtype):
                 out.data_ptr(), None if m is None else m.data_ptr(),
                 None if l is None else l.data_ptr(), B, S, Nq, Hkv, D,
                 float(sm_scale * LOG2E), T, int(layer), page_size, table_rows.shape[1],
-                torch.cuda.current_stream(q.device).cuda_stream,
+                _build.current_stream(q.device),
             )
             _build.check(lib, code, entry)
             launch.launches += 1

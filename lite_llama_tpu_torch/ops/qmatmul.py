@@ -6,8 +6,10 @@ K7 ``quantized_matmul_int8`` / ``_qmm8_kernel``, two CUDA kernels of
 out).
 Activations are quantized per row to int8 (``quantize_activations``, which
 the JAX package leaves to XLA: plain PyTorch on the CPU, one small kernel of
-the same source on the card, which the plain version's arithmetic pins);
-the kernels then run exact integer dots on the raw weight bytes:
+the same source on the card, which the plain version's arithmetic pins), or
+arrive quantized beside the activations (:class:`QuantizedRows`, from the
+norm or SwiGLU that wrote them: ``ops/norms.py``); the kernels then run
+exact integer dots on the raw weight bytes:
 
 - W4A8 (packed int4, ``byte = 16*hi + (lo + 8)``): ``g0 = x.b``,
   ``g1 = x.(b & 15)`` per scale group, then ``lo = g1 - 8*sum(x_g)`` and
@@ -39,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -300,6 +302,22 @@ def _workspace(device: torch.device, stream: int):
     return _workspaces[key]
 
 
+class QuantizedRows(NamedTuple):
+    """Activations x [..., C] beside their per-row int8 form: xi [M, C]
+    int8 and xs [M] fp32 row scales, M the product of x's leading dims, equal
+    to :func:`_quantize_rows` of x.reshape(M, C). K6 takes xi / xs as they
+    are (no quantizer launch); every other consumer takes x."""
+
+    x: torch.Tensor
+    xi: torch.Tensor
+    xs: torch.Tensor
+
+
+def activations(x) -> torch.Tensor:
+    """The activation tensor of ``x`` (a tensor or :class:`QuantizedRows`)."""
+    return x.x if isinstance(x, QuantizedRows) else x
+
+
 def _quantize_rows(x: torch.Tensor):
     # The row scale multiplies by fp32(1/127), as XLA computes a division by
     # a constant; x is then divided by it.
@@ -326,16 +344,16 @@ def _fold_loop(x, q, scale, layer, packed):
     """The kernels' arithmetic: fp32 accumulators of the folded exact
     integer dots, folded one span after another in order. Returns (acc_e,
     acc_o or None, xs)."""
-    M, C = x.shape
+    xi, xs = (x.xi, x.xs) if isinstance(x, QuantizedRows) else _quantize_rows(x)
+    M, C = xi.shape
     nG = scale.shape[1]
     F = _fold_span(C, nG)
     nF = C // F
-    xi, xs = _quantize_rows(x)
     b = q[layer]
     Wn = b.shape[1]
     xr = xi.double().view(M, nF, F).transpose(0, 1)  # [nF, M, F]
     g0 = torch.bmm(xr, b.double().view(nF, F, Wn))  # exact: |sum| < 2^53
-    sg = scale[layer][torch.arange(nF, device=x.device) * F // (C // nG)]  # [nF, Wn]
+    sg = scale[layer][torch.arange(nF, device=xi.device) * F // (C // nG)]  # [nF, Wn]
     if packed:
         g1 = torch.bmm(xr, (b & 15).double().view(nF, F, Wn))
         xsum = xr.sum(dim=-1, keepdim=True)
@@ -344,7 +362,7 @@ def _fold_loop(x, q, scale, layer, packed):
     else:
         part = g0.float()[None]
         sg = sg[None, :, None, :]
-    acc = torch.zeros((part.shape[0], M, Wn), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((part.shape[0], M, Wn), dtype=torch.float32, device=xi.device)
     for f in range(nF):
         acc = acc + part[:, f] * sg[:, f]
     return acc[0], (acc[1] if packed else None), xs
@@ -362,7 +380,7 @@ def _place(ye, yo, interleave, width):
 def quantized_matmul_packed_plain(x, q, scale, layer, out_dtype=None, interleave=True,
                                   out_width=None):
     """Plain version of K6 (see :func:`quantized_matmul_packed`)."""
-    out_dtype = out_dtype or x.dtype
+    out_dtype = out_dtype or activations(x).dtype
     scale = _scales3(scale)
     acc_e, acc_o, xs = _fold_loop(x, q, scale, layer, packed=True)
     ye = (acc_e * xs[:, None]).to(out_dtype)
@@ -379,7 +397,30 @@ def _check_cuda(what, x, q, scale):
         raise ValueError(f"{what} kernel takes contiguous weights and fp32 scales")
 
 
-def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle=False, splits=None):
+def launch_quantize_rows(x: torch.Tensor):
+    """K6's activation quantizer on the card: (xi [M, C] int8, xs [M] fp32)
+    of x [M, C] bf16 / fp32, C a multiple of 32 (:func:`_quantize_rows`)."""
+    M, C = x.shape
+    if x.data_ptr() % 32:  # the quantizer reads 16- / 32-byte vectors
+        x = x.clone()
+    xi = torch.empty((M, C), dtype=torch.int8, device=x.device)
+    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
+    lib = _build.library("qmatmul", "qmm_quantize_rows", _QUANTIZE_ARGTYPES)
+    code = lib.qmm_quantize_rows(x.data_ptr(), int(x.dtype == torch.float32), xi.data_ptr(),
+                                 xs.data_ptr(), M, C,
+                                 _build.current_stream(x.device))
+    _build.check(lib, code, "qmm_quantize_rows")
+    launch_quantize_rows.launches += 1
+    return xi, xs
+
+
+launch_quantize_rows.launches = 0
+
+
+def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle=False, splits=None,
+            x_int8=None):
+    """``x_int8``: the int8 rows (xi, xs) of x, already made (no quantizer
+    launch)."""
     M, C = x.shape
     Lf, Cq, Wn = q.shape
     nG = scale.shape[1]
@@ -397,15 +438,16 @@ def _launch(entry, x, q, scale, layer, out_dtype, out_width, riffle=False, split
         kw, S, rows = plan_w8a8(C, nG, Wn, M, sms, splits)
     else:
         S, rows = plan_splits(C, nG, Wn, M, sms, splits)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.data_ptr() % 32:  # the quantizer reads 16- / 32-byte vectors
-        x = x.clone()
-    xi = torch.empty((M, C), dtype=torch.int8, device=x.device)
-    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
-    lib = _build.library("qmatmul", "qmm_quantize_rows", _QUANTIZE_ARGTYPES)
-    code = lib.qmm_quantize_rows(x.data_ptr(), int(x.dtype == torch.float32), xi.data_ptr(),
-                                 xs.data_ptr(), M, C, stream)
-    _build.check(lib, code, "qmm_quantize_rows")
+    stream = _build.current_stream(x.device)
+    if x_int8 is None:
+        xi, xs = launch_quantize_rows(x)
+    else:
+        xi, xs = x_int8
+        if not (xi.shape == (M, C) and xi.dtype == torch.int8 and xi.is_contiguous()
+                and xs.shape == (M,) and xs.dtype == torch.float32 and xi.device == x.device
+                and xs.device == x.device):
+            raise ValueError(f"{entry} kernel: int8 rows must be [M, C] int8 and [M] fp32 "
+                             f"beside x [{M}, {C}] on its device")
     out = torch.empty((M, out_width), dtype=out_dtype, device=x.device)
     args = (xi.data_ptr(), xs.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.float32), M, C, Wn, nG, F, int(layer))
@@ -427,13 +469,15 @@ def launch_quantized_matmul_packed(x, q, scale, layer, out_dtype=None, interleav
                                    out_width=None, _splits=None):
     """K6 on the card: [M, out_width] as :func:`quantized_matmul_packed_plain`.
     ``_splits`` forces the split count (tests)."""
+    x_int8 = (x.xi, x.xs) if isinstance(x, QuantizedRows) else None
+    x = activations(x)
     _check_cuda("quantized_matmul_packed", x, q, scale)
     scale = _scales3(scale)
     width = out_width or 2 * q.shape[-1]
     if not 0 < width <= 2 * q.shape[-1]:
         raise ValueError(f"quantized_matmul_packed kernel: out_width {width} out of range")
     out = _launch("qmm_w4a8", x.contiguous(), q, scale, layer, out_dtype or x.dtype, width,
-                  not interleave, _splits)
+                  not interleave, _splits, x_int8)
     launch_quantized_matmul_packed.launches += 1
     return out
 
@@ -448,8 +492,9 @@ def quantized_matmul_packed(x, q, scale, layer, out_dtype=None, interleave=True,
     Returns [M, out_width] (default 2*Oh) in ``out_dtype`` (default x's):
     canonical column order when ``interleave`` (classic packing), the
     [evens | odds] halves otherwise (riffle packing: also canonical). Output
-    columns past ``out_width`` (lane-alignment padding) are not written."""
-    if x.is_cuda:
+    columns past ``out_width`` (lane-alignment padding) are not written.
+    ``x`` may be :class:`QuantizedRows`: its int8 rows are used as they are."""
+    if activations(x).is_cuda:
         return launch_quantized_matmul_packed(x, q, scale, layer, out_dtype, interleave,
                                               out_width)
     return quantized_matmul_packed_plain(x, q, scale, layer, out_dtype, interleave, out_width)

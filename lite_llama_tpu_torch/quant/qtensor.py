@@ -19,7 +19,10 @@ quantizer's output and quantizes the same weights to the same bytes:
 
 ``qeinsum`` routes a layer-indexed packed weight to the W4A8 kernel
 (``ops/qmatmul.py``, K6) when ``qmm_supported`` holds, and otherwise runs the
-W4A16 dual dot in plain PyTorch, as the JAX package leaves it to XLA.
+W4A16 dual dot in plain PyTorch, as the JAX package leaves it to XLA. Its
+activations may come as ``QuantizedRows`` (their int8 rows made by the norm
+that wrote them, ``ops/norms.py``): K6 takes those rows, every other route
+the activations (``takes_int8_rows`` says which route a weight takes).
 
 Refused with NotImplementedError, until multi-GPU: the σ-FFN layouts
 (``sigma_ffn``, ``sigma_tp``) and riffle blocks for tensor parallelism
@@ -36,7 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.qmatmul import qmm_supported, quantized_matmul_packed
+from ..ops.qmatmul import QuantizedRows, qmm_supported, quantized_matmul_packed
 
 
 def qdtype_name(qdtype) -> str:
@@ -223,10 +226,25 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def takes_int8_rows(w, M: int) -> bool:
+    """Whether ``qeinsum`` runs M rows against ``w`` on K6, so that the
+    kernel writing those rows may hand K6 their int8 form as well: a packed
+    QTensor read at a layer, or an unstacked one (the packed head, which
+    ``models/decoder.py`` reads as layer 0 of a 1-deep stack), at a shape
+    ``qmm_supported`` takes."""
+    if not (isinstance(w, QTensor) and w.packed and (w.layer is not None or w.n_stack == 0)):
+        return False
+    nG = w.scale.shape[-2] if w.grouped else None
+    return qmm_supported(w.q.shape[-2], w.q.shape[-1], nG, M)
+
+
 def _qeinsum_layered(x, w: QTensor, out_dtype):
     """A layer-stacked QTensor used at ``w.layer``: packed int4 at shapes
-    the kernel takes rides K6 against the stacked storage; every other case
-    slices the layer and takes the plain path."""
+    the kernel takes rides K6 against the stacked storage (on the int8 rows
+    of a ``QuantizedRows`` x where it has them); every other case slices the
+    layer and takes the plain path."""
+    rows = x if isinstance(x, QuantizedRows) else None
+    x = x.x if rows is not None else x
     dt = out_dtype or x.dtype
     C, Os = w.q.shape[-2], w.q.shape[-1]
     rest = tuple(w.q.shape[1:-2])  # stack dims after the layer axis
@@ -237,7 +255,8 @@ def _qeinsum_layered(x, w: QTensor, out_dtype):
         qf = w.q.reshape(-1, C, Os)
         sf = w.scale.reshape(-1, *w.scale.shape[1 + len(rest):])
         width = math.prod(w.out_shape)
-        outs = [quantized_matmul_packed(xr, qf, sf, w.layer * n_rest + j, out_dtype=dt,
+        xk = xr if rows is None else QuantizedRows(xr, rows.xi, rows.xs)
+        outs = [quantized_matmul_packed(xk, qf, sf, w.layer * n_rest + j, out_dtype=dt,
                                         interleave=not w.riffle_groups, out_width=width)
                 for j in range(n_rest)]
         y = outs[0] if not rest else torch.stack(outs, dim=1)
@@ -253,11 +272,14 @@ def qeinsum(pattern, x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     C, the dot runs on the quantized values and the scale multiplies the
     result; the output takes the weight's logical out dims. Packed int4
     runs two dots on the nibble halves (W4A16) and recombines the small
-    results, never the weight."""
+    results, never the weight. ``x`` may be ``QuantizedRows``: K6 takes its
+    int8 rows, every other route its activations."""
+    if isinstance(w, QTensor) and w.layer is not None:
+        return _qeinsum_layered(x, w, out_dtype)
+    if isinstance(x, QuantizedRows):
+        x = x.x
     if not isinstance(w, QTensor):
         return torch.einsum(pattern, x, w)
-    if w.layer is not None:
-        return _qeinsum_layered(x, w, out_dtype)
     dt = out_dtype or x.dtype
     C, Os = w.q.shape[-2], w.q.shape[-1]
     batch = x.shape[: x.ndim - _contract_ndims(x, C)]

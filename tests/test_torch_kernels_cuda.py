@@ -10,8 +10,12 @@ shape, K1 / K1q's split KV walk (flash decoding) at kv_lens around every
 page and split edge, at every G from 1 to 8 and at serving's width, bit for
 bit across launches and under CUDA-graph replay, K7 at Llama-3.2-3B's five
 projections from 1 to 256 rows, at every scale-group size and split, bit
-for bit in fp32 and bf16, plus the refusals that keep the card off the plain code. This file imports no JAX, so it runs on a
-machine with a card and without JAX:
+for bit in fp32 and bf16, K3 / K4 (csrc/norms.cu) from 1 to 4096 rows at
+widths from 96 to 40000, off the 16-byte grid and on strided views, their
+residual sums and int8 rows bit for bit (K6 fed by the rows equal to K6
+fed by the activations) and under CUDA-graph replay, plus the refusals
+that keep the card off the plain code. This file imports no JAX, so it
+runs on a machine with a card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
@@ -23,6 +27,7 @@ folds in the same order. chip_smoke.py runs the same
 comparisons at the main path's full shapes.
 """
 
+import math
 import shutil
 
 import pytest
@@ -204,6 +209,175 @@ def test_swiglu_kernel_matches_plain_on_strided_views(cuda):
     gu = torch.randn((12, 2, 8192), generator=g, device=cuda).bfloat16()
     gate, up = gu[:, 0], gu[:, 1]  # row-strided views
     assert _within(ops.swiglu(gate, up), ref.swiglu(gate, up))
+
+
+# K3 / K4 (csrc/norms.cu): decode and prefill row counts; widths of 3B,
+# OpenLLaMA, Qwen3's qk-norm, odd and unaligned ones, and rows wider than the
+# registers hold (the loop kernel).
+NORM_ROWS = [1, 12, 64, 4096]
+NORM_WIDTHS = [8192, 3200, 3072, 128, 100, 96, 97]
+
+
+def _norm_inputs(dev, rows, H, dtype=torch.bfloat16, seed=8, offset=0):
+    """x, residual, weight; ``offset`` elements into their buffers (rows
+    then start off the 16-byte grid)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape):
+        n = math.prod(shape)
+        return torch.randn((n + offset,), generator=g, device=dev).to(dtype)[offset:].view(shape)
+
+    return t(rows, H), t(rows, H), (1 + 0.1 * t(H).float()).to(dtype)
+
+
+def _int8_rows_of(out):
+    """K6's own quantizer on the card (C a multiple of 32), else the plain
+    quantizer: both must equal what K3 / K4 wrote beside ``out``."""
+    o2 = out.reshape(-1, out.shape[-1])
+    return qmm.launch_quantize_rows(o2) if o2.shape[1] % 32 == 0 else qmm._quantize_rows(o2)
+
+
+@pytest.mark.parametrize("rows", NORM_ROWS)
+@pytest.mark.parametrize("H", NORM_WIDTHS)
+def test_norm_kernels_match_plain_at_every_width(cuda, rows, H):
+    """K3 with and without residual and K4, against their plain versions;
+    the residual sum and the int8 rows bit for bit."""
+    x, r, w = _norm_inputs(cuda, rows, H)
+    for residual in (r, None):
+        n, s = ops.skip_rms_norm(x, residual, w)
+        pn, ps_ = ref.skip_rms_norm(x, residual, w)
+        assert torch.equal(s, ps_) and _within(n, pn)
+        rows8, s8 = ops.skip_rms_norm(x, residual, w, int8_rows=True)
+        assert torch.equal(rows8.x, n) and torch.equal(s8, s)
+        xi, xs = _int8_rows_of(rows8.x)
+        assert torch.equal(rows8.xi, xi) and torch.equal(rows8.xs, xs)
+    out = ops.swiglu(x, r)
+    assert _within(out, ref.swiglu(x, r))
+    rows8 = ops.swiglu(x, r, int8_rows=True)
+    assert torch.equal(rows8.x, out)
+    xi, xs = _int8_rows_of(out)
+    assert torch.equal(rows8.xi, xi) and torch.equal(rows8.xs, xs)
+
+
+@pytest.mark.parametrize("H,dtype,offset", [(3072, torch.bfloat16, 1), (3072, torch.bfloat16, 2),
+                                            (3072, torch.bfloat16, 4), (3072, torch.float32, 1),
+                                            (3072, torch.float32, 0), (100, torch.float32, 0),
+                                            (40000, torch.bfloat16, 0), (20000, torch.float32, 0),
+                                            (40000, torch.bfloat16, 1)])
+def test_norm_kernels_match_plain_off_the_16_byte_grid_and_past_the_registers(
+        cuda, H, dtype, offset):
+    """Unaligned rows take 8-, 4- or 2-byte vectors; rows of more than 4096
+    vectors the loop kernel; fp32 takes its own instances."""
+    x, r, w = _norm_inputs(cuda, 12, H, dtype, offset=offset)
+    shape = norms.launch_shape("rms", x, r, w)
+    assert shape["vector_bytes"] == (16 if offset % 8 == 0 else 2 * (offset & -offset)
+                                     if dtype == torch.bfloat16 else 4)
+    assert (shape["vectors_per_thread"] == 0) == (H * x.element_size() // shape["vector_bytes"]
+                                                  > 4096)
+    n, s = ops.skip_rms_norm(x, r, w, int8_rows=True)
+    pn, ps_ = ref.skip_rms_norm(x, r, w)
+    assert torch.equal(s, ps_) and _within(n.x, pn)
+    xi, xs = qmm._quantize_rows(n.x)
+    assert torch.equal(n.xi, xi) and torch.equal(n.xs, xs)
+    assert _within(ops.rms_norm(x, w), ref.rms_norm(x, w))
+    out = ops.swiglu(x, r, int8_rows=True)
+    assert _within(out.x, ref.swiglu(x, r)) and torch.equal(out.xi, qmm._quantize_rows(out.x)[0])
+
+
+def test_norm_kernel_takes_an_fp32_weight_beside_bf16_rows(cuda):
+    x, r, w = _norm_inputs(cuda, 12, 3072)
+    w32 = w.float() * 1.001
+    n, s = ops.skip_rms_norm(x, r, w32)
+    pn, ps_ = ref.skip_rms_norm(x, r, w32)
+    assert torch.equal(s, ps_) and _within(n, pn)
+    x32, r32 = x.float(), r.float()
+    n, s = ops.skip_rms_norm(x32, r32, w)  # fp32 rows, bf16 weight
+    pn, ps_ = ref.skip_rms_norm(x32, r32, w)
+    assert torch.equal(s, ps_) and _within(n, pn)
+
+
+@pytest.mark.parametrize("rows,I", [(12, 8192), (64, 8640), (4096, 8192)])
+def test_swiglu_kernel_matches_plain_on_strided_views_with_int8_rows(cuda, rows, I):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    y = torch.randn((rows, 2 * I), generator=g, device=cuda).bfloat16()  # riffle [gate | up]
+    gate, up = y[:, :I], y[:, I:]
+    out = ops.swiglu(gate, up, int8_rows=True)
+    assert _within(out.x, ref.swiglu(gate, up))
+    xi, xs = qmm.launch_quantize_rows(out.x)
+    assert torch.equal(out.xi, xi) and torch.equal(out.xs, xs)
+
+
+@pytest.mark.parametrize("M,name", [(12, "wqkv"), (12, "gate_up"), (64, "gate_up"),
+                                    (12, "lm_head")])
+def test_w4a8_on_the_norms_int8_rows_equals_w4a8_on_its_bf16_rows(cuda, M, name):
+    """K6 fed by K3's (xi, xs) is K6 fed by K3's bf16 rows, bit for bit
+    (fp32 and bf16 out), split grids included."""
+    C, O = 3072, {"wqkv": 5120, "gate_up": 16384, "lm_head": 8192}[name]
+    qt = _qmm_weights(cuda, "int4", C, O, 128, True)
+    x, r, w = _norm_inputs(cuda, M, C)
+    rows, _ = ops.skip_rms_norm(x, r, w, int8_rows=True)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = qmm.launch_quantized_matmul_packed.launches
+        got = qmm.quantized_matmul_packed(rows, qt.q, qt.scale, 1, out_dtype, False, O)
+        want = qmm.quantized_matmul_packed(rows.x, qt.q, qt.scale, 1, out_dtype, False, O)
+        assert qmm.launch_quantized_matmul_packed.launches == before + 2
+        assert torch.equal(got, want)
+    plain = qmm.quantized_matmul_packed_plain(rows, qt.q, qt.scale, 1, torch.float32, False, O)
+    assert torch.equal(qmm.quantized_matmul_packed(rows, qt.q, qt.scale, 1, torch.float32,
+                                                   False, O), plain)
+
+
+def test_norm_kernels_replay_in_a_cuda_graph(cuda):
+    """K3 (with int8 rows) then K4 captured once and replayed three times on
+    new inputs: each replay is bit-equal to eager launches."""
+    x, r, w = _norm_inputs(cuda, 12, 3072)
+    gu = torch.randn((12, 2, 8192), device=cuda).bfloat16()
+
+    def step():
+        n, s = ops.skip_rms_norm(x, r, w, int8_rows=True)
+        return n, s, ops.swiglu(gu[:, 0], gu[:, 1]), ops.swiglu(gu[:, 0], gu[:, 1], int8_rows=True)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()
+    for seed in range(3):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        for t in (x, r, gu):
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda).bfloat16())
+        graph.replay()
+        want = step()
+        torch.cuda.synchronize()
+        (n, s, o, q), (wn, ws, wo, wq) = got, want
+        assert all(torch.equal(a, b) for a, b in zip((*n, s, o, *q), (*wn, ws, wo, *wq))), seed
+
+
+def test_norm_launchers_refuse_what_they_do_not_take(cuda):
+    x, r, w = _norm_inputs(cuda, 4, 256)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        ops.skip_rms_norm(x.half(), r.half(), w.half())
+    with pytest.raises(ValueError, match="residual"):
+        ops.skip_rms_norm(x, r[:2], w)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.skip_rms_norm(x, r, w.cpu())
+    with pytest.raises(ValueError, match="match"):
+        ops.swiglu(x, r.float())
+
+
+def test_build_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """An edited header gives its sources a new library name (no stale
+    build), and a header's own edit is all it takes (builds nothing)."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\nint a;\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "h.cuh"\nint h = 1;\n')
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build._lib_path("a")
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "h.cuh"\nint h = 2;\n')
+    assert _build._lib_path("a") != first
+    assert "common.cuh" in (_build.PKG_DIR / "csrc" / "norms.cu").read_text()
 
 
 def _qmm_weights(dev, qdtype, C, O, gs, riffle, Lf=2, seed=5):

@@ -48,6 +48,7 @@ from lite_llama_tpu_torch.config import LlamaConfig as TLlama  # noqa: E402
 from lite_llama_tpu_torch.executor import kv_cache as tkv  # noqa: E402
 from lite_llama_tpu_torch.executor.engine import InferenceEngine  # noqa: E402
 from lite_llama_tpu_torch.generation.generate import TextGenerator  # noqa: E402
+from lite_llama_tpu_torch.ops.qmatmul import activations  # noqa: E402
 from lite_llama_tpu_torch.models import decoder as tdec  # noqa: E402
 from lite_llama_tpu_torch.quant import qtensor as tq  # noqa: E402
 from lite_llama_tpu_torch.utils.weights import params_from_numpy  # noqa: E402
@@ -344,8 +345,8 @@ def test_w4a8_decoder_matches_jax_kernel_path(monkeypatch):
                                     group_size=32, riffle=True)
     calls = []
     real = tq.quantized_matmul_packed
-    monkeypatch.setattr(tq, "quantized_matmul_packed",
-                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    monkeypatch.setattr(tq, "quantized_matmul_packed",  # x, or the norm's QuantizedRows
+                        lambda *a, **k: calls.append(activations(a[0]).shape) or real(*a, **k))
     for name in ("prefill_attention", "chunked_prefill_attention"):
         monkeypatch.setattr(jops, name, getattr(jref, name))
     monkeypatch.setattr(jops, "paged_decode_attention", jref.paged_decode_attention)
