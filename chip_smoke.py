@@ -28,8 +28,19 @@ Phases, in order; any failure exits non-zero:
 4. Batch slice: Llama-3.2-3B at full width and depth with random bf16
    weights from a seeded generator; InferenceEngine +
    TextGenerator.generate_tokens on 12 prompts of 25 random ids, greedy,
-   max_gen_len 128. Every kernel of that path must launch in that run; the
-   run is repeated for the median time. Decode through the paged cache must
+   max_gen_len 128. The engine's decode step is a CUDA graph captured in
+   that run (the warm-up before it runs at another width), so every kernel
+   of the path must launch in it, the decode kernels twice (the capture's
+   eager warm-up and the capture);
+   the run is repeated for the median time. Decode ms per step is timed
+   through the replayed graph and, in the same call, with the step run
+   eagerly; a profiled decode gives the device time, the busy share and
+   each decode kernel's launches per step from the device's own events
+   (every decode kernel of the path must be among them). The
+   graph-vs-eager gate (graph_gate) decodes one batch through the graph
+   and through the eager step from the same cache state: tokens and
+   logprobs must be bit-equal, and a planted stale-token replay must be
+   caught. Decode through the paged cache must
    agree with re-prefilling prompt + generated tokens in a fresh cache,
    within a limit set between the plain versions' reading and that of
    faults planted in K1's inputs; the script plants them and fails if the
@@ -37,7 +48,8 @@ Phases, in order; any failure exits non-zero:
 5. Serving: the same model and weights through ServingFrontend ->
    ContinuousBatchingScheduler -> engine sessions with the prefix cache on
    (prefill_chunk 512, page 16, 64 slots, decode_chunk 32), from 4
-   submitting threads, in two waves (serving_phase); K5 must launch in each
+   submitting threads, in two waves (serving_phase; the session's decode
+   graphs of width 64 are captured before the timed waves); K5 must launch in each
    wave and the prefix cache must hit at least 16 times. Then two prefill
    invariants (prefill_invariants): chunked (K5) against single-shot (K2)
    prefill of 1500-token prompts, and prefix-hit against uncached prefill,
@@ -51,11 +63,14 @@ Phases, in order; any failure exits non-zero:
    kernels against the plain versions with faults planted in K6's inputs,
    phase 5's serving waves (K5q-int8 must launch) and prefill invariants
    under the int8 pool; before those, a short fp8-KV run with the bf16
-   weights (K5q-fp8 and K1q-fp8 must launch).
+   weights (K5q-fp8 and K1q-fp8 must launch) with its own graph-vs-eager
+   gate. Phase 6 reads 28 quantizer, 57 K3 int8-row and 28 K4 int8-row
+   launches per int4 decode step from the device events.
 7. OpenLLaMA-3B v2 (open_llama_phase): head dim 100, which the TPU package
    sends to _flash_prefill_vmem (K8 here), at full width and depth with
    random bf16 weights from the seed: the phase-4 batch run (K8, K1, K3, K4
-   must launch, K2 must not) with its decode-vs-re-prefill invariant and K1
+   must launch, K2 must not; its graph-vs-eager gate) with its
+   decode-vs-re-prefill invariant and K1
    faults, one serving wave (8 x 1500 ids and the shared-prefix prompt,
    prefix cache on; K5 must launch) and the chunked-vs-single-shot prefill
    invariant with K5 faults.
@@ -90,22 +105,25 @@ C (and K7's k-warps), grid, shared memory and ptxas line (``launch``); the
 timed K6 split cases also time every split count the planner allows
 (``ms_by_splits``), the timed K7 cases above 16 rows ``torch._int_mm`` on
 the same int8 bytes (``int8_library_ms``). Phase 6's decode profile gives
-K6's device time per step (``k6_device_ms_per_step``, its quantizer apart).
+K6's device time per step (``quantized_matmul_packed_device_ms_per_step``,
+its quantizer apart).
 K1 / K1q run on the
 engine's page-table width (2048 positions) at the decode batch, ragged
 batches and serving's width (64 slots, 8 of 1,820 tokens); each case prints
 its split plan, live splits per request, grid, shared memory and ptxas line
 (``launch``). Phase 4's decode profile gives K1's device time per step
-(``k1_device_ms_per_step``).
+(``paged_flash_decode_device_ms_per_step``).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -143,15 +161,32 @@ PREFILL_MAX_ABS = 0.12
 WAVE_GEN = 64  # max_gen_len of every serving request
 GEN_REPEATS = 3  # generate_tokens runs timed (host time varies run to run)
 SPLIT_REPEATS = 5  # prefill + decode runs timed apart
-OPEN_LLAMA_REPEATS = (2, 3)  # phase 7's, cut to keep the script near half its time limit
+EAGER_REPEATS = 2  # the same decode runs with the step eager (not replayed)
+OPEN_LLAMA_REPEATS = (2, 3, 1)  # phase 7's, cut to keep the script near half its time limit
 SEED = 0
 
 NORM_NO_RESIDUAL = 3  # index of K3's no-residual case in kernel_phase()
-# Kernel rows of a decode profile reported per step (profile_decode), by
-# substrings of their names: K1 / K1q; K3 (rows_kernel<0>, rows_loop_kernel<
-# 0>) and K4 (the rest of csrc/norms.cu); K6's matmul (no model path runs
-# K7) and, apart, its activation quantizer.
-PROFILE_KERNELS = {
+# The launch counters (counters()) of the kernels a decode step runs, each
+# with a pattern of its device kernels' names: since the step is a replayed
+# CUDA graph, its launches per step come from the profiler's device events
+# (profile_decode), not from the Python counters (they count the capture).
+# K1 / K1q by pool (paged_decode_kernel<DP, KV>); K3 (rows_kernel<0>,
+# rows_loop_kernel<0>) and, apart, its launches that write K6's int8 rows
+# (EMIT, rows_kernel's last template flag); K4 (swiglu_kernel, and
+# rows_kernel<1> whenever it writes int8 rows); K6's matmul (no model path
+# runs K7) and its activation quantizer.
+DEVICE_KERNELS = {
+    "paged_flash_decode": r"paged_decode_kernel<\d+, 0>",
+    "paged_flash_decode_int8": r"paged_decode_kernel<\d+, 1>",
+    "paged_flash_decode_fp8": r"paged_decode_kernel<\d+, 2>",
+    "rms_norm": r"rows(_loop)?_kernel<0,",
+    "rms_norm_int8_rows": r"rows_kernel<0,[^>]*, true>",
+    "swiglu": r"swiglu_kernel|rows(_loop)?_kernel<1,",
+    "swiglu_int8_rows": r"rows(_loop)?_kernel<1,",
+    "quantized_matmul_packed": r"qmm_kernel",
+    "quantize_rows": r"quantize_rows_kernel",
+}
+KERNELS = {
     "k1": ("paged_decode_kernel",),
     "k3": ("rows_kernel<0", "rows_loop_kernel<0"),
     "k4": ("swiglu_kernel", "rows_kernel<1", "rows_loop_kernel<1"),
@@ -1285,7 +1320,9 @@ def plain_ops():
 def patched(patch):
     """Replace ops of ``lite_llama_tpu_torch.ops`` (and the W4A8 matmul that
     ``quant/qtensor.py`` routes to) for the duration; ``None`` patches
-    nothing."""
+    nothing. A decode graph captured before the patch keeps the kernels it
+    captured: patched readings run eager code only (``_decode_vs_reprefill``,
+    prefills)."""
     from unittest import mock
 
     from lite_llama_tpu_torch import ops
@@ -1382,6 +1419,10 @@ def prefill_last_logits(dev, cfg, params, cache, rows):
 
 
 def _decode_vs_reprefill(dev, cfg, params, prompts, generated, kv_quant=False):
+    # decoder_decode is called here directly, step by step and eagerly, never
+    # through the engine's captured decode graph: a patch of ``ops`` (the
+    # plain versions, the planted faults) would not reach a graph captured
+    # before it, and here it reaches every call.
     from lite_llama_tpu_torch.executor import kv_cache as kvc
     from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_decode
 
@@ -1421,10 +1462,12 @@ def sync(dev):
 
 
 def profile_decode(engine, prompts, steps=16):
-    """torch.profiler over ``steps`` greedy decode steps after a prefill:
-    device busy share of the wall time and device time by kernel name.
-    Kernel rows are the profiler's device-side events; "not measured" (None)
-    when the profiler records no device time."""
+    """torch.profiler over ``steps`` greedy decode steps after a prefill
+    (replays of the engine's captured step): device busy share of the wall
+    time, device time by kernel name, and device time and launches per step
+    of each kernel of DEVICE_KERNELS. Kernel rows are the profiler's
+    device-side events; "not measured" (None) when the profiler records no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1451,8 +1494,8 @@ def profile_decode(engine, prompts, steps=16):
     device_us = sum(r[1] for r in rows)
     top = sorted(rows, key=lambda r: -r[1])[:12]
     per_step = {}
-    for name, marks in PROFILE_KERNELS.items():
-        mine = [(us, n) for k, us, n in rows if any(m in k for m in marks)]
+    for name, pattern in DEVICE_KERNELS.items():
+        mine = [(us, n) for k, us, n in rows if re.search(pattern, k)]
         us = sum(u for u, _ in mine)
         per_step[f"{name}_device_ms_per_step"] = us / 1e3 / steps if us else None
         per_step[f"{name}_launches_per_step"] = sum(n for _, n in mine) / steps
@@ -1471,16 +1514,165 @@ def batch_prompts(cfg, B=12, P=25):
     return np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, P)).tolist()
 
 
+@contextlib.contextmanager
+def eager_step(engine, width, mode="greedy"):
+    """The engine's decode step of (``width``, ``mode``) replaced, for the
+    duration, by one never captured, so that each chunk calls its body once
+    a step: the eager reference of graph_gate and the eager timing."""
+    from lite_llama_tpu_torch.executor.engine import DecodeStep
+
+    key = (width, mode)
+    captured = engine._steps.pop(key, None)
+    engine._steps[key] = DecodeStep(engine, width, mode)
+    try:
+        yield
+    finally:
+        del engine._steps[key]
+        if captured is not None:
+            engine._steps[key] = captured
+
+
+def graph_gate(engine, prompts, steps=75):
+    """The graph-vs-eager gate. One admitted batch decodes ``steps`` greedy
+    steps (whole chunks and a short one) through the replayed graph and
+    through the same step run eagerly (``eager_step``), each from the state
+    the prefill left: the allocator, table and lengths are a clone restored
+    in place before each run (the KV rows past the prompts need none: each
+    step writes its row before any step reads it). Tokens and logprobs must
+    be bit-equal. A planted fault must break that: a replay whose session
+    tokens were never copied in, its buffers holding those of a run with the
+    batch's rows rolled."""
+    from unittest import mock
+
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+
+    B = len(prompts)
+    total = [len(p) + steps + 1 for p in prompts]
+    sampling = SamplingParams.make(B, temperature=0.0, device=engine.device)
+    c = engine.cache
+    state = (c.page_table, c.seq_lens, c.free_stack, c.free_top)
+    slots = engine.admit_requests(total)
+    try:
+        first, _, _, _ = engine.prefill(prompts, sampling, slots)
+        saved = [t.clone() for t in state]
+
+        def decode(tok, n_steps=steps):
+            for t, v in zip(state, saved):
+                t.copy_(v)
+            s = engine.start_decode_session(slots, tok, np.zeros(B, bool), total, sampling)
+            toks, lps, left = [], [], n_steps
+            while left:
+                n = min(left, engine.decode_chunk)
+                t, lp, _ = engine.collect_decode_chunk(engine.dispatch_decode_chunk(s, n))
+                toks.append(t)
+                lps.append(lp.view(np.int32))
+                left -= n
+            return np.concatenate(toks), np.concatenate(lps)
+
+        t0 = time.perf_counter()
+        graph = decode(first)
+        graph_s = time.perf_counter() - t0
+        with eager_step(engine, B):
+            t0 = time.perf_counter()
+            eager = decode(first)
+            eager_s = time.perf_counter() - t0
+        step = engine._steps[(B, "greedy")]
+        decode(np.roll(first, 1), engine.decode_chunk)
+        load = step.load
+
+        def stale(s):  # the fault: every buffer but the tokens is loaded
+            load(dataclasses.replace(s, tok=step.tok.clone()))
+
+        with mock.patch.object(step, "load", stale):
+            fault = decode(first)
+    finally:
+        engine.release_slots(slots, total)
+
+    def same(a, b):
+        return bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+
+    rec = dict(batch=B, steps=steps, chunk=engine.decode_chunk, bit_equal=same(graph, eager),
+               tokens_differing=int((graph[0] != eager[0]).sum()),
+               logprobs_differing=int((graph[1] != eager[1]).sum()),
+               planted_fault_caught=not same(fault, graph),
+               fault_tokens_differing=int((fault[0] != graph[0]).sum()),
+               graph_ms_per_step=graph_s * 1e3 / steps, eager_ms_per_step=eager_s * 1e3 / steps)
+    log(f"  graph-vs-eager gate: {json.dumps(rec)}")
+    require(rec["bit_equal"], f"replayed decode differs from the eager step: {rec}")
+    require(rec["planted_fault_caught"], f"the graph gate misses a stale-token replay: {rec}")
+    return rec
+
+
+def replay_costs(engine, width, n=16):
+    """Where a replayed step's time goes: the host's time to enqueue one
+    replay (n replays with no wait), and the device's time for one, from
+    CUDA events around n replays that the host enqueued while the device
+    slept (so no host gap is timed). The step runs with every row done, so
+    the replays change no cache state; K1 then reads the rows its buffers
+    last named."""
+    step = engine._steps[(width, "greedy")]
+    dev = engine.device
+    n = min(n, engine.decode_chunk)  # the step counter indexes [decode_chunk, B] rows
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():  # the engine's buffers are inference tensors
+        step.done.fill_(True)
+        step.step.zero_()
+        sync(dev)
+        t0 = time.perf_counter()
+        step.run(n)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / n
+        sync(dev)
+        step.step.zero_()
+        torch.cuda._sleep(int(2e8 + 2e6 * n * enqueue_ms))  # cycles: longer than the enqueue
+        start.record()
+        step.run(n)
+        end.record()
+        sync(dev)
+    return dict(enqueue_ms_per_replay=enqueue_ms, device_ms_per_replay=start.elapsed_time(end) / n)
+
+
+def timed_decode(engine, prompts, sampling, max_total, G):
+    """Prefill ``prompts`` and decode up to G - 1 greedy steps through the
+    engine's API, each timed to a synchronize; returns (prefill ms, decode
+    ms per step, steps, launch counts before the prefill, after it)."""
+    dev = engine.device
+    slots = engine.admit_requests(max_total)
+    try:
+        c0 = read_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        first, _, _, _ = engine.prefill(prompts, sampling, slots)
+        sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        c1 = read_counts()
+        t0 = time.perf_counter()
+        _, _, toks, _ = engine.decode(slots, first, np.zeros(len(prompts), bool), max_total,
+                                      sampling, n_steps=G - 1)
+        sync(dev)
+        steps = toks.shape[0]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    finally:
+        engine.release_slots(slots, max_total)
+    return prefill_ms, decode_ms, steps, c0, c1
+
+
 def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_PATH,
-                invariant=None, absent=(), repeats=(GEN_REPEATS, SPLIT_REPEATS)):
+                invariant=None, absent=(), repeats=(GEN_REPEATS, SPLIT_REPEATS, EAGER_REPEATS)):
     """Llama-3.2-3B (or another ``cfg``, ``params``) through InferenceEngine +
     TextGenerator on ``dev``: B prompts of P random ids, greedy,
     max_gen_len G. ``engine_kw`` goes to the engine (a quantized pool),
     ``path`` names the kernels that must launch and ``absent`` those that
     must not, ``invariant(prompts, outputs)`` reads the decode invariant
     (default: bf16 decode vs re-prefill with faults in K1's inputs);
-    ``repeats`` counts the timed generate_tokens runs and prefill + decode
-    runs."""
+    ``repeats`` counts the timed generate_tokens runs, the prefill + decode
+    runs and the runs of the same decode with the step eager.
+
+    The counted generate_tokens run captures the batch's decode graph: the
+    warm-up before it runs at another width. So the launch counts of that
+    run hold the prefill's launches and the decode step's twice (the
+    capture's eager warm-up and the capture); launches per decode step
+    come from the device events of a profiled decode, and every decode
+    kernel of ``path`` must be among them."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.generate import TextGenerator
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
@@ -1491,7 +1683,7 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     setup_s = time.perf_counter() - t0
     gen = TextGenerator(engine)
     prompts = batch_prompts(cfg, B, P)
-    gen.generate_tokens(prompts, max_gen_len=4, temperature=0.0)  # warm-up
+    gen.generate_tokens(prompts[:1], max_gen_len=4, temperature=0.0)  # warm-up, width 1
 
     reset_counts()
     sync(dev)
@@ -1503,8 +1695,9 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     gen_s = [time.perf_counter() - t0]
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
-    log(f"  generate_tokens: {sum(len(o.token_ids) for o in outs)} tokens in {gen_s[0]:.3f} s; "
-        f"launches {launches}")
+    capture_ms = {f"{w} {m}": st.capture_ms for (w, m), st in engine._steps.items()}
+    log(f"  generate_tokens: {sum(len(o.token_ids) for o in outs)} tokens in {gen_s[0]:.3f} s "
+        f"(the decode graph's capture included: {capture_ms} ms); launches {launches}")
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the batch path: {missing}")
     stray = [k for k in absent if launches[k] != 0]
@@ -1523,49 +1716,42 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
                 "greedy generation is not repeatable")
 
     # Prefill and decode timed apart through the engine's own API, repeated;
-    # the launch counts per prefill and per decode step come from the first.
+    # the launch counts per prefill come from the first. Then the same
+    # decode with the step run eagerly, for the graph's gain in this call.
     sampling = SamplingParams.make(B, temperature=0.0, device=dev)
     max_total = [P + G] * B
-    prefill_ms, decode_ms = [], []
+    prefill_ms, decode_ms, eager_ms = [], [], []
     for rep in range(repeats[1]):
-        slots = engine.admit_requests(max_total)
-        try:
-            c0 = read_counts()
-            sync(dev)
-            t0 = time.perf_counter()
-            first, _, _, _ = engine.prefill(prompts, sampling, slots)
-            sync(dev)
-            prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            c1 = read_counts()
-            t0 = time.perf_counter()
-            _, _, toks, _ = engine.decode(slots, first, np.zeros(B, bool), max_total, sampling,
-                                          n_steps=G - 1)
-            sync(dev)
-            steps = toks.shape[0]
-            decode_ms.append((time.perf_counter() - t0) * 1e3 / max(steps, 1))
-            c2 = read_counts()
-        finally:
-            engine.release_slots(slots, max_total)
+        p_ms, d_ms, steps, c0, c1 = timed_decode(engine, prompts, sampling, max_total, G)
+        prefill_ms.append(p_ms)
+        decode_ms.append(d_ms)
         if rep == 0:
             per_prefill = {k: c1[k] - c0[k] for k in c0}
-            per_step = {k: (c2[k] - c1[k]) / max(steps, 1) for k in c0}
+    with eager_step(engine, B):
+        for _ in range(repeats[2]):
+            eager_ms.append(timed_decode(engine, prompts, sampling, max_total, G)[1])
     decode_ms_per_step = float(np.median(decode_ms))
     # generate_tokens is one prefill and G - 1 decode steps: its own step time
     implied_ms = [(s * 1e3 - float(np.median(prefill_ms))) / (G - 1) for s in gen_s]
-    log(f"  generate_tokens s {gen_s}; prefill ms {prefill_ms}; decode ms/step {decode_ms}; "
-        f"decode ms/step implied by generate_tokens {implied_ms}")
+    log(f"  generate_tokens s {gen_s}; prefill ms {prefill_ms}; decode ms/step {decode_ms}, "
+        f"eager step {eager_ms}; decode ms/step implied by generate_tokens {implied_ms}")
 
     prof = profile_decode(engine, prompts)
     log(f"  profile of {prof['steps']} decode steps: {json.dumps(prof)}")
-    for name in PROFILE_KERNELS:
+    per_step = {k: prof[f"{k}_launches_per_step"] for k in DEVICE_KERNELS}
+    for name in DEVICE_KERNELS:
         ms = prof[f"{name}_device_ms_per_step"]
         if ms is not None:
             log(f"  {name} device ms per decode step ({prof['steps']} steps profiled): "
-                f"{ms:.4f} of {prof['device_ms_per_step']:.4f}, "
-                f"{prof[f'{name}_launches_per_step']:.2f} launches")
+                f"{ms:.4f} of {prof['device_ms_per_step']:.4f}, {per_step[name]:.2f} launches")
     if prof["device_ms"] is not None:  # against the decode steps timed without the profiler
         prof["device_busy_share"] = prof["device_ms"] / prof["steps"] / decode_ms_per_step
+    unseen = [k for k in path if k in DEVICE_KERNELS and not per_step[k]]
+    require(not unseen, f"decode kernels absent from the replayed steps' device events: {unseen}")
 
+    replay = replay_costs(engine, B)
+    log(f"  one replayed step: {json.dumps(replay)}")
+    gate = graph_gate(engine, prompts)
     if invariant is None:
         inv = check_invariant(dev, cfg, params, prompts[:2], [o.token_ids for o in outs[:2]])
     else:
@@ -1578,10 +1764,13 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
         tokens_per_s_runs=[n_tokens / s for s in gen_s],
         prefill_ms=float(np.median(prefill_ms)), prefill_ms_runs=prefill_ms,
         decode_ms_per_step=decode_ms_per_step, decode_ms_per_step_runs=decode_ms,
+        eager_decode_ms_per_step=float(np.median(eager_ms)),
+        eager_decode_ms_per_step_runs=eager_ms,
         generate_implied_decode_ms_per_step=implied_ms,
-        decode_steps=steps, peak_mem_gb=peak_gb, setup_s=setup_s, launches=launches,
-        launches_per_prefill=per_prefill, launches_per_decode_step=per_step,
-        decode_vs_reprefill=inv, decode_profile=prof,
+        decode_steps=steps, peak_mem_gb=peak_gb, capture_ms=capture_ms, replay=replay,
+        setup_s=setup_s,
+        launches=launches, launches_per_prefill=per_prefill, launches_per_decode_step=per_step,
+        graph_gate=gate, decode_vs_reprefill=inv, decode_profile=prof,
     ), launches
 
 
@@ -1678,18 +1867,26 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
          for i, s in enumerate(prompts["suffixes"])],
     ][:n_waves]
     fe = ServingFrontend(ContinuousBatchingScheduler(engine))
-    out, launches = [], {k: 0 for k in KERNELS}
+    # The full-width session's decode graphs (greedy, and sampled where a
+    # wave has sampled requests) are captured before the timed waves, as a
+    # server captures before it takes traffic; the path's launch counts run
+    # from before the captures to the end of the last wave.
+    modes = ["greedy"] + (["approx"] if any(r["temperature"] > 0 for wv in waves for r in wv)
+                          else [])
+    reset_counts()
+    capture_ms = {m: engine.decode_step_for(engine.max_reqs, m).capture_ms for m in modes}
+    log(f"  decode graphs of width {engine.max_reqs} captured: {capture_ms} ms")
+    out = []
     try:
         for w, reqs in enumerate(waves, 1):
-            reset_counts()
+            c0 = read_counts()
             hits0 = engine.stats.prefix_hits
             log0 = len(fe.sched.chunk_log)
             sync(dev)
             results, wall = run_wave(fe, reqs)
             sync(dev)
-            counts = read_counts()
-            for k in launches:
-                launches[k] += counts[k]
+            c1 = read_counts()
+            counts = {k: c1[k] - c0[k] for k in c1}
             toks = [r["tokens"] for r in results]
             for r in results:
                 require(r["finish_reason"] in ("stop", "length"), f"wave {w}: {r}")
@@ -1714,10 +1911,13 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
             log(f"  serving wave {w}: {json.dumps(rec)}")
             require(counts[chunk_kernel] > 0, f"wave {w}: {chunk_kernel} never launched")
             out.append(rec)
+        launches = read_counts()
         profiles = {}
         for w, reqs in enumerate(waves if profile else (), 1):
             profiles[f"wave{w}_profile"] = prof = profile_wave(fe, reqs)
             log(f"  serving wave {w} again, profiled: {json.dumps(prof)}")
+            require(prof["paged_decode"]["launches"] > 0,
+                    f"wave {w}: K1 absent from the replayed steps' device events")
     finally:
         fe.shutdown()
     missing = [k for k in path if launches[k] == 0]
@@ -1725,7 +1925,7 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
     if n_waves > 1:
         require(engine.stats.prefix_hits >= 16,
                 f"prefix hits {engine.stats.prefix_hits} < 16 in the serving phase")
-    return dict(waves=out, **profiles, prefix_hits=engine.stats.prefix_hits,
+    return dict(waves=out, capture_ms=capture_ms, **profiles, prefix_hits=engine.stats.prefix_hits,
                 prefill_tokens=engine.stats.prefill_tokens,
                 decode_tokens=engine.stats.decode_tokens, chunks=engine.stats.chunks), launches
 
@@ -1735,8 +1935,9 @@ def profile_wave(fe, reqs):
     wall time and device time by kernel name (device-side events of the
     whole process, the serving thread's included). "not measured" (None)
     when the profiler records no device time; ``chunked_prefill`` sums the
-    rows of K5 / K5q (device ms and launches). Launch counts of this run are
-    not part of any wave's."""
+    rows of K5 / K5q (device ms and launches), ``paged_decode`` those of K1
+    / K1q (in the replayed decode steps). Launch counts of this run are not
+    part of any wave's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1748,10 +1949,13 @@ def profile_wave(fe, reqs):
     device_us = sum(r[1] for r in rows)
     top = sorted(rows, key=lambda r: -r[1])[:12]
     chunked = [(us, n) for k, us, n in rows if "chunked_prefill_kernel" in k]
+    decode = [(us, n) for k, us, n in rows if "paged_decode_kernel" in k]
     return dict(wall_s=wall, device_ms=device_us / 1e3 if device_us else None,
                 device_busy_share=device_us / 1e6 / wall if device_us else None,
                 chunked_prefill=dict(ms=sum(us for us, _ in chunked) / 1e3,
                                      launches=sum(n for _, n in chunked)),
+                paged_decode=dict(ms=sum(us for us, _ in decode) / 1e3,
+                                  launches=sum(n for _, n in decode)),
                 top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n) for k, us, n in top])
 
 
@@ -1880,8 +2084,6 @@ def planted_k1q_faults():
     swapped, or every head reading its neighbour's scale: faults the
     quantized decode invariant must catch, each a replacement of
     ops.paged_decode_attention."""
-    import dataclasses
-
     from lite_llama_tpu_torch.ops.attention_decode import paged_flash_decode as k1
 
     def lanes_swapped(q, pool, layer, table, seq_lens, sm_scale=None, **kw):
@@ -1983,7 +2185,8 @@ def quantized_phase(dev, cfg, qparams, bf16_logits):
                                       path=QUANT_BATCH_PATH, invariant=invariant)
     log("quantized slice: " + json.dumps(out["batch"]))
     # K3 / K4 write the int8 rows of wqkv, gate_up, down and the head; K6's
-    # own quantizer runs for o_proj alone.
+    # own quantizer runs for o_proj alone. Counted from the device events of
+    # the profiled replays (slice_phase).
     L = cfg.num_hidden_layers
     step = out["batch"]["launches_per_decode_step"]
     want = dict(quantize_rows=L, rms_norm_int8_rows=2 * L + 1, swiglu_int8_rows=L)
@@ -2008,8 +2211,11 @@ def quantized_phase(dev, cfg, qparams, bf16_logits):
 def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
     """bf16 weights with an fp8 KV pool: ``n`` prompts of ``P`` random ids
     prefilled in 512-token chunks (K5q-fp8), then ``steps`` greedy decode
-    steps (K1q-fp8). First-token logits against the same prompts on a bf16
-    pool are reported, with no limit."""
+    steps (K1q-fp8; the decode graph is captured in this counted run, its
+    ms per step includes the capture). Then a profiled decode of ``n`` short
+    prompts (K1q-fp8 must be among the replays' device events) and the
+    graph-vs-eager gate on them. First-token logits against the same
+    prompts on a bf16 pool are reported, with no limit."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
 
@@ -2038,15 +2244,22 @@ def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
     finally:
         eng.release_slots(slots, total)
     launches = read_counts()
-    del eng
     missing = [k for k in FP8_KV_PATH if launches[k] == 0]
     require(not missing, f"kernels never launched on the fp8-KV path: {missing}")
     require(toks.shape == (steps, n) and np.all((toks >= 0) & (toks < cfg.vocab_size)),
             "fp8-KV decode tokens out of range")
     require(np.all(np.isfinite(lps)) and np.all(np.isfinite(last)), "fp8-KV: non-finite output")
+    short = batch_prompts(cfg, n)
+    prof = profile_decode(eng, short)
+    require(prof["paged_flash_decode_fp8_launches_per_step"] > 0,
+            f"K1q-fp8 absent from the replayed steps' device events: {prof}")
+    gate = graph_gate(eng, short)
+    capture_ms = {f"{w} {m}": st.capture_ms for (w, m), st in eng._steps.items()}
+    del eng
     bf16_last, _ = _last_logits(engine(False), prompts)
     rec = dict(prompts=n, prompt_len=P, decode_steps=steps, prefill_s=prefill_s,
-               decode_ms_per_step=decode_s * 1e3 / steps, launches=launches,
+               decode_ms_per_step=decode_s * 1e3 / steps, capture_ms=capture_ms,
+               graph_gate=gate, decode_profile=prof, launches=launches,
                first_logits_vs_bf16_pool=compare_logits(torch.from_numpy(last), bf16_last))
     log("fp8 KV: " + json.dumps(rec))
     return rec, launches

@@ -18,6 +18,13 @@ and the prefix cache, and runs prefill and decode:
   for that chunk's packed output. ``decode`` is a one-shot session;
   serving (executor/scheduler.py) keeps one session for its whole run and
   splices admitted requests in with ``update_session_rows``.
+- the decode step (``DecodeStep``), the counterpart of the JAX engine's
+  jitted ``lax.scan`` chunk: one step over static buffers, kept per
+  (session width, sampling mode). On the card it is captured once as a CUDA
+  graph, after one eager warm-up on a stream of its own, and a chunk
+  replays it n times; on the CPU the same body runs eagerly. Every graph
+  shares one memory pool and draws from the engine's generator, which each
+  graph registers, so every replay draws fresh numbers.
 - prefix cache: a host-side registry of page-aligned prompt prefixes whose
   KV pages stay in the pool after their request ends (``PrefixCache``); a
   later prompt that starts with one splices those pages into its table and
@@ -43,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -77,6 +85,99 @@ class DecodeSession:
     stop: torch.Tensor
     samp: SamplingParams
     mode: str
+
+
+def capture_graph(fn, generator: torch.Generator, pool, stream: torch.cuda.Stream):
+    """Capture ``fn()`` as a CUDA graph on ``stream`` into the memory pool
+    ``pool``; returns (graph, capture ms). One eager call on ``stream``
+    first creates, outside the capture, what the kernels keep per stream
+    (K1's and K6's split workspaces, cuBLAS's handle and workspace).
+    ``generator`` is registered with the graph, so each replay draws fresh
+    numbers from it. Errors are checked per thread: the server's frontend
+    thread runs beside the one that captures."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+        fn()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    current.wait_stream(stream)
+    return graph, capture_ms
+
+
+class DecodeStep:
+    """One decode step of a session width B and a sampling mode, over static
+    buffers: allocate -> forward -> sample -> eos bookkeeping, the body of
+    the JAX engine's ``lax.scan`` chunk. It reads and writes only its own
+    buffers (slots, tokens, done flags, stop lengths, sampling rows, a step
+    counter, and [decode_chunk, B] emitted tokens and logprobs, written at
+    the counter's row) and the engine's cache, parameters and generator,
+    all at fixed addresses. So on the card :meth:`capture` records it once
+    as a CUDA graph and :meth:`run` replays it; until then (and on the CPU)
+    :meth:`run` calls the same body eagerly."""
+
+    def __init__(self, engine: "InferenceEngine", width: int, mode: str):
+        dev = engine.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.engine, self.mode = engine, mode
+        self.req_ids = torch.zeros(width, **i32)
+        self.tok = torch.zeros(width, **i32)
+        self.done = torch.ones(width, dtype=torch.bool, device=dev)
+        self.stop = torch.zeros(width, **i32)
+        self.samp = SamplingParams(torch.zeros(width, **f32), torch.ones(width, **f32),
+                                   torch.zeros(width, **i32))
+        self.step = torch.zeros(1, dtype=torch.long, device=dev)
+        self.toks = torch.zeros((engine.decode_chunk, width), **i32)
+        self.lps = torch.zeros((engine.decode_chunk, width), **f32)
+        self.graph = None
+        self.capture_ms = None
+        self._replay = self.body
+
+    @torch.inference_mode()
+    def load(self, s: DecodeSession) -> None:
+        """Copy a session's state into the buffers and restart the counter."""
+        for dst, src in ((self.req_ids, s.req_ids), (self.tok, s.tok), (self.done, s.done),
+                         (self.stop, s.stop), *zip(self.samp, s.samp)):
+            dst.copy_(src)
+        self.step.zero_()
+
+    def body(self) -> None:
+        e, done = self.engine, self.done
+        cache = e.cache
+        active = ~done
+        alloc_decode(cache, self.req_ids, active)
+        req = self.req_ids.long()
+        seq = cache.seq_lens[req]
+        pos = seq - 1
+        ctx = AttnContext(table_rows=cache.page_table[req], seq_lens=seq, start_pos=pos,
+                          chunk_lens=torch.ones_like(pos), active=active)
+        logits, _ = decoder_decode(e.params, e.config, cache.kv_pages, ctx, self.tok.long())
+        next_tok = sample(logits, e._gen, self.samp, mode=self.mode)
+        emit = torch.where(done, torch.full_like(next_tok, e.pad_id), next_tok)
+        emit_lp = torch.where(done, torch.zeros_like(logits[:, 0]),
+                              log_softmax_gather(logits, next_tok))
+        self.toks.index_copy_(0, self.step, emit[None])
+        self.lps.index_copy_(0, self.step, emit_lp[None])
+        self.done.copy_(done | torch.isin(next_tok, e._eos) | (seq >= self.stop))
+        self.tok.copy_(next_tok)
+        self.step.add_(1)
+
+    def capture(self, pool, stream: torch.cuda.Stream) -> None:
+        """Record the body as a CUDA graph (:func:`capture_graph`). Its
+        warm-up runs with every row done (the buffers' initial state), so it
+        allocates no page and changes no length or KV row."""
+        self.graph, self.capture_ms = capture_graph(self.body, self.engine._gen, pool, stream)
+        self._replay = self.graph.replay
+
+    @torch.inference_mode()
+    def run(self, n: int) -> None:
+        for _ in range(n):
+            self._replay()
 
 
 @dataclasses.dataclass
@@ -252,15 +353,29 @@ class InferenceEngine:
         # release (a rolled-back admission's table rows are zeros or stale).
         self._slot_filled = set()
         self.pad_id = config.pad_token_id if config.pad_token_id is not None else 0
+        # Decode steps by (session width, sampling mode); on the card each is
+        # a captured graph, all in one memory pool, captured on one stream.
+        self._steps = {}
+        self._graph_pool = None
+        self._graph_stream = None
+        self._eos_list = None
         self.set_eos(config.eos_token_ids)
         # Host-side slot/page/prefix accounting is guarded by one lock so
         # concurrent submitters can admit and release safely.
         self._admission_lock = threading.RLock()
 
     def set_eos(self, eos_ids: Sequence[int]) -> None:
-        """Token ids that end a request during decode."""
-        ids = list(eos_ids) or [-1]
-        self.eos_ids = [int(t) for t in ids if t >= 0]
+        """Token ids that end a request during decode. The decode steps read
+        the id tensor, so new ids drop them (once the device has finished
+        with them); the next chunk builds them again."""
+        ids = [int(t) for t in eos_ids] or [-1]
+        if ids == self._eos_list:
+            return
+        if self._steps and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._steps.clear()
+        self._eos_list = ids
+        self.eos_ids = [t for t in ids if t >= 0]
         self._eos = torch.tensor(ids, dtype=torch.int32, device=self.device)
 
     # -- host capacity accounting -----------------------------------------
@@ -563,39 +678,17 @@ class InferenceEngine:
         return ph[0].copy(), bundle.lens, last, ph[1].view(np.float32).copy()
 
     # -- decode ---------------------------------------------------------------
-    def _decode_step(self, req_ids, tok, done, stop, sampling, mode):
-        active = ~done
-        alloc_decode(self.cache, req_ids, active)
-        seq = self.cache.seq_lens[req_ids.long()]
-        pos = seq - 1
-        ctx = AttnContext(
-            table_rows=self.cache.page_table[req_ids.long()],
-            seq_lens=seq,
-            start_pos=pos,
-            chunk_lens=torch.ones_like(pos),
-            active=active,
-        )
-        logits, _ = decoder_decode(
-            self.params, self.config, self.cache.kv_pages, ctx, tok.long()
-        )
-        next_tok = sample(logits, self._gen, sampling, mode=mode)
-        emit = torch.where(done, torch.full_like(next_tok, self.pad_id), next_tok)
-        emit_lp = torch.where(done, torch.zeros_like(logits[:, 0]),
-                              log_softmax_gather(logits, next_tok))
-        hit_eos = torch.isin(next_tok, self._eos)
-        done = done | hit_eos | (seq >= stop)
-        return next_tok, done, emit, emit_lp
-
     @torch.inference_mode()
     def start_decode_session(self, slots, tok, done, stop_lens,
                              sampling: SamplingParams) -> DecodeSession:
         """Upload one batch's decode state once; decode chunks then run
-        against it with no further uploads."""
+        against it with no further uploads. The session owns its token and
+        done tensors (chunks update them in place)."""
         return DecodeSession(
             slots=tuple(slots),
             req_ids=self._ids(slots),
-            tok=self._ids(tok),
-            done=self._ids(done, torch.bool),
+            tok=self._ids(tok).clone(),
+            done=self._ids(done, torch.bool).clone(),
             stop=self._ids(stop_lens),
             samp=self._dev_sampling(sampling),
             mode=self._samp_mode(sampling),
@@ -637,21 +730,35 @@ class InferenceEngine:
         n = min(n, self.decode_chunk)
         if n < 1:
             raise ValueError("a decode chunk needs at least one step")
-        toks, lps = [], []
-        tok, done = s.tok, s.done
-        for _ in range(n):
-            tok, done, emit, emit_lp = self._decode_step(s.req_ids, tok, done, s.stop, s.samp,
-                                                         s.mode)
-            toks.append(emit)
-            lps.append(emit_lp)
-        s.tok, s.done = tok, done
+        step = self.decode_step_for(len(s.slots), s.mode)
+        step.load(s)
+        step.run(n)
+        s.tok.copy_(step.tok)
+        s.done.copy_(step.done)
         packed = torch.cat([
-            torch.stack(toks).to(torch.int32),
-            torch.stack(lps).float().view(torch.int32),
-            done.to(torch.int32)[None],
+            step.toks[:n],
+            step.lps[:n].view(torch.int32),
+            step.done.to(torch.int32)[None],
         ])
         self.stats.chunks += 1
         return _ChunkBundle(packed=self._to_host(packed), n=n)
+
+    @torch.inference_mode()
+    def decode_step_for(self, width: int, mode: str) -> DecodeStep:
+        """The decode step of a session width and sampling mode, made at
+        first use; on the card it is captured then (a serving caller may
+        call this before its traffic, so that no request waits for it)."""
+        key = (width, mode)
+        step = self._steps.get(key)
+        if step is None:
+            step = DecodeStep(self, width, mode)
+            if self.device.type == "cuda":
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                    self._graph_stream = torch.cuda.Stream(self.device)
+                step.capture(self._graph_pool, self._graph_stream)
+            self._steps[key] = step
+        return step
 
     def collect_decode_chunk(self, bundle: _ChunkBundle):
         """Wait for a dispatched chunk. Returns (tokens [n, B] np.int32,

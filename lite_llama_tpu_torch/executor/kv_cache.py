@@ -13,7 +13,10 @@
   round trip.
 
 Unlike the JAX functions, which return new immutable caches, these functions
-update the cache's tensors IN PLACE (and return the cache for symmetry).
+update the cache's tensors IN PLACE (and return the cache for symmetry):
+every write goes into the tensors ``create_kv_cache`` made, ``free_top``
+included, and none is ever rebound, so a CUDA graph that captured their
+addresses (the engine's decode step) reads the current state at each replay.
 
 JAX clamps out-of-bounds gathers and drops out-of-bounds scatters; PyTorch
 raises, or asserts on the device. Every such site below clamps its gather
@@ -200,7 +203,7 @@ def alloc_prefill(cache: PagedKVCache, req_ids: torch.Tensor, lens: torch.Tensor
     slots = req_ids[ok].long()
     cache.page_table[slots] = rows[ok]
     cache.seq_lens[slots] = lens[ok]
-    cache.free_top = new_top
+    cache.free_top.copy_(new_top)
     return cache
 
 
@@ -228,7 +231,7 @@ def alloc_decode(cache: PagedKVCache, req_ids: torch.Tensor,
     cache.page_table[req, slot_c] = rows
     new_len = old_len + 1 if active is None else old_len + active.to(torch.int32)
     cache.seq_lens[req] = new_len
-    cache.free_top = new_top
+    cache.free_top.copy_(new_top)
     return cache
 
 
@@ -240,7 +243,7 @@ def _push(cache: PagedKVCache, pages: torch.Tensor, mask: torch.Tensor):
     dst = (cache.free_top + rank).long()
     push = mask & (dst < cache.free_stack.shape[0])
     cache.free_stack[dst[push]] = pages[push].to(torch.int32)
-    cache.free_top = cache.free_top + m.sum(dtype=torch.int32)
+    cache.free_top.add_(m.sum(dtype=torch.int32))
 
 
 def free_requests(cache: PagedKVCache, req_ids: torch.Tensor,

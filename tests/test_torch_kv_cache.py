@@ -141,3 +141,64 @@ def test_kv_cache_bytes_matches_jax():
     for dt_j, dt_t in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
         assert jkv.kv_cache_bytes(28, 8, 128, 10, 16, dt_j) == tkv.kv_cache_bytes(
             28, 8, 128, 10, 16, dt_t)
+
+
+@pytest.mark.parametrize("quantized", [False, "int8"])
+def test_allocator_and_writes_keep_every_state_tensor_in_place(quantized):
+    """A CUDA graph keeps the addresses it captured, so no update may rebind
+    a state tensor: the free-stack top, the stack, the table, the lengths,
+    the pool's pages and its scales keep their storage through prefill and
+    decode allocation, KV writes, frees, page pushes and re-allocation, with
+    the stack top still the JAX allocator's."""
+    j = jkv.create_kv_cache(L, HKV, D, P, page_size=PS, max_reqs=M, max_seq_len=MAX_SEQ,
+                            dtype=jnp.float32)
+    t = tkv.create_kv_cache(L, HKV, D, P, page_size=PS, max_reqs=M, max_seq_len=MAX_SEQ,
+                            dtype=torch.float32, device="cpu", quantized=quantized)
+    state = [t.free_top, t.free_stack, t.page_table, t.seq_lens, t.kv_pages.pages]
+    if quantized:
+        state.append(t.kv_pages.scales)
+    ptrs = [x.data_ptr() for x in state]
+
+    def same_state():
+        now = [t.free_top, t.free_stack, t.page_table, t.seq_lens, t.kv_pages.pages]
+        if quantized:
+            now.append(t.kv_pages.scales)
+        assert all(a is b for a, b in zip(now, state))
+        assert [x.data_ptr() for x in now] == ptrs
+        assert int(t.free_top) == int(j.free_top)
+
+    rng = np.random.default_rng(2)
+    jr, tr = _i32(0, 2, 1)
+    jl, tl = _i32(5, 9, 4)
+    j = jkv.alloc_prefill(j, jr, jl)
+    tkv.alloc_prefill(t, tr, tl)
+    same_state()
+    for layer in range(L):
+        _, tk = _kv(rng, 3, 12, HKV, D)
+        _, tv = _kv(rng, 3, 12, HKV, D)
+        tkv.kv_write_prefill(t.kv_pages, layer, tk, tv, t.page_table[tr.long()],
+                             torch.zeros(3, dtype=torch.int32), tl)
+    same_state()
+    for step in range(5):
+        act = np.asarray([True, step < 2, True])
+        j = jkv.alloc_decode(j, jr, jnp.asarray(act))
+        tkv.alloc_decode(t, tr, torch.from_numpy(act))
+        _, tk = _kv(rng, L, 3, HKV, D)
+        _, tv = _kv(rng, L, 3, HKV, D)
+        pos = t.seq_lens[tr.long()] - 1
+        tkv.kv_write_decode_all(t.kv_pages, tk, tv, t.page_table[tr.long()], pos,
+                                torch.from_numpy(act))
+        same_state()
+    j = jkv.free_requests(j, jr[:2], jnp.asarray([1, 0], jnp.int32))
+    tkv.free_requests(t, tr[:2], torch.tensor([1, 0], dtype=torch.int32))
+    same_state()
+    j = jkv.push_pages(j, jnp.asarray([3, 7], jnp.int32), jnp.asarray([True, False]))
+    tkv.push_pages(t, torch.tensor([3, 7], dtype=torch.int32), torch.tensor([True, False]))
+    same_state()
+    jr, tr = _i32(3)
+    jl, tl = _i32(13)
+    j = jkv.alloc_prefill(j, jr, jl)
+    tkv.alloc_prefill(t, tr, tl)
+    same_state()
+    np.testing.assert_array_equal(np.asarray(j.free_stack), t.free_stack.numpy())
+    np.testing.assert_array_equal(np.asarray(j.page_table), t.page_table.numpy())
