@@ -28,20 +28,19 @@ Phases, in order; any failure exits non-zero:
 4. Batch slice: Llama-3.2-3B at full width and depth with random bf16
    weights from a seeded generator; InferenceEngine +
    TextGenerator.generate_tokens on 12 prompts of 25 random ids, greedy,
-   max_gen_len 128. The engine's decode step is a CUDA graph captured in
-   that run (the warm-up before it runs at another width), so every kernel
-   of the path must launch in it, the decode kernels twice (the capture's
-   eager warm-up and the capture);
-   the run is repeated for the median time. Decode ms per step is timed
-   through the replayed graph and, in the same call, with the step run
-   eagerly; a profiled decode gives the device time, the busy share and
-   each decode kernel's launches per step from the device's own events
-   (every decode kernel of the path must be among them). The
-   graph-vs-eager gate (graph_gate) decodes one batch through the graph
-   and through the eager step from the same cache state: tokens and
-   logprobs must be bit-equal, and a planted stale-token replay must be
-   caught. Decode through the paged cache must
-   agree with re-prefilling prompt + generated tokens in a fresh cache,
+   max_gen_len 128. The engine's decode step is a CUDA graph, captured in
+   the warm-up before that run (its capture in capture_ms); every kernel of
+   the path must launch in the run, each replay counting the launches of
+   the kernels it holds; the run is repeated for the median time. Decode
+   ms per step is timed through the replayed graph and, in the same call,
+   with the step run eagerly; a profiled decode gives the device time, the
+   busy share and each decode kernel's launches per step from the device's
+   own events (every decode kernel of the path must be among them, and the
+   launch counters must read the same per step). The graph-vs-eager gate
+   (graph_gate) decodes one batch through the graph and through the eager
+   step from the same cache state: tokens and logprobs must be bit-equal,
+   and a planted stale-token replay must be caught. Decode through the
+   paged cache must agree with re-prefilling prompt + generated tokens in a fresh cache,
    within a limit set between the plain versions' reading and that of
    faults planted in K1's inputs; the script plants them and fails if the
    limit misses one.
@@ -166,10 +165,10 @@ OPEN_LLAMA_REPEATS = (2, 3, 1)  # phase 7's, cut to keep the script near half it
 SEED = 0
 
 NORM_NO_RESIDUAL = 3  # index of K3's no-residual case in kernel_phase()
-# The launch counters (counters()) of the kernels a decode step runs, each
-# with a pattern of its device kernels' names: since the step is a replayed
-# CUDA graph, its launches per step come from the profiler's device events
-# (profile_decode), not from the Python counters (they count the capture).
+# The launch counters (read_counts()) of the kernels a decode step runs,
+# each with a pattern of its device kernels' names: launches per step are
+# read from the profiler's device events of the replayed steps
+# (profile_decode), which the counters must equal.
 # K1 / K1q by pool (paged_decode_kernel<DP, KV>); K3 (rows_kernel<0>,
 # rows_loop_kernel<0>) and, apart, its launches that write K6's int8 rows
 # (EMIT, rows_kernel's last template flag); K4 (swiglu_kernel, and
@@ -185,13 +184,6 @@ DEVICE_KERNELS = {
     "swiglu_int8_rows": r"rows(_loop)?_kernel<1,",
     "quantized_matmul_packed": r"qmm_kernel",
     "quantize_rows": r"quantize_rows_kernel",
-}
-KERNELS = {
-    "k1": ("paged_decode_kernel",),
-    "k3": ("rows_kernel<0", "rows_loop_kernel<0"),
-    "k4": ("swiglu_kernel", "rows_kernel<1", "rows_loop_kernel<1"),
-    "k6": ("qmm_kernel",),
-    "quantizer": ("quantize_rows_kernel",),
 }
 KERNELS = {
     "paged_flash_decode": dict(
@@ -1262,39 +1254,20 @@ def kernel_phase():
 # Phase 4: the slice
 
 
-def counters():
-    """{name: (launcher, counter attribute)}: each kernel of KERNELS, and
-    beside them K3 / K4's launches that also wrote K6's int8 rows and the
-    launches of K6's own activation quantizer."""
-    from lite_llama_tpu_torch.ops import attention_decode, attention_prefill, norms, qmatmul
-
-    launchers = {
-        "paged_flash_decode": attention_decode.launch_paged_decode,
-        "flash_prefill": attention_prefill.launch_flash_prefill,
-        "rms_norm": norms.launch_rms_norm,
-        "swiglu": norms.launch_swiglu,
-        "flash_prefill_chunked": attention_prefill.launch_flash_prefill_chunked,
-        "quantized_matmul_packed": qmatmul.launch_quantized_matmul_packed,
-        "quantized_matmul_int8": qmatmul.launch_quantized_matmul_int8,
-        "paged_flash_decode_int8": attention_decode.launch_paged_decode_int8,
-        "paged_flash_decode_fp8": attention_decode.launch_paged_decode_fp8,
-        "flash_prefill_chunked_int8": attention_prefill.launch_flash_prefill_chunked_int8,
-        "flash_prefill_chunked_fp8": attention_prefill.launch_flash_prefill_chunked_fp8,
-        "flash_prefill_vmem": attention_prefill.launch_flash_prefill_vmem,
-        "quantize_rows": qmatmul.launch_quantize_rows,
-    }
-    out = {k: (fn, "launches") for k, fn in launchers.items()}
-    out["rms_norm_int8_rows"] = (norms.launch_rms_norm, "int8_launches")
-    out["swiglu_int8_rows"] = (norms.launch_swiglu, "int8_launches")
-    return out
-
-
 def read_counts():
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    """{name: launches} of every kernel of KERNELS, and beside them K3 /
+    K4's launches that also wrote K6's int8 rows and the launches of K6's
+    own activation quantizer. A replayed decode graph adds the launches of
+    its kernels at each replay (``DecodeStep.run``); its capture adds none."""
+    from lite_llama_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def reset_counts():
-    for fn, attr in counters().values():
+    from lite_llama_tpu_torch.ops import launch_counters
+
+    for fn, attr in launch_counters().values():
         setattr(fn, attr, 0)
 
 
@@ -1467,7 +1440,8 @@ def profile_decode(engine, prompts, steps=16):
     time, device time by kernel name, and device time and launches per step
     of each kernel of DEVICE_KERNELS. Kernel rows are the profiler's
     device-side events; "not measured" (None) when the profiler records no
-    device time."""
+    device time. Where it does, the launch counters' per-step reading of
+    each DEVICE_KERNELS kernel must equal its device events'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1481,11 +1455,13 @@ def profile_decode(engine, prompts, steps=16):
     try:
         first, _, _, _ = engine.prefill(prompts, sampling, slots)
         sync(dev)
+        c0 = read_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             engine.decode(slots, first, np.zeros(B, bool), total, sampling, n_steps=steps)
             sync(dev)
             wall_us = (time.perf_counter() - t0) * 1e6
+        c1 = read_counts()
     finally:
         engine.release_slots(slots, total)
     # Device-side rows only: a CPU op's row repeats its kernels' device time.
@@ -1499,7 +1475,13 @@ def profile_decode(engine, prompts, steps=16):
         us = sum(u for u, _ in mine)
         per_step[f"{name}_device_ms_per_step"] = us / 1e3 / steps if us else None
         per_step[f"{name}_launches_per_step"] = sum(n for _, n in mine) / steps
+    counted = {k: (c1[k] - c0[k]) / steps for k in DEVICE_KERNELS}
+    if device_us:
+        seen = {k: per_step[f"{k}_launches_per_step"] for k in DEVICE_KERNELS}
+        require(counted == seen, f"launch counters per decode step {counted} differ from "
+                                 f"the device events' {seen}")
     return dict(
+        counted_launches_per_step=counted,
         steps=steps, profiled_wall_ms=wall_us / 1e3,
         device_ms=device_us / 1e3 if device_us else None,
         device_ms_per_step=device_us / 1e3 / steps if device_us else None,
@@ -1512,24 +1494,6 @@ def profile_decode(engine, prompts, steps=16):
 def batch_prompts(cfg, B=12, P=25):
     """The batch slice's prompts, random ids from the seed."""
     return np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, P)).tolist()
-
-
-@contextlib.contextmanager
-def eager_step(engine, width, mode="greedy"):
-    """The engine's decode step of (``width``, ``mode``) replaced, for the
-    duration, by one never captured, so that each chunk calls its body once
-    a step: the eager reference of graph_gate and the eager timing."""
-    from lite_llama_tpu_torch.executor.engine import DecodeStep
-
-    key = (width, mode)
-    captured = engine._steps.pop(key, None)
-    engine._steps[key] = DecodeStep(engine, width, mode)
-    try:
-        yield
-    finally:
-        del engine._steps[key]
-        if captured is not None:
-            engine._steps[key] = captured
 
 
 def graph_gate(engine, prompts, steps=75):
@@ -1545,6 +1509,7 @@ def graph_gate(engine, prompts, steps=75):
     from unittest import mock
 
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from tests.torch_decode_steps import eager_step
 
     B = len(prompts)
     total = [len(p) + steps + 1 for p in prompts]
@@ -1667,15 +1632,16 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     ``repeats`` counts the timed generate_tokens runs, the prefill + decode
     runs and the runs of the same decode with the step eager.
 
-    The counted generate_tokens run captures the batch's decode graph: the
-    warm-up before it runs at another width. So the launch counts of that
-    run hold the prefill's launches and the decode step's twice (the
-    capture's eager warm-up and the capture); launches per decode step
-    come from the device events of a profiled decode, and every decode
-    kernel of ``path`` must be among them."""
+    The warm-up, at the batch's width, captures its decode graph (timed
+    apart, ``capture_ms``), so no timed run holds the capture. The counted
+    generate_tokens run holds the prefill's launches and each replay's;
+    launches per decode step come from the device events of a profiled
+    decode (which the counters must equal), and every decode kernel of
+    ``path`` must be among them."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.generate import TextGenerator
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from tests.torch_decode_steps import eager_step
 
     t0 = time.perf_counter()
     engine = InferenceEngine(cfg, params, device=dev, **(engine_kw or {}))
@@ -1683,7 +1649,8 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     setup_s = time.perf_counter() - t0
     gen = TextGenerator(engine)
     prompts = batch_prompts(cfg, B, P)
-    gen.generate_tokens(prompts[:1], max_gen_len=4, temperature=0.0)  # warm-up, width 1
+    gen.generate_tokens(prompts, max_gen_len=4, temperature=0.0)  # warm-up: the capture
+    capture_ms = {f"{w} {m}": st.capture_ms for (w, m), st in engine._steps.items()}
 
     reset_counts()
     sync(dev)
@@ -1695,9 +1662,8 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     gen_s = [time.perf_counter() - t0]
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
-    capture_ms = {f"{w} {m}": st.capture_ms for (w, m), st in engine._steps.items()}
     log(f"  generate_tokens: {sum(len(o.token_ids) for o in outs)} tokens in {gen_s[0]:.3f} s "
-        f"(the decode graph's capture included: {capture_ms} ms); launches {launches}")
+        f"(the decode graph captured before it: {capture_ms} ms); launches {launches}")
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the batch path: {missing}")
     stray = [k for k in absent if launches[k] != 0]
@@ -1870,7 +1836,8 @@ def serving_phase(dev, cfg, params, engine_kw=None, path=SERVING_PATH,
     # The full-width session's decode graphs (greedy, and sampled where a
     # wave has sampled requests) are captured before the timed waves, as a
     # server captures before it takes traffic; the path's launch counts run
-    # from before the captures to the end of the last wave.
+    # from before the captures (their eager warm-ups count, the captures
+    # do not) to the end of the last wave.
     modes = ["greedy"] + (["approx"] if any(r["temperature"] > 0 for wv in waves for r in wv)
                           else [])
     reset_counts()
@@ -2211,11 +2178,11 @@ def quantized_phase(dev, cfg, qparams, bf16_logits):
 def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
     """bf16 weights with an fp8 KV pool: ``n`` prompts of ``P`` random ids
     prefilled in 512-token chunks (K5q-fp8), then ``steps`` greedy decode
-    steps (K1q-fp8; the decode graph is captured in this counted run, its
-    ms per step includes the capture). Then a profiled decode of ``n`` short
-    prompts (K1q-fp8 must be among the replays' device events) and the
-    graph-vs-eager gate on them. First-token logits against the same
-    prompts on a bf16 pool are reported, with no limit."""
+    steps (K1q-fp8, replays of the decode graph captured before the timed
+    and counted run; its capture apart, ``capture_ms``). Then a profiled
+    decode of ``n`` short prompts (K1q-fp8 must be among the replays'
+    device events) and the graph-vs-eager gate on them. First-token logits
+    against the same prompts on a bf16 pool are reported, with no limit."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
 
@@ -2228,6 +2195,8 @@ def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
 
     eng = engine("fp8")
     sampling = SamplingParams.make(n, temperature=0.0, device=dev)
+    eng.decode_step_for(n, "greedy")
+    capture_ms = {f"{w} {m}": st.capture_ms for (w, m), st in eng._steps.items()}
     reset_counts()
     sync(dev)
     slots = eng.admit_requests(total)
@@ -2254,7 +2223,6 @@ def fp8_kv_phase(dev, cfg, params, n=4, P=1500, steps=32):
     require(prof["paged_flash_decode_fp8_launches_per_step"] > 0,
             f"K1q-fp8 absent from the replayed steps' device events: {prof}")
     gate = graph_gate(eng, short)
-    capture_ms = {f"{w} {m}": st.capture_ms for (w, m), st in eng._steps.items()}
     del eng
     bf16_last, _ = _last_logits(engine(False), prompts)
     rec = dict(prompts=n, prompt_len=P, decode_steps=steps, prefill_s=prefill_s,

@@ -59,6 +59,7 @@ import torch
 from ..config import BaseConfig
 from ..generation.sampling import SamplingParams, log_softmax_gather, needs_exact_sampling, sample
 from ..models.decoder import AttnContext, decoder_decode, decoder_prefill, fuse_qkv_params
+from ..ops import add_launches, launch_counts
 from ..quant.qtensor import QTensor
 from .kv_cache import (
     alloc_decode,
@@ -89,24 +90,30 @@ class DecodeSession:
 
 def capture_graph(fn, generator: torch.Generator, pool, stream: torch.cuda.Stream):
     """Capture ``fn()`` as a CUDA graph on ``stream`` into the memory pool
-    ``pool``; returns (graph, capture ms). One eager call on ``stream``
-    first creates, outside the capture, what the kernels keep per stream
-    (K1's and K6's split workspaces, cuBLAS's handle and workspace).
-    ``generator`` is registered with the graph, so each replay draws fresh
-    numbers from it. Errors are checked per thread: the server's frontend
-    thread runs beside the one that captures."""
+    ``pool``; returns (graph, capture ms, launches a replay makes). One
+    eager call on ``stream`` first creates, outside the capture, what the
+    kernels keep per stream (K1's and K6's split workspaces, cuBLAS's handle
+    and workspace). ``generator`` is registered with the graph, so each
+    replay draws fresh numbers from it. Errors are checked per thread: the
+    server's frontend thread runs beside the one that captures. The capture
+    launches nothing, so the kernel wrappers' counts made during it are
+    taken back out of the counters and returned ({name: launches}) for the
+    replayer to add (:func:`ops.add_launches`)."""
     current = torch.cuda.current_stream(stream.device)
     stream.wait_stream(current)
     with torch.cuda.stream(stream):
         fn()
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
+    before = launch_counts()
     t0 = time.perf_counter()
     with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
         fn()
     capture_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    add_launches(launches, -1)
     current.wait_stream(stream)
-    return graph, capture_ms
+    return graph, capture_ms, launches
 
 
 class DecodeStep:
@@ -136,7 +143,7 @@ class DecodeStep:
         self.lps = torch.zeros((engine.decode_chunk, width), **f32)
         self.graph = None
         self.capture_ms = None
-        self._replay = self.body
+        self.launches = {}  # kernel launches a replay makes, by launch counter
 
     @torch.inference_mode()
     def load(self, s: DecodeSession) -> None:
@@ -146,10 +153,10 @@ class DecodeStep:
             dst.copy_(src)
         self.step.zero_()
 
-    def body(self) -> None:
-        e, done = self.engine, self.done
-        cache = e.cache
-        active = ~done
+    def forward(self):
+        """Allocate the live rows' next positions and run the decoder:
+        (lengths [B] after the allocation, logits [B, V])."""
+        e, cache, active = self.engine, self.engine.cache, ~self.done
         alloc_decode(cache, self.req_ids, active)
         req = self.req_ids.long()
         seq = cache.seq_lens[req]
@@ -157,6 +164,11 @@ class DecodeStep:
         ctx = AttnContext(table_rows=cache.page_table[req], seq_lens=seq, start_pos=pos,
                           chunk_lens=torch.ones_like(pos), active=active)
         logits, _ = decoder_decode(e.params, e.config, cache.kv_pages, ctx, self.tok.long())
+        return seq, logits
+
+    def body(self) -> None:
+        e, done = self.engine, self.done
+        seq, logits = self.forward()
         next_tok = sample(logits, e._gen, self.samp, mode=self.mode)
         emit = torch.where(done, torch.full_like(next_tok, e.pad_id), next_tok)
         emit_lp = torch.where(done, torch.zeros_like(logits[:, 0]),
@@ -171,13 +183,21 @@ class DecodeStep:
         """Record the body as a CUDA graph (:func:`capture_graph`). Its
         warm-up runs with every row done (the buffers' initial state), so it
         allocates no page and changes no length or KV row."""
-        self.graph, self.capture_ms = capture_graph(self.body, self.engine._gen, pool, stream)
-        self._replay = self.graph.replay
+        self.graph, self.capture_ms, self.launches = capture_graph(
+            self.body, self.engine._gen, pool, stream)
 
     @torch.inference_mode()
     def run(self, n: int) -> None:
+        """``n`` steps: replays of the graph (counted as the kernels they
+        launch), or eager calls of the body (on the CPU, and on the card
+        until it is captured)."""
+        if self.graph is None:
+            for _ in range(n):
+                self.body()
+            return
         for _ in range(n):
-            self._replay()
+            self.graph.replay()
+        add_launches(self.launches, n)
 
 
 @dataclasses.dataclass

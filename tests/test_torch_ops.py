@@ -277,3 +277,25 @@ def test_cpu_tensors_take_the_plain_versions():
     after = (launch_paged_decode.launches, launch_flash_prefill.launches,
              norms.launch_rms_norm.launches, norms.launch_swiglu.launches)
     assert after == before
+
+
+def test_launch_counters_name_every_wrapper_and_add_a_replays_launches():
+    """``ops.launch_counters`` covers each kernel wrapper's counter, and
+    ``add_launches`` (a replayed graph's count) adds launches x replays to
+    exactly the counters named."""
+    from lite_llama_tpu_torch.ops import add_launches, launch_counters, launch_counts
+    from lite_llama_tpu_torch.ops.attention_decode import launch_paged_decode
+
+    counters = launch_counters()
+    assert counters["paged_flash_decode"] == (launch_paged_decode, "launches")
+    assert counters["rms_norm_int8_rows"] == (norms.launch_rms_norm, "int8_launches")
+    assert len({(id(fn), attr) for fn, attr in counters.values()}) == len(counters)
+    before = launch_counts()
+    try:
+        add_launches({"paged_flash_decode": 2, "swiglu_int8_rows": 1}, 3)
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            "paged_flash_decode": 6, "swiglu_int8_rows": 3}
+    finally:
+        add_launches({"paged_flash_decode": 2, "swiglu_int8_rows": 1}, -3)
+    assert launch_counts() == before
