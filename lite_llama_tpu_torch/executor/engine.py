@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import threading
 import time
 from typing import List, Optional, Sequence
@@ -86,6 +87,23 @@ class DecodeSession:
     stop: torch.Tensor
     samp: SamplingParams
     mode: str
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (there is no
+    quiet fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "InferenceEngine runs on a CUDA device and none is available; "
+            "pass device='cpu' explicitly to run the plain PyTorch path"
+        )
+    return device
+
+
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def capture_graph(fn, generator: torch.Generator, pool, stream: torch.cuda.Stream):
@@ -326,12 +344,7 @@ class InferenceEngine:
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "InferenceEngine runs on a CUDA device and none is available; "
-                "pass device='cpu' explicitly to run the plain PyTorch path"
-            )
+        self.device = require_device(device)
         emb = params["embed"]
         if emb.dtype != config.dtype:
             raise ValueError(
@@ -516,6 +529,50 @@ class InferenceEngine:
             for s, n in zip(slots, returned):
                 self._host_free_pages += n
                 self._free_slots.append(s)
+
+    # -- construction -----------------------------------------------------
+    @classmethod
+    def build(cls, ckpt_dir: str, dtype=torch.bfloat16, max_seq_len=None, device="cuda",
+              **kw) -> "InferenceEngine":
+        """Load config + weights from an HF or engine-converted checkpoint dir
+        onto ``device`` and build the engine (``kw`` goes to ``__init__``).
+        ``engine.load_stats`` records the load: seconds to read the files
+        onto the device (``read_s``) and to a ready engine (``ready_s``), and
+        the bytes read."""
+        from ..config import load_config
+        from ..utils.safetensors_io import load_file
+        from ..utils.weights import (
+            CONVERTED_FILE,
+            is_converted_checkpoint,
+            load_hf_safetensors,
+            params_from_converted,
+            params_from_hf_state_dict,
+        )
+
+        require_device(device)
+        t0 = time.perf_counter()
+        overrides = {"dtype": dtype}
+        if max_seq_len is not None:
+            overrides["max_seq_len"] = max_seq_len
+        config = load_config(ckpt_dir, **overrides)
+        converted = is_converted_checkpoint(ckpt_dir)
+        if converted:
+            tensors = load_file(os.path.join(ckpt_dir, CONVERTED_FILE), device)
+        else:
+            tensors = load_hf_safetensors(ckpt_dir, device)
+        _synchronize(device)
+        read_s = time.perf_counter() - t0
+        n_bytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        if converted:
+            params = params_from_converted(tensors, dtype)
+        else:
+            params = params_from_hf_state_dict(tensors, config, device)
+        del tensors
+        engine = cls(config, params, device=device, **kw)
+        _synchronize(device)
+        engine.load_stats = dict(converted=converted, bytes=n_bytes, read_s=read_s,
+                                 ready_s=time.perf_counter() - t0)
+        return engine
 
     def _auto_num_pages(self, hbm_util: float) -> int:
         """Size the KV pool from free device memory. On the CPU (tests) there

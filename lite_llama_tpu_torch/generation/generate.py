@@ -1,14 +1,15 @@
-"""Batch and streaming generation over an InferenceEngine (port of
-``lite_llama_tpu/generation/generate.py``, ``TextGenerator.generate_tokens``
-and ``stream_tokens``).
+"""Batch, streaming, text and chat generation over an InferenceEngine (port
+of ``lite_llama_tpu/generation/generate.py``).
 
 Generation runs through the engine's chunked decode (one host sync per
 chunk); the streaming API trades chunk size down (default 4) for latency.
 Prompts are handed to admission, so a prefix-cache engine registers and hits
-shared prompt prefixes here too. Token ids are enough; the tokenizer is
-optional and only turns the result into text. The chat front end waits for
-the prompt templates (``utils/prompts.py``), which wait for a tokenizer in
-the repository.
+shared prompt prefixes here too. The token-level APIs (``generate_tokens``,
+``stream_tokens``) need no tokenizer; the text level (``text_completion``,
+``text_completion_stream``, which holds back incomplete UTF-8, and
+``chat_completion``, rendered through the tokenizer's chat template or the
+family prompter of ``utils/prompts.py``) takes any object with ``encode`` /
+``decode``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Generator, List, Optional, Sequence
 import numpy as np
 
 from ..executor.engine import InferenceEngine
+from ..utils.prompts import get_prompter
 from .sampling import SamplingParams
 
 
@@ -28,6 +30,11 @@ class CompletionOutput:
     text: Optional[str] = None
     logprobs: Optional[List[float]] = None
     finish_reason: str = "length"  # or "stop"
+
+
+# Special tags never allowed inside user-supplied chat content.
+SPECIAL_TAGS = ["[INST]", "[/INST]", "<<SYS>>", "<</SYS>>"]
+UNSAFE_ERROR = "Error: special tags are not allowed as part of the prompt."
 
 
 class TextGenerator:
@@ -147,6 +154,89 @@ class TextGenerator:
         finally:
             eng.release_slots(slots, max_total)
 
+    # -- text-level -------------------------------------------------------
+    def _require_tokenizer(self):
+        if self.tokenizer is None:
+            raise ValueError("the text API requires a tokenizer")
+
+    def text_completion(self, prompts: Sequence[str], **kw) -> List[CompletionOutput]:
+        self._require_tokenizer()
+        toks = [self.tokenizer.encode(p) for p in prompts]
+        return self.generate_tokens(toks, **kw)
+
+    def chat_completion(
+        self,
+        dialogs: Sequence[Sequence[dict]],
+        temperature: float = 0.6,
+        top_p: float = 0.9,
+        max_gen_len: Optional[int] = None,
+        logprobs: bool = False,
+    ) -> List[dict]:
+        """Multi-turn chat completion.
+
+        Each dialog is a list of {"role": system|user|assistant,
+        "content": str} messages; roles must alternate user/assistant after
+        an optional leading system message and end with a user turn. Prompts
+        render through the tokenizer's chat template when it has one, else
+        through the model-family prompter. Returns ChatPrediction dicts:
+        {"generation": {"role", "content"}, "tokens"?, "logprobs"?}; a dialog
+        holding a special tag gets ``UNSAFE_ERROR`` as its content.
+        """
+        self._require_tokenizer()
+        if max_gen_len is None:
+            max_gen_len = self.engine.config.max_seq_len - 1
+        unsafe = [any(tag in m["content"] for tag in SPECIAL_TAGS for m in d) for d in dialogs]
+        prompt_tokens = []
+        for dialog in dialogs:
+            if not dialog or dialog[-1]["role"] != "user":
+                raise ValueError("last message must be from the user")
+            body = dialog[1:] if dialog[0]["role"] == "system" else dialog
+            if not (all(m["role"] == "user" for m in body[::2])
+                    and all(m["role"] == "assistant" for m in body[1::2])):
+                raise ValueError("roles must alternate user/assistant")
+            if getattr(self.tokenizer, "chat_template", None):
+                ids = self.tokenizer.apply_chat_template(list(dialog), add_generation_prompt=True)
+            else:
+                prompter = get_prompter(self.engine.config.model_type)
+                if dialog[0]["role"] == "system":
+                    prompter.system_prompt = dialog[0]["content"]
+                for user_msg, reply in zip(body[::2], body[1::2]):
+                    prompter.insert_prompt(user_msg["content"])
+                    prompter.update_last_reply(reply["content"])
+                ids = self.tokenizer.encode(prompter.insert_prompt(body[-1]["content"]))
+            prompt_tokens.append(ids)
+        outs = self.generate_tokens(prompt_tokens, max_gen_len=max_gen_len,
+                                    temperature=temperature, top_p=top_p, logprobs=logprobs)
+        preds = []
+        for out, is_unsafe in zip(outs, unsafe):
+            pred = {"generation": {"role": "assistant",
+                                   "content": UNSAFE_ERROR if is_unsafe else (out.text or "")}}
+            if logprobs:
+                pred["tokens"] = [self.tokenizer.decode([t]) for t in out.token_ids]
+                pred["logprobs"] = out.logprobs
+            preds.append(pred)
+        return preds
+
+    def text_completion_stream(self, prompts: Sequence[str], **kw
+                               ) -> Generator[List[str], None, None]:
+        """Yields per-request newly decoded text fragments."""
+        self._require_tokenizer()
+        toks = [self.tokenizer.encode(p) for p in prompts]
+        pending: List[List[int]] = [[] for _ in prompts]
+        for new in self.stream_tokens(toks, **kw):
+            frags = []
+            for i, ids in enumerate(new):
+                pending[i].extend(ids)
+                text = self.tokenizer.decode(pending[i])
+                # Hold back incomplete UTF-8 (replacement char at the tail).
+                if text and not text.endswith("\ufffd"):
+                    frags.append(text)
+                    pending[i] = []
+                else:
+                    frags.append("")
+            yield frags
+
+    # -- helpers ----------------------------------------------------------
     def _truncate_at_eos(self, ids: List[int]) -> List[int]:
         for j, t in enumerate(ids):
             if t in self.eos_ids:

@@ -13,7 +13,7 @@ from . import ref
 from .attention_decode import paged_flash_decode
 from .attention_prefill import flash_prefill, flash_prefill_chunked
 from .norms import rms_norm, skip_rms_norm, swiglu
-from .ref import apply_rope, rope_cos_sin
+from .ref import apply_rope, rope_cos_sin, softmax_split
 
 # The JAX package's dispatch names for the attention ops.
 prefill_attention = flash_prefill
@@ -78,5 +78,5 @@ def add_launches(counts: dict, times: int = 1) -> None:
 __all__ = [
     "apply_rope", "rope_cos_sin", "rms_norm", "skip_rms_norm", "swiglu",
     "prefill_attention", "chunked_prefill_attention", "paged_decode_attention", "ref",
-    "launch_counters", "launch_counts", "add_launches",
+    "launch_counters", "launch_counts", "add_launches", "softmax_split",
 ]

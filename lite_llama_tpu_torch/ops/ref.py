@@ -287,3 +287,13 @@ def fold_new_token(out, m1, l1, q, k_new, v_new, sm_scale):
     v2 = v_new.float()[:, :, None, :].expand(B, Hkv, G, D).reshape(B, Nq, D)
     num = out.float() * (l1 * c1)[..., None] + v2 * c2[..., None]
     return (num / torch.clamp(l_out, min=1e-30)[..., None]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Softmax (sampling path)
+
+
+def softmax_split(logits: torch.Tensor) -> torch.Tensor:
+    """Numerically stable softmax over the vocab axis, in fp32 ([batch,
+    vocab], before top-p)."""
+    return torch.softmax(logits.float(), dim=-1)

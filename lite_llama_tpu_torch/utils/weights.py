@@ -1,7 +1,7 @@
-"""HF checkpoint -> engine parameter tree (port of
-``lite_llama_tpu/utils/weights.py``, ``convert_hf_state_dict``), plus
-:func:`params_from_numpy`, which turns a numpy tree in the layout of
-``models/decoder.py`` (the JAX package's layout) into the port's tensors.
+"""HF checkpoints -> engine parameter tree, and the offline converted format
+(port of ``lite_llama_tpu/utils/weights.py``), plus :func:`params_from_numpy`,
+which turns a numpy tree in the layout of ``models/decoder.py`` (the JAX
+package's layout) into the port's tensors.
 
 Output weights are stored ``[in, out]`` (ready for ``x @ W``; HF stores
 ``[out, in]``), K+V fused into ``wkv`` and gate+up into ``gate_up_proj``,
@@ -13,30 +13,53 @@ stacked across layers ``[L, ...]``:
   (qwen3); layers/o_proj [L, Nq, D, H]; layers/gate_up_proj [L, 2, H, I];
   layers/down_proj [L, I, H]; final_norm [H]; lm_head [H, V] (untied only).
 
-Loading safetensors checkpoints is not ported yet.
+Checkpoints are read by the port's own safetensors reader
+(``utils/safetensors_io.py``) in their stored dtype, straight to the target
+device, where the transposes and fusions run as torch ops; each leaf is cast
+to ``cfg.dtype`` once, so a bf16 checkpoint never passes through fp32 on the
+host. The converted format is the JAX package's: ``engine.safetensors``
+(keys "embed", "layers/wq", ...) beside a ``config.json`` of the config's
+fields and the source's tokenizer files. LLaVA checkpoints are refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+import json
+import os
+import shutil
+from typing import Callable, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
 
 from ..quant.qtensor import QTensor
+from .safetensors_io import INDEX_FILE, load_file, save_file
+
+CONVERTED_FILE = "engine.safetensors"
 
 
-def _get(sd: Mapping, key: str) -> np.ndarray:
-    t = sd[key]
+def _tensor(t) -> torch.Tensor:
+    """A checkpoint leaf as a torch tensor in its stored dtype (numpy types
+    torch lacks, such as ml_dtypes' bf16, become fp32, which is exact)."""
     if isinstance(t, torch.Tensor):
-        return t.detach().to("cpu").float().numpy()
-    return np.asarray(t, dtype=np.float32)
+        return t.detach()
+    a = np.asarray(t)
+    if a.dtype.kind not in "biuf" or a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    # fp64 rounds to fp32 first, as the fp32 path always did.
+    return (t.float() if t.dtype == torch.float64 else t).to(dtype)
 
 
 def params_from_numpy(tree, cfg, device="cuda"):
-    """A nested dict of array-likes (numpy, or anything ``np.asarray`` reads,
-    bf16 included) -> the same dict of ``cfg.dtype`` tensors on ``device``.
+    """A nested dict of array-likes (numpy, anything ``np.asarray`` reads,
+    bf16 included, or torch tensors) -> the same dict of ``cfg.dtype``
+    tensors on ``device``. Torch tensors are cast on ``device`` from their
+    own dtype; numpy arrays go through fp32.
 
     Quantized leaves come as ``QTensor``s whose ``q`` and ``scale`` are numpy
     arrays (the JAX quantizer's output, with its static fields): ``q`` int8
@@ -57,64 +80,187 @@ def params_from_numpy(tree, cfg, device="cuda"):
             raise ValueError(f"quantized q must be int8, or uint8 fp8 bits; got {q.dtype}")
         scale = torch.from_numpy(np.ascontiguousarray(tree.scale, dtype=np.float32)).to(device)
         return dataclasses.replace(tree, q=qt, scale=scale, layer=None)
+    if isinstance(tree, torch.Tensor):
+        return _cast(tree.detach().to(device), cfg.dtype)
     arr = np.ascontiguousarray(np.asarray(tree, dtype=np.float32))
     return torch.from_numpy(arr).to(device=device, dtype=cfg.dtype)
 
 
 def convert_hf_state_dict(sd: Mapping, cfg, prefix: str = "model.", device="cuda") -> dict:
-    """Convert an HF llama/qwen2/qwen3 state dict (numpy arrays or torch
-    tensors) to the engine tree of ``cfg.dtype`` tensors on ``device``.
-    Computes in fp32 and casts at the end."""
+    """Convert an HF llama/qwen2/qwen3 state dict (torch tensors in any
+    dtype, or numpy arrays) to the engine tree of ``cfg.dtype`` tensors on
+    ``device``. Each source tensor moves to ``device`` in its own dtype and
+    is transposed and stacked there; the one cast to ``cfg.dtype`` rounds as
+    a cast from fp32 would (bf16 and fp16 widen to fp32 exactly)."""
     L, H, D = cfg.num_hidden_layers, cfg.hidden_size, cfg.head_dim
     Nq, Nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    I = cfg.intermediate_size
 
-    def stack(fn: Callable[[int], np.ndarray]) -> np.ndarray:
-        return np.stack([fn(i) for i in range(L)])
+    def get(key: str) -> torch.Tensor:
+        t = _tensor(sd[key]).to(device)
+        return t.float() if t.dtype == torch.float64 else t
 
-    def lw(i: int, name: str) -> np.ndarray:
-        return _get(sd, f"{prefix}layers.{i}.{name}")
+    def lw(i: int, name: str) -> torch.Tensor:
+        return get(f"{prefix}layers.{i}.{name}")
 
-    def wq(i: int) -> np.ndarray:
-        # HF q_proj.weight is [Nq*D, H], head-major rows -> [H, Nq, D]
-        return lw(i, "self_attn.q_proj.weight").T.reshape(H, Nq, D)
+    def stacked(shape, fill: Callable[[torch.Tensor, int], None]) -> torch.Tensor:
+        out = torch.empty((L, *shape), dtype=cfg.dtype, device=device)
+        for i in range(L):
+            fill(out[i], i)
+        return out
 
-    def wkv(i: int) -> np.ndarray:
-        k = lw(i, "self_attn.k_proj.weight").T.reshape(H, Nkv, D)
-        v = lw(i, "self_attn.v_proj.weight").T.reshape(H, Nkv, D)
-        return np.stack([k, v], axis=1)  # [H, 2, Nkv, D]
+    def each(name: str, view=lambda w: w):
+        return lambda dst, i: dst.copy_(view(lw(i, name)))
+
+    def wkv(dst, i):
+        for j, name in enumerate(("k_proj", "v_proj")):
+            dst[:, j].copy_(lw(i, f"self_attn.{name}.weight").T.reshape(H, Nkv, D))
+
+    def gate_up(dst, i):
+        dst[0].copy_(lw(i, "mlp.gate_proj.weight").T)
+        dst[1].copy_(lw(i, "mlp.up_proj.weight").T)
+
+    def kv_bias(dst, i):
+        dst[0].copy_(lw(i, "self_attn.k_proj.bias").reshape(Nkv, D))
+        dst[1].copy_(lw(i, "self_attn.v_proj.bias").reshape(Nkv, D))
+
+    def whole(key: str, view=lambda w: w) -> torch.Tensor:
+        w = view(get(key))
+        return torch.empty(w.shape, dtype=cfg.dtype, device=device).copy_(w)
 
     layers = {
-        "attn_norm": stack(lambda i: lw(i, "input_layernorm.weight")),
-        "wq": stack(wq),
-        "wkv": stack(wkv),
+        "attn_norm": stacked((H,), each("input_layernorm.weight")),
+        # HF q_proj.weight is [Nq*D, H], head-major rows -> [H, Nq, D]
+        "wq": stacked((H, Nq, D), each("self_attn.q_proj.weight",
+                                       lambda w: w.T.reshape(H, Nq, D))),
+        "wkv": stacked((H, 2, Nkv, D), wkv),
         # HF o_proj.weight is [H, Nq*D] -> [Nq, D, H]
-        "o_proj": stack(lambda i: lw(i, "self_attn.o_proj.weight").T.reshape(Nq, D, H)),
-        "mlp_norm": stack(lambda i: lw(i, "post_attention_layernorm.weight")),
-        "gate_up_proj": stack(
-            lambda i: np.stack(
-                [lw(i, "mlp.gate_proj.weight").T, lw(i, "mlp.up_proj.weight").T], axis=0
-            )  # [2, H, I] (axis0: 0=gate, 1=up)
-        ),
-        "down_proj": stack(lambda i: lw(i, "mlp.down_proj.weight").T),
+        "o_proj": stacked((Nq, D, H), each("self_attn.o_proj.weight",
+                                           lambda w: w.T.reshape(Nq, D, H))),
+        "mlp_norm": stacked((H,), each("post_attention_layernorm.weight")),
+        "gate_up_proj": stacked((2, H, I), gate_up),  # axis 1: 0=gate, 1=up
+        "down_proj": stacked((I, H), each("mlp.down_proj.weight", lambda w: w.T)),
     }
     if cfg.attention_bias:
-        layers["q_bias"] = stack(lambda i: lw(i, "self_attn.q_proj.bias").reshape(Nq, D))
-        layers["kv_bias"] = stack(
-            lambda i: np.stack(
-                [
-                    lw(i, "self_attn.k_proj.bias").reshape(Nkv, D),
-                    lw(i, "self_attn.v_proj.bias").reshape(Nkv, D),
-                ]
-            )
-        )
+        layers["q_bias"] = stacked((Nq, D), each("self_attn.q_proj.bias",
+                                                 lambda w: w.reshape(Nq, D)))
+        layers["kv_bias"] = stacked((2, Nkv, D), kv_bias)
     if getattr(cfg, "qk_norm", False):
-        layers["q_norm"] = stack(lambda i: lw(i, "self_attn.q_norm.weight"))
-        layers["k_norm"] = stack(lambda i: lw(i, "self_attn.k_norm.weight"))
+        layers["q_norm"] = stacked((D,), each("self_attn.q_norm.weight"))
+        layers["k_norm"] = stacked((D,), each("self_attn.k_norm.weight"))
     params = {
-        "embed": _get(sd, f"{prefix}embed_tokens.weight"),
+        "embed": whole(f"{prefix}embed_tokens.weight"),
         "layers": layers,
-        "final_norm": _get(sd, f"{prefix}norm.weight"),
+        "final_norm": whole(f"{prefix}norm.weight"),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = _get(sd, "lm_head.weight").T
-    return params_from_numpy(params, cfg, device)
+        params["lm_head"] = whole("lm_head.weight", lambda w: w.T)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Safetensors checkpoint loading (sharded HF dirs)
+
+
+def _iter_safetensor_files(ckpt_dir: str) -> Iterable[str]:
+    idx = os.path.join(ckpt_dir, INDEX_FILE)
+    if os.path.exists(idx):
+        with open(idx) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+        return [os.path.join(ckpt_dir, f) for f in files]
+    return sorted(
+        os.path.join(ckpt_dir, f) for f in os.listdir(ckpt_dir) if f.endswith(".safetensors")
+    )
+
+
+def load_hf_safetensors(ckpt_dir: str, device="cuda") -> Dict[str, torch.Tensor]:
+    """Every tensor of an HF checkpoint dir (one file, or the shards its
+    index names), in its stored dtype, on ``device``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path in _iter_safetensor_files(ckpt_dir):
+        sd.update(load_file(path, device))
+    return sd
+
+
+def params_from_hf_state_dict(sd: Mapping, cfg, device="cuda") -> dict:
+    """An HF state dict, keys with or without the ``model.`` prefix, -> the
+    engine tree (:func:`convert_hf_state_dict`)."""
+    if getattr(cfg, "model_type", "") == "llava":
+        raise NotImplementedError("LLaVA is not ported to lite_llama_tpu_torch yet")
+    prefix = "model." if any(k.startswith("model.") for k in sd) else ""
+    return convert_hf_state_dict(sd, cfg, prefix=prefix, device=device)
+
+
+def load_hf_checkpoint(ckpt_dir: str, cfg, device="cuda") -> dict:
+    """HF checkpoint dir -> engine parameter tree on ``device``."""
+    return params_from_hf_state_dict(load_hf_safetensors(ckpt_dir, device), cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# Offline converted format (fused engine-native safetensors)
+
+
+def flatten_params(params: dict, sep: str = "/") -> Dict[str, torch.Tensor]:
+    out = {}
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(v, path + [k])
+        else:
+            out[sep.join(path)] = _tensor(node)
+
+    rec(params, [])
+    return out
+
+
+def unflatten_params(flat: Mapping[str, torch.Tensor], sep: str = "/") -> dict:
+    tree: dict = {}
+    for k, v in flat.items():
+        parts = k.split(sep)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def save_converted(params: dict, cfg, out_dir: str, src_dir: str | None = None):
+    """Write the fused engine checkpoint: one safetensors file + config.json
+    (+ tokenizer files copied from the source)."""
+    os.makedirs(out_dir, exist_ok=True)
+    save_file(flatten_params(params), os.path.join(out_dir, CONVERTED_FILE))
+    cfg_dict = {
+        k: v
+        for k, v in vars(cfg).items()
+        if not k.startswith("_") and k != "dtype"
+        and isinstance(v, (int, float, str, bool, list, dict, type(None)))
+    }
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(cfg_dict, f, indent=2)
+    if src_dir:
+        for name in os.listdir(src_dir):
+            if name.startswith("tokenizer") or name in (
+                "special_tokens_map.json",
+                "generation_config.json",
+                "vocab.json",
+                "merges.txt",
+            ):
+                shutil.copy2(os.path.join(src_dir, name), os.path.join(out_dir, name))
+
+
+def params_from_converted(flat: Mapping[str, torch.Tensor], dtype=None) -> dict:
+    """The flat tensors of ``engine.safetensors`` -> the engine tree, each
+    leaf cast to ``dtype`` where one is given."""
+    if dtype is not None:
+        flat = {k: _cast(v, dtype) for k, v in flat.items()}
+    return unflatten_params(flat)
+
+
+def load_converted(ckpt_dir: str, dtype=None, device="cuda") -> dict:
+    flat = load_file(os.path.join(ckpt_dir, CONVERTED_FILE), device)
+    return params_from_converted(flat, dtype)
+
+
+def is_converted_checkpoint(ckpt_dir: str) -> bool:
+    return os.path.exists(os.path.join(ckpt_dir, CONVERTED_FILE))
