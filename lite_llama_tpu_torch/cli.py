@@ -4,11 +4,13 @@
 Usage:
     python -m lite_llama_tpu_torch.cli chat <checkpoint_dir> [--temperature 0.6 ...]
     python -m lite_llama_tpu_torch.cli generate <checkpoint_dir> -p "prompt" [--profile DIR]
+    python -m lite_llama_tpu_torch.cli llava <llava_checkpoint_dir>
 
 The checkpoint dir holds an HF checkpoint or a converted one
 (``python -m lite_llama_tpu_torch.convert``) and a tokenizer that
 ``transformers.AutoTokenizer`` reads. The engine runs on the card unless
-``--device cpu``. The ``llava`` subcommand exits: LLaVA is not ported yet.
+``--device cpu``. ``llava`` is a chat REPL over a LLaVA checkpoint in which
+``/image <path>`` attaches an image to the next message.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ from .utils.logger import get_logger
 logger = get_logger()
 
 
-def _build(args):
+def _build(args, llava=False):
     import torch
 
     from .executor.engine import InferenceEngine
+    from .executor.llava_engine import LlavaEngine
     from .generation.generate import TextGenerator
+    from .generation.llava_generate import LlavaTextGenerator
     from .utils.prompts import get_prompter, get_stop_token_ids
 
     try:
@@ -39,7 +43,7 @@ def _build(args):
         raise SystemExit(1)
 
     t0 = time.perf_counter()
-    engine = InferenceEngine.build(
+    engine = (LlavaEngine if llava else InferenceEngine).build(
         args.checkpoint,
         dtype=torch.bfloat16,
         device=args.device,
@@ -51,7 +55,7 @@ def _build(args):
         f"engine built in {time.perf_counter() - t0:.1f}s "
         f"({engine.num_pages} KV pages x {engine.page_size} tokens)"
     )
-    gen = TextGenerator(engine, tokenizer)
+    gen = (LlavaTextGenerator if llava else TextGenerator)(engine, tokenizer)
     stops = get_stop_token_ids(engine.config.model_type, tokenizer)
     if stops:
         gen.eos_ids |= set(stops)
@@ -122,8 +126,47 @@ def cmd_generate(args):
 
 
 def cmd_llava(args):
-    logger.error("LLaVA is not ported to lite_llama_tpu_torch yet (ROADMAP A5)")
-    raise SystemExit(2)
+    """Multimodal REPL: '/image <path>' attaches an image to the next
+    message (and echoes it in the terminal); plain text chats as usual.
+    LLaVA-1.5 reads one image, placed in a dialog's first message: every
+    later turn of that dialog is sent with it, and an image attached after
+    the first turn starts a new dialog."""
+    from .utils.image import vis_images
+
+    engine, gen, prompter = _build(args, llava=True)
+    print("Multimodal chat. '/image <path>' attaches an image; 'exit' quits.")
+    image = None  # attached to the next message
+    dialog_image = None  # the dialog's image, sent with each of its turns
+    while True:
+        try:
+            user = input("\nyou> ").strip()
+        except EOFError:
+            break
+        if not user or user in ("exit", "quit"):
+            break
+        if user.startswith("/image "):
+            image = user[len("/image "):].strip()
+            print(f"[image attached: {image}]")
+            vis_images([image])
+            continue
+        if image is not None:
+            if prompter.history:
+                print("[one image a dialog: starting a new dialog with this image]")
+                prompter.history.clear()
+            dialog_image, image = image, None
+            user = "<image>\n" + user  # kept in the history's first turn
+        prompt = prompter.insert_prompt(user, with_image=False)
+        sys.stdout.write("assistant> ")
+        kw = dict(max_gen_len=args.max_gen_len, temperature=args.temperature, top_p=args.top_p)
+        stream = (gen.text_completion_stream_mm([prompt], [dialog_image], **kw)
+                  if dialog_image is not None else gen.text_completion_stream([prompt], **kw))
+        parts = []
+        for frags in stream:
+            sys.stdout.write(frags[0])
+            sys.stdout.flush()
+            parts.append(frags[0])
+        prompter.update_last_reply("".join(parts))
+        print()
 
 
 def parse_args(argv=None):

@@ -2,7 +2,14 @@
 
 HF ``config.json`` ingestion with field-alias maps, derived fields in
 ``__post_init__``, and a model_type -> config-class registry. ``dtype`` is a
-torch dtype (bf16 by default). LLaVA is not ported yet: asking for it raises.
+torch dtype (bf16 by default).
+
+``LlavaConfig`` reads an HF LLaVA ``config.json`` as transformers reads it:
+a ``text_config`` dict fills the fields it omits from HF's ``LlamaConfig``
+defaults (Vicuna-7B's shape: hidden 4096, 32 layers, rope_theta 10000), a
+``vision_config`` dict from ``CLIPVisionConfig``'s (ViT-B/32's), and an
+absent ``vision_config`` is LLaVA-1.5's CLIP-L/14-336 tower. The JAX package
+fills both from its own defaults instead.
 """
 
 from __future__ import annotations
@@ -115,10 +122,94 @@ class Qwen3Config(BaseConfig):
     rope_theta: float = 1000000.0
 
 
+# transformers' defaults for the fields an HF LLaVA config.json may omit:
+# LlamaConfig's for ``text_config`` (kv heads default to the heads, head_dim
+# to hidden / heads), CLIPVisionConfig's for ``vision_config``.
+HF_LLAMA_DEFAULTS = dict(
+    hidden_size=4096, intermediate_size=11008, num_hidden_layers=32, num_attention_heads=32,
+    vocab_size=32000, rms_norm_eps=1e-6, rope_theta=10000.0, max_position_embeddings=2048,
+    tie_word_embeddings=False,
+)
+HF_CLIP_VISION_DEFAULTS = dict(
+    hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+    image_size=224, patch_size=32, projection_dim=512, layer_norm_eps=1e-5, num_channels=3,
+)
+
+
+@dataclass
+class VisionConfig:
+    """CLIP vision tower shape; the defaults are LLaVA-1.5's CLIP-L/14-336."""
+
+    hidden_size: int = 1024
+    image_size: int = 336
+    patch_size: int = 14
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+    num_channels: int = 3
+    vision_feature_layer: int = -2
+    vision_feature_select_strategy: str = "default"
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "VisionConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
+# The text fields a LlavaConfig mirrors from its text config, so that the
+# LM stack runs on the LlavaConfig itself.
+_TEXT_FIELDS = ("hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
+                "num_key_value_heads", "head_dim", "vocab_size", "rms_norm_eps", "rope_theta",
+                "rope_scaling", "tie_word_embeddings")
+
+
+@dataclass
+class LlavaConfig(BaseConfig):
+    """LLaVA-1.5 = CLIP tower + projector + Llama LM. ``vision_config`` and
+    ``text_config`` are dataclasses, or dicts in HF's form (filled from
+    transformers' defaults, see the module docstring)."""
+
+    model_type: str = "llava"
+    vision_config: Optional[VisionConfig] = None
+    text_config: Optional[LlamaConfig] = None
+    image_token_index: int = 32000
+    projector_hidden_act: str = "gelu"
+    vision_feature_layer: int = -2
+    vision_feature_select_strategy: str = "default"
+
+    def __post_init__(self):
+        if isinstance(self.vision_config, dict):
+            self.vision_config = VisionConfig.from_dict(
+                {**HF_CLIP_VISION_DEFAULTS, **self.vision_config})
+        if self.vision_config is None:
+            self.vision_config = VisionConfig()
+        if self.text_config is None:
+            self.text_config = {}
+        if isinstance(self.text_config, dict):
+            self.text_config = LlamaConfig.from_dict({**HF_LLAMA_DEFAULTS, **self.text_config})
+        t = self.text_config
+        for f in _TEXT_FIELDS:
+            setattr(self, f, getattr(t, f))
+        super().__post_init__()
+        t.max_seq_len = self.max_seq_len
+        t.dtype = self.dtype
+
+    @property
+    def num_image_patches(self) -> int:
+        return self.vision_config.num_patches
+
+
 CONFIG_CLASS_MAP: Dict[str, Type[BaseConfig]] = {
     "llama": LlamaConfig,
     "qwen2": Qwen2Config,
     "qwen3": Qwen3Config,
+    "llava": LlavaConfig,
 }
 
 
@@ -133,8 +224,5 @@ def load_config(path_or_dict, **overrides) -> BaseConfig:
             p = os.path.join(p, "config.json")
         with open(p) as f:
             d = json.load(f)
-    model_type = d.get("model_type", "llama")
-    if model_type == "llava":
-        raise NotImplementedError("LLaVA is not ported to lite_llama_tpu_torch yet")
-    cls = CONFIG_CLASS_MAP.get(model_type, LlamaConfig)
+    cls = CONFIG_CLASS_MAP.get(d.get("model_type", "llama"), LlamaConfig)
     return cls.from_dict(d, **overrides)

@@ -5,7 +5,9 @@ Reads the HF safetensors (one file or index + shards) onto the device in
 their stored dtype, converts them there (``utils/weights.py``), and writes
 ``engine.safetensors`` + ``config.json`` + the tokenizer files, the format
 the JAX package's converter writes. ``InferenceEngine.build`` loads it
-without the conversion step. Runs on the card unless ``--device cpu``.
+without the conversion step. A LLaVA checkpoint (``model_type`` "llava")
+converts to the {"lm", "vision", "projector"} tree, which
+``LlavaEngine.build`` loads. Runs on the card unless ``--device cpu``.
 
 Usage:
     python -m lite_llama_tpu_torch.convert <hf_checkpoint_dir> <out_dir> \

@@ -26,8 +26,10 @@
 // an empty chunk writes out = 0, m = -1e30, l = 0; chunk_lens = 0 with a
 // history is a walk over the history only. With m/l pointers the kernel
 // also writes each query row's state (exp2 domain) for a later LSE combine.
-// q is scaled by sm_scale*log2(e) and rounded to bf16; P is rounded to bf16
-// before PV and l sums the unrounded P. int8 history is
+// q enters the QK product as it is (bf16) and the fp32 scores are scaled by
+// sm_scale*log2(e) inside the exp2 step's fma (no rounding of a scaled q:
+// the plain versions' and the TPU's _flash_prefill_vmem's logits); P is
+// rounded to bf16 before PV and l sums the unrounded P. int8 history is
 // bf16(float(k) * float(scale)), rounded once; fp8 e4m3 converts exactly.
 // Any even head dim from 16 to 128, at most 8 query heads per kv head.
 //
@@ -77,12 +79,12 @@
 //    8 x 8 core-matrix layout, K K-major and V MN-major, and the tensor cores
 //    read both through matrix descriptors. (The step before this design,
 //    ldmatrix.x4 / .x4.trans fragments for mma.sync, is measured in PERF.md.)
-// 4. wgmma (it ran mma.sync): m64n64k16 for S = Q K^T with the scaled bf16 q
-//    rows in shared memory, and m64nNk16 over N = 64 / 32 / 16 slices of DP
-//    for O += P V with P rounded to bf16 in registers (the accumulator layout
-//    of S is the A-register layout of PV). The two consumers take turns to
-//    issue their QK products (named barriers), so one's softmax runs under
-//    the other's products.
+// 4. wgmma (it ran mma.sync): m64n64k16 for S = Q K^T with the bf16 q rows
+//    in shared memory (the scale enters at the exp2 step), and m64nNk16 over
+//    N = 64 / 32 / 16 slices of DP for O += P V with P rounded to bf16 in
+//    registers (the accumulator layout of S is the A-register layout of
+//    PV). The two consumers take turns to issue their QK products (named
+//    barriers), so one's softmax runs under the other's products.
 // 5. The page table is read once per page of a tile (it looked a row up for
 //    every 16-byte load): one producer thread per page reads the entry, one
 //    per key forms the key's pool row, and the copies read those rows. Any
@@ -138,7 +140,7 @@ struct Layout {
   static constexpr int RS = DP + 16;       // raw 1-byte row stride (bytes)
   static constexpr int TILE = BK * DP * 2; // bytes of one bf16 K or V tile
   static constexpr int STAGE = 2 * TILE;
-  static constexpr int QTILE = BM * DP * 2;  // the block's scaled q rows
+  static constexpr int QTILE = BM * DP * 2;  // the block's q rows
   static constexpr int RAW = 2 * BK * RS;  // one raw 1-byte K + V tile
   static constexpr int SCALES = BK * 2 * 4;  // K and V scale words per key
   // ring | q | full, empty barriers | page ids | pool rows | 1-byte pools:
@@ -447,7 +449,8 @@ __device__ __forceinline__ void pv_slices(float (&o)[DP / 8][4], const uint32_t 
 template <int DP, bool CAUSAL, bool MASK>
 __device__ __forceinline__ void attend_tile(uint32_t sQ, float (&o)[DP / 8][4], float (&mrow)[2],
                                             float (&lrow)[2], uint32_t sK, uint32_t sV, int j0,
-                                            int limit, const int (&pos)[2], int lane, int wg) {
+                                            int limit, const int (&pos)[2], int lane, int wg,
+                                            float qscale) {
   constexpr int KT = DP / 16;
   constexpr int DT = DP / 8;
   const int c = lane & 3;
@@ -469,7 +472,10 @@ __device__ __forceinline__ void attend_tile(uint32_t sQ, float (&o)[DP / 8][4], 
 #pragma unroll
     for (int e = 0; e < 4; ++e) fence_reg(s[nt][e]);
 
-  float mx[2] = {mrow[0], mrow[1]};
+  // S stays unscaled: the tile's row max is taken on it, and qscale (> 0,
+  // so round(max(s) * qscale) is the max of the rounded scaled scores) is
+  // folded into the exp2 step's fma; mrow is in the exp2 domain.
+  float mx[2] = {NEG, NEG};
 #pragma unroll
   for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
@@ -487,14 +493,18 @@ __device__ __forceinline__ void attend_tile(uint32_t sQ, float (&o)[DP / 8][4], 
   for (int i = 0; i < 2; ++i) {
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    corr[i] = ex2(mrow[i] - mx[i]);
-    mrow[i] = mx[i];
+    // A row with every key of the tile masked keeps its max.
+    const float m = mx[i] > 0.5f * NEG ? fmaxf(mrow[i], mx[i] * qscale) : mrow[i];
+    corr[i] = ex2(mrow[i] - m);
+    mrow[i] = m;
   }
 #pragma unroll
   for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = !MASK || s[nt][e] > 0.5f * NEG ? ex2(s[nt][e] - mrow[e >> 1]) : 0.f;
+      const float p = !MASK || s[nt][e] > 0.5f * NEG
+                          ? ex2(fmaf(s[nt][e], qscale, -mrow[e >> 1]))
+                          : 0.f;
       s[nt][e] = p;
       psum[e >> 1] += p;
     }
@@ -719,9 +729,8 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
     // Fresh prefill computes no row past the length (padding, never read).
     const bool group_live = gf < rows && (HIST || group_first < w.len);
 
-    // The warpgroup's q rows, scaled and rounded to bf16, into shared memory
-    // (core-matrix layout); lanes D..DP-1 and rows past the request are
-    // zeros; the stores wait until the warpgroup's products of the last
+    // The warpgroup's q rows into shared memory (core-matrix layout); lanes
+    // D..DP-1 and rows past the request are zeros; the stores wait until the warpgroup's products of the last
     // item are done with the tile.
     if constexpr (ONE_BYTE) {
       // One piece of 8 values at a time: with a 1-byte pool the producer's
@@ -737,14 +746,8 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
           const __nv_bfloat16* qrow =
               a.q + ((long long)w.b * S + f / G) * qs + (long long)(w.h * G + f % G) * D;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int d = 8 * p + 2 * i;
-            if (d < D) {
-              const float2 v =
-                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qrow + d));
-              q4[i] = pack2(v.x * a.qscale, v.y * a.qscale);
-            }
-          }
+          for (int i = 0; i < 4; ++i)
+            if (8 * p + 2 * i < D) q4[i] = *reinterpret_cast<const uint32_t*>(qrow + 8 * p + 2 * i);
         }
         *reinterpret_cast<uint4*>(q_s + L::k_off(m, p)) = make_uint4(q4[0], q4[1], q4[2], q4[3]);
       }
@@ -790,15 +793,9 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
 #pragma unroll
       for (int k = 0; k < QU; ++k) {
         const int u = (threadIdx.x & 127) + 128 * k;
-        uint32_t w4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {  // zeros stay zeros
-          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q4[k][i]));
-          w4[i] = pack2(v.x * a.qscale, v.y * a.qscale);
-        }
         *reinterpret_cast<uint4*>(q_s + L::k_off(((u >> 3) / (DP / 8)) * 8 + (u & 7),
                                                  (u >> 3) % (DP / 8))) =
-            make_uint4(w4[0], w4[1], w4[2], w4[3]);
+            make_uint4(q4[k][0], q4[k][1], q4[k][2], q4[k][3]);
       }
     }
     fence_async_smem();
@@ -827,9 +824,11 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
           turn_wait(wg);
           turn_pass(wg);
         } else if (j0 + BK <= w.hist) {  // every key of the tile is visible
-          attend_tile<DP, false, false>(sQ, o, mrow, lrow, sK, sV, j0, w.hist, pos, lane, wg);
+          attend_tile<DP, false, false>(sQ, o, mrow, lrow, sK, sV, j0, w.hist, pos, lane, wg,
+                                        a.qscale);
         } else {
-          attend_tile<DP, false, true>(sQ, o, mrow, lrow, sK, sV, j0, w.hist, pos, lane, wg);
+          attend_tile<DP, false, true>(sQ, o, mrow, lrow, sK, sV, j0, w.hist, pos, lane, wg,
+                                        a.qscale);
         }
       } else {
         const int j0 = (t - w.n_hist) * BK;
@@ -837,9 +836,11 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
           turn_wait(wg);
           turn_pass(wg);
         } else if (j0 + BK - 1 <= group_first && j0 + BK <= w.len) {
-          attend_tile<DP, true, false>(sQ, o, mrow, lrow, sK, sV, j0, w.len, pos, lane, wg);
+          attend_tile<DP, true, false>(sQ, o, mrow, lrow, sK, sV, j0, w.len, pos, lane, wg,
+                                        a.qscale);
         } else {
-          attend_tile<DP, true, true>(sQ, o, mrow, lrow, sK, sV, j0, w.len, pos, lane, wg);
+          attend_tile<DP, true, true>(sQ, o, mrow, lrow, sK, sV, j0, w.len, pos, lane, wg,
+                                        a.qscale);
         }
       }
       __syncwarp();

@@ -345,6 +345,9 @@ class InferenceEngine:
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
         self.device = require_device(device)
+        if "lm" in params:
+            raise ValueError("a LLaVA parameter tree: build a LlavaEngine "
+                             "(executor/llava_engine.py)")
         emb = params["embed"]
         if emb.dtype != config.dtype:
             raise ValueError(

@@ -11,9 +11,17 @@
   processed, so the host's bookkeeping overlaps the device's work,
 - frees pages and slots on completion and refills from the queue.
 
-It is host-side Python that runs once per decode chunk. Multimodal requests
-are rejected (``rejected_multimodal_unsupported``): the port has no LLaVA
-engine yet.
+It is host-side Python that runs once per decode chunk.
+
+Image requests (``pixel_values``) ride the same session on a ``LlavaEngine``:
+their pool length is the expanded one (the ``<image>`` placeholder becomes
+num_patches rows), they never take or register a prefix-cache entry (their
+KV depends on the image), and each admission dispatches its text and image
+requests as two prefills (the base engine's, and the multimodal one) that
+splice into the one session. A text engine rejects them
+(``rejected_multimodal_unsupported``); a LLaVA engine rejects one whose
+prompt holds no placeholder (``rejected_missing_image_placeholder``) or more
+than one (``rejected_multiple_images``).
 """
 
 from __future__ import annotations
@@ -39,7 +47,13 @@ class Request:
     temperature: float = 0.6
     top_p: float = 0.9
     top_k: int = 0
-    pixel_values: Optional[object] = None  # multimodal input: rejected here
+    # Multimodal: one image [3, S, S] (LlavaEngine only); prompt_tokens then
+    # hold one <image> placeholder.
+    pixel_values: Optional[object] = None
+    # Prompt length in the KV pool: the expanded length for image requests,
+    # len(prompt_tokens) otherwise. Set at admission; all room and stop
+    # accounting uses it.
+    eff_prompt_len: int = 0
     # runtime state
     slot: Optional[int] = None
     output_tokens: List[int] = dataclasses.field(default_factory=list)
@@ -184,43 +198,65 @@ class ContinuousBatchingScheduler:
         batch: List[Request] = []
         while self.waiting and len(batch) < self.max_prefill_batch:
             r = self.waiting[0]
+            eff = len(r.prompt_tokens)
             if r.pixel_values is not None:
-                self.waiting.popleft()
-                self._reject(r, "rejected_multimodal_unsupported")
-                continue
+                if not hasattr(eng, "expanded_lens"):
+                    self.waiting.popleft()
+                    self._reject(r, "rejected_multimodal_unsupported")
+                    continue
+                if eng.config.image_token_index not in r.prompt_tokens:
+                    self.waiting.popleft()  # the image would go unread
+                    self._reject(r, "rejected_missing_image_placeholder")
+                    continue
+                try:
+                    eff = eng.expanded_lens([r.prompt_tokens])[0]
+                except ValueError:
+                    self.waiting.popleft()
+                    self._reject(r, "rejected_multiple_images")
+                    continue
             # Reject impossible requests up front instead of waiting forever
             # for room that can never exist.
-            eff = len(r.prompt_tokens)
             max_total = min(eff + r.max_gen_len, eng.config.max_seq_len)
             if eff >= eng.config.max_seq_len or not eng.admit_feasible(max_total):
                 self.waiting.popleft()
                 self._reject(r, "rejected_too_long")
                 continue
-            slot = eng.try_admit(max_total, r.prompt_tokens)
+            # Prefix caching keys on token ids: not for image requests.
+            slot = eng.try_admit(max_total, r.prompt_tokens if r.pixel_values is None else None)
             if slot is None:
                 break  # not enough KV room yet; wait for completions
             r.max_total = max_total
+            r.eff_prompt_len = eff
             r.slot = slot
             self.waiting.popleft()
             batch.append(r)
         if not batch:
             return False
         self._ensure_session()
-        self._dispatch(batch)
+        for sub in ([r for r in batch if r.pixel_values is None],
+                    [r for r in batch if r.pixel_values is not None]):
+            if sub:
+                self._dispatch(sub)
         # The sampling mode is static per chunk: it follows the live rows
         # (exact is always correct, just slower).
         self._session.mode = self._live_mode()
         return True
 
     def _dispatch(self, batch: List[Request]) -> None:
-        """Dispatch one prefill batch and splice its rows into the resident
-        session; first tokens flow prefill -> session on the device."""
+        """Dispatch one prefill batch, all text or all image requests, and
+        splice its rows into the resident session; first tokens flow
+        prefill -> session on the device."""
         slots = [r.slot for r in batch]
         temps = [r.temperature for r in batch]
         tps = [r.top_p for r in batch]
         tks = [r.top_k for r in batch]
-        bundle = self.engine.prefill_async(
-            [r.prompt_tokens for r in batch], _host_sampling(temps, tps, tks), slots)
+        prompts = [r.prompt_tokens for r in batch]
+        sampling = _host_sampling(temps, tps, tks)
+        if batch[0].pixel_values is None:
+            bundle = self.engine.prefill_async(prompts, sampling, slots)
+        else:
+            bundle = self.engine.prefill_multimodal_async(
+                prompts, np.stack([np.asarray(r.pixel_values) for r in batch]), sampling, slots)
         for r in batch:
             r.state = "running"
             self.running[r.slot] = r
@@ -228,7 +264,7 @@ class ContinuousBatchingScheduler:
             self._samp_host["top_p"][r.slot] = r.top_p
             self._samp_host["top_k"][r.slot] = r.top_k
         self.engine.update_session_rows(
-            self._session, slots, bundle, [len(r.prompt_tokens) for r in batch],
+            self._session, slots, bundle, [r.eff_prompt_len for r in batch],
             [r.max_total for r in batch], temps, tps, tks,
         )
         self._pending_prefills.append((batch, bundle))
@@ -274,7 +310,7 @@ class ContinuousBatchingScheduler:
                 r.output_logprobs.append(float(lp0[i]))
                 if on_tokens:
                     on_tokens(r, [tok])
-                if tok in self._eos or len(r.prompt_tokens) + 1 >= r.max_total:
+                if tok in self._eos or r.eff_prompt_len + 1 >= r.max_total:
                     self._finish(r, "stop" if tok in self._eos else "length")
 
     def _decode_chunk(self, on_tokens) -> None:
@@ -297,7 +333,7 @@ class ContinuousBatchingScheduler:
             r = src.get(slot)
             if r is None or r.state != "running":
                 continue  # empty slot, or occupant changed/finished
-            room = r.max_total - len(r.prompt_tokens) - len(r.output_tokens)
+            room = r.max_total - r.eff_prompt_len - len(r.output_tokens)
             emitted = []
             for t in (int(t) for t in toks[:, col][: max(room, 0)]):
                 emitted.append(t)
@@ -309,7 +345,7 @@ class ContinuousBatchingScheduler:
             if on_tokens and emitted:
                 on_tokens(r, emitted)
             hit_eos = bool(emitted and emitted[-1] in self._eos)
-            out_len = len(r.prompt_tokens) + len(r.output_tokens)
+            out_len = r.eff_prompt_len + len(r.output_tokens)
             if hit_eos or out_len >= r.max_total or new_done[col]:
                 finished.append(r)
         for r in finished:

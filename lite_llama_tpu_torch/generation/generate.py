@@ -120,12 +120,19 @@ class TextGenerator:
     ) -> Generator[List[List[int]], None, None]:
         """Streaming: yields the newly generated token ids per request after
         the prefill and after every ``chunk`` decode steps."""
-        eng = self.engine
-        B = len(prompt_tokens)
         lens, max_total, slots, sampling = self._admit(prompt_tokens, max_gen_len, temperature,
                                                        top_p, top_k)
+        yield from self._stream(lambda: self.engine.prefill(prompt_tokens, sampling, slots),
+                                lens, max_total, slots, sampling, chunk)
+
+    def _stream(self, prefill, lens, max_total, slots, sampling, chunk):
+        """The streaming loop over admitted ``slots`` (prompt ``lens`` in the
+        pool, budgets ``max_total``): ``prefill()`` returns the prefill's
+        outputs, first tokens first; the slots are released at the end."""
+        eng = self.engine
+        B = len(slots)
         try:
-            first_tok, _, _, _ = eng.prefill(prompt_tokens, sampling, slots)
+            first_tok = prefill()[0]
             done_host = np.asarray(
                 [t in self.eos_ids or lens[i] + 1 >= max_total[i]
                  for i, t in enumerate(first_tok)]
@@ -222,8 +229,12 @@ class TextGenerator:
         """Yields per-request newly decoded text fragments."""
         self._require_tokenizer()
         toks = [self.tokenizer.encode(p) for p in prompts]
-        pending: List[List[int]] = [[] for _ in prompts]
-        for new in self.stream_tokens(toks, **kw):
+        yield from self._text_fragments(self.stream_tokens(toks, **kw), len(prompts))
+
+    def _text_fragments(self, token_stream, n: int) -> Generator[List[str], None, None]:
+        """Decoded text fragments of a token stream of ``n`` requests."""
+        pending: List[List[int]] = [[] for _ in range(n)]
+        for new in token_stream:
             frags = []
             for i, ids in enumerate(new):
                 pending[i].extend(ids)

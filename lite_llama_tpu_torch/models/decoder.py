@@ -26,8 +26,10 @@ norm or SwiGLU before it also writes the int8 rows K6 takes
 (``_int8_rows``), so K6 launches no quantizer of its own; o_proj's input is
 attention's output, and keeps K6's quantizer.
 
-Not ported yet, and refused with NotImplementedError: sharding (tp/cp/dp)
-and ``inputs_embeds`` (LLaVA).
+``decoder_prefill`` also takes ``inputs_embeds`` in place of token ids, as
+LLaVA's prefill hands it the merged text and image rows
+(``models/llava.py``). Not ported yet, and refused with
+NotImplementedError: sharding (tp/cp/dp).
 """
 
 from __future__ import annotations
@@ -291,11 +293,9 @@ def _rope_tables(cfg, positions, seq_lens=None):
     return ops.rope_cos_sin(positions, long_t, att_scale)
 
 
-def _refuse(shard=None, inputs_embeds=None):
+def _refuse(shard=None):
     if shard is not None:
         raise NotImplementedError("sharded (tp/cp/dp) decoding is not ported yet")
-    if inputs_embeds is not None:
-        raise NotImplementedError("inputs_embeds (LLaVA) is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +303,9 @@ def _refuse(shard=None, inputs_embeds=None):
 
 
 def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
-                    input_ids: torch.Tensor, last_only: bool = False, chunked: bool = False,
-                    hist_bound: Optional[int] = None, shard=None, inputs_embeds=None):
+                    input_ids: Optional[torch.Tensor] = None, last_only: bool = False,
+                    chunked: bool = False, hist_bound: Optional[int] = None, shard=None,
+                    inputs_embeds: Optional[torch.Tensor] = None):
     """Returns (logits, kv_pages): logits [B, S, V] fp32, or [B, V] for each
     request's last valid position with ``last_only``. Writes the chunk's K/V
     into the pool in place.
@@ -313,9 +314,15 @@ def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
     after a prefix-cache hit): ``ctx.start_pos`` tokens per request are
     already in the pool, and attention covers [pool history | causal chunk
     prefix] (K5 on the card). ``hist_bound`` bounds the history the plain
-    CPU form gathers; the kernel walks each request's own pages."""
-    _refuse(shard, inputs_embeds)
-    h = params["embed"][input_ids]
+    CPU form gathers; the kernel walks each request's own pages.
+
+    ``inputs_embeds`` [B, S, H] (cast to ``cfg.dtype``) replace the ids'
+    embedding rows."""
+    _refuse(shard)
+    if inputs_embeds is None:
+        h = params["embed"][input_ids]
+    else:
+        h = inputs_embeds.to(cfg.dtype)
     B, S, _ = h.shape
     positions = ctx.start_pos.long()[:, None] + torch.arange(S, device=h.device)
     cos, sin = _rope_tables(cfg, positions, ctx.seq_lens)

@@ -1,11 +1,11 @@
 """Known model configurations (public model-card shapes) for running the real
 architectures without a checkpoint download. Values match the HF config.json
-of each model (port of ``lite_llama_tpu/models/presets.py``, text models only).
+of each model (port of ``lite_llama_tpu/models/presets.py``).
 """
 
 from __future__ import annotations
 
-from ..config import LlamaConfig, Qwen2Config, Qwen3Config
+from ..config import LlamaConfig, LlavaConfig, Qwen2Config, Qwen3Config
 
 _LLAMA32_ROPE = {
     "rope_type": "llama3",
@@ -81,11 +81,29 @@ def qwen3_4b(**kw) -> Qwen3Config:
     )
 
 
+def llava15_7b(**kw) -> LlavaConfig:
+    """llava-1.5-7b-hf: CLIP-L/14-336 tower + Vicuna-7B LM."""
+    text = LlamaConfig(
+        hidden_size=4096,
+        intermediate_size=11008,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=32,
+        vocab_size=32064,
+        rope_theta=10000.0,
+        tie_word_embeddings=False,
+        eos_token_id=2,
+        rms_norm_eps=1e-5,
+    )
+    return LlavaConfig(text_config=text, **kw)
+
+
 PRESETS = {
     "llama-3.2-1b": llama32_1b,
     "llama-3.2-3b": llama32_3b,
     "qwen2.5-3b": qwen25_3b,
     "qwen3-4b": qwen3_4b,
+    "llava-1.5-7b": llava15_7b,
 }
 
 

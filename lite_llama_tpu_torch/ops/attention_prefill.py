@@ -118,10 +118,10 @@ def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size
                                 table_rows, sm_scale, scales=None):
     """Plain version of K5 and K5q: (out [B, S, Nq, D] in q's dtype, m, l
     [B, S, Nq] fp32). Row s of request b attends the pool history
-    [0, start_pos[b]) read through ``table_rows[b]`` from ``pages``
     [L, 2, T, Hkv*D], then the chunk's keys p <= s, p < chunk_lens[b]. Exp2
-    domain with sm_scale*log2(e) folded into q; q and P are rounded to bf16
-    before their products when q is bf16, as the TPU kernel does. An int8
+    domain: the fp32 scores are scaled by sm_scale*log2(e), as the kernel
+    scales them (the TPU kernel rounds a scaled q to bf16 instead); P is
+    rounded to bf16 before its product when q is bf16. An int8
     pool's history rows (``scales`` [L, T, 128]) are dequantized whole,
     value times scale rounded once to q's matmul dtype; fp8 converts
     exactly. A row with nothing to attend gives out = 0, m = -1e30, l = 0."""
@@ -134,7 +134,7 @@ def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size
     mat = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
     start_pos = start_pos.to(dev)
     chunk_lens = chunk_lens.to(dev)
-    qs = (q.float() * (sm_scale * LOG2E)).to(mat).float().reshape(B, S, Hkv, G, D)
+    qs = q.float().reshape(B, S, Hkv, G, D)
     n_pages = cdiv_int(int(start_pos.max()), ps) if B else 0
     off = torch.arange(ps, device=dev)
     rows = (table_rows[:, :n_pages].long()[:, :, None] * ps + off).reshape(B, -1)
@@ -147,7 +147,7 @@ def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size
         hist = (hist * sc[..., None]).to(mat).float()
     keys = torch.cat([hist[0], k.float()], dim=1)  # [B, Th + S, Hkv, D]
     vals = torch.cat([hist[1], v.float()], dim=1)
-    s = torch.einsum("bshgd,bthd->bhgst", qs, keys)
+    s = torch.einsum("bshgd,bthd->bhgst", qs, keys) * (sm_scale * LOG2E)
     t_h = torch.arange(Th, device=dev)
     t_c = torch.arange(S, device=dev)
     valid_h = (t_h[None, :] < start_pos[:, None])[:, None, :].expand(B, S, Th)

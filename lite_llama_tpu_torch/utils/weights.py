@@ -19,7 +19,13 @@ device, where the transposes and fusions run as torch ops; each leaf is cast
 to ``cfg.dtype`` once, so a bf16 checkpoint never passes through fp32 on the
 host. The converted format is the JAX package's: ``engine.safetensors``
 (keys "embed", "layers/wq", ...) beside a ``config.json`` of the config's
-fields and the source's tokenizer files. LLaVA checkpoints are refused.
+fields and the source's tokenizer files.
+
+LLaVA checkpoints (``convert_hf_llava_state_dict``) become the tree
+{"lm": <the tree above>, "vision": <models/vision.py's>, "projector": {w1,
+b1, w2, b2}}. A converted LLaVA's ``config.json`` keeps its vision and text
+configs as dicts, so it reloads as the same model (the JAX package's
+converter drops them, and its reload falls back to default shapes).
 """
 
 from __future__ import annotations
@@ -86,6 +92,25 @@ def params_from_numpy(tree, cfg, device="cuda"):
     return torch.from_numpy(arr).to(device=device, dtype=cfg.dtype)
 
 
+def _getter(sd: Mapping, device):
+    """key -> the tensor on ``device`` in its stored dtype (fp64 as fp32)."""
+    def get(key: str) -> torch.Tensor:
+        t = _tensor(sd[key]).to(device)
+        return t.float() if t.dtype == torch.float64 else t
+
+    return get
+
+
+def _whole(get, dtype, device):
+    """key (, view) -> a fresh ``dtype`` tensor of ``view(get(key))``: one
+    cast, as a cast from fp32 rounds."""
+    def whole(key: str, view=lambda w: w) -> torch.Tensor:
+        w = view(get(key))
+        return torch.empty(w.shape, dtype=dtype, device=device).copy_(w)
+
+    return whole
+
+
 def convert_hf_state_dict(sd: Mapping, cfg, prefix: str = "model.", device="cuda") -> dict:
     """Convert an HF llama/qwen2/qwen3 state dict (torch tensors in any
     dtype, or numpy arrays) to the engine tree of ``cfg.dtype`` tensors on
@@ -96,9 +121,8 @@ def convert_hf_state_dict(sd: Mapping, cfg, prefix: str = "model.", device="cuda
     Nq, Nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     I = cfg.intermediate_size
 
-    def get(key: str) -> torch.Tensor:
-        t = _tensor(sd[key]).to(device)
-        return t.float() if t.dtype == torch.float64 else t
+    get = _getter(sd, device)
+    whole = _whole(get, cfg.dtype, device)
 
     def lw(i: int, name: str) -> torch.Tensor:
         return get(f"{prefix}layers.{i}.{name}")
@@ -123,10 +147,6 @@ def convert_hf_state_dict(sd: Mapping, cfg, prefix: str = "model.", device="cuda
     def kv_bias(dst, i):
         dst[0].copy_(lw(i, "self_attn.k_proj.bias").reshape(Nkv, D))
         dst[1].copy_(lw(i, "self_attn.v_proj.bias").reshape(Nkv, D))
-
-    def whole(key: str, view=lambda w: w) -> torch.Tensor:
-        w = view(get(key))
-        return torch.empty(w.shape, dtype=cfg.dtype, device=device).copy_(w)
 
     layers = {
         "attn_norm": stacked((H,), each("input_layernorm.weight")),
@@ -159,6 +179,77 @@ def convert_hf_state_dict(sd: Mapping, cfg, prefix: str = "model.", device="cuda
 
 
 # ---------------------------------------------------------------------------
+# LLaVA (CLIP tower + projector + Llama LM)
+
+
+def convert_hf_llava_state_dict(sd: Mapping, cfg, device="cuda") -> dict:
+    """An HF ``LlavaForConditionalGeneration`` state dict -> the engine tree
+    {"lm", "vision", "projector"} of ``cfg.dtype`` tensors on ``device``,
+    converted there from the stored dtype as :func:`convert_hf_state_dict`
+    does. Takes both key styles: ``language_model.model.*`` /
+    ``vision_tower.*`` and ``model.language_model.*`` /
+    ``model.vision_tower.*``, and either place of the LM head."""
+    norm = {}
+    for k, v in sd.items():
+        k2 = k[len("model."):] if k.startswith("model.") else k
+        k2 = k2.replace("language_model.model.", "language_model.")
+        if k2 == "language_model.lm_head.weight":
+            k2 = "lm_head.weight"
+        norm[k2] = v
+    lm = convert_hf_state_dict(norm, cfg, prefix="language_model.", device=device)
+
+    vcfg = cfg.vision_config
+    Hv, Lv = vcfg.hidden_size, vcfg.num_hidden_layers
+    vp = "vision_tower.vision_model."
+    get = _getter(norm, device)
+    whole = _whole(get, cfg.dtype, device)
+
+    def vstack(name: str, view=lambda w: w) -> torch.Tensor:
+        first = view(get(f"{vp}encoder.layers.0.{name}"))
+        out = torch.empty((Lv, *first.shape), dtype=cfg.dtype, device=device)
+        for i in range(Lv):
+            out[i].copy_(view(get(f"{vp}encoder.layers.{i}.{name}")))
+        return out
+
+    def T(w):
+        return w.T
+
+    vision = {
+        # the conv weight [Hv, C, p, p] as the unfold-matmul's [C*p*p, Hv]
+        "patch_embed": whole(vp + "embeddings.patch_embedding.weight",
+                             lambda w: w.reshape(Hv, -1).T),
+        "class_embed": whole(vp + "embeddings.class_embedding"),
+        "pos_embed": whole(vp + "embeddings.position_embedding.weight"),
+        "pre_ln_scale": whole(vp + "pre_layrnorm.weight"),
+        "pre_ln_bias": whole(vp + "pre_layrnorm.bias"),
+        "layers": {
+            "ln1_scale": vstack("layer_norm1.weight"),
+            "ln1_bias": vstack("layer_norm1.bias"),
+            "wq": vstack("self_attn.q_proj.weight", T),
+            "wk": vstack("self_attn.k_proj.weight", T),
+            "wv": vstack("self_attn.v_proj.weight", T),
+            "wo": vstack("self_attn.out_proj.weight", T),
+            "bq": vstack("self_attn.q_proj.bias"),
+            "bk": vstack("self_attn.k_proj.bias"),
+            "bv": vstack("self_attn.v_proj.bias"),
+            "bo": vstack("self_attn.out_proj.bias"),
+            "ln2_scale": vstack("layer_norm2.weight"),
+            "ln2_bias": vstack("layer_norm2.bias"),
+            "fc1_w": vstack("mlp.fc1.weight", T),
+            "fc1_b": vstack("mlp.fc1.bias"),
+            "fc2_w": vstack("mlp.fc2.weight", T),
+            "fc2_b": vstack("mlp.fc2.bias"),
+        },
+    }
+    mp = "multi_modal_projector."
+    projector = {
+        "w1": whole(mp + "linear_1.weight", T), "b1": whole(mp + "linear_1.bias"),
+        "w2": whole(mp + "linear_2.weight", T), "b2": whole(mp + "linear_2.bias"),
+    }
+    return {"lm": lm, "vision": vision, "projector": projector}
+
+
+# ---------------------------------------------------------------------------
 # Safetensors checkpoint loading (sharded HF dirs)
 
 
@@ -184,9 +275,10 @@ def load_hf_safetensors(ckpt_dir: str, device="cuda") -> Dict[str, torch.Tensor]
 
 def params_from_hf_state_dict(sd: Mapping, cfg, device="cuda") -> dict:
     """An HF state dict, keys with or without the ``model.`` prefix, -> the
-    engine tree (:func:`convert_hf_state_dict`)."""
+    engine tree (:func:`convert_hf_state_dict`, or
+    :func:`convert_hf_llava_state_dict` for a LLaVA config)."""
     if getattr(cfg, "model_type", "") == "llava":
-        raise NotImplementedError("LLaVA is not ported to lite_llama_tpu_torch yet")
+        return convert_hf_llava_state_dict(sd, cfg, device)
     prefix = "model." if any(k.startswith("model.") for k in sd) else ""
     return convert_hf_state_dict(sd, cfg, prefix=prefix, device=device)
 
@@ -230,12 +322,13 @@ def save_converted(params: dict, cfg, out_dir: str, src_dir: str | None = None):
     (+ tokenizer files copied from the source)."""
     os.makedirs(out_dir, exist_ok=True)
     save_file(flatten_params(params), os.path.join(out_dir, CONVERTED_FILE))
-    cfg_dict = {
-        k: v
-        for k, v in vars(cfg).items()
-        if not k.startswith("_") and k != "dtype"
-        and isinstance(v, (int, float, str, bool, list, dict, type(None)))
-    }
+    cfg_dict = {}
+    for k, v in vars(cfg).items():
+        if dataclasses.is_dataclass(v):  # a LLaVA's vision and text configs
+            v = {f: x for f, x in vars(v).items() if f != "dtype"}
+        if (not k.startswith("_") and k != "dtype"
+                and isinstance(v, (int, float, str, bool, list, dict, type(None)))):
+            cfg_dict[k] = v
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(cfg_dict, f, indent=2)
     if src_dir:

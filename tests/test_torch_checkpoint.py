@@ -200,11 +200,26 @@ def test_bf16_checkpoint_loads_to_the_fp32_numpy_path_s_bits(tmp_path, case):
     assert got["embed"].dtype == torch.bfloat16
 
 
-def test_llava_checkpoints_are_refused():
-    cfg = tconfig.LlamaConfig(dtype=torch.float32)
-    cfg.model_type = "llava"
-    with pytest.raises(NotImplementedError, match="LLaVA"):
-        tw.params_from_hf_state_dict({}, cfg, device="cpu")
+def test_llava_checkpoints_are_refused(tmp_path):
+    """LLaVA checkpoints were refused until the port had LLaVA; now an HF
+    LLaVA directory loads to the JAX loader's tree, bit for bit (the tiny
+    models of tests/test_torch_llava.py). ``save_pretrained`` writes only
+    the text fields that differ from transformers' defaults, so the JAX
+    package reads the config with its own defaults (tied embeddings: no
+    lm_head); the JAX side is given the full config."""
+    from tests.test_torch_llava import configs, hf_llava, same_tree
+
+    d = str(tmp_path / "llava")
+    hf_llava().save_pretrained(d, safe_serialization=True)
+    tcfg = tconfig.load_config(d, dtype=torch.float32)
+    jcfg = configs()[0]
+    for f in ("hidden_size", "num_hidden_layers", "tie_word_embeddings", "rms_norm_eps"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
+    assert jconfig.load_config(d).tie_word_embeddings != tcfg.tie_word_embeddings
+    got = tw.load_hf_checkpoint(d, tcfg, device="cpu")
+    assert set(got) == {"lm", "vision", "projector"}
+    want = jax.tree_util.tree_map(np.asarray, jw.load_hf_checkpoint(d, jcfg))
+    same_tree(got, tw.params_from_numpy(want, tcfg, device="cpu"))
 
 
 # ---------------------------------------------------------------------------

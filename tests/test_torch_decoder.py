@@ -191,8 +191,22 @@ def test_presets_and_configs_match_jax():
               "attention_bias", "rope_theta", "tie_word_embeddings"):
         assert getattr(j, f) == getattr(t, f), f
     assert t.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        tconfig.load_config({"model_type": "llava"})
+    # LLaVA (once refused): an HF config with full text and vision configs
+    # reads as JAX reads it.
+    d = {"model_type": "llava", "image_token_index": 32000, "pad_token_id": 32001,
+         "text_config": dict(hidden_size=64, intermediate_size=96, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2, vocab_size=101,
+                             rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=False),
+         "vision_config": dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                               num_attention_heads=4, image_size=28, patch_size=14,
+                               projection_dim=32)}
+    j, t = jconfig.load_config(d), tconfig.load_config(d)
+    assert type(j).__name__ == type(t).__name__ == "LlavaConfig"
+    for f in ("hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
+              "num_key_value_heads", "head_dim", "vocab_size", "rms_norm_eps", "rope_theta",
+              "tie_word_embeddings", "image_token_index", "pad_token_id", "num_image_patches"):
+        assert getattr(j, f) == getattr(t, f), f
+    assert vars(j.vision_config) == vars(t.vision_config)
 
 
 def test_convert_hf_state_dict_matches_jax():
