@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
    Vicuna-7B (D=128, Nq=Hkv=32: K1 at B 4, kv_len 680; K2 at B 4, S 615
    and at the wave's 8 x 871; K5 on the wave's 48-row text tails over 256
    tokens of history, and ragged; K3 and K4 at 5 rows, at the 5 x 615 rows
-   of the multimodal prefill and the 8 x 871 of the wave), and at D=80 and D=96
+   of the multimodal prefill and the 8 x 871 of the wave), K5 and K5q
+   (int8, fp8) at phase 10's verify chunks (3B, B 12, S 5 and 9, ragged
+   chunk widths from 0, histories of 25-399 tokens that end mid-page), and
+   at D=80 and D=96
    with four query heads per kv head: max abs error against the
    stated tolerance, device time from CUDA events with the inputs rotated
    through HBM (and, beside it, replayed warm in L2), the least time the
@@ -116,8 +119,31 @@ Phases, in order; any failure exits non-zero:
    image and 8 text requests behind one 256-token prefix that a warm-up
    request registered: K2 runs for the image sub-batches, K5 for the text
    tails, and exactly the 8 text requests hit the prefix cache.
-10. Summary: one JSON line with every kernel, then the last line
-   {"ok": true, "device": {...}}.
+10. Speculative decoding (spec_phase): Llama-3.2-3B at full width and
+   depth, eos off, phase 4's 12 prompts, greedy, 256 new, prompt-lookup
+   drafts (n-gram 3) through SpeculativeTextGenerator with chunk_steps 8
+   (each chunk a replayed SpecStep graph), on the JAX bench's two workloads:
+   "spec" (init scale 0.02, 4 drafts) and "spec_extractive" (scale 0.005,
+   8 drafts), each beside plain generate_tokens on the same engine and
+   prompts (tokens/s, tokens per verify forward, verify ms a step replayed
+   and eager, decode ms a step, capture ms). K2, K5, K3 and K4 must launch
+   in the spec run and K1 must not. Gates: the replayed spec chunk
+   bit-equal to the eager one from the same cache state (a planted stale
+   replay caught); self-consistency (each emitted token the argmax of a
+   one-shot prefill of prompt + stream at the position before it, but at a
+   near tie within SPEC_TIE), read through the kernels, the plain versions
+   and a planted over-acceptance that must fail it; oracle drafts (the plain
+   greedy stream's next tokens) accepted step after step and the same
+   drafts shifted by one refused; the per-step mode's streams equal the
+   chunked mode's; every page back after every run. A device profile of
+   one replayed chunk of verify steps (profile_spec: ms a step by kernel
+   group). Then a short spec_extractive run with int4 g128 riffle weights
+   on an int8 pool (K6 and K5q-int8 must launch, K1q must not) with its
+   self-consistency (kernels and plain versions, within SPEC_TIE), graph
+   gate and profile. Phase 3 holds K5 / K5q and K6 at these verify steps'
+   shapes.
+11. Summary: the whole script's seconds, one JSON line with every kernel,
+   then the last line {"ok": true, "device": {...}}.
 
 Phase 3 times K3 / K4 (csrc/norms.cu) at decode widths (12 and 64 rows),
 at the prefill widths of serving's chunk step (8 x 512 rows) and of a 4 x
@@ -329,6 +355,12 @@ QPREFILL_MAX_ABS = 0.3
 # between both pairs too.
 OPEN_LLAMA_INVARIANT = (INVARIANT_REL_RMS, INVARIANT_MAX_ABS)
 OPEN_LLAMA_PREFILL = (PREFILL_REL_RMS, PREFILL_MAX_ABS)
+# Phase 10's verify chunks in phase 3: 12 histories that end mid-page (page
+# 16), and ragged chunk widths up to draft length + 1 (4 and 8 drafts; 0 is
+# a row that sits out).
+SPEC_STARTS = [25, 38, 57, 90, 129, 150, 201, 255, 281, 313, 377, 399]
+SPEC_CLENS = {5: [5, 0, 1, 2, 3, 4, 5, 5, 3, 1, 5, 4], 9: [9, 0, 1, 3, 5, 7, 9, 9, 2, 8, 4, 6]}
+SPEC_ROWS = (12 * 5, 12 * 9)  # K6's rows in those verify steps
 MODELS = {  # head_dim, query heads, kv heads (attention shapes of phase 3)
     "llama-3.2-3b": dict(D=128, Nq=24, Hkv=8),
     "llama-3.2-1b": dict(D=64, Nq=32, Hkv=8),
@@ -1232,12 +1264,20 @@ def kernel_phase():
             # phase 9's wave: the text tails after their 256-token prefix hits (G 1)
             chunked_case("vicuna-7b", [256] * 8, [48] * 8, S=48),
             chunked_case("vicuna-7b", [0, 256, 512, 871], [48, 48, 1, 48], S=48),
+            # phase 10's verify chunks (draft lengths 4 and 8) over histories
+            # that end mid-page, ragged chunk widths
+            chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[5], S=5),
+            chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[9], S=9),
         ],
         "quantized_matmul_packed": [
             *(qmm_case(n, 12) for n in QMM_SHAPES),  # gate_up first: the main case
             qmm_case("gate_up", 64),
             *(qmm_case(n, 64, timed=False) for n in QMM_SHAPES if n != "gate_up"),
             *(qmm_case(n, M, riffle=False, timed=False) for n in QMM_SHAPES for M in (12, 64)),
+            # phase 10's verify steps: B 12 x (draft length + 1) rows, 4 and 8 drafts
+            qmm_case("gate_up", SPEC_ROWS[1]),
+            *(qmm_case(n, M, timed=False) for n in QMM_SHAPES for M in SPEC_ROWS
+              if (n, M) != ("gate_up", SPEC_ROWS[1])),
             qmm_case("down", 12, gs=None, timed=False),  # per-channel scales
             qmm_case("down", 12, gs=16, timed=False),  # m16n8k16 steps
             qmm_case("down", 12, gs=8, timed=False),  # half-masked m16n8k16 passes
@@ -1266,6 +1306,8 @@ def kernel_phase():
             chunked_case("llama-3.2-1b", [0, 16, 500, 1536], [512, 300, 0, 512],
                          return_state=True, kv=kv),
             chunked_case("open-llama-3b-v2", [512] * 8, [512] * 8, kv=kv),
+            chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[5], S=5, kv=kv),
+            chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[9], S=9, kv=kv),
         ]
     for name, cs in cases.items():
         for c in cs:
@@ -3206,6 +3248,517 @@ def llava_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: speculative decoding (prompt-lookup drafts, greedy verify)
+
+
+SPEC_GEN = 256  # max_gen_len of the timed spec runs
+SPEC_SHORT = 64  # of the per-step runs, the plain versions' and the fault's
+SPEC_CHUNK_STEPS = 8
+SPEC_NGRAM = 3
+# The JAX bench's two spec workloads (bench.py:522-592): random weights at
+# init scale 0.02, where drafts are almost never accepted, and a model at
+# scale 0.005 whose greedy stream collapses into repetition, where they are
+# accepted often. (init scale, draft length)
+SPEC_WORKLOADS = {"spec": (0.02, 4), "spec_extractive": (0.005, 8)}
+SPEC_PATH = ("flash_prefill", "flash_prefill_chunked", "rms_norm", "swiglu")
+SPEC_QUANT_PATH = ("quantized_matmul_packed", "flash_prefill_chunked_int8", "flash_prefill",
+                   "rms_norm", "swiglu")
+SPEC_ABSENT = ("paged_flash_decode", "paged_flash_decode_int8", "paged_flash_decode_fp8")
+# Self-consistency: where an emitted token is not the argmax of a one-shot
+# prefill of prompt + stream at the position before it, that prefill's gap
+# between its top logit and its logit at the emitted token, over the
+# position's max |logit|, must be within this limit (a near tie that bf16
+# rounding can flip). The same limit admits an oracle draft refused at a
+# near tie. On an H100 (PERF.md) the largest parting gap read 0.027
+# through the kernels (271 partings of 3,072 tokens: a random model's
+# logits are nearly flat), 0.017 through the plain versions, and 1.03 with
+# the over-acceptance fault planted; the limit, set before those readings,
+# sits 3.8x above the first and 10x below the last. It holds the int4
+# g128 riffle model on an int8 pool too (its verify reads int8 history
+# where the one-shot prefill attends over bf16 K/V): 0.012 through the
+# kernels, 0.0089 through the plain versions. The over-acceptance fault is
+# no probe on that `spec_extractive` stream: a row's drafts are mostly all
+# right or absent, so it read 0.012 there, within the limit.
+SPEC_TIE = 0.1
+
+
+def spec_config():
+    """Llama-3.2-3B in bf16 with eos off: every request runs its budget."""
+    from lite_llama_tpu_torch.models.presets import llama32_3b
+
+    return dataclasses.replace(llama32_3b(dtype=torch.bfloat16), eos_token_id=None)
+
+
+def pages_conserved(engine):
+    """Every page and slot back: the host's count, the device's stack top."""
+    return (engine._host_free_pages == engine.num_pages == int(engine.cache.free_top)
+            and len(engine._free_slots) == engine.max_reqs)
+
+
+def spec_streams(engine, prompts, G, draft_len, chunk_steps=SPEC_CHUNK_STEPS):
+    """SpeculativeTextGenerator's greedy streams, timed to a synchronize,
+    with the kept counts of every chunk step (``keeps`` [steps, B])."""
+    from unittest import mock
+
+    from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator
+
+    keeps, real = [], engine.spec_decode_chunk
+
+    def counting(*a, **kw):
+        out = real(*a, **kw)
+        keeps.append(out[5])
+        return out
+
+    gen = SpeculativeTextGenerator(engine, draft_len=draft_len, ngram=SPEC_NGRAM,
+                                   chunk_steps=chunk_steps)
+    with mock.patch.object(engine, "spec_decode_chunk", counting):
+        sync(engine.device)
+        t0 = time.perf_counter()
+        outs = gen.generate_tokens(prompts, max_gen_len=G)
+        sync(engine.device)
+        s = time.perf_counter() - t0
+    require(pages_conserved(engine), "speculative decoding lost pages")
+    streams = [o.token_ids for o in outs]
+    require(all(len(t) == G and all(0 <= x < engine.config.vocab_size for x in t)
+                for t in streams), "spec stream length or token id out of range")
+    return streams, s, (np.concatenate(keeps) if keeps else np.zeros((0, len(prompts))))
+
+
+def one_shot_logits(engine, rows):
+    """Every position's logits of ``rows`` prefilled together into a fresh
+    cache: one decoder_prefill (K2 on the card), no engine."""
+    from lite_llama_tpu_torch.executor import kv_cache as kvc
+    from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_prefill
+
+    dev, cfg = engine.device, engine.config
+    B, S = len(rows), max(len(r) for r in rows)
+    with torch.inference_mode():
+        cache = fresh_cache(dev, cfg, B, engine.kv_quant, num_pages=B * math.ceil(S / 16))
+        n = torch.tensor([len(r) for r in rows], dtype=torch.int32, device=dev)
+        ids = torch.tensor([list(r) + [0] * (S - len(r)) for r in rows], dtype=torch.long,
+                           device=dev)
+        slots = torch.arange(B, dtype=torch.int32, device=dev)
+        kvc.alloc_prefill(cache, slots, n)
+        ctx = AttnContext(cache.page_table[slots.long()], n, torch.zeros_like(n), n)
+        return decoder_prefill(engine.params, cfg, cache.kv_pages, ctx, ids)[0]
+
+
+def tie_gaps(logits, at):
+    """Per position: (argmax, top logit minus the logit at token ``at``,
+    over the position's max |logit|)."""
+    at = torch.as_tensor(at, device=logits.device).long()
+    top = logits.max(-1).values
+    return logits.argmax(-1), ((top - logits.gather(-1, at[:, None])[:, 0])
+                               / logits.abs().max(-1).values)
+
+
+def self_consistency(engine, prompts, streams):
+    """Each emitted token against the argmax of a one-shot prefill of
+    prompt + stream at the position before it: the partings and their gaps
+    (``tie_gaps``); ``holds`` if every parting lies within SPEC_TIE."""
+    logits = one_shot_logits(engine, [list(p) + list(s[:-1]) for p, s in zip(prompts, streams)])
+    gaps, partings = [], 0
+    for b, (p, s) in enumerate(zip(prompts, streams)):
+        top, gap = tie_gaps(logits[b, len(p) - 1:len(p) - 1 + len(s)].float(), s)
+        part = top.cpu().numpy() != np.asarray(s)
+        partings += int(part.sum())
+        gaps += gap.cpu().numpy()[part].tolist()
+    del logits
+    return dict(tokens=sum(len(s) for s in streams), partings=partings,
+                max_parting_gap=max(gaps, default=0.0), limit=SPEC_TIE,
+                holds=all(g <= SPEC_TIE for g in gaps))
+
+
+def consistency_gate(engine, prompts, streams, draft_len, plain=False, fault=False):
+    """Self-consistency of the kernels' ``streams`` within SPEC_TIE. With
+    ``plain`` also the plain versions' reading (4 prompts, the verify step
+    eager), which must hold too; with ``fault`` the planted
+    over-acceptance fault's (the step eager), which the limit must catch.
+    Every reading is taken before any is gated."""
+    from unittest import mock
+
+    from tests.torch_decode_steps import eager_spec_step
+
+    B, K, S = len(prompts), draft_len + 1, engine.config.max_seq_len
+    rec = dict(self_consistency=self_consistency(engine, prompts, streams))
+    log(f"  self-consistency, kernels: {json.dumps(rec['self_consistency'])}")
+    if plain:
+        short = prompts[:4]
+        with patched(plain_ops()), eager_spec_step(engine, len(short), K, SPEC_NGRAM, S,
+                                                   SPEC_CHUNK_STEPS):
+            p_streams, _, _ = spec_streams(engine, short, SPEC_SHORT, draft_len)
+            rec["self_consistency_plain"] = self_consistency(engine, short, p_streams)
+        log(f"  self-consistency, plain versions: {json.dumps(rec['self_consistency_plain'])}")
+    if fault:
+        with mock.patch("lite_llama_tpu_torch.executor.engine.accepted_drafts",
+                        over_accepting()), eager_spec_step(engine, B, K, SPEC_NGRAM, S,
+                                                           SPEC_CHUNK_STEPS):
+            f_streams, _, f_keeps = spec_streams(engine, prompts, SPEC_SHORT, draft_len)
+        fsc = rec["self_consistency_fault"] = self_consistency(engine, prompts, f_streams)
+        fsc["caught"] = not fsc["holds"]
+        fsc["tokens_per_forward"] = B * SPEC_SHORT / max(f_keeps.shape[0] * B, 1)
+        log(f"  self-consistency, planted over-acceptance: {json.dumps(fsc)}")
+    sc = rec["self_consistency"]
+    require(sc["holds"], f"an emitted token parts from the one-shot prefill beyond a tie: {sc}")
+    if plain:
+        psc = rec["self_consistency_plain"]
+        require(psc["holds"], f"the plain versions part beyond a tie: {psc}")
+    if fault:
+        require(fsc["caught"], f"self-consistency misses the over-acceptance fault: {fsc}")
+    return rec
+
+
+def over_accepting():
+    """The planted fault: one draft past the first mismatch is accepted
+    (where the chunk holds one), as a replacement of the engine's
+    ``accepted_drafts``."""
+    from lite_llama_tpu_torch.executor import engine as eng_mod
+
+    real = eng_mod.accepted_drafts
+
+    def fault(chunk, chunk_lens, pred):
+        a = real(chunk, chunk_lens, pred)
+        return torch.minimum(a + 1, (chunk_lens - 1).clamp(min=0)).to(torch.int32)
+
+    return fault
+
+
+def spec_admit(engine, prompts):
+    """Admit and prefill ``prompts`` (greedy): (slots, budgets, first tokens)."""
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+
+    total = [len(p) + SPEC_GEN for p in prompts]
+    slots = engine.admit_requests(total)
+    sampling = SamplingParams.make(len(prompts), temperature=0.0, device="cpu")
+    return slots, total, engine.prefill(prompts, sampling, slots)[0]
+
+
+def spec_state(engine, prompts, first, cur=None):
+    """A spec chunk's starting state after the prefill, on the device:
+    history [B, max_seq_len] (each prompt, then its first token), its
+    lengths, the current tokens (``cur``, default ``first``) and done."""
+    B, S = len(prompts), engine.config.max_seq_len
+    hist = np.zeros((B, S), np.int32)
+    for i, p in enumerate(prompts):
+        hist[i, :len(p)] = p
+        hist[i, len(p)] = first[i]
+    hl = np.asarray([len(p) + 1 for p in prompts], np.int32)
+    return (engine._ids(hist), engine._ids(hl), engine._ids(first if cur is None else cur),
+            engine._ids(np.zeros(B, bool), torch.bool))
+
+
+# Device kernels of a verify step by group (profile_spec): attention (K5 /
+# K5q), the matmuls (cuBLAS, or K6 and its activation quantizer), K3, K4;
+# every other kernel (drafting, the allocator, KV writes, argmax, the
+# acceptance, the rewind, the history append) is counted as "other".
+SPEC_GROUPS = {
+    "attention": r"chunked_prefill_kernel",
+    "matmul": r"gemm|nvjet|xmma|cutlass|qmm_kernel|quantize_rows_kernel",
+    "rms_norm": DEVICE_KERNELS["rms_norm"],
+    "swiglu": DEVICE_KERNELS["swiglu"],
+}
+
+
+def profile_spec(engine, prompts, draft_len):
+    """torch.profiler over one spec_decode_chunk of SPEC_CHUNK_STEPS
+    replayed verify steps (the second chunk after a prefill; the step was
+    captured before): the device's busy share of the wall time, device ms a
+    step by SPEC_GROUPS and for the rest, launches a step of each, and the
+    top kernels by device time. None where the profiler records no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = SPEC_CHUNK_STEPS
+    slots, total, first = spec_admit(engine, prompts)
+    try:
+        st = spec_state(engine, prompts, first)
+        *st, _, _, _ = engine.spec_decode_chunk(slots, *st, total, n_steps=n,
+                                                draft_len=draft_len, ngram=SPEC_NGRAM)
+        sync(engine.device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.spec_decode_chunk(slots, *st, total, n_steps=n, draft_len=draft_len,
+                                     ngram=SPEC_NGRAM)
+            sync(engine.device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        engine.release_slots(slots, total)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(r[1] for r in rows)
+    if not device_us:
+        rec = dict(steps=n, profiled_wall_ms=wall_us / 1e3, device_ms_per_step=None)
+        log(f"  spec verify profile: {json.dumps(rec)}")
+        return rec
+    groups, rest = {g: [0.0, 0] for g in SPEC_GROUPS}, [0.0, 0]
+    for k, us, cnt in rows:
+        g = next((g for g, pat in SPEC_GROUPS.items() if re.search(pat, k)), None)
+        acc = groups[g] if g else rest
+        acc[0] += us
+        acc[1] += cnt
+    groups["other"] = rest
+    rec = dict(steps=n, profiled_wall_ms=wall_us / 1e3, device_ms_per_step=device_us / 1e3 / n,
+               device_busy_share=device_us / wall_us,
+               by_group={g: dict(device_ms_per_step=us / 1e3 / n, launches_per_step=cnt / n)
+                         for g, (us, cnt) in groups.items()},
+               top_kernels=[dict(name=k[:80], ms_per_step=us / 1e3 / n, count=c)
+                            for k, us, c in sorted(rows, key=lambda r: -r[1])[:12]])
+    log(f"  spec verify profile: {json.dumps(rec)}")
+    return rec
+
+
+def spec_graph_gate(engine, prompts, draft_len, chunks=2):
+    """Graph against eager: from the state one prefill left (the allocator,
+    table and lengths restored in place before each run; every KV row a
+    step reads, a step of the same run wrote first), ``chunks`` chunks of
+    spec_decode_chunk through the replayed SpecStep and through the same
+    step run eagerly (``eager_spec_step``): emits, keeps, history, lengths,
+    current tokens, done flags, seq_lens, the page table and free_top
+    bit-equal. A planted fault must break that: a replay whose current
+    tokens were never loaded, its buffer holding a run's with the batch's
+    tokens rolled. Also the verify ms a step, replayed and eager (each chunk
+    with its load and one host copy)."""
+    from unittest import mock
+
+    from tests.torch_decode_steps import eager_spec_step
+
+    B, K, S, n = len(prompts), draft_len + 1, engine.config.max_seq_len, SPEC_CHUNK_STEPS
+    c = engine.cache
+    state = (c.page_table, c.seq_lens, c.free_stack, c.free_top)
+    slots, total, first = spec_admit(engine, prompts)
+    try:
+        saved = [t.clone() for t in state]
+
+        def run(cur):
+            for t, v in zip(state, saved):
+                t.copy_(v)
+            st = spec_state(engine, prompts, first, cur)
+            outs = []
+            sync(engine.device)
+            t0 = time.perf_counter()
+            for _ in range(chunks):
+                *st, emits, keeps, _ = engine.spec_decode_chunk(
+                    slots, *st, total, n_steps=n, draft_len=draft_len, ngram=SPEC_NGRAM)
+                outs += [emits, keeps]
+            sync(engine.device)
+            ms = (time.perf_counter() - t0) * 1e3 / (chunks * n)
+            return [*(t.cpu().numpy() for t in st), *outs, c.seq_lens.cpu().numpy(),
+                    c.page_table.cpu().numpy(), c.free_top.cpu().numpy()], ms
+
+        run(first)  # the capture, outside the timed runs
+        graph, graph_ms = run(first)
+        with eager_spec_step(engine, B, K, SPEC_NGRAM, S, n):
+            eager, eager_ms = run(first)
+        step = engine._spec_steps[(B, K, SPEC_NGRAM, S, n)]
+        run(np.roll(first, 1))
+        load = step.load
+
+        def stale(req_ids, history, hist_len, cur, done, max_total):
+            load(req_ids, history, hist_len, step.cur.clone(), done, max_total)
+
+        with mock.patch.object(step, "load", stale):
+            fault, _ = run(first)
+    finally:
+        engine.release_slots(slots, total)
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    rec = dict(batch=B, chunks=chunks, steps_per_chunk=n, bit_equal=same(graph, eager),
+               planted_fault_caught=not same(fault, graph), capture_ms=step.capture_ms,
+               verify_ms_per_step=graph_ms, eager_verify_ms_per_step=eager_ms,
+               emitted=int(graph[5].sum() + graph[7].sum()))
+    log(f"  spec graph-vs-eager gate: {json.dumps(rec)}")
+    require(rec["bit_equal"], f"the replayed spec step differs from the eager one: {rec}")
+    require(rec["planted_fault_caught"], f"the spec graph gate misses a stale replay: {rec}")
+    require(pages_conserved(engine), "the spec graph gate lost pages")
+    return rec
+
+
+def spec_oracle_gate(engine, prompts, plain, draft_len, steps=8):
+    """spec_verify against the plain greedy streams ``plain``: drafts equal
+    to a stream's next tokens are all accepted and the bonus token is the
+    stream's, step after step (a row stops at its first parting, which must
+    be a near tie of a one-shot prefill of prompt + stream); the same drafts
+    shifted by one accept only where the shifted token equals the stream's
+    own (near ties aside)."""
+    B, K = len(prompts), draft_len + 1
+    steps = min(steps, (min(len(s) for s in plain) - 2) // K)
+    ref = one_shot_logits(engine, [list(p) + list(s[:steps * K + 2])
+                                   for p, s in zip(prompts, plain)])
+
+    def near_tie(b, j, tok):
+        """Is token ``tok`` at stream index j within SPEC_TIE of the stream's
+        own in the one-shot prefill?"""
+        lg = ref[b, len(prompts[b]) - 1 + j].float()
+        return float((lg[plain[b][j]] - lg[tok]).abs() / lg.abs().max()) <= SPEC_TIE
+
+    rec = dict(steps=steps, full=0, rows=0, near_ties=0, shifted_accepted=0,
+               shifted_expected=0, ok=True)
+    slots, total, first = spec_admit(engine, prompts)
+    try:
+        rec["ok"] &= [int(t) for t in first] == [s[0] for s in plain]
+        pos, live = [1] * B, [True] * B
+        for _ in range(steps):
+            chunk = np.zeros((B, K), np.int32)
+            for b in range(B):
+                chunk[b] = plain[b][pos[b] - 1:pos[b] + draft_len]
+            clens = np.where(live, K, 0).astype(np.int32)
+            emit, n_emit, _ = engine.spec_verify(slots, chunk, clens)
+            for b in np.flatnonzero(live):
+                rec["rows"] += 1
+                got = emit[b, :n_emit[b]].tolist()
+                want = plain[b][pos[b]:pos[b] + n_emit[b]]
+                rec["full"] += int(n_emit[b] == K and got == want)
+                if got != want or n_emit[b] < K:
+                    j = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w),
+                             n_emit[b] - 1)  # refused draft: the verify's token instead
+                    tie = near_tie(b, pos[b] + j, got[j])
+                    rec["near_ties"] += int(tie)
+                    rec["ok"] &= tie
+                    live[b] = False
+                pos[b] += int(n_emit[b])
+    finally:
+        engine.release_slots(slots, total)
+    slots, total, first = spec_admit(engine, prompts)
+    try:
+        chunk = np.asarray([[s[0]] + s[2:2 + draft_len] for s in plain], np.int32)
+        emit, n_emit, _ = engine.spec_verify(slots, chunk, np.full(B, K, np.int32))
+        for b, s in enumerate(plain):
+            expected = next((j for j in range(draft_len) if s[2 + j] != s[1 + j]), draft_len)
+            a = int(n_emit[b]) - 1
+            rec["shifted_accepted"] += a
+            rec["shifted_expected"] += expected
+            if a != expected:
+                rec["ok"] &= near_tie(b, 1 + min(a, expected), int(emit[b, min(a, expected)]))
+    finally:
+        engine.release_slots(slots, total)
+    del ref
+    log(f"  spec oracle drafts: {json.dumps(rec)}")
+    require(rec["ok"], f"oracle drafts refused beyond a near tie, or shifted ones taken: {rec}")
+    require(pages_conserved(engine), "the oracle gate lost pages")
+    return rec
+
+
+def spec_workload(engine, prompts, draft_len, faults=False):
+    """One workload on one engine: plain generate_tokens and the spec run
+    (chunked, replayed) timed on the same prompts, the spec run's launches,
+    self-consistency, the graph gate, a profile of the replayed verify
+    step, the oracle drafts, and the per-step mode against the chunked one.
+    ``faults``: also the plain versions' self-consistency reading and the
+    over-acceptance fault's, which the limit must catch."""
+    from lite_llama_tpu_torch.generation.generate import TextGenerator
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+
+    dev = engine.device
+    B, G = len(prompts), SPEC_GEN
+    gen = TextGenerator(engine)
+    gen.generate_tokens(prompts, max_gen_len=4, temperature=0.0)  # the decode graph's capture
+    spec_streams(engine, prompts, 4, draft_len)  # the spec step's capture
+    sync(dev)
+    t0 = time.perf_counter()
+    plain = [o.token_ids for o in gen.generate_tokens(prompts, max_gen_len=G, temperature=0.0)]
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    sampling = SamplingParams.make(B, temperature=0.0, device=dev)
+    _, decode_ms, _, _, _ = timed_decode(engine, prompts, sampling, [len(p) + G for p in prompts],
+                                         G)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    streams, spec_s, keeps = spec_streams(engine, prompts, G, draft_len)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    missing = [k for k in SPEC_PATH if launches[k] == 0]
+    require(not missing, f"kernels never launched on the spec path: {missing}")
+    stray = [k for k in SPEC_ABSENT if launches[k] != 0]
+    require(not stray, f"decode kernels launched in a spec run: {stray}")
+    n_tok = B * G
+    rec = dict(batch=B, prompt_len=len(prompts[0]), max_gen_len=G, draft_len=draft_len,
+               chunk_steps=SPEC_CHUNK_STEPS, ngram=SPEC_NGRAM,
+               plain_tokens_per_s=n_tok / plain_s, spec_tokens_per_s=n_tok / spec_s,
+               speedup=plain_s / spec_s, verify_steps=int(keeps.shape[0]),
+               tokens_per_forward=n_tok / max(keeps.shape[0] * B, 1),
+               kept_per_active_row_step=float(keeps[keeps > 0].mean()) if keeps.size else None,
+               decode_ms_per_step=decode_ms, spec_ms_per_step=spec_s * 1e3 / max(len(keeps), 1),
+               peak_mem_gb=peak_gb, launches=launches,
+               streams_equal_plain=sum(a == b for a, b in zip(streams, plain)),
+               first_parting_with_plain=[next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                                              None) for a, b in zip(streams, plain)])
+    log(f"  spec run: {json.dumps({k: v for k, v in rec.items() if k != 'launches'})}")
+    rec.update(consistency_gate(engine, prompts, streams, draft_len, plain=faults, fault=faults))
+    rec["graph_gate"] = spec_graph_gate(engine, prompts, draft_len)
+    rec["profile"] = profile_spec(engine, prompts, draft_len)
+    rec["oracle"] = spec_oracle_gate(engine, prompts, plain, draft_len)
+    t0 = time.perf_counter()
+    per_step = spec_streams(engine, prompts, SPEC_SHORT, draft_len, chunk_steps=0)[0]
+    per_step_s = time.perf_counter() - t0
+    chunked = spec_streams(engine, prompts, SPEC_SHORT, draft_len)[0]
+    rec["modes"] = dict(max_gen_len=SPEC_SHORT, bit_equal=per_step == chunked,
+                        per_step_s=per_step_s)
+    log(f"  per-step vs chunked: {json.dumps(rec['modes'])}")
+    require(per_step == chunked, "per-step and chunked spec streams differ")
+    return rec, launches
+
+
+def spec_phase(dev):
+    """Speculative decoding on Llama-3.2-3B at full width and depth, eos
+    off, phase 4's 12 prompts: the two workloads with seeded random bf16
+    weights (``SPEC_WORKLOADS``), then a short spec_extractive run with int4
+    g128 riffle weights and an int8 pool (self-consistency, graph gate,
+    profile). Returns (summary, launches of the
+    bf16 spec runs, launches of the quantized run)."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    t_phase = time.perf_counter()
+    cfg = spec_config()
+    prompts = batch_prompts(cfg)
+    kw = dict(device=dev, page_size=16, max_reqs=16, num_pages=512, decode_chunk=32)
+    out, launches = {}, {k: 0 for k in KERNELS}
+    for name, (scale, draft_len) in SPEC_WORKLOADS.items():
+        t0 = time.perf_counter()
+        params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED), scale)
+        engine = InferenceEngine(cfg, params, **kw)
+        rec, counts = spec_workload(engine, prompts, draft_len, faults=name == "spec")
+        rec["init_scale"], rec["seconds"] = scale, time.perf_counter() - t0
+        out[name] = rec
+        launches = {k: launches[k] + counts[k] for k in KERNELS}
+        del engine
+        if name != "spec_extractive":
+            del params
+        free_device()
+    t0 = time.perf_counter()
+    qparams = quantize_decoder_params(params, "int4", group_size=128, riffle=True)
+    del params
+    free_device()
+    engine = InferenceEngine(cfg, qparams, kv_quant="int8", **kw)
+    draft_len = SPEC_WORKLOADS["spec_extractive"][1]
+    spec_streams(engine, prompts, 4, draft_len)  # the capture
+    reset_counts()
+    streams, spec_s, keeps = spec_streams(engine, prompts, SPEC_SHORT, draft_len)
+    q_launches = read_counts()
+    missing = [k for k in SPEC_QUANT_PATH if q_launches[k] == 0]
+    require(not missing, f"kernels never launched on the quantized spec path: {missing}")
+    stray = [k for k in SPEC_ABSENT if q_launches[k] != 0]
+    require(not stray, f"decode kernels launched in a spec run: {stray}")
+    q = out["spec_extractive_int4_int8_kv"] = dict(
+        max_gen_len=SPEC_SHORT, draft_len=draft_len, spec_tokens_per_s=len(prompts) * SPEC_SHORT
+        / spec_s, tokens_per_forward=len(prompts) * SPEC_SHORT / max(keeps.size, 1),
+        launches=q_launches)
+    q.update(consistency_gate(engine, prompts, streams, draft_len, plain=True))
+    q["graph_gate"] = spec_graph_gate(engine, prompts, draft_len)
+    q["profile"] = profile_spec(engine, prompts, draft_len)
+    q["seconds"] = time.perf_counter() - t0
+    del engine, qparams
+    free_device()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("spec: " + json.dumps(out))
+    return out, launches, {k: q_launches[k] for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3213,6 +3766,7 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase (no slice, no final ok line)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the card only",
               file=sys.stderr)
@@ -3251,7 +3805,8 @@ def main() -> int:
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
     by_path = {p: {k: None for k in KERNELS}
                for p in ("batch", "serving", "quantized", "fp8_kv", "open_llama", "checkpoint",
-                         "eval", "eval_int8_kv", "eval_fp8_kv", "llava")}
+                         "eval", "eval_int8_kv", "eval_fp8_kv", "llava", "spec",
+                         "spec_quantized")}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
@@ -3306,6 +3861,9 @@ def main() -> int:
         log("phase 9: LLaVA-1.5-7B (CLIP-L/14-336 tower, projector, Vicuna-7B)")
         summary, by_path["llava"] = llava_phase(dev)
         log(f"  phase 9 took {summary['seconds']:.1f} s")
+        log("phase 10: speculative decoding (Llama-3.2-3B, prompt-lookup drafts)")
+        summary, by_path["spec"], by_path["spec_quantized"] = spec_phase(dev)
+        log(f"  phase 10 took {summary['seconds']:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3330,6 +3888,7 @@ def main() -> int:
                 "shape", "max_abs_err", "ms", "l2_warm_ms", "eager_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "library")}
         kernels.append(entry)
+    log(f"chip_smoke: every phase ran in {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": kernels}))
     if args.kernels_only:
         return 0

@@ -25,6 +25,15 @@ and the prefix cache, and runs prefill and decode:
   replays it n times; on the CPU the same body runs eagerly. Every graph
   shares one memory pool and draws from the engine's generator, which each
   graph registers, so every replay draws fresh numbers.
+- speculative decoding (greedy verify of prompt-lookup drafts, driven by
+  ``generation/speculative.py``): ``spec_verify`` runs one verify step
+  eagerly (allocate the optimistic chunk, a chunked prefill over it with
+  all logits, K5 on the card, accept the longest matching draft prefix,
+  rewind the rest) with one host copy; ``spec_decode_chunk`` replays a
+  ``SpecStep``, one iteration of the JAX engine's ``_spec_chunk`` scan
+  (device drafting, verify, eos and budget truncation, the history update)
+  over static buffers, captured like the decode steps, so a chunk of
+  verify steps costs one host sync.
 - prefix cache: a host-side registry of page-aligned prompt prefixes whose
   KV pages stay in the pool after their request ends (``PrefixCache``); a
   later prompt that starts with one splices those pages into its table and
@@ -42,7 +51,7 @@ Quantized weights (``quant/qtensor.py``) and int8 / fp8 KV pools
 (``kv_quant``) run through the same paths; packed int4 wq/wkv are fused into
 one wqkv at build time, as the JAX engine does.
 
-Not ported yet, and refused: speculative decoding and data parallelism.
+Not ported yet, and refused: data parallelism.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from .kv_cache import (
     free_requests,
     kv_cache_bytes,
     push_pages,
+    rewind_requests,
 )
 
 
@@ -134,7 +144,42 @@ def capture_graph(fn, generator: torch.Generator, pool, stream: torch.cuda.Strea
     return graph, capture_ms, launches
 
 
-class DecodeStep:
+class _ReplayedStep:
+    """A step over static buffers that the card captures once as a CUDA
+    graph and replays (:meth:`capture`, :meth:`run`); until then, and on
+    the CPU, :meth:`run` calls ``body`` eagerly. Its warm-up, inside
+    :func:`capture_graph`, runs with every row done (the buffers' initial
+    state), so it allocates no page and changes no length or KV row."""
+
+    def __init__(self, engine: "InferenceEngine"):
+        self.engine = engine
+        self.graph = None
+        self.capture_ms = None
+        self.launches = {}  # kernel launches a replay makes, by launch counter
+
+    def body(self) -> None:
+        raise NotImplementedError
+
+    def capture(self, pool, stream: torch.cuda.Stream) -> None:
+        """Record the body as a CUDA graph (:func:`capture_graph`)."""
+        self.graph, self.capture_ms, self.launches = capture_graph(
+            self.body, self.engine._gen, pool, stream)
+
+    @torch.inference_mode()
+    def run(self, n: int) -> None:
+        """``n`` steps: replays of the graph (counted as the kernels they
+        launch), or eager calls of the body (on the CPU, and on the card
+        until it is captured)."""
+        if self.graph is None:
+            for _ in range(n):
+                self.body()
+            return
+        for _ in range(n):
+            self.graph.replay()
+        add_launches(self.launches, n)
+
+
+class DecodeStep(_ReplayedStep):
     """One decode step of a session width B and a sampling mode, over static
     buffers: allocate -> forward -> sample -> eos bookkeeping, the body of
     the JAX engine's ``lax.scan`` chunk. It reads and writes only its own
@@ -149,7 +194,8 @@ class DecodeStep:
         dev = engine.device
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
-        self.engine, self.mode = engine, mode
+        super().__init__(engine)
+        self.mode = mode
         self.req_ids = torch.zeros(width, **i32)
         self.tok = torch.zeros(width, **i32)
         self.done = torch.ones(width, dtype=torch.bool, device=dev)
@@ -159,9 +205,6 @@ class DecodeStep:
         self.step = torch.zeros(1, dtype=torch.long, device=dev)
         self.toks = torch.zeros((engine.decode_chunk, width), **i32)
         self.lps = torch.zeros((engine.decode_chunk, width), **f32)
-        self.graph = None
-        self.capture_ms = None
-        self.launches = {}  # kernel launches a replay makes, by launch counter
 
     @torch.inference_mode()
     def load(self, s: DecodeSession) -> None:
@@ -197,25 +240,91 @@ class DecodeStep:
         self.tok.copy_(next_tok)
         self.step.add_(1)
 
-    def capture(self, pool, stream: torch.cuda.Stream) -> None:
-        """Record the body as a CUDA graph (:func:`capture_graph`). Its
-        warm-up runs with every row done (the buffers' initial state), so it
-        allocates no page and changes no length or KV row."""
-        self.graph, self.capture_ms, self.launches = capture_graph(
-            self.body, self.engine._gen, pool, stream)
+
+def accepted_drafts(chunk: torch.Tensor, chunk_lens: torch.Tensor,
+                    pred: torch.Tensor) -> torch.Tensor:
+    """The longest accepted draft prefix a [B] of a verify chunk: draft i
+    (column i + 1) is accepted iff every draft before it is, it is the
+    model's greedy prediction ``pred`` after the token before it, and it
+    lies inside the valid chunk (``chunk_lens``)."""
+    K = chunk.shape[1]
+    idx = torch.arange(1, K, dtype=torch.int32, device=chunk.device)
+    ok = (chunk[:, 1:] == pred[:, :-1]) & (idx[None, :] < chunk_lens[:, None])
+    return torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
+
+
+class SpecStep(_ReplayedStep):
+    """One speculative verify step of a session width B, chunk width K
+    (draft length + 1), n-gram order and history length S, over static
+    buffers: one iteration of the JAX engine's ``_spec_chunk`` scan. Device
+    drafting from the history, the budget clamp, the verify
+    (``InferenceEngine._spec_verify_body``), truncation at eos and at the
+    budget, the history append and the done update. It reads and writes
+    only its own buffers (slots, history [B, S], hist_len, cur, done,
+    max_total, a step counter, and [n_steps, B, K] emitted tokens and
+    [n_steps, B] kept counts written at the counter's row) and the engine's
+    cache, parameters and eos ids, all at fixed addresses, so on the card it
+    is captured and replayed as :class:`DecodeStep` is. With every row done
+    its chunk is empty: it allocates no page, writes back the one KV row it
+    reads and rewinds nothing."""
+
+    def __init__(self, engine: "InferenceEngine", width: int, K: int, ngram: int, S: int,
+                 n_steps: int):
+        dev = engine.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        super().__init__(engine)
+        self.K, self.ngram = K, ngram
+        self.req_ids = torch.zeros(width, **i32)
+        # One dump slot past the history: the append's dropped writes land there.
+        self._hist_flat = torch.zeros(width * S + 1, **i32)
+        self.history = self._hist_flat[:width * S].view(width, S)
+        self.hist_len = torch.zeros(width, **i32)
+        self.cur = torch.zeros(width, **i32)
+        self.done = torch.ones(width, dtype=torch.bool, device=dev)
+        self.max_total = torch.zeros(width, **i32)
+        self.step = torch.zeros(1, dtype=torch.long, device=dev)
+        self.emits = torch.zeros((n_steps, width, K), **i32)
+        self.keeps = torch.zeros((n_steps, width), **i32)
 
     @torch.inference_mode()
-    def run(self, n: int) -> None:
-        """``n`` steps: replays of the graph (counted as the kernels they
-        launch), or eager calls of the body (on the CPU, and on the card
-        until it is captured)."""
-        if self.graph is None:
-            for _ in range(n):
-                self.body()
-            return
-        for _ in range(n):
-            self.graph.replay()
-        add_launches(self.launches, n)
+    def load(self, req_ids, history, hist_len, cur, done, max_total) -> None:
+        """Copy a chunk's state into the buffers and restart the counter."""
+        for dst, src in ((self.req_ids, req_ids), (self.history, history),
+                         (self.hist_len, hist_len), (self.cur, cur), (self.done, done),
+                         (self.max_total, max_total)):
+            dst.copy_(src)
+        self.step.zero_()
+
+    def body(self) -> None:
+        from ..generation.speculative import device_prompt_lookup
+
+        e, K = self.engine, self.K
+        B, S = self.history.shape
+        kidx = torch.arange(K, dtype=torch.int32, device=e.device)
+        rows = torch.arange(B, dtype=torch.int32, device=e.device)
+        done, hist_len = self.done, self.hist_len
+        room = self.max_total - hist_len
+        active = ~done & (room > 0)
+        drafts, d = device_prompt_lookup(self.history, hist_len, K - 1, self.ngram)
+        d = torch.minimum(d, (room - 1).clamp(min=0))  # never emit past the budget
+        chunk = torch.cat([self.cur[:, None], drafts], dim=1)
+        chunk_lens = torch.where(active, 1 + d, 0).to(torch.int32)
+        emit, n_emit, next_tok = e._spec_verify_body(self.req_ids, chunk, chunk_lens)
+        # Keep up to and including the first eos, within the budget.
+        is_eos = torch.isin(emit, e._eos) & (kidx[None, :] < n_emit[:, None])
+        first_eos = torch.where(is_eos, kidx[None, :], K).amin(dim=1)
+        n_keep = torch.minimum(torch.minimum(n_emit, first_eos + 1), room)
+        n_keep = torch.where(active, n_keep, 0).to(torch.int32)
+        wpos = hist_len[:, None] + kidx[None, :]
+        valid = (kidx[None, :] < n_keep[:, None]) & (wpos < S)
+        tgt = torch.where(valid, rows[:, None] * S + wpos, B * S)
+        self._hist_flat[tgt.reshape(-1).long()] = emit.reshape(-1)
+        hist_len.add_(n_keep)
+        self.done.copy_(done | (first_eos < n_keep) | (hist_len >= self.max_total))
+        self.cur.copy_(torch.where(active, next_tok, self.cur))
+        self.emits.index_copy_(0, self.step, emit[None])
+        self.keeps.index_copy_(0, self.step, n_keep[None])
+        self.step.add_(1)
 
 
 @dataclasses.dataclass
@@ -392,6 +501,8 @@ class InferenceEngine:
         # Decode steps by (session width, sampling mode); on the card each is
         # a captured graph, all in one memory pool, captured on one stream.
         self._steps = {}
+        # Speculative verify steps by (width, K, ngram, history length, steps).
+        self._spec_steps = {}
         self._graph_pool = None
         self._graph_stream = None
         self._eos_list = None
@@ -401,15 +512,16 @@ class InferenceEngine:
         self._admission_lock = threading.RLock()
 
     def set_eos(self, eos_ids: Sequence[int]) -> None:
-        """Token ids that end a request during decode. The decode steps read
-        the id tensor, so new ids drop them (once the device has finished
-        with them); the next chunk builds them again."""
+        """Token ids that end a request during decode. The decode and
+        speculative steps read the id tensor, so new ids drop them (once the
+        device has finished with them); the next chunk builds them again."""
         ids = [int(t) for t in eos_ids] or [-1]
         if ids == self._eos_list:
             return
-        if self._steps and self.device.type == "cuda":
+        if (self._steps or self._spec_steps) and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._steps.clear()
+        self._spec_steps.clear()
         self._eos_list = ids
         self.eos_ids = [t for t in ids if t >= 0]
         self._eos = torch.tensor(ids, dtype=torch.int32, device=self.device)
@@ -831,13 +943,18 @@ class InferenceEngine:
         key = (width, mode)
         step = self._steps.get(key)
         if step is None:
-            step = DecodeStep(self, width, mode)
-            if self.device.type == "cuda":
-                if self._graph_pool is None:
-                    self._graph_pool = torch.cuda.graph_pool_handle()
-                    self._graph_stream = torch.cuda.Stream(self.device)
-                step.capture(self._graph_pool, self._graph_stream)
+            step = self._captured(DecodeStep(self, width, mode))
             self._steps[key] = step
+        return step
+
+    def _captured(self, step):
+        """``step`` captured on the card (every graph in one memory pool, on
+        one stream); on the CPU it stays eager."""
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graph_stream = torch.cuda.Stream(self.device)
+            step.capture(self._graph_pool, self._graph_stream)
         return step
 
     def collect_decode_chunk(self, bundle: _ChunkBundle):
@@ -883,3 +1000,91 @@ class InferenceEngine:
         s = self.start_decode_session(slots, tok, done, stop_lens, sampling)
         toks, lps, _ = self.decode_session(s, n_steps)
         return s.tok, s.done, toks, lps
+
+    # -- speculative decoding (greedy verify) ------------------------------------
+    def _spec_verify_body(self, req_ids, chunk, chunk_lens):
+        """One greedy verify step on the device, with no host sync.
+        ``chunk`` [B, K] int32: column 0 is each request's current next token
+        (sampled but not in the pool: the virtual-token protocol), columns
+        1..c-1 its drafts; ``chunk_lens`` [B] the valid width c (0: the row
+        sits out). Allocates pages for ``L + c`` tokens, runs a chunked
+        prefill over the chunk with every position's logits (its KV lands in
+        the pool), accepts the longest draft prefix that matches the model's
+        argmax, and rewinds each request to ``L + a + 1`` (the current token
+        and the accepted drafts; the bonus token stays virtual). Returns
+        (emit [B, K]: the accepted drafts, then the bonus token, pad after;
+        n_emit [B] = a + 1; next_tok [B], the bonus token). The plain CPU
+        attention reads the whole page-table span of history."""
+        cache, ps = self.cache, self.page_size
+        K = chunk.shape[1]
+        req = req_ids.long()
+        L = cache.seq_lens[req]
+        new_total = L + chunk_lens
+        alloc_prefill(cache, req_ids, new_total, prefix_rows=cache.page_table[req],
+                      prefix_pages=(L + ps - 1) // ps)
+        ctx = AttnContext(table_rows=cache.page_table[req], seq_lens=new_total, start_pos=L,
+                          chunk_lens=chunk_lens)
+        logits, _ = decoder_prefill(self.params, self.config, cache.kv_pages, ctx,
+                                    chunk.long(), chunked=True)
+        pred = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, K]
+        a = accepted_drafts(chunk, chunk_lens, pred)
+        next_tok = torch.gather(pred, 1, a[:, None].long())  # [B, 1]
+        kidx = torch.arange(K, dtype=torch.int32, device=chunk.device)
+        drafts = torch.cat([chunk[:, 1:], torch.zeros_like(chunk[:, :1])], dim=1)
+        emit = torch.where(kidx[None, :] < a[:, None], drafts, self.pad_id).to(torch.int32)
+        emit.scatter_(1, a[:, None].long(), next_tok)
+        rewind_requests(cache, req_ids, L + a + 1)
+        return emit, a + 1, next_tok[:, 0]
+
+    @torch.inference_mode()
+    def spec_verify(self, slots, chunk_tokens, chunk_lens):
+        """One greedy speculative verify step for the requests in ``slots``
+        (``_spec_verify_body``), run eagerly. ``chunk_tokens`` [B, K] and
+        ``chunk_lens`` [B] are host arrays. Returns (emit [B, K], n_emit [B],
+        next_tok [B]) as numpy int32, from one host copy."""
+        chunk = np.asarray(chunk_tokens, np.int32)
+        K = chunk.shape[1]
+        emit, n_emit, next_tok = self._spec_verify_body(
+            self._ids(slots), self._ids(chunk), self._ids(np.asarray(chunk_lens, np.int32)))
+        packed = torch.cat([emit, n_emit[:, None], next_tok[:, None]], dim=1)
+        ph = self._to_host(packed).wait()
+        return ph[:, :K].copy(), ph[:, K].copy(), ph[:, K + 1].copy()
+
+    @torch.inference_mode()
+    def spec_step_for(self, width: int, K: int, ngram: int, S: int, n_steps: int) -> SpecStep:
+        """The speculative step of a (width, chunk width, n-gram order,
+        history length, chunk depth), made at first use and captured on the
+        card then."""
+        key = (width, K, ngram, S, n_steps)
+        step = self._spec_steps.get(key)
+        if step is None:
+            step = self._captured(SpecStep(self, width, K, ngram, S, n_steps))
+            self._spec_steps[key] = step
+        return step
+
+    @torch.inference_mode()
+    def spec_decode_chunk(self, slots, history, hist_len, cur, done, max_total,
+                          n_steps: int = 8, draft_len: int = 4, ngram: int = 3):
+        """``n_steps`` speculative steps with drafting on the device
+        (``SpecStep``, replayed on the card), then one host copy. State, on
+        the device: ``history`` int32 [B, S], row b valid in [0,
+        hist_len[b]) and ending with the current next token ``cur[b]``;
+        ``done`` bool [B]; ``max_total`` [B] (prompt + generation budget, a
+        host list). The state tensors are updated in place and returned:
+        (history, hist_len, cur, done, emits [n_steps, B, K] np, keeps
+        [n_steps, B] np, done [B] np bool); step s of row b emitted
+        ``keeps[s, b]`` tokens, eos- and budget-truncated."""
+        B = len(slots)
+        K = draft_len + 1
+        step = self.spec_step_for(B, K, ngram, history.shape[1], n_steps)
+        step.load(self._ids(slots), history, hist_len, cur, done, self._ids(max_total))
+        step.run(n_steps)
+        for dst, src in ((history, step.history), (hist_len, step.hist_len), (cur, step.cur),
+                         (done, step.done)):
+            dst.copy_(src)
+        packed = torch.cat([step.emits.reshape(-1), step.keeps.reshape(-1),
+                            step.done.to(torch.int32)])
+        ph = self._to_host(packed).wait()
+        emits = ph[:n_steps * B * K].reshape(n_steps, B, K).copy()
+        keeps = ph[n_steps * B * K:n_steps * B * (K + 1)].reshape(n_steps, B).copy()
+        return history, hist_len, cur, done, emits, keeps, ph[-B:].astype(bool)

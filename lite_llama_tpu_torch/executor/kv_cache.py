@@ -20,7 +20,13 @@ addresses (the engine's decode step) reads the current state at each replay.
 
 JAX clamps out-of-bounds gathers and drops out-of-bounds scatters; PyTorch
 raises, or asserts on the device. Every such site below clamps its gather
-indices and filters or neutralises its scatter rows explicitly.
+indices and sends each dropped scatter row where no live write of the same
+call lands: the dump row past the end of the table, the lengths and the
+free stack (``_set_slots``, ``_push``), or, in the pool, the row of the
+call's first live position with that position's own value
+(``kv_write_prefill``). None of them reads a mask back to the host, so the
+allocator, the rewind and the KV writes run inside a captured CUDA graph
+(the engine's decode and speculative verify steps).
 
 The in-graph allocator has no exhaustion guard: popping more pages than are
 free drives ``free_top`` negative and hands out colliding pages. The host
@@ -29,7 +35,7 @@ checks capacity first (engine ``admit_feasible`` / ``try_admit``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -96,13 +102,24 @@ class PagedKVCache:
       seq_lens   : int32 [max_reqs] (tokens currently stored per slot)
       free_stack : int32 [P] (free page ids; the top ``free_top`` are free)
       free_top   : int32 [] (a 0-d tensor on the cache's device)
-    """
+
+    The table, the lengths and the stack are views of buffers one row
+    longer (``*_buf``): the last row is a dump row that takes the scatters
+    a call drops, and nothing reads it."""
 
     kv_pages: KVPool
-    page_table: torch.Tensor
-    seq_lens: torch.Tensor
-    free_stack: torch.Tensor
+    table_buf: torch.Tensor
+    lens_buf: torch.Tensor
+    stack_buf: torch.Tensor
     free_top: torch.Tensor
+    page_table: torch.Tensor = field(init=False)
+    seq_lens: torch.Tensor = field(init=False)
+    free_stack: torch.Tensor = field(init=False)
+
+    def __post_init__(self):
+        self.page_table = self.table_buf[:-1]
+        self.seq_lens = self.lens_buf[:-1]
+        self.free_stack = self.stack_buf[:-1]
 
     @property
     def page_size(self) -> int:
@@ -143,9 +160,9 @@ def create_kv_cache(num_layers, num_kv_heads, head_dim, num_pages, page_size=64,
                   num_kv_heads=num_kv_heads, head_dim=head_dim, scales=scales)
     return PagedKVCache(
         kv_pages=pool,
-        page_table=torch.zeros((max_reqs, ppr), dtype=torch.int32, device=device),
-        seq_lens=torch.zeros((max_reqs,), dtype=torch.int32, device=device),
-        free_stack=torch.arange(num_pages, dtype=torch.int32, device=device),
+        table_buf=torch.zeros((max_reqs + 1, ppr), dtype=torch.int32, device=device),
+        lens_buf=torch.zeros((max_reqs + 1,), dtype=torch.int32, device=device),
+        stack_buf=torch.arange(num_pages + 1, dtype=torch.int32, device=device),
         free_top=torch.tensor(num_pages, dtype=torch.int32, device=device),
     )
 
@@ -176,12 +193,21 @@ def _valid_slots(cache: PagedKVCache, req_ids: torch.Tensor) -> torch.Tensor:
     return req_ids < cache.max_reqs
 
 
+def _set_slots(buf: torch.Tensor, req_ids: torch.Tensor, values) -> None:
+    """``buf[req_ids[b]] = values[b]`` in place for the live slots, without a
+    host sync: sentinel slots (>= max_reqs) write the dump row ``buf[-1]``,
+    where no live write lands (a sentinel clamped onto the last slot would
+    race with that slot's own write)."""
+    n = buf.shape[0] - 1
+    buf[torch.where(req_ids < n, req_ids, n).long()] = values
+
+
 def alloc_prefill(cache: PagedKVCache, req_ids: torch.Tensor, lens: torch.Tensor,
                   prefix_rows: Optional[torch.Tensor] = None,
                   prefix_pages: Optional[torch.Tensor] = None):
     """Allocate pages for ``lens[b]`` tokens in slot ``req_ids[b]`` and set
     those slots' lengths. Sentinel slots (>= max_reqs) pop their pages like
-    JAX does but write nothing.
+    JAX does but write nothing. Runs without a host sync.
 
     Prefix caching: where ``prefix_pages[b] > 0`` the first table entries
     point at shared, already-filled pages from ``prefix_rows`` [B, ppr] and
@@ -199,10 +225,8 @@ def alloc_prefill(cache: PagedKVCache, req_ids: torch.Tensor, lens: torch.Tensor
     rows = torch.where(need, page_ids, torch.zeros_like(page_ids)).reshape(B, ppr)
     if prefix_rows is not None:
         rows = torch.where(j[None, :] < start[:, None], prefix_rows.to(torch.int32), rows)
-    ok = _valid_slots(cache, req_ids)
-    slots = req_ids[ok].long()
-    cache.page_table[slots] = rows[ok]
-    cache.seq_lens[slots] = lens[ok]
+    _set_slots(cache.table_buf, req_ids, rows)
+    _set_slots(cache.lens_buf, req_ids, lens)
     cache.free_top.copy_(new_top)
     return cache
 
@@ -237,12 +261,14 @@ def alloc_decode(cache: PagedKVCache, req_ids: torch.Tensor,
 
 def _push(cache: PagedKVCache, pages: torch.Tensor, mask: torch.Tensor):
     """Push ``pages[mask]`` onto the free stack in order (pushes past the
-    stack's end are dropped, as JAX drops them)."""
+    stack's end are dropped, as JAX drops them). Without a host sync: an
+    entry not pushed writes the stack's dump slot, since its rank is the
+    next pushed entry's slot."""
     m = mask.to(torch.int32)
     rank = torch.cumsum(m, 0, dtype=torch.int32) - m
+    n = cache.free_stack.shape[0]
     dst = (cache.free_top + rank).long()
-    push = mask & (dst < cache.free_stack.shape[0])
-    cache.free_stack[dst[push]] = pages[push].to(torch.int32)
+    cache.stack_buf[torch.where(mask & (dst < n), dst, n)] = pages.to(torch.int32)
     cache.free_top.add_(m.sum(dtype=torch.int32))
 
 
@@ -262,9 +288,31 @@ def free_requests(cache: PagedKVCache, req_ids: torch.Tensor,
     j = torch.arange(ppr, dtype=torch.int32, device=req_ids.device)
     mask = ((j[None, :] >= keep[:, None]) & (j[None, :] < used[:, None])).reshape(-1)
     _push(cache, cache.page_table[req].reshape(-1), mask)
-    slots = req_ids[ok].long()
-    cache.page_table[slots] = 0
-    cache.seq_lens[slots] = 0
+    _set_slots(cache.table_buf, req_ids, 0)
+    _set_slots(cache.lens_buf, req_ids, 0)
+    return cache
+
+
+def rewind_requests(cache: PagedKVCache, req_ids: torch.Tensor, new_lens: torch.Tensor):
+    """Shrink the slots' lengths to ``min(new_lens, seq_lens)`` and push the
+    pages past ``cdiv(new_lens, page_size)`` back onto the free stack, in
+    the JAX allocator's order: the rollback after speculative decoding
+    rejects draft tokens (the verify chunk allocated pages and wrote KV rows
+    optimistically). The rejected rows stay in the pool past the length,
+    where attention never reads them and the next tokens overwrite them.
+    Table rows are left as they are; sentinel slots are ignored."""
+    ps = cache.page_size
+    ok = _valid_slots(cache, req_ids)
+    req = req_ids.long().clamp(max=cache.max_reqs - 1)
+    cur = cache.seq_lens[req]
+    new_lens = torch.minimum(new_lens.to(torch.int32), cur)
+    zero = torch.zeros_like(cur)
+    old_used = torch.where(ok, (cur + ps - 1) // ps, zero)
+    new_used = torch.where(ok, (new_lens + ps - 1) // ps, zero)
+    j = torch.arange(cache.pages_per_req, dtype=torch.int32, device=req_ids.device)
+    mask = ((j[None, :] >= new_used[:, None]) & (j[None, :] < old_used[:, None])).reshape(-1)
+    _push(cache, cache.page_table[req].reshape(-1), mask)
+    _set_slots(cache.lens_buf, req_ids, new_lens)
     return cache
 
 
@@ -282,24 +330,40 @@ def push_pages(cache: PagedKVCache, pages: torch.Tensor, valid: torch.Tensor):
 def kv_write_prefill(kv: KVPool, layer: int, k_new, v_new, table_rows, start_pos, lens):
     """Scatter a prefill chunk's K/V [B, S, Hkv, D] into the pool in place.
     Pad positions (s >= lens[b]) are dropped. An int8 pool quantizes per
-    (token, head) on the way in."""
+    (token, head) on the way in.
+
+    Without a host sync: a dropped position maps through a table entry that
+    may not be allocated (zero, or a page another request now owns) onto a
+    row that a live position of this call writes, so it must not write back
+    that row's old value. Every dropped position writes the call's first
+    live position again instead (its row and its value), so all writes to a
+    row carry one value; in a call with no live position every write goes to
+    the first position's row with the value that row already holds."""
     B, S = k_new.shape[0], k_new.shape[1]
     ps = kv.page_size
     ppr = table_rows.shape[1]
+    T = kv.num_tokens
+    HD = kv.pages.shape[-1]
+    if B * S == 0:
+        return kv
     s = torch.arange(S, device=k_new.device)
     pos = start_pos.long()[:, None] + s[None, :]
     page = torch.gather(table_rows.long(), 1, (pos // ps).clamp(0, ppr - 1))
-    rows = page * ps + pos % ps
-    valid = (s[None, :] < lens[:, None]) & (rows < kv.num_tokens)
-    HD = kv.pages.shape[-1]
-    r = rows[valid]
-    k, v = k_new[valid], v_new[valid]  # [N, Hkv, D]
+    rows = (page * ps + pos % ps).reshape(-1)
+    valid = ((s[None, :] < lens[:, None]).reshape(-1) & (rows >= 0) & (rows < T))
+    first = torch.argmax(valid.to(torch.uint8))  # first live position (0 if none)
+    src = torch.where(valid, torch.arange(B * S, device=rows.device), first)
+    r = rows.clamp(0, T - 1)[src]
+    live = valid.any()
+    k = k_new.reshape(B * S, *k_new.shape[2:])[src]  # [N, Hkv, D]
+    v = v_new.reshape(B * S, *v_new.shape[2:])[src]
     if kv.quantized:
         (k, ksc), (v, vsc) = _quantize_kv(k), _quantize_kv(v)
-        kv.scales[layer, r] = _scale_rows(ksc, vsc)
+        kv.scales[layer, r] = torch.where(live, _scale_rows(ksc, vsc), kv.scales[layer, r[:1]])
     pages = byte_view(kv.pages)
-    pages[layer, 0, r] = _cast_kv(k.reshape(-1, HD), kv.pages.dtype)
-    pages[layer, 1, r] = _cast_kv(v.reshape(-1, HD), kv.pages.dtype)
+    for half, val in ((0, k), (1, v)):
+        new = _cast_kv(val.reshape(-1, HD), kv.pages.dtype)
+        pages[layer, half, r] = torch.where(live, new, pages[layer, half, r[:1]])
     return kv
 
 

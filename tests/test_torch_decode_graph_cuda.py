@@ -7,8 +7,10 @@ replay; a released and re-admitted slot reads no stale pages; sampled
 replays draw fresh numbers from the engine's generator and follow the
 sampler's distribution, through ``capture_graph`` alone and through the
 engine's own sampled step; each replay counts the kernel launches it makes.
-The eager reference is an engine built alike whose decode step is never
-captured (``tests/torch_decode_steps.py`` ``eager_step``). This file
+The speculative verify step (``SpecStep``) replays as the eager one runs on
+each pool, launching K5 (K5q) and never K1. The eager reference is an
+engine built alike whose step is never captured
+(``tests/torch_decode_steps.py`` ``eager_step`` / ``eager_spec_step``). This file
 imports no JAX, so it runs on a machine with a card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_decode_graph_cuda.py
@@ -29,10 +31,11 @@ from lite_llama_tpu_torch.executor.engine import (  # noqa: E402
     capture_graph,
 )
 from lite_llama_tpu_torch.generation import sampling as tsamp  # noqa: E402
+from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator  # noqa: E402
 from lite_llama_tpu_torch.models.decoder import init_decoder_params  # noqa: E402
-from lite_llama_tpu_torch.ops import attention_decode  # noqa: E402
+from lite_llama_tpu_torch.ops import attention_decode, attention_prefill  # noqa: E402
 from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params  # noqa: E402
-from tests.torch_decode_steps import eager_step  # noqa: E402
+from tests.torch_decode_steps import eager_spec_step, eager_step  # noqa: E402
 
 # D 64, G 2; every int4 projection and the tied head at a width K6 takes.
 CFG = dict(hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
@@ -268,3 +271,41 @@ def test_sampled_engine_replays_draw_anew_within_the_nucleus(cuda, mode, samp):
                                                   abs=1e-4)
                 if tok == cfg.eos_token_id:
                     break  # the row is done: pad from here
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+def test_replayed_spec_chunks_equal_the_eager_step(cuda, pool):
+    """Speculative chunks through the captured SpecStep give the eager
+    step's streams token for token, and the per-step mode's; the verify
+    launches K5 (K5q on a quantized pool) once a layer per step and K1
+    never; every page comes back."""
+    weights, kv_quant = POOLS[pool]
+    cfg, params = _params(cuda, weights)
+    prompts = [[5, 6, 7, 5, 6, 7, 5, 6], list(range(10, 47)), [9, 9, 9, 9]]
+    graph = _engine(cuda, cfg, params, kv_quant=kv_quant)
+    eager = _engine(cuda, cfg, params, kv_quant=kv_quant)
+    name, k5 = {
+        False: ("flash_prefill_chunked", attention_prefill.launch_flash_prefill_chunked),
+        "int8": ("flash_prefill_chunked_int8", attention_prefill.launch_flash_prefill_chunked_int8),
+        "fp8": ("flash_prefill_chunked_fp8", attention_prefill.launch_flash_prefill_chunked_fp8),
+    }[kv_quant]
+    k1 = {False: attention_decode.launch_paged_decode,
+          "int8": attention_decode.launch_paged_decode_int8,
+          "fp8": attention_decode.launch_paged_decode_fp8}[kv_quant]
+
+    def streams(eng, chunk_steps=4):
+        gen = SpeculativeTextGenerator(eng, draft_len=4, chunk_steps=chunk_steps)
+        return [o.token_ids for o in gen.generate_tokens(prompts, max_gen_len=30)]
+
+    before = (k5.launches, k1.launches)
+    got = streams(graph)
+    step = graph._spec_steps[(3, 5, 3, cfg.max_seq_len, 4)]
+    assert step.graph is not None
+    assert step.launches[name] == cfg.num_hidden_layers  # once a layer a step
+    assert k5.launches > before[0] and k1.launches == before[1]
+    with eager_spec_step(eager, 3, 5, 3, cfg.max_seq_len, 4) as ref:
+        want = streams(eager)
+        assert ref.graph is None
+    assert got == want == streams(eager, chunk_steps=0)
+    for eng in (graph, eager):
+        assert eng._host_free_pages == eng.num_pages == int(eng.cache.free_top)

@@ -191,6 +191,50 @@ def test_chunked_prefill_kernel_matches_plain(cuda, D, Nq, Hkv, S, page_size):
     assert torch.all(m[4] == -1e30) and torch.all(l[4] == 0) and torch.all(out[4] == 0)
 
 
+@pytest.mark.parametrize("S", [5, 9])
+def test_chunked_prefill_kernel_at_the_verify_shape(cuda, S):
+    """K5 at a speculative verify chunk (Llama-3.2-3B heads, 12 requests of
+    S = draft length + 1 rows with ragged widths from 0, histories of 25-399
+    tokens that end mid-page, page 16) against its plain version on every
+    live row, and the same launch captured in a CUDA graph and replayed on
+    new inputs bit for bit (the verify step replays it so)."""
+    D, Nq, Hkv, ps = 128, 24, 8, 16
+    g = torch.Generator(device=cuda).manual_seed(11)
+    start = torch.tensor([25, 38, 57, 90, 129, 150, 201, 255, 281, 313, 377, 399],
+                         dtype=torch.int32, device=cuda)
+    clen = torch.tensor([S, 0, 1, 2, 3, S - 1, S, S, 2, 1, S, S // 2], dtype=torch.int32,
+                        device=cuda)
+    B, ppr = 12, 28  # ppr * ps covers 399 + 3 * 7 + 9 positions
+    P = B * ppr
+    pages = torch.randn((2, 2, P * ps, Hkv * D), generator=g, device=cuda).bfloat16()
+    table = torch.randperm(P, generator=g, device=cuda).view(B, ppr).int()
+    q, k, v = (torch.randn((B, S, n, D), generator=g, device=cuda).bfloat16()
+               for n in (Nq, Hkv, Hkv))
+    pool = KVPool(pages, ps, Hkv, D)
+    out = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table)
+    po, _, _ = chunked_prefill_state_plain(q, k, v, clen, start, pages, ps, 1, table, D**-0.5)
+    live = torch.arange(S, device=cuda)[None, :] < clen[:, None]
+    assert _within(out[live], po[live])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_prefill_chunked(q, k, v, clen, start, pool, 1, table)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table)
+    for seed in range(3):
+        gen = torch.Generator(device=cuda).manual_seed(20 + seed)
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda).bfloat16())
+        start.add_(7)  # later positions, still mid-page for most rows
+        graph.replay()
+        want = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), seed
+
+
 @pytest.mark.parametrize("rows,H,residual", [(12, 3072, True), (300, 3072, False),
                                              (288, 128, False)])
 def test_norm_kernel_matches_plain(cuda, rows, H, residual):

@@ -1,8 +1,8 @@
-"""The eager reference of the engine's replayed decode step, shared by the
-card tests (``test_torch_decode_graph_cuda.py``) and ``chip_smoke.py``:
-for the duration, the engine's step of one (session width, sampling mode)
-is a ``DecodeStep`` that is never captured, so each chunk calls its body
-once a step. Imports no JAX."""
+"""The eager references of the engine's replayed decode and speculative
+steps, shared by the card tests (``test_torch_decode_graph_cuda.py``) and
+``chip_smoke.py``: for the duration, the engine's step of one key is a
+``DecodeStep`` (or ``SpecStep``) that is never captured, so each chunk
+calls its body once a step. Imports no JAX."""
 
 import contextlib
 
@@ -23,3 +23,21 @@ def eager_step(engine, width, mode="greedy"):
         del engine._steps[key]
         if own is not None:
             engine._steps[key] = own
+
+
+@contextlib.contextmanager
+def eager_spec_step(engine, width, K, ngram, S, n_steps):
+    """The speculative counterpart of :func:`eager_step`: an uncaptured
+    ``SpecStep`` of (``width``, ``K``, ``ngram``, ``S``, ``n_steps``) in
+    place of the engine's own for the duration; yields it."""
+    from lite_llama_tpu_torch.executor.engine import SpecStep
+
+    key = (width, K, ngram, S, n_steps)
+    own = engine._spec_steps.pop(key, None)
+    engine._spec_steps[key] = step = SpecStep(engine, *key)
+    try:
+        yield step
+    finally:
+        del engine._spec_steps[key]
+        if own is not None:
+            engine._spec_steps[key] = own
