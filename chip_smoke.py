@@ -19,9 +19,14 @@ Phases, in order; any failure exits non-zero:
    tokens of history, and ragged; K3 and K4 at 5 rows, at the 5 x 615 rows
    of the multimodal prefill and the 8 x 871 of the wave), K5 and K5q
    (int8, fp8) at phase 10's verify chunks (3B, B 12, S 5 and 9, ragged
-   chunk widths from 0, histories of 25-399 tokens that end mid-page), and
-   at D=80 and D=96
-   with four query heads per kv head: max abs error against the
+   chunk widths from 0, histories of 25-399 tokens that end mid-page), at
+   D=80 and D=96 with four query heads per kv head, and at phase 11's tp 2
+   rank: K1q / K5q on a shard's int8 pool (12 query and 4 kv heads of a
+   global 8, head_offset 0 and 4, the other shard's scale lanes holding
+   other scales; the mirrored offset is a planted fault that must fail) and
+   K6 / K7 at the shard shapes of the five projections (wqkv O 2560,
+   o_proj C 1536, gate_up O 8192, down C 4096, the head O 64128): max abs
+   error against the
    stated tolerance, device time from CUDA events with the inputs rotated
    through HBM (and, beside it, replayed warm in L2), the least time the
    card could take (bytes over 3.35 TB/s or bf16 operations over 989
@@ -142,7 +147,25 @@ Phases, in order; any failure exits non-zero:
    self-consistency (kernels and plain versions, within SPEC_TIE), graph
    gate and profile. Phase 3 holds K5 / K5q and K6 at these verify steps'
    shapes.
-11. Summary: the whole script's seconds, one JSON line with every kernel,
+11. Tensor parallelism (tp_phase): Llama-3.2-3B at full width and depth
+   at tp 2, two processes of this script (``--tp-child``) sharing the one
+   card over a gloo group (NCCL refuses two ranks on one card), each
+   building the same seeded weights and keeping its shard (12 query heads,
+   4 kv heads, ffn 4096, 64128 vocab rows), on three paths: bf16, an int8
+   pool, int4 g128 riffle_tp=2 weights with an int8 pool; phase 4's 12 x 25
+   prompts, eos off, 64 new tokens, greedy, the decode step eager (no CUDA
+   graph at tp > 1). Against the tp 1 engine on the same weights and
+   prompts in this process: the streams equal, but where one parts, tp 2's
+   teacher-forced logits there tie within twice the measured max-abs
+   difference (the rule of phases 4 and 10); the relative RMS of the
+   first-token logits and of the logits after 8 teacher-forced decode
+   steps within ``TP_REL_RMS``; planted faults (o_proj's all-reduce
+   dropped, the other rank's head_offset, the other rank's gate_up shard)
+   must fail it. Each rank's launch counters are printed: K1q must launch
+   on both ranks, at head offsets 0 and 4. Step times there are two ranks
+   time-sharing one card with their collectives through gloo, not tp's
+   speed.
+12. Summary: the whole script's seconds, one JSON line with every kernel,
    then the last line {"ok": true, "device": {...}}.
 
 Phase 3 times K3 / K4 (csrc/norms.cu) at decode widths (12 and 64 rows),
@@ -192,6 +215,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -369,6 +393,19 @@ MODELS = {  # head_dim, query heads, kv heads (attention shapes of phase 3)
     "D=80 G=4": dict(D=80, Nq=32, Hkv=8),  # head dims that do not divide 128,
     "D=96 G=4": dict(D=96, Nq=32, Hkv=8),  # with grouped queries
     "vicuna-7b": dict(D=128, Nq=32, Hkv=32),  # LLaVA-1.5-7B's LM: one query head per kv head
+    # Phase 11: a tp 2 rank of Llama-3.2-3B, 12 query heads and 4 kv heads of a global 8
+    "llama-3.2-3b tp2": dict(D=128, Nq=12, Hkv=4, global_Hkv=8),
+}
+# The tp 2 shard shapes of the 3B projections (phase 11's int4 riffle_tp=2
+# rank): (C, logical O, fp32 output); "out" weights keep C and take half of
+# O, "contract" weights half of C. The rank's head is 64128 vocab columns,
+# stored 64512 wide (padded like the whole head).
+QMM_TP2_SHAPES = {
+    "wqkv tp2": (3072, 2560, False),
+    "o_proj tp2": (1536, 3072, False),
+    "gate_up tp2": (3072, 8192, False),
+    "down tp2": (4096, 3072, False),
+    "lm_head tp2": (3072, 64128, True),
 }
 
 
@@ -533,10 +570,13 @@ def require(cond, what):
 # Phase 3: kernels against their plain versions
 
 
-def quantized_pages(pages, kv, Hkv):
+def quantized_pages(pages, kv, Hkv, hoff=0, global_Hkv=None):
     """A bf16 pool [L, 2, T, Hkv*D] as an int8 pool with its merged scale
     slab [L, T, 128] (the port's own KV quantizer), an fp8 pool, or as it is;
-    returns (pages, scales or None, the dequantized bf16 pool)."""
+    returns (pages, scales or None, the dequantized bf16 pool). A tp shard's
+    int8 pool (``global_Hkv``) puts its scales in lanes [hoff, hoff + Hkv)
+    and [64 + hoff, ...) and fills the other shards' lanes with other scales
+    (4 to 8 times larger), which a wrong head_offset reads."""
     from lite_llama_tpu_torch.executor import kv_cache as kvc
 
     if kv is None:
@@ -547,7 +587,14 @@ def quantized_pages(pages, kv, Hkv):
         return q, None, q.bfloat16()
     qv, sc = kvc._quantize_kv(pages.view(L, 2, T, Hkv, -1))
     deq = (qv.float() * sc.float()[..., None]).bfloat16().view(L, 2, T, HD)
-    return qv.view(L, 2, T, HD), kvc._scale_rows(sc[:, 0], sc[:, 1]), deq
+    rows = kvc._scale_rows(sc[:, 0], sc[:, 1], hoff)
+    if global_Hkv:
+        others = torch.zeros(128, dtype=torch.bool, device=rows.device)
+        others[:global_Hkv] = others[64:64 + global_Hkv] = True
+        others[hoff:hoff + Hkv] = others[64 + hoff:64 + hoff + Hkv] = False
+        big = rows.float().amax() * (4 + 4 * torch.rand(rows.shape, device=rows.device))
+        rows = torch.where(others, big, rows.float()).bfloat16()
+    return qv.view(L, 2, T, HD), rows, deq
 
 
 def decode_launch_info(B, Hkv, D, ps, ppr, lens, kv):
@@ -574,11 +621,14 @@ def decode_launch_info(B, Hkv, D, ps, ppr, lens, kv):
                 ptxas=ptxas[0] if ptxas else "not found")
 
 
-def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048):
+def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048, hoff=None):
     """K1 (bf16 pool) or K1q (``kv`` "int8" / "fp8") at ``lens`` tokens per
     request against its plain version, through a page table as wide as the
     engine gives it (``max_seq_len`` / ``ps`` pages; zeros past a request's
-    pages, shuffled page ids before)."""
+    pages, shuffled page ids before). ``hoff``: a tp shard's pool (a model
+    with ``global_Hkv``) whose first kv head is global head ``hoff``; the
+    other shard's scale lanes hold other scales, and the kernel at the
+    mirrored offset (a planted fault) must fail the tolerance."""
     from lite_llama_tpu_torch.executor.kv_cache import KVPool
     from lite_llama_tpu_torch.ops.attention_decode import (
         paged_decode_state_plain, paged_flash_decode)
@@ -592,7 +642,8 @@ def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048):
     used = [math.ceil(n / ps) for n in lens]
     P = sum(used) + 1
     pages = torch.randn((2, 2, P * ps, Hkv * D), generator=g, device=dev).bfloat16()
-    pages, scales, deq = quantized_pages(pages, kv, Hkv)
+    pages, scales, deq = quantized_pages(pages, kv, Hkv, hoff or 0, m.get("global_Hkv"))
+    h0 = hoff or 0
     perm = torch.randperm(P, generator=g, device=dev).int()
     table = torch.zeros((B, ppr), dtype=torch.int32, device=dev)
     for b, n in enumerate(used):
@@ -601,12 +652,12 @@ def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048):
     q = torch.randn((B, Nq, D), generator=g, device=dev).bfloat16()
     scale = D**-0.5
 
-    def kernel(q, pages, scales, table, kv_lens):
-        pool = KVPool(pages, ps, Hkv, D, scales)
+    def kernel(q, pages, scales, table, kv_lens, offset=h0):
+        pool = KVPool(pages, ps, Hkv, D, scales, head_offset=offset)
         return paged_flash_decode(q, pool, 1, table, kv_lens, scale, return_state=True)
 
     def plain(q, pages, scales, table, kv_lens):
-        return paged_decode_state_plain(q, pages, ps, 1, table, kv_lens, scale, scales)
+        return paged_decode_state_plain(q, pages, ps, 1, table, kv_lens, scale, scales, h0)
 
     args = (q, pages, scales, table, kv_lens)
     out, mm, ll = kernel(*args)
@@ -615,6 +666,11 @@ def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048):
     err, ok = max_err(out, po)
     m_ok = bool(torch.all((mm - pm).abs() <= 1e-3 * torch.clamp(pm.abs(), min=1.0)))
     l_ok = bool(torch.all((ll - pl).abs() <= 1e-3 * pl.abs() + 1e-6))
+    faults = {}
+    if hoff is not None and kv == "int8":
+        wrong = m["global_Hkv"] - Hkv - h0  # the other shard's offset
+        ferr, fok = max_err(kernel(*args, offset=wrong)[0], po)
+        faults[f"head_offset {wrong} for {h0}"] = dict(max_abs_err=ferr, caught=not fok)
     tokens = sum(lens)
     value_bytes = pages.element_size()
     scale_bytes = tokens * 2 * Hkv * 2 if scales is not None else 0  # the lanes read
@@ -639,8 +695,11 @@ def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048):
     del lib_args, kd, vd
     return dict(model=model, shape=f"B={B} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
                                    f"table={ppr} pages kv_lens={compact_lens(lens)} "
-                                   f"pool={kv or 'bf16'}",
-                max_abs_err=err, ok=ok and m_ok and l_ok, **t,
+                                   f"pool={kv or 'bf16'}"
+                                   + (f" head_offset={h0}" if hoff is not None else ""),
+                max_abs_err=err,
+                ok=ok and m_ok and l_ok and all(f["caught"] for f in faults.values()),
+                **({"faults": faults} if faults else {}), **t,
                 bound_ms=t_bound, bound_by=by,
                 launch=decode_launch_info(B, Hkv, D, ps, ppr, lens, kv),
                 library="F.scaled_dot_product_attention (dense K/V, boolean mask"
@@ -782,11 +841,12 @@ def norm_case(rows, H, residual, int8=False, fault=False):
                 library="F.rms_norm (normalisation alone, no residual add)")
 
 
-def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None):
+def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None, hoff=None):
     """K5 (bf16 pool) or K5q (``kv`` "int8" / "fp8") on one chunk of S query
     rows per request over a paged history of ``starts[b]`` tokens (page ids
     shuffled) plus the chunk's own ``clens[b]`` keys, against its plain
-    version on out (and m, l)."""
+    version on out (and m, l). ``hoff``: a tp shard's pool, as in
+    ``decode_case`` (the mirrored offset a planted fault)."""
     from lite_llama_tpu_torch.executor.kv_cache import KVPool
     from lite_llama_tpu_torch.ops.attention_prefill import (
         chunked_prefill_state_plain, flash_prefill_chunked)
@@ -799,7 +859,8 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
     ppr = max(1, math.ceil((max(starts) + S) / ps))
     P = B * ppr
     pages = torch.randn((2, 2, P * ps, Hkv * D), generator=g, device=dev).bfloat16()
-    pages, scales, deq = quantized_pages(pages, kv, Hkv)
+    pages, scales, deq = quantized_pages(pages, kv, Hkv, hoff or 0, m.get("global_Hkv"))
+    h0 = hoff or 0
     table = torch.randperm(P, generator=g, device=dev).view(B, ppr).int()  # shuffled
     q = torch.randn((B, S, Nq, D), generator=g, device=dev).bfloat16()
     k = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
@@ -808,12 +869,14 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
     cl = torch.tensor(clens, dtype=torch.int32, device=dev)
     scale = D**-0.5
 
-    def kernel(q, k, v, cl, sp, pages, scales, table):
-        return flash_prefill_chunked(q, k, v, cl, sp, KVPool(pages, ps, Hkv, D, scales), 1,
+    def kernel(q, k, v, cl, sp, pages, scales, table, offset=h0):
+        return flash_prefill_chunked(q, k, v, cl, sp,
+                                     KVPool(pages, ps, Hkv, D, scales, head_offset=offset), 1,
                                      table, scale, return_state=return_state)
 
     def plain(q, k, v, cl, sp, pages, scales, table):
-        return chunked_prefill_state_plain(q, k, v, cl, sp, pages, ps, 1, table, scale, scales)
+        return chunked_prefill_state_plain(q, k, v, cl, sp, pages, ps, 1, table, scale, scales,
+                                           h0)
 
     args = (q, k, v, cl, sp, pages, scales, table)
     got = kernel(*args)
@@ -821,6 +884,13 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
     po, pm, pl = plain(*args)
     torch.cuda.synchronize()
     err, ok = max_err(out, po)  # every row: pad rows attend the whole chunk, as on the TPU
+    faults = {}
+    if hoff is not None and kv == "int8":
+        wrong = m["global_Hkv"] - Hkv - h0  # the other shard's offset
+        bad = kernel(*args, offset=wrong)
+        ferr, fok = max_err(bad[0] if return_state else bad, po)
+        faults[f"head_offset {wrong} for {h0}"] = dict(max_abs_err=ferr, caught=not fok)
+        ok = ok and not fok
     if return_state:
         mm, ll = got[1], got[2]
         ok = ok and bool(torch.all((mm - pm).abs() <= 1e-3 * torch.clamp(pm.abs(), min=1.0)))
@@ -857,8 +927,10 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
     clens_s = list(clens) if len(set(clens)) > 1 else f"{clens[0]} x {B}"
     return dict(model=model, shape=f"B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
                                    f"start_pos={starts_s} chunk_lens={clens_s} "
-                                   f"return_state={return_state} pool={kv or 'bf16'}",
-                max_abs_err=err, ok=ok, **t, bound_ms=t_bound, bound_by=by,
+                                   f"return_state={return_state} pool={kv or 'bf16'}"
+                                   + (f" head_offset={h0}" if hoff is not None else ""),
+                max_abs_err=err, ok=ok, **({"faults": faults} if faults else {}), **t,
+                bound_ms=t_bound, bound_by=by,
                 tflops=flops / t["ms"] / 1e9, library_tflops=flops / t["library_ms"] / 1e9,
                 library="F.scaled_dot_product_attention (history gathered dense"
                         + (" and dequantized to bf16" if kv else "") + " + chunk, boolean mask)")
@@ -1119,7 +1191,7 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
     from lite_llama_tpu_torch.ops import qmatmul as qmm
     from lite_llama_tpu_torch.quant.qtensor import quantize
 
-    C, O, fp32 = QMM_SHAPES[name]
+    C, O, fp32 = QMM_SHAPES.get(name) or QMM_TP2_SHAPES[name]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     w = torch.randn((2, C, O), generator=g, device=dev).mul_(0.02).bfloat16()
@@ -1281,6 +1353,8 @@ def kernel_phase():
             qmm_case("down", 12, gs=None, timed=False),  # per-channel scales
             qmm_case("down", 12, gs=16, timed=False),  # m16n8k16 steps
             qmm_case("down", 12, gs=8, timed=False),  # half-masked m16n8k16 passes
+            # phase 11: a tp 2 rank's shards of the projections (riffle_tp=2 blocks)
+            *(qmm_case(n, 12) for n in QMM_TP2_SHAPES),
         ],
         "quantized_matmul_int8": [
             *(qmm_case(n, 12, packed=False) for n in QMM_SHAPES),  # gate_up first: the main case
@@ -1291,6 +1365,7 @@ def kernel_phase():
             qmm_case("down", 12, packed=False, gs=16, timed=False),  # m16n8k16 steps
             qmm_case("down", 12, packed=False, gs=8, timed=False),  # half-masked k16 passes
             qmm_case("o_proj", 12, packed=False, gs=48, timed=False),
+            *(qmm_case(n, 12, packed=False, timed=False) for n in QMM_TP2_SHAPES),  # phase 11
         ],
     }
     for kv in ("int8", "fp8"):
@@ -1299,6 +1374,8 @@ def kernel_phase():
             decode_case("llama-3.2-1b", ragged, kv=kv),
             decode_case("open-llama-3b-v2", [88] * 12, kv=kv),
             decode_case("llama-3.2-3b", serving, kv=kv),
+            # phase 11: a tp 2 rank's shard (4 of 8 kv heads) at both offsets
+            *(decode_case("llama-3.2-3b tp2", [88] * 12, kv=kv, hoff=h) for h in (0, 4)),
         ]
         cases[f"flash_prefill_chunked_{kv}"] = [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8, kv=kv),
@@ -1308,6 +1385,9 @@ def kernel_phase():
             chunked_case("open-llama-3b-v2", [512] * 8, [512] * 8, kv=kv),
             chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[5], S=5, kv=kv),
             chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[9], S=9, kv=kv),
+            # phase 11: a tp 2 rank's shard, its chunked prefill at both offsets
+            *(chunked_case("llama-3.2-3b tp2", [512] * 8, [512] * 8, kv=kv, hoff=h)
+              for h in (0, 4)),
         ]
     for name, cs in cases.items():
         for c in cs:
@@ -3759,18 +3839,356 @@ def spec_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: tensor parallelism, two ranks sharing the card over gloo
+
+TP_GEN = 64  # new tokens of every tp run (12 x 25 prompts, eos off; 128 took 130 s)
+TP_FORCED = 8  # teacher-forced decode steps of the logits gate
+TP_PATHS = {  # path -> (kv_quant, int4 riffle_tp=2 weights)
+    "bf16": (False, False),
+    "int8_pool": ("int8", False),
+    "int4_riffle_tp2": ("int8", True),
+}
+TP_PATH_KERNELS = {
+    "bf16": ("paged_flash_decode", "flash_prefill", "rms_norm", "swiglu"),
+    "int8_pool": ("paged_flash_decode_int8", "flash_prefill", "rms_norm", "swiglu"),
+    "int4_riffle_tp2": ("quantized_matmul_packed", "paged_flash_decode_int8", "flash_prefill",
+                        "rms_norm", "swiglu"),
+}
+TP_ENGINE = dict(page_size=16, max_reqs=16, num_pages=256, decode_chunk=32)
+# The logits gate, relative RMS of tp 2's logits against tp 1's on the same
+# weights: the first-token logits of the batch and the logits after
+# TP_FORCED teacher-forced decode steps, per path. Set between the readings
+# and the smallest planted fault on an H100 (PERF.md).
+# Read at 128 new tokens on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): bf16
+# 0.032 / 0.032, int8 pool 0.032 / 0.034, int4 0.032 / 0.161; faults 1.36-1.41.
+TP_REL_RMS = {"bf16": 0.1, "int8_pool": 0.1, "int4_riffle_tp2": 0.45}
+TP_FAULTS = ("o_proj all-reduce dropped", "head_offset of the other rank",
+             "gate_up shard of the other rank")
+
+
+def tp_weights(cfg, dev, int4):
+    """Phase 11's seeded random weights (what every process builds alike):
+    bf16, or int4 g128 riffle with tp 2 blocks."""
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    if int4:
+        params = quantize_decoder_params(params, "int4", group_size=128, riffle=True,
+                                         riffle_tp=2)
+    return params
+
+
+def forced_logits(engine, prompts, forced, steps=TP_FORCED):
+    """The logits after ``steps`` decode steps fed ``forced`` tokens (the
+    tp 1 engine's stream), from a fresh pool of the engine's shape: one
+    prefill, then each step through decoder_decode (K1 / K1q on every
+    layer), the engine's shard policy throughout."""
+    from lite_llama_tpu_torch.executor import kv_cache as kvc
+    from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_decode, decoder_prefill
+
+    dev, cfg, shard = engine.device, engine.config, engine.shard
+    B, P = len(prompts), len(prompts[0])
+    heads, h0 = shard.local_kv_heads(cfg.num_key_value_heads)
+    with torch.inference_mode():
+        cache = kvc.create_kv_cache(cfg.num_hidden_layers, heads, cfg.head_dim, num_pages=64,
+                                    page_size=16, max_reqs=B, max_seq_len=cfg.max_seq_len,
+                                    dtype=cfg.dtype, device=dev, quantized=engine.kv_quant,
+                                    head_offset=h0)
+        slots = torch.arange(B, dtype=torch.int32, device=dev)
+        n = torch.full((B,), P, dtype=torch.int32, device=dev)
+        kvc.alloc_prefill(cache, slots, n)
+        ctx = AttnContext(cache.page_table[slots.long()], n, torch.zeros_like(n), n)
+        ids = torch.tensor(prompts, dtype=torch.long, device=dev)
+        logits = decoder_prefill(engine.params, cfg, cache.kv_pages, ctx, ids, last_only=True,
+                                 shard=shard)[0]
+        for step in range(steps):
+            tok = torch.tensor([f[step] for f in forced], dtype=torch.long, device=dev)
+            kvc.alloc_decode(cache, slots)
+            sl = cache.seq_lens[slots.long()]
+            ctx = AttnContext(cache.page_table[slots.long()], sl, sl - 1, torch.ones_like(sl))
+            logits = decoder_decode(engine.params, cfg, cache.kv_pages, ctx, tok, shard=shard)[0]
+    return logits.float()
+
+
+def teacher_forced_gaps(engine, prompts, stream):
+    """Per generated position of the tp 1 ``stream``: this engine's argmax
+    of a one-shot prefill of prompt + stream and its top logit minus its
+    logit at the stream's token (0 where they agree), a request at a time."""
+    from lite_llama_tpu_torch.executor import kv_cache as kvc
+    from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_prefill
+
+    dev, cfg, shard = engine.device, engine.config, engine.shard
+    heads, h0 = shard.local_kv_heads(cfg.num_key_value_heads)
+    tops, gaps = [], []
+    with torch.inference_mode():
+        for p, s in zip(prompts, stream):
+            row = list(p) + list(s[:-1])
+            cache = kvc.create_kv_cache(cfg.num_hidden_layers, heads, cfg.head_dim,
+                                        num_pages=math.ceil(len(row) / 16), page_size=16,
+                                        max_reqs=1, max_seq_len=cfg.max_seq_len, dtype=cfg.dtype,
+                                        device=dev, quantized=engine.kv_quant, head_offset=h0)
+            one = torch.zeros(1, dtype=torch.int32, device=dev)
+            n = torch.tensor([len(row)], dtype=torch.int32, device=dev)
+            kvc.alloc_prefill(cache, one, n)
+            ctx = AttnContext(cache.page_table[:1], n, torch.zeros_like(n), n)
+            ids = torch.tensor([row], dtype=torch.long, device=dev)
+            lg = decoder_prefill(engine.params, cfg, cache.kv_pages, ctx, ids,
+                                 shard=shard)[0][0, len(p) - 1:].float()
+            at = torch.tensor(s, dtype=torch.long, device=dev)
+            tops.append(lg.argmax(-1).tolist())
+            gaps.append((lg.max(-1).values - lg.gather(-1, at[:, None])[:, 0]).tolist())
+            del lg, cache
+    return tops, gaps
+
+
+def tp_reference(dev, cfg, prompts):
+    """The tp 1 engine on every phase-11 path: its greedy streams (replayed
+    decode graph), first-token logits and forced-decode logits."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.generation.generate import TextGenerator
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+
+    ref = {}
+    for path, (kv, int4) in TP_PATHS.items():
+        params = tp_weights(cfg, dev, int4)
+        engine = InferenceEngine(cfg, params, device=dev, kv_quant=kv, **TP_ENGINE)
+        del params
+        out = TextGenerator(engine).generate_tokens(prompts, max_gen_len=TP_GEN,
+                                                    temperature=0.0)
+        stream = [o.token_ids for o in out]
+        slots = engine.admit_requests([len(p) + 1 for p in prompts])
+        _, lens, first, _ = engine.prefill(prompts, SamplingParams.make(len(prompts), 0.0,
+                                                                        device=dev),
+                                           slots, return_logits=True)
+        engine.release_slots(slots, lens)
+        ref[path] = dict(stream=stream, first=torch.from_numpy(first).float(),
+                         forced=forced_logits(engine, prompts, stream).cpu())
+        del engine
+        free_device()
+    return ref
+
+
+def tp_child(rank, port, workdir, dev=None):
+    """One tp 2 rank (``--tp-child``): joins the gloo group on the card,
+    builds each path's engine from the same seeded weights (keeping its
+    shard), runs the batch, the teacher-forced readings and the planted
+    faults, and writes its results to ``workdir``."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.generation.generate import TextGenerator
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from lite_llama_tpu_torch.models import decoder
+    from lite_llama_tpu_torch.ops import _build
+    from unittest import mock
+
+    from lite_llama_tpu_torch.parallel import distributed, shardings, tp_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda")
+    if dev.type == "cuda":
+        _build.build()  # the parent built every kernel: this loads them
+    distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=600)
+    mesh = shardings.make_mesh(tp=2)
+    cfg = spec_config()
+    prompts = batch_prompts(cfg)
+    ref = torch.load(f"{workdir}/reference.pt")
+    res = {"rank": rank, "paths": {}}
+    for path, (kv, int4) in TP_PATHS.items():
+        t0 = time.perf_counter()
+        params = tp_weights(cfg, dev, int4)
+        engine = InferenceEngine(cfg, params, device=dev, kv_quant=kv, mesh=mesh, **TP_ENGINE)
+        rec = dict(head_offset=engine.cache.kv_pages.head_offset,
+                   local_weight_gb=weight_bytes(engine.params) / 1e9,
+                   build_s=time.perf_counter() - t0)
+        forced_in = ref[path]["stream"]
+        faults = {}
+        if path == "bf16":
+            # A rank's gate_up shard taken from the other rank's rows.
+            other = shardings._take(params["layers"]["gate_up_proj"], 3, 2, 1 - rank)
+            own = engine.params["layers"]["gate_up_proj"]
+            engine.params["layers"]["gate_up_proj"] = other
+            faults[TP_FAULTS[2]] = forced_logits(engine, prompts, forced_in).cpu()
+            engine.params["layers"]["gate_up_proj"] = own
+            del other
+            real = decoder._attn_out
+            with mock.patch.object(decoder, "_attn_out",
+                                   lambda lp, attn, shard=None: real(lp, attn)):
+                faults[TP_FAULTS[0]] = forced_logits(engine, prompts, forced_in).cpu()
+        if path == "int8_pool":
+            real = tp_attention._local_pool
+
+            def swapped(kv_pool, num_kv_heads, shard):
+                pool = real(kv_pool, num_kv_heads, shard)
+                return dataclasses.replace(pool, head_offset=pool.num_kv_heads - pool.head_offset)
+
+            with mock.patch.object(tp_attention, "_local_pool", swapped):
+                faults[TP_FAULTS[1]] = forced_logits(engine, prompts, forced_in).cpu()
+        del params
+        free_device()
+        gen = TextGenerator(engine)
+        gen.generate_tokens(prompts, max_gen_len=2, temperature=0.0)  # warm-up
+        sync(dev)
+        reset_counts()
+        t1 = time.perf_counter()
+        out = gen.generate_tokens(prompts, max_gen_len=TP_GEN, temperature=0.0)
+        sync(dev)
+        rec["generate_s"] = time.perf_counter() - t1
+        rec["launches"] = read_counts()
+        stream = [o.token_ids for o in out]
+        slots = engine.admit_requests([len(p) + 1 for p in prompts])
+        _, lens, first, _ = engine.prefill(prompts, SamplingParams.make(len(prompts), 0.0,
+                                                                        device=dev),
+                                           slots, return_logits=True)
+        engine.release_slots(slots, lens)
+        t2 = time.perf_counter()
+        forced = forced_logits(engine, prompts, forced_in)
+        sync(dev)
+        rec["forced_s"] = time.perf_counter() - t2
+        tops, gaps = teacher_forced_gaps(engine, prompts, forced_in)
+        rec["collectives_on"] = str(dev)  # gloo took the tensors where they are
+        if rank == 0:
+            torch.save(dict(stream=stream, first=torch.from_numpy(first).float(),
+                            forced=forced.cpu(), tops=tops, gaps=gaps, faults=faults),
+                       f"{workdir}/{path}.pt")
+        res["paths"][path] = rec
+        del engine
+        free_device()
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("TP_CHILD " + json.dumps(res), flush=True)
+    return 0
+
+
+def rel_rms(got, want):
+    d = (got.float() - want.float())
+    return float(d.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt())
+
+
+def tp_phase(dev):
+    """Llama-3.2-3B at full width and depth, tp 2: two processes of this
+    script on the one card over a gloo group, against the tp 1 engine on the
+    same seeded weights in this process (module docstring, phase 11)."""
+    import socket
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cfg = spec_config()
+    prompts = batch_prompts(cfg)
+    ref = tp_reference(dev, cfg, prompts)
+    workdir = tempfile.mkdtemp(prefix="tp_phase_")
+    torch.save(ref, f"{workdir}/reference.pt")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--tp-child", str(r), "--tp-port",
+                               str(port), "--tp-dir", workdir], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:  # no child outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    children_s = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(text[-6000:])
+        require(p.returncode == 0, f"tp rank {r} failed with exit code {p.returncode}")
+    ranks = [json.loads(next(ln for ln in text.splitlines() if ln.startswith("TP_CHILD "))[9:])
+             for text in logs]
+    out, problems, by_path = tp_gates(cfg, ref, workdir, ranks)
+    out["children_s"] = children_s
+    shutil.rmtree(workdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("tp: " + json.dumps(out))
+    require(not problems, f"phase 11 gates failed: {problems}")
+    return out, by_path
+
+
+def tp_gates(cfg, ref, workdir, ranks):
+    """Phase 11's readings and gates from the ranks' results: (summary,
+    problems, launches by path summed over the ranks)."""
+    out, problems, by_path = {}, [], {}
+    for path in TP_PATHS:
+        got = torch.load(f"{workdir}/{path}.pt")
+        want = ref[path]
+        d_first = (got["first"] - want["first"]).abs().max()
+        d_forced = (got["forced"] - want["forced"]).abs().max()
+        max_abs = float(max(d_first, d_forced))
+        rec = dict(first_rel_rms=rel_rms(got["first"], want["first"]),
+                   forced_rel_rms=rel_rms(got["forced"], want["forced"]),
+                   max_abs_diff=max_abs, limit=TP_REL_RMS[path])
+        # Tokens: equal, but where a stream parts from tp 1's, tp 2's logits
+        # there (teacher-forced on tp 1's prefix) tie within 2x max_abs_diff.
+        partings, worst = 0, 0.0
+        for b, (g, w) in enumerate(zip(got["stream"], want["stream"])):
+            t = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y), None)
+            if t is None:
+                continue
+            partings += 1
+            gap = got["gaps"][b][t]
+            worst = max(worst, gap)
+            if gap > 2 * max_abs:
+                problems.append(f"{path}: request {b} parts at token {t} with gap {gap}")
+        rec.update(streams_equal=sum(g == w for g, w in zip(got["stream"], want["stream"])),
+                   partings=partings, max_parting_gap=worst,
+                   tf_argmax_agrees=sum(int(a == b) for tr, s in zip(got["tops"], want["stream"])
+                                        for a, b in zip(tr, s)))
+        for name in ("first_rel_rms", "forced_rel_rms"):
+            if rec[name] > TP_REL_RMS[path]:
+                problems.append(f"{path}: {name} {rec[name]:.4f} > {TP_REL_RMS[path]}")
+        rec["faults"] = {}
+        for fname, flog in got["faults"].items():
+            r = rel_rms(flog, want["forced"])
+            rec["faults"][fname] = dict(forced_rel_rms=r, caught=r > TP_REL_RMS[path])
+            if r <= TP_REL_RMS[path]:
+                problems.append(f"{path}: planted fault '{fname}' passed the gate ({r:.4f})")
+        for rk in ranks:
+            prec = rk["paths"][path]
+            rec[f"rank{rk['rank']}"] = {k: v for k, v in prec.items() if k != "launches"}
+            rec[f"rank{rk['rank']}"]["decode_ms_per_step"] = (
+                prec["generate_s"] / TP_GEN * 1e3)
+            log(f"  tp rank {rk['rank']} {path} (head_offset {prec['head_offset']}) launches: "
+                + json.dumps({k: v for k, v in prec["launches"].items() if v}))
+            missing = [k for k in TP_PATH_KERNELS[path] if prec["launches"][k] == 0]
+            if missing:
+                problems.append(f"{path}: rank {rk['rank']} never launched {missing}")
+        if TP_PATHS[path][0] == "int8":
+            offsets = sorted(rk["paths"][path]["head_offset"] for rk in ranks
+                             if rk["paths"][path]["launches"]["paged_flash_decode_int8"])
+            rec["k1q_offsets"] = offsets
+            if offsets != [0, cfg.num_key_value_heads // 2]:
+                problems.append(f"{path}: K1q launched at head offsets {offsets}")
+        by_path[path] = {k: sum(rk["paths"][path]["launches"][k] for rk in ranks)
+                         for k in KERNELS}
+        out[path] = rec
+    out["collectives_on"] = [rk["paths"]["bf16"]["collectives_on"] for rk in ranks]
+    out["host_staged"] = False  # no staging: gloo ran every collective on the card's tensors
+    return out, problems, by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase (no slice, no final ok line)")
+    ap.add_argument("--tp-child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the card only",
               file=sys.stderr)
         return 1
+    if args.tp_child is not None:  # one rank of phase 11, started by phase 11
+        return tp_child(args.tp_child, args.tp_port, args.tp_dir)
     from lite_llama_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references stay fp32
@@ -3806,7 +4224,7 @@ def main() -> int:
     by_path = {p: {k: None for k in KERNELS}
                for p in ("batch", "serving", "quantized", "fp8_kv", "open_llama", "checkpoint",
                          "eval", "eval_int8_kv", "eval_fp8_kv", "llava", "spec",
-                         "spec_quantized")}
+                         "spec_quantized", "tp_bf16", "tp_int8_pool", "tp_int4_riffle_tp2")}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
@@ -3864,6 +4282,11 @@ def main() -> int:
         log("phase 10: speculative decoding (Llama-3.2-3B, prompt-lookup drafts)")
         summary, by_path["spec"], by_path["spec_quantized"] = spec_phase(dev)
         log(f"  phase 10 took {summary['seconds']:.1f} s")
+        free_device()
+        log("phase 11: tensor parallelism (Llama-3.2-3B, tp 2: two ranks on the card, gloo)")
+        summary, tp_paths = tp_phase(dev)
+        by_path.update({f"tp_{k}": v for k, v in tp_paths.items()})
+        log(f"  phase 11 took {summary['seconds']:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():

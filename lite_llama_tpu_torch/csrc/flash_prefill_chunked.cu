@@ -92,7 +92,8 @@
 // 6. 1-byte pools (it dequantized each element on its way into shared
 //    memory): raw int8 / fp8 rows (half of bf16's bytes) and each key's K and
 //    V scale words (the aligned bf16 pair of the [L, T, 128] slab holding
-//    lanes h and 64 + h) land in a two-slot raw ring; the producer turns a
+//    lanes hoff + h and 64 + hoff + h, hoff the first global kv head of a
+//    tensor-parallel shard) land in a two-slot raw ring; the producer turns a
 //    landed raw tile into the stage's bf16 tiles while the next raw tile is
 //    in flight. An int8 value becomes a float through the float's mantissa
 //    (a byte permute and a subtraction, no conversion instruction), and two
@@ -175,6 +176,7 @@ struct Args {
   float* m_out;                 // [B, S, Nq] or null
   float* l_out;                 // [B, S, Nq] or null
   int B, S, Nq, Hkv, D;
+  int hoff;                     // scale lanes of kv head h: hoff + h and 64 + hoff + h
   int n_qt;                     // q tiles of BM packed rows per (request, kv head)
   int ub_hist, ub_chunk, ub_q;  // bytes per copy or load: pool rows, chunk rows, q rows
   float qscale;
@@ -320,7 +322,8 @@ __device__ __forceinline__ void producer_sync() {
 template <int DP, int KV, int UB>
 __device__ __forceinline__ void load_history(int pt, uint8_t* dst, uint32_t* scl, const int* rows,
                                              const uint8_t* kpool, const uint8_t* vpool,
-                                             const __nv_bfloat16* sbase, int h, int D, int Hkv) {
+                                             const __nv_bfloat16* sbase, int lh, int D,
+                                             int Hkv) {
   using L = Layout<DP>;
   constexpr int EB = KV == KV_BF16 ? 2 : 1;
   constexpr int NP = DP * EB / UB;  // copies per key row
@@ -343,8 +346,8 @@ __device__ __forceinline__ void load_history(int pt, uint8_t* dst, uint32_t* scl
     copy_async<UB, KV == KV_BF16>(dK, kpool + src, ok);
     copy_async<UB, KV == KV_BF16>(dV, vpool + src, ok);
     if constexpr (KV == KV_INT8) {
-      if (p == 0) {  // the aligned bf16 pairs holding lanes h and 64 + h
-        const __nv_bfloat16* s = sbase + (long long)max(row, 0) * SCALE_LANES + (h & ~1);
+      if (p == 0) {  // the aligned bf16 pairs holding lanes lh and 64 + lh
+        const __nv_bfloat16* s = sbase + (long long)max(row, 0) * SCALE_LANES + (lh & ~1);
         copy_async<4>(scl + 2 * n, s, row >= 0);
         copy_async<4>(scl + 2 * n + 1, s + SCALE_LANES / 2, row >= 0);
       }
@@ -379,7 +382,7 @@ __device__ __forceinline__ void load_chunk(int pt, uint8_t* stage, const __nv_bf
 // rounded once; fp8 e4m3 converts exactly. Zero bytes (padding) give zeros.
 template <int DP, int KV>
 __device__ __forceinline__ void dequant_tile(int pt, uint8_t* dst, const uint8_t* raw,
-                                             const uint32_t* scl, int h) {
+                                             const uint32_t* scl, int lh) {
   using L = Layout<DP>;
   constexpr int NCH = DP / 16;  // 16-value pieces per row
   for (int idx = pt; idx < 2 * BK * NCH; idx += PRODUCERS) {
@@ -391,7 +394,7 @@ __device__ __forceinline__ void dequant_tile(int pt, uint8_t* dst, const uint8_t
     uint32_t sc2 = 0u;  // the key's scale in both halves of a bf16x2
     if constexpr (KV == KV_INT8) {
       const uint32_t w = scl[2 * n + kv];
-      sc2 = __byte_perm(w, 0u, h & 1 ? 0x3232 : 0x1010);
+      sc2 = __byte_perm(w, 0u, lh & 1 ? 0x3232 : 0x1010);
     }
     const uint32_t src[4] = {bytes.x, bytes.y, bytes.z, bytes.w};
     uint32_t o[8];
@@ -627,6 +630,7 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
     int g = 0;  // ring tiles filled, over every item of the block
     for (int j = 0, item; (item = nth_item(j, n_items)) >= 0; ++j) {
       const Work w = work_item<HIST>(a, item, G);
+      const int lh = a.hoff + w.h;  // the kv head's scale lane (int8 pools)
       const uint8_t* kpool =
           HIST ? a.pages + EB * ((long long)a.layer * 2 * a.T * ks + (long long)w.h * D) : nullptr;
       const uint8_t* vpool = HIST ? kpool + EB * a.T * ks : nullptr;
@@ -650,15 +654,15 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
       auto history = [&](uint8_t* dst, uint32_t* sc) {
         if constexpr (HIST) {
           if (a.ub_hist == 16) {
-            load_history<DP, KV, 16>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+            load_history<DP, KV, 16>(pt, dst, sc, rows_s, kpool, vpool, sbase, lh, D, a.Hkv);
           } else if (a.ub_hist == 8) {
-            load_history<DP, KV, 8>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+            load_history<DP, KV, 8>(pt, dst, sc, rows_s, kpool, vpool, sbase, lh, D, a.Hkv);
           } else if constexpr (KV == KV_BF16) {
-            load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+            load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, lh, D, a.Hkv);
           } else if (a.ub_hist == 4) {
-            load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+            load_history<DP, KV, 4>(pt, dst, sc, rows_s, kpool, vpool, sbase, lh, D, a.Hkv);
           } else {  // a 1-byte pool at D = 2 mod 4
-            load_history<DP, KV, 2>(pt, dst, sc, rows_s, kpool, vpool, sbase, w.h, D, a.Hkv);
+            load_history<DP, KV, 2>(pt, dst, sc, rows_s, kpool, vpool, sbase, lh, D, a.Hkv);
           }
         }
       };
@@ -683,7 +687,7 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
           producer_sync();  // every producer's copies of raw tile t have landed
           if (g >= STAGES) mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
           dequant_tile<DP, KV>(pt, stage, raw + (t & 1) * L::RAW,
-                               scl + (t & 1) * (L::SCALES / 4), w.h);
+                               scl + (t & 1) * (L::SCALES / 4), lh);
           fence_async_smem();
           mbar_arrive(&full[s]);
         } else {
@@ -911,7 +915,8 @@ int launch(Args a, void* stream) {
   if ((a.m_out == nullptr) != (a.l_out == nullptr)) return (int)cudaErrorInvalidValue;
   if constexpr (KV != KV_NONE) {  // the pool
     if (a.ps <= 0 || a.ppr <= 0) return (int)cudaErrorInvalidValue;
-    if (KV == KV_INT8 && (a.scales == nullptr || a.Hkv > SCALE_LANES / 2 || !aligned(a.scales, 4)))
+    if (KV == KV_INT8 && (a.scales == nullptr || a.hoff < 0 ||
+                          a.hoff + a.Hkv > SCALE_LANES / 2 || !aligned(a.scales, 4)))
       return (int)cudaErrorInvalidValue;
     a.ub_hist = copy_bytes(a.D, one_byte_kv(KV) ? 1 : 2, a.pages, KV == KV_BF16 ? 4 : 2);
     if (a.ub_hist == 0) return (int)cudaErrorMisalignedAddress;
@@ -972,12 +977,14 @@ extern "C" int flash_prefill_chunked_smem(int D, int kv) {
 // K5 (bf16 pool) and K5q (int8 / fp8 pool): a chunk over the pool's history,
 // any even head dim up to 128. scales: the int8 pool's merged [L, T, 128]
 // bf16 slab, null otherwise. m and l may be null (no state out).
+// head_offset: the first global kv head of the pool's tensor-parallel shard,
+// which shifts the int8 scale lanes (other pools ignore it).
 #define CHUNKED_ENTRY(NAME, KV)                                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* chunk_lens,   \
                       const void* start_pos, const void* pages, const void* scales,          \
                       const void* table, void* out, void* m, void* l, int B, int S, int Nq,   \
                       int Hkv, int D, float qscale, long long T, int layer, int ps, int ppr,  \
-                      void* stream) {                                                         \
+                      int head_offset, void* stream) {                                        \
     Args a;                                                                                   \
     a.q = static_cast<const __nv_bfloat16*>(q);                                               \
     a.k = static_cast<const __nv_bfloat16*>(k);                                               \
@@ -1001,6 +1008,7 @@ extern "C" int flash_prefill_chunked_smem(int D, int kv) {
     a.layer = layer;                                                                          \
     a.ps = ps;                                                                                \
     a.ppr = ppr;                                                                              \
+    a.hoff = KV == KV_INT8 ? head_offset : 0;                                                 \
     return launch<KV>(a, stream);                                                          \
   }
 

@@ -11,7 +11,8 @@
 // (ops/ref.py fold_new_token). q is scaled by sm_scale*log2(e) and rounded to
 // bf16; P is rounded to bf16 before PV and l sums the unrounded P. An int8
 // pool's per-(token, head) bf16 scales (the merged [L, T, 128] slab: K in
-// lane h, V in lane 64 + h) apply in the score domain: s = (q . k_int) *
+// lane hoff + h, V in lane 64 + hoff + h, hoff the first global kv head of
+// a tensor-parallel shard, 0 on one device) apply in the score domain: s = (q . k_int) *
 // k_scale, l sums the unscaled P, and PV takes bf16(P * v_scale) against the
 // integer V values. fp8 e4m3 values convert to bf16 exactly. kv_len 0 gives
 // m = -1e30, l = 0, out = 0. Any even head dim from 16 to 128, 1 to 8 query
@@ -150,6 +151,7 @@ struct Args {
                                 // (s_max > 1)
   int* counters;                // [B * Hkv], 0 between launches (s_max > 1)
   int B, Nq, Hkv, D, G;
+  int hoff;                     // scale lanes of kv head h: hoff + h and 64 + hoff + h
   long long T;
   int layer, ps, ppr;
   unsigned long long ps_recip;  // ceil(2^32 / ps): j / ps == (j * ps_recip) >> 32 when
@@ -446,8 +448,9 @@ __device__ __forceinline__ void fill_stage(const Args& a, uint8_t* st, const int
     copy_async<UB>(st + L::TILE + n * L::RS + p * UB, vpool + src, ok);
   }
   if constexpr (KV == KV_INT8) {
-    // The aligned bf16 pairs of the slab holding lanes h and 64 + h.
-    const __nv_bfloat16* sb = a.scales + (long long)a.layer * a.T * SCALE_LANES + (h & ~1);
+    // The aligned bf16 pairs of the slab holding lanes hoff + h and 64 + hoff + h.
+    const __nv_bfloat16* sb =
+        a.scales + (long long)a.layer * a.T * SCALE_LANES + ((a.hoff + h) & ~1);
     uint8_t* scl = st + 2 * L::TILE;
     for (int n = tid; n < CH; n += THREADS) {
       const int row = rows[n];
@@ -479,9 +482,9 @@ __device__ __forceinline__ void fill(const Args& a, uint8_t* st, const int* rows
 
 // One warp's 16-token subtile (rows jl.. of stage st, the first of them
 // token j0 of the span) against the G query heads: scores, online-softmax
-// update, out^T += V^T P^T.
+// update, out^T += V^T P^T. lh: the kv head's scale lane (int8 pools).
 template <int DP, int KV>
-__device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_tok, int h,
+__device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_tok, int lh,
                                        const uint32_t (&qf)[DP / 16][2], float (&acc)[DP / 16][4],
                                        float (&mrun)[2], float (&lrun)[2], int lane) {
   using L = Layout<DP, KV>;
@@ -514,7 +517,7 @@ __device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_
   float vs0 = 1.f, vs1 = 1.f;
   if constexpr (KV == KV_INT8) {
     const uint32_t* scl = reinterpret_cast<const uint32_t*>(st + 2 * L::TILE);
-    const int sh = (h & 1) * 16;  // the pair's half that holds lane h
+    const int sh = (lh & 1) * 16;  // the pair's half that holds lane lh
     const float ks0 = __uint_as_float((scl[2 * (jl + r)] >> sh) << 16);
     const float ks1 = __uint_as_float((scl[2 * (jl + r + 8)] >> sh) << 16);
     vs0 = __uint_as_float((scl[2 * (jl + r) + 1] >> sh) << 16);
@@ -692,7 +695,8 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
       const int j0 = c * CH + warp * SUB;
       if (j0 < n_tok) {
         mbar_wait(&full[s], ((g + c) / STAGES) & 1);
-        attend<DP, KV>(smem + s * L::STAGE, warp * SUB, j0, n_tok, h, qf, acc, mrun, lrun, lane);
+        attend<DP, KV>(smem + s * L::STAGE, warp * SUB, j0, n_tok, a.hoff + h, qf, acc, mrun,
+                       lrun, lane);
       }
       if (c + STAGES < n_chunks) {  // refill the slot (block-uniform)
         __syncthreads();  // every warp is done with it; the chunk's rows are in
@@ -970,7 +974,8 @@ int launch(Args a, void* stream) {
   // 2^32), and a length packs into 24 bits beside its split count.
   if ((long long)a.ppr * a.ps * a.ps >= (1LL << 32) || (long long)a.ppr * a.ps >= (1 << 24))
     return (int)cudaErrorInvalidValue;
-  if (KV == KV_INT8 && (a.scales == nullptr || a.Hkv > SCALE_LANES / 2 || !aligned(a.scales, 4)))
+  if (KV == KV_INT8 && (a.scales == nullptr || a.hoff < 0 || a.hoff + a.Hkv > SCALE_LANES / 2 ||
+                        !aligned(a.scales, 4)))
     return (int)cudaErrorInvalidValue;
   a.G = a.Nq / a.Hkv;
   a.ps_recip = ((1ULL << 32) + a.ps - 1) / a.ps;
@@ -1038,13 +1043,15 @@ extern "C" int paged_decode_grid_y(int D, int kv, int B, int Hkv, int s_max) {
 // pool's merged [L, T, 128] bf16 slab, null for bf16 and fp8 pools. ws /
 // counters: the split workspace of the stream (counters 0), unused when
 // s_max is 1. s_max and min_span (pages): ops/attention_decode.py
-// plan_decode_splits.
+// plan_decode_splits. head_offset: the first global kv head of the pool's
+// tensor-parallel shard, which shifts the int8 scale lanes (other pools
+// ignore it).
 #define PAGED_DECODE_ENTRY(NAME, KV)                                                           \
   extern "C" int NAME(const void* q, const void* pages, const void* scales,                    \
                       const void* page_table, const void* kv_lens, void* out, void* m, void* l, \
                       void* ws, void* counters, int B, int Nq, int Hkv, int D, long long T,    \
                       int layer, int ps, int ppr, float qscale, int s_max, int min_span,       \
-                      void* stream) {                                                          \
+                      int head_offset, void* stream) {                                         \
     Args a{};                                                                                  \
     a.q = static_cast<const __nv_bfloat16*>(q);                                                \
     a.pages = static_cast<const uint8_t*>(pages);                                              \
@@ -1067,6 +1074,7 @@ extern "C" int paged_decode_grid_y(int D, int kv, int B, int Hkv, int s_max) {
     a.qscale = qscale;                                                                         \
     a.s_max = s_max;                                                                           \
     a.min_span = min_span;                                                                     \
+    a.hoff = KV == KV_INT8 ? head_offset : 0;                                                  \
     return launch<KV>(a, stream);                                                              \
   }
 

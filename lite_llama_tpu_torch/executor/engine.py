@@ -44,14 +44,26 @@ and the prefix cache, and runs prefill and decode:
 
 The JAX engine pads batch and prompt widths to buckets to bound XLA
 recompiles and lays batches out in data-parallel groups. PyTorch compiles
-nothing per shape and the port has one device, so every batch runs at its
-own width in caller order (no sentinel rows, no group layout).
+nothing per shape and the port has no data parallelism, so every batch runs
+at its own width in caller order (no sentinel rows, no group layout).
 
 Quantized weights (``quant/qtensor.py``) and int8 / fp8 KV pools
 (``kv_quant``) run through the same paths; packed int4 wq/wkv are fused into
 one wqkv at build time, as the JAX engine does.
 
-Not ported yet, and refused: data parallelism.
+Tensor parallelism (``mesh=parallel.shardings.make_mesh(tp)``, one process
+per rank): every rank builds the engine from the same whole tree and keeps
+its shard (wq/wkv fused shard-periodically first, as the JAX engine fuses
+at tp > 1) and a pool of its kv heads. Every rank keeps the same host
+accounting, as the JAX package's SPMD host replication does: the caller
+issues the same requests in the same order on every rank, and the seeded
+generator samples the same token on each from the gathered logits. At tp >
+1 the decode steps run eagerly (no CUDA graph: a gloo collective cannot be
+captured, and a captured NCCL step needs a card per rank to be checked);
+speculative decoding, the scheduler and the server refuse tp > 1 (they
+need a rank-0 broadcast of requests, ROADMAP A7d).
+
+Not ported yet, and refused: data and context parallelism.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from ..config import BaseConfig
 from ..generation.sampling import SamplingParams, log_softmax_gather, needs_exact_sampling, sample
 from ..models.decoder import AttnContext, decoder_decode, decoder_prefill, fuse_qkv_params
 from ..ops import add_launches, launch_counts
+from ..parallel.shardings import ShardingPolicy
 from ..quant.qtensor import QTensor
 from .kv_cache import (
     alloc_decode,
@@ -224,7 +237,8 @@ class DecodeStep(_ReplayedStep):
         pos = seq - 1
         ctx = AttnContext(table_rows=cache.page_table[req], seq_lens=seq, start_pos=pos,
                           chunk_lens=torch.ones_like(pos), active=active)
-        logits, _ = decoder_decode(e.params, e.config, cache.kv_pages, ctx, self.tok.long())
+        logits, _ = decoder_decode(e.params, e.config, cache.kv_pages, ctx, self.tok.long(),
+                                   shard=e.shard)
         return seq, logits
 
     def body(self) -> None:
@@ -451,8 +465,7 @@ class InferenceEngine:
         mesh=None,
         seed: int = 0,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported yet")
+        self.shard = ShardingPolicy(mesh=mesh)
         self.device = require_device(device)
         if "lm" in params:
             raise ValueError("a LLaVA parameter tree: build a LlavaEngine "
@@ -466,12 +479,13 @@ class InferenceEngine:
         if emb.device.type != self.device.type:
             raise ValueError(f"params live on {emb.device}, the engine on {self.device}")
         wq = params["layers"].get("wq")
-        if isinstance(wq, QTensor) and wq.packed:
+        if self.shard.tp > 1 or (isinstance(wq, QTensor) and wq.packed):
             # One packed matmul per layer instead of two, as the JAX engine
-            # fuses by default on one device.
-            params = fuse_qkv_params(params)
+            # fuses by default on one device, and at tp > 1 one clean
+            # sharded matmul (shard-periodic head order).
+            params = fuse_qkv_params(params, self.shard.tp)
         self.config = config
-        self.params = params
+        self.params = self.shard.shard_params(config, params)
         self.kv_quant = kv_quant
         self.page_size = page_size
         self.max_reqs = max_reqs
@@ -480,11 +494,12 @@ class InferenceEngine:
         if num_pages is None:
             num_pages = self._auto_num_pages(hbm_util)
         self.num_pages = num_pages
+        kv_heads, head_offset = self.shard.local_kv_heads(config.num_key_value_heads)
         self.cache = create_kv_cache(
-            config.num_hidden_layers, config.num_key_value_heads, config.head_dim,
+            config.num_hidden_layers, kv_heads, config.head_dim,
             num_pages=num_pages, page_size=page_size, max_reqs=max_reqs,
             max_seq_len=config.max_seq_len, dtype=config.dtype, device=self.device,
-            quantized=kv_quant,
+            quantized=kv_quant, head_offset=head_offset,
         )
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
@@ -693,19 +708,27 @@ class InferenceEngine:
         """Size the KV pool from free device memory. On the CPU (tests) there
         is no device budget: the pool holds every slot at max_seq_len. A page
         counts ``cfg.dtype`` bytes whatever the pool's type, as in the JAX
-        engine, so admission decisions stay equal."""
+        engine, so admission decisions stay equal. At tp > 1 a rank holds
+        1/tp of the weights (its shard is on the device already, as the JAX
+        engine counts param_bytes / tp) and a page of its kv heads, and the
+        ranks take the least of their budgets, so every rank's accounting is
+        the same. Ranks sharing one card must pass ``num_pages``."""
         cfg = self.config
         want = self.max_reqs * cdiv(cfg.max_seq_len, self.page_size)
         if self.device.type != "cuda":
             return want
         per_page = kv_cache_bytes(
-            cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim, 1,
-            self.page_size, cfg.dtype,
+            cfg.num_hidden_layers, self.shard.local_kv_heads(cfg.num_key_value_heads)[0],
+            cfg.head_dim, 1, self.page_size, cfg.dtype,
         )
         free, total = torch.cuda.mem_get_info(self.device)
         budget = total * hbm_util - (total - free)
-        fit = int(budget // per_page)
-        return max(64, min(want, fit))
+        fit = max(64, min(want, int(budget // per_page)))
+        if self.shard.tp > 1:
+            from ..parallel.distributed import all_reduce_min_int
+
+            fit = all_reduce_min_int(fit, self.device, self.shard.group)
+        return fit
 
     # -- host <-> device ------------------------------------------------------
     def _upload(self, t: torch.Tensor) -> torch.Tensor:
@@ -762,7 +785,8 @@ class InferenceEngine:
             chunk_lens=lens,
         )
         last, _ = decoder_prefill(
-            self.params, self.config, self.cache.kv_pages, ctx, ids, last_only=True
+            self.params, self.config, self.cache.kv_pages, ctx, ids, last_only=True,
+            shard=self.shard,
         )
         tok = sample(last, self._gen, sampling, mode=mode)
         return tok, last, log_softmax_gather(last, tok)
@@ -783,7 +807,7 @@ class InferenceEngine:
         )
         logits, _ = decoder_prefill(
             self.params, self.config, self.cache.kv_pages, ctx, ids_chunk, last_only=True,
-            chunked=True, hist_bound=hist_bound,
+            chunked=True, hist_bound=hist_bound, shard=self.shard,
         )
         ends_here = self._ids((lens > start) & (lens <= start + W), torch.bool)
         return torch.where(ends_here[:, None], logits, last_logits)
@@ -949,8 +973,8 @@ class InferenceEngine:
 
     def _captured(self, step):
         """``step`` captured on the card (every graph in one memory pool, on
-        one stream); on the CPU it stays eager."""
-        if self.device.type == "cuda":
+        one stream); on the CPU, and at tp > 1, it stays eager."""
+        if self.device.type == "cuda" and self.shard.tp == 1:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
                 self._graph_stream = torch.cuda.Stream(self.device)
@@ -1001,6 +1025,12 @@ class InferenceEngine:
         toks, lps, _ = self.decode_session(s, n_steps)
         return s.tok, s.done, toks, lps
 
+    def _refuse_tp(self, what: str) -> None:
+        if self.shard.tp > 1:
+            raise NotImplementedError(
+                f"{what} at tp > 1 is not ported yet: it needs requests broadcast from rank "
+                "0 (ROADMAP A7d) and a tensor-parallel test of its own")
+
     # -- speculative decoding (greedy verify) ------------------------------------
     def _spec_verify_body(self, req_ids, chunk, chunk_lens):
         """One greedy verify step on the device, with no host sync.
@@ -1015,6 +1045,7 @@ class InferenceEngine:
         (emit [B, K]: the accepted drafts, then the bonus token, pad after;
         n_emit [B] = a + 1; next_tok [B], the bonus token). The plain CPU
         attention reads the whole page-table span of history."""
+        self._refuse_tp("speculative decoding")
         cache, ps = self.cache, self.page_size
         K = chunk.shape[1]
         req = req_ids.long()
@@ -1074,6 +1105,7 @@ class InferenceEngine:
         (history, hist_len, cur, done, emits [n_steps, B, K] np, keeps
         [n_steps, B] np, done [B] np bool); step s of row b emitted
         ``keeps[s, b]`` tokens, eos- and budget-truncated."""
+        self._refuse_tp("speculative decoding")
         B = len(slots)
         K = draft_len + 1
         step = self.spec_step_for(B, K, ngram, history.shape[1], n_steps)

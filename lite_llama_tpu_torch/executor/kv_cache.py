@@ -7,6 +7,12 @@
 - Pools hold bf16/fp32, int8 with per-(token, head) bf16 scales in a merged
   ``[L, T, SCALE_LANES]`` slab (K scales in lanes [0, Hkv), V scales in
   [64, 64 + Hkv)), or fp8 e4m3 with no scales (values clipped at +-448).
+- Under tensor parallelism each rank holds its own pool of its Hkv/tp kv
+  heads (``create_kv_cache(..., head_offset=rank * Hkv/tp)``). An int8
+  pool's scale slab stays whole, its lanes indexing GLOBAL heads as in the
+  JAX package: the rank writes and reads lanes [head_offset, head_offset +
+  Hkv/tp) and [64 + head_offset, ...), and the attention kernels take the
+  offset (``parallel/tp_attention.py``).
 - A free-page stack plus a stack top: popping N pages reads
   ``free_stack[free_top - 1 - rank]``, with ranks from a cumsum over the
   need mask, so allocation is a few tensor ops on the device with no host
@@ -47,13 +53,16 @@ from ..ops.ref import cdiv_int as cdiv
 @dataclass
 class KVPool:
     """The paged K/V storage: pages [L, 2, T, Hkv*D], plus the merged scale
-    slab [L, T, SCALE_LANES] bf16 of an int8 pool (None otherwise)."""
+    slab [L, T, SCALE_LANES] bf16 of an int8 pool (None otherwise).
+    ``head_offset``: the global index of kv head 0 of a tensor-parallel
+    shard's pool (0 on one device), where its scale lanes start."""
 
     pages: torch.Tensor
     page_size: int = 64
     num_kv_heads: int = 8
     head_dim: int = 128
     scales: Optional[torch.Tensor] = None
+    head_offset: int = 0
 
     @property
     def quantized(self) -> bool:
@@ -83,13 +92,15 @@ def _cast_kv(x: torch.Tensor, dtype) -> torch.Tensor:
     return byte_view(x.to(dtype))
 
 
-def _scale_rows(ksc: torch.Tensor, vsc: torch.Tensor) -> torch.Tensor:
+def _scale_rows(ksc: torch.Tensor, vsc: torch.Tensor, head_offset: int = 0) -> torch.Tensor:
     """Per-(token, head) K and V scales [..., Hkv] -> merged bf16 rows
-    [..., SCALE_LANES] (unused lanes zero, as in the JAX pool)."""
-    Hkv = ksc.shape[-1]
+    [..., SCALE_LANES] (unused lanes zero, as in the JAX pool), the heads in
+    lanes [head_offset, head_offset + Hkv) and [SCALE_HALF + head_offset,
+    ...): a tensor-parallel shard's global heads."""
+    Hkv, h0 = ksc.shape[-1], head_offset
     rows = torch.zeros((*ksc.shape[:-1], SCALE_LANES), dtype=torch.bfloat16, device=ksc.device)
-    rows[..., :Hkv] = ksc
-    rows[..., SCALE_HALF:SCALE_HALF + Hkv] = vsc
+    rows[..., h0:h0 + Hkv] = ksc
+    rows[..., SCALE_HALF + h0:SCALE_HALF + h0 + Hkv] = vsc
     return rows
 
 
@@ -136,10 +147,11 @@ class PagedKVCache:
 
 def create_kv_cache(num_layers, num_kv_heads, head_dim, num_pages, page_size=64,
                     max_reqs=64, max_seq_len=2048, dtype=torch.bfloat16,
-                    device="cuda", quantized=False) -> PagedKVCache:
+                    device="cuda", quantized=False, head_offset=0) -> PagedKVCache:
     """``quantized``: False (a ``dtype`` pool), True or "int8" (int8 values
     + merged per-(token, head) bf16 scales), or "fp8" (float8_e4m3fn, no
-    scales)."""
+    scales). A tensor-parallel rank's pool holds its ``num_kv_heads`` local
+    heads, the first of them global head ``head_offset``."""
     if quantized not in (False, True, "int8", "fp8"):
         raise ValueError(f"quantized must be False, True, 'int8' or 'fp8', got {quantized!r}")
     ppr = cdiv(max_seq_len, page_size)
@@ -149,7 +161,7 @@ def create_kv_cache(num_layers, num_kv_heads, head_dim, num_pages, page_size=64,
     if quantized == "fp8":
         dtype = torch.float8_e4m3fn
     elif quantized:
-        if num_kv_heads > SCALE_HALF:
+        if head_offset + num_kv_heads > SCALE_HALF:
             raise ValueError(
                 f"int8 KV cache supports num_kv_heads <= {SCALE_HALF}: the merged scale rows "
                 f"pack K and V scales into one {SCALE_LANES}-lane slab. Use bf16 KV for "
@@ -157,7 +169,8 @@ def create_kv_cache(num_layers, num_kv_heads, head_dim, num_pages, page_size=64,
         dtype = torch.int8
         scales = torch.zeros((num_layers, T, SCALE_LANES), dtype=torch.bfloat16, device=device)
     pool = KVPool(pages=torch.zeros(shape, dtype=dtype, device=device), page_size=page_size,
-                  num_kv_heads=num_kv_heads, head_dim=head_dim, scales=scales)
+                  num_kv_heads=num_kv_heads, head_dim=head_dim, scales=scales,
+                  head_offset=head_offset)
     return PagedKVCache(
         kv_pages=pool,
         table_buf=torch.zeros((max_reqs + 1, ppr), dtype=torch.int32, device=device),
@@ -359,7 +372,8 @@ def kv_write_prefill(kv: KVPool, layer: int, k_new, v_new, table_rows, start_pos
     v = v_new.reshape(B * S, *v_new.shape[2:])[src]
     if kv.quantized:
         (k, ksc), (v, vsc) = _quantize_kv(k), _quantize_kv(v)
-        kv.scales[layer, r] = torch.where(live, _scale_rows(ksc, vsc), kv.scales[layer, r[:1]])
+        kv.scales[layer, r] = torch.where(live, _scale_rows(ksc, vsc, kv.head_offset),
+                                          kv.scales[layer, r[:1]])
     pages = byte_view(kv.pages)
     for half, val in ((0, k), (1, v)):
         new = _cast_kv(val.reshape(-1, HD), kv.pages.dtype)
@@ -390,7 +404,8 @@ def kv_write_decode_all(kv: KVPool, k_all, v_all, table_rows, pos, active=None):
     keep3 = keep[None, :, None]
     if kv.quantized:
         (k_all, ksc), (v_all, vsc) = _quantize_kv(k_all), _quantize_kv(v_all)
-        kv.scales[:, rows_c] = torch.where(keep3, _scale_rows(ksc, vsc), kv.scales[:, rows_c])
+        kv.scales[:, rows_c] = torch.where(keep3, _scale_rows(ksc, vsc, kv.head_offset),
+                                           kv.scales[:, rows_c])
     pages = byte_view(kv.pages)
     for half, val in ((0, k_all), (1, v_all)):
         old = pages[:, half, rows_c]

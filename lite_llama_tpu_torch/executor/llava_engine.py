@@ -13,7 +13,9 @@ decode is the base engine's (the replayed CUDA graph on the card).
 Where the port differs from the JAX engine: no power-of-two bucketing of
 rows or lengths, so the tower runs only on the rows that have an image (JAX
 runs a blank image through it for its pad rows); a row holds at most one
-image placeholder. Meshes are refused.
+image placeholder. On a tensor-parallel mesh the LM shards and the tower
+and the projector are whole on every rank, as in the JAX engine, which
+refuses only data parallelism (so does ``make_mesh`` here).
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ class LlavaEngine(InferenceEngine):
         last, _ = llava_prefill(params, self.config, self.cache.kv_pages, ctx,
                                 self._ids(ids, torch.long), pixel_values=px,
                                 has_image=self._ids(has_image, torch.bool),
-                                raw_lens=self._ids(raw), last_only=True)
+                                raw_lens=self._ids(raw), last_only=True, shard=self.shard)
         tok = sample(last, self._gen, samp, mode=mode)
         lp = log_softmax_gather(last, tok)
         self.stats.prefill_tokens += int(exp.sum())

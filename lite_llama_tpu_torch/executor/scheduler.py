@@ -65,6 +65,15 @@ class Request:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
 
+    def result(self) -> dict:
+        """The request's outcome, as the JAX scheduler reports it."""
+        return {
+            "req_id": self.req_id,
+            "tokens": self.output_tokens,
+            "logprobs": self.output_logprobs,
+            "finish_reason": self.finish_reason,
+        }
+
 
 def _host_sampling(temperature, top_p, top_k) -> SamplingParams:
     """Sampling rows as host tensors (copies): the engine uploads them
@@ -86,6 +95,7 @@ class ContinuousBatchingScheduler:
         chunk_steps: Optional[int] = None,
         admit_every: int = 1,
     ):
+        engine._refuse_tp("the scheduler (and the server over it)")
         self.engine = engine
         self.max_prefill_batch = max_prefill_batch
         self.chunk_steps = chunk_steps or engine.decode_chunk

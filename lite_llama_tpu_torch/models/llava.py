@@ -29,7 +29,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.activations import gelu
-from .decoder import decoder_prefill
+from .decoder import _embed, decoder_prefill
 from .vision import vision_forward
 
 
@@ -64,11 +64,15 @@ def merge_image_features(
     embed_table: torch.Tensor,  # [V, H]
     image_token: int,
     S_out: int,
+    shard=None,
 ) -> torch.Tensor:
     """Expand each row's ``<image>`` token into its patch embeddings.
     Returns inputs_embeds [B, S_out, H]; positions past a row's new length
     (``expand_image_tokens_host``) hold zeros. JAX also returns the new
-    lengths and arange(S_out) positions, which the prefill does not need."""
+    lengths and arange(S_out) positions, which the prefill does not need.
+    Under tensor parallelism (``shard``) ``embed_table`` is the rank's vocab
+    rows and the text rows come from the decoder's masked gather and
+    all-reduce."""
     B, S = input_ids.shape
     P = image_features.shape[1]
     H = embed_table.shape[1]
@@ -87,7 +91,9 @@ def merge_image_features(
     out = torch.zeros((B, S_out + 1, H), dtype=embed_table.dtype, device=dev)
     text_dst = torch.where(valid & ~is_img, starts, S_out).clamp(max=S_out)
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
-    out[bidx, text_dst] = embed_table[input_ids]
+    text = (embed_table[input_ids] if shard is None or shard.tp == 1
+            else _embed({"embed": embed_table}, input_ids, shard))
+    out[bidx, text_dst] = text
     # Image i's patch p goes to its placeholder's start + p.
     img_rows = torch.nonzero(has_image).flatten()
     img_start = torch.where(is_img, starts, 0).sum(1)[img_rows]  # [N_img]
@@ -99,20 +105,25 @@ def merge_image_features(
 def llava_prefill(params: dict, cfg, kv_pages, ctx, input_ids: torch.Tensor,
                   pixel_values: Optional[torch.Tensor] = None,
                   has_image: Optional[torch.Tensor] = None,
-                  raw_lens: Optional[torch.Tensor] = None, last_only: bool = False):
+                  raw_lens: Optional[torch.Tensor] = None, last_only: bool = False,
+                  shard=None):
     """Multimodal prefill: encode -> merge -> LM prefill with inputs_embeds.
     ``input_ids`` [B, S_out] hold the raw (unexpanded) ids, ``raw_lens`` of
     them per row, padded to the expanded width S_out; ``pixel_values``
     [N_img, C, S, S] one image per row where ``has_image`` (every row when
     it is None). ``ctx`` is allocated for the expanded lengths. Returns
-    (logits, kv_pages) as ``decoder_prefill`` does."""
+    (logits, kv_pages) as ``decoder_prefill`` does. ``shard``: the LM's
+    tensor-parallel policy; the tower and the projector are whole on every
+    rank."""
     lm = params["lm"]
     if pixel_values is None:
-        return decoder_prefill(lm, cfg, kv_pages, ctx, input_ids, last_only=last_only)
+        return decoder_prefill(lm, cfg, kv_pages, ctx, input_ids, last_only=last_only,
+                               shard=shard)
     B = input_ids.shape[0]
     if has_image is None:
         has_image = torch.ones(B, dtype=torch.bool, device=input_ids.device)
     feats = encode_images(params, cfg, pixel_values)
     embeds = merge_image_features(input_ids, raw_lens, feats, has_image, lm["embed"],
-                                  cfg.image_token_index, input_ids.shape[1])
-    return decoder_prefill(lm, cfg, kv_pages, ctx, inputs_embeds=embeds, last_only=last_only)
+                                  cfg.image_token_index, input_ids.shape[1], shard)
+    return decoder_prefill(lm, cfg, kv_pages, ctx, inputs_embeds=embeds, last_only=last_only,
+                           shard=shard)

@@ -9,6 +9,8 @@ PyTorch, as the JAX package leaves it to XLA.
 
 from __future__ import annotations
 
+import dataclasses
+
 from . import ref
 from .attention_decode import paged_flash_decode
 from .attention_prefill import flash_prefill, flash_prefill_chunked
@@ -21,15 +23,19 @@ paged_decode_attention = paged_flash_decode
 
 
 def chunked_prefill_attention(q, k, v, chunk_lens, start_pos, kv_pool, layer, page_table,
-                              sm_scale=None, max_hist_len=None):
+                              sm_scale=None, max_hist_len=None, head_offset=None):
     """Chunk queries attend pool history [0, start_pos) + the causal chunk
     prefix. On the card K5 walks each request's pages up to its own
     start_pos; on the CPU the plain form gathers ``max_hist_len`` tokens of
     history (the caller's page-rounded bound), streaming it in blocks past
-    ``ref.HIST_BLOCK``, as the JAX package's fallback does."""
+    ``ref.HIST_BLOCK``, as the JAX package's fallback does. ``head_offset``
+    (default the pool's own): a tensor-parallel shard's first global kv
+    head, where an int8 pool's scale lanes start."""
     if q.is_cuda:
         return flash_prefill_chunked(q, k, v, chunk_lens, start_pos, kv_pool, layer,
-                                     page_table, sm_scale)
+                                     page_table, sm_scale, head_offset=head_offset)
+    if head_offset is not None and head_offset != kv_pool.head_offset:
+        kv_pool = dataclasses.replace(kv_pool, head_offset=head_offset)
     return ref.chunked_prefill_attention(q, k, v, chunk_lens, start_pos, kv_pool, layer,
                                          page_table, sm_scale, max_hist_len=max_hist_len)
 

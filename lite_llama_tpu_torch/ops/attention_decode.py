@@ -37,7 +37,7 @@ from .ref import LOG2E, NEG_INF, SCALE_HALF, cdiv_int, fold_new_token, pool_rows
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 # Pool dtype -> the kernel instance (C entry) that reads it.
 _ENTRIES = {torch.bfloat16: "paged_decode_bf16", torch.int8: "paged_decode_int8",
@@ -106,15 +106,16 @@ def combine_decode_splits(parts: Sequence[Tuple[torch.Tensor, torch.Tensor, torc
 
 
 def paged_decode_state_plain(q, pages, page_size, layer, page_table, kv_lens, sm_scale,
-                             scales=None):
+                             scales=None, head_offset=0):
     """Plain version of K1 and K1q: (out [B, Nq, D] in q's dtype, m, l
     [B, Nq] fp32), exp2 domain with sm_scale*log2(e) folded into q, q and P
     rounded to bf16 before their products when q is bf16 (as the TPU kernel
     does). kv_lens == 0 gives m = -1e30, l = 0, out = 0. An int8 pool
     (``scales`` [L, T, 128]) is dequantized in the score domain: the K scale
     multiplies the score, l sums the unscaled P, and P times the V scale
-    (rounded like P) meets the integer V values. fp8 values convert
-    exactly."""
+    (rounded like P) meets the integer V values; kv head h reads scale
+    lanes ``head_offset + h`` (the first global kv head of a tensor-parallel
+    shard's pool). fp8 values convert exactly."""
     B, Nq, D = q.shape
     T, HD = pages.shape[2], pages.shape[3]
     Hkv = HD // D
@@ -131,8 +132,9 @@ def paged_decode_state_plain(q, pages, page_size, layer, page_table, kv_lens, sm
     s = torch.einsum("bhgd,bshd->bhgs", qs, kv[0])
     if scales is not None:
         sc = scales[layer][rows].float()  # [B, S, 128]
-        ksc = sc[..., :Hkv].permute(0, 2, 1)[:, :, None, :]  # [B, Hkv, 1, S]
-        vsc = sc[..., SCALE_HALF:SCALE_HALF + Hkv].permute(0, 2, 1)[:, :, None, :]
+        h0 = head_offset
+        ksc = sc[..., h0:h0 + Hkv].permute(0, 2, 1)[:, :, None, :]  # [B, Hkv, 1, S]
+        vsc = sc[..., SCALE_HALF + h0:SCALE_HALF + h0 + Hkv].permute(0, 2, 1)[:, :, None, :]
         s = s * ksc
     valid = (torch.arange(S, device=q.device)[None, :] < kv_lens[:, None])[:, None, None, :]
     s = s.masked_fill(~valid, NEG_INF)
@@ -185,7 +187,8 @@ def decode_grid_slots(head_dim: int, pool_dtype, batch: int, kv_heads: int, s_ma
 def _decode_launcher(pool_dtype):
     entry = _ENTRIES[pool_dtype]
 
-    def launch(q, pages, page_size, layer, page_table, kv_lens, sm_scale, scales=None):
+    def launch(q, pages, page_size, layer, page_table, kv_lens, sm_scale, scales=None,
+               head_offset=0):
         B, Nq, D = q.shape
         L, two, T, HD = pages.shape
         if not (q.is_cuda and pages.device == q.device and page_table.device == q.device
@@ -215,6 +218,9 @@ def _decode_launcher(pool_dtype):
                                    or not scales.is_contiguous() or scales.device != q.device):
             raise ValueError(f"paged_decode kernel: scales must be bf16 [{L}, {T}, "
                              f"{2 * SCALE_HALF}], got {scales.dtype} {tuple(scales.shape)}")
+        if scales is not None and not 0 <= head_offset <= SCALE_HALF - HD // D:
+            raise ValueError(f"paged_decode kernel: head_offset {head_offset} puts the "
+                             f"scale lanes of {HD // D} kv heads past {SCALE_HALF}")
         out = torch.empty_like(q)
         m = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
         l = torch.empty((B, Nq), dtype=torch.float32, device=q.device)
@@ -234,7 +240,7 @@ def _decode_launcher(pool_dtype):
                 l.data_ptr(), None if ws is None else ws.data_ptr(),
                 None if counters is None else counters.data_ptr(), B, Nq, Hkv, D, T,
                 int(layer), page_size, ppr, float(sm_scale * LOG2E), plan.s_max, plan.min_span,
-                stream,
+                int(head_offset), stream,
             )
             _build.check(lib, code, entry)
             launch.launches += 1
@@ -255,20 +261,25 @@ _LAUNCHERS = {torch.bfloat16: launch_paged_decode, torch.int8: launch_paged_deco
 
 
 def paged_flash_decode(q, kv_pool, layer, page_table, seq_lens, sm_scale=None,
-                       k_new=None, v_new=None, return_state=False):
+                       k_new=None, v_new=None, return_state=False, head_offset=None):
     """Decode attention, one query per request: q [B, Nq, D] against the
     pool's ``layer`` (bf16, int8 with scales, or fp8) through ``page_table``
     [B, ppr] int32, bounded by
     ``seq_lens`` [B]. With ``k_new``/``v_new`` [B, Hkv, D] the pool holds
     seq_lens - 1 tokens and the newest token is folded in exactly.
-    ``return_state`` returns (out, m, l) instead (no new token)."""
+    ``return_state`` returns (out, m, l) instead (no new token).
+    ``head_offset`` (default the pool's own): the first global kv head of a
+    tensor-parallel shard's pool, where an int8 pool's scale lanes start;
+    bf16 and fp8 pools ignore it."""
     D = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / (D**0.5)
     kv_lens = seq_lens if k_new is None else torch.clamp(seq_lens - 1, min=0)
     kv_lens = kv_lens.to(torch.int32)
+    if head_offset is None:
+        head_offset = kv_pool.head_offset
     args = (q, kv_pool.pages, kv_pool.page_size, layer, page_table, kv_lens, sm_scale,
-            kv_pool.scales)
+            kv_pool.scales, head_offset if kv_pool.quantized else 0)
     if q.is_cuda:
         launch = _LAUNCHERS.get(kv_pool.pages.dtype)
         if launch is None:

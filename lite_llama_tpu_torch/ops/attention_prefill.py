@@ -40,7 +40,7 @@ from .ref import LOG2E, NEG_INF, SCALE_HALF, cdiv_int, pool_rows
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 _CHUNKED_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -115,7 +115,7 @@ def flash_prefill(q, k, v, seq_lens, sm_scale=None):
 
 
 def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size, layer,
-                                table_rows, sm_scale, scales=None):
+                                table_rows, sm_scale, scales=None, head_offset=0):
     """Plain version of K5 and K5q: (out [B, S, Nq, D] in q's dtype, m, l
     [B, S, Nq] fp32). Row s of request b attends the pool history
     [L, 2, T, Hkv*D], then the chunk's keys p <= s, p < chunk_lens[b]. Exp2
@@ -123,8 +123,10 @@ def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size
     scales them (the TPU kernel rounds a scaled q to bf16 instead); P is
     rounded to bf16 before its product when q is bf16. An int8
     pool's history rows (``scales`` [L, T, 128]) are dequantized whole,
-    value times scale rounded once to q's matmul dtype; fp8 converts
-    exactly. A row with nothing to attend gives out = 0, m = -1e30, l = 0."""
+    value times scale rounded once to q's matmul dtype, kv head h reading
+    scale lanes ``head_offset + h`` (the first global kv head of a
+    tensor-parallel shard's pool); fp8 converts exactly. A row with nothing
+    to attend gives out = 0, m = -1e30, l = 0."""
     B, S, Nq, D = q.shape
     Hkv = k.shape[2]
     G = Nq // Hkv
@@ -143,7 +145,8 @@ def chunked_prefill_state_plain(q, k, v, chunk_lens, start_pos, pages, page_size
     hist = pool_rows(pages, layer, rows).float().reshape(2, B, Th, Hkv, D)
     if scales is not None:
         srow = scales[layer][rows].float()  # [B, Th, SCALE_LANES]
-        sc = torch.stack([srow[..., :Hkv], srow[..., SCALE_HALF:SCALE_HALF + Hkv]])
+        h0 = head_offset
+        sc = torch.stack([srow[..., h0:h0 + Hkv], srow[..., SCALE_HALF + h0:SCALE_HALF + h0 + Hkv]])
         hist = (hist * sc[..., None]).to(mat).float()
     keys = torch.cat([hist[0], k.float()], dim=1)  # [B, Th + S, Hkv, D]
     vals = torch.cat([hist[1], v.float()], dim=1)
@@ -173,7 +176,7 @@ def _chunked_launcher(pool_dtype):
     entry = _CHUNKED_ENTRIES[pool_dtype]
 
     def launch(q, k, v, chunk_lens, start_pos, pages, page_size, layer, table_rows, sm_scale,
-               scales=None, return_state=False):
+               scales=None, head_offset=0, return_state=False):
         B, S, Nq, D = q.shape
         Hkv = k.shape[2]
         if not all(t.is_cuda and t.device == q.device
@@ -204,6 +207,9 @@ def _chunked_launcher(pool_dtype):
                                    or not scales.is_contiguous() or scales.device != q.device):
             raise ValueError(f"flash_prefill_chunked kernel: scales must be bf16 [{L}, {T}, "
                              f"{2 * SCALE_HALF}], got {scales.dtype} {tuple(scales.shape)}")
+        if scales is not None and not 0 <= head_offset <= SCALE_HALF - Hkv:
+            raise ValueError(f"flash_prefill_chunked kernel: head_offset {head_offset} puts "
+                             f"the scale lanes of {Hkv} kv heads past {SCALE_HALF}")
         q, k, v, chunk_lens, start_pos, table_rows = (
             t.contiguous() for t in (q, k, v, chunk_lens, start_pos, table_rows))
         out = torch.empty_like(q)
@@ -220,7 +226,7 @@ def _chunked_launcher(pool_dtype):
                 out.data_ptr(), None if m is None else m.data_ptr(),
                 None if l is None else l.data_ptr(), B, S, Nq, Hkv, D,
                 float(sm_scale * LOG2E), T, int(layer), page_size, table_rows.shape[1],
-                _build.current_stream(q.device),
+                int(head_offset), _build.current_stream(q.device),
             )
             _build.check(lib, code, entry)
             launch.launches += 1
@@ -243,7 +249,7 @@ _CHUNKED_LAUNCHERS = {torch.bfloat16: launch_flash_prefill_chunked,
 
 
 def flash_prefill_chunked(q, k, v, chunk_lens, start_pos, kv_pool, layer, table_rows,
-                          sm_scale=None, return_state=False):
+                          sm_scale=None, return_state=False, head_offset=None):
     """Chunked prefill: each query attends the request's pool history
     [0, start_pos) plus the causal prefix of the current chunk. q
     [B, S_c, Nq, D], k/v [B, S_c, Hkv, D] (the chunk's own keys, also
@@ -251,11 +257,16 @@ def flash_prefill_chunked(q, k, v, chunk_lens, start_pos, kv_pool, layer, table_
     table_rows [B, ppr]. ``return_state=True`` also returns the per-query
     online-softmax state (m, l) [B, S_c, Nq] in the exp2 domain, for an LSE
     combine across partial results; ``chunk_lens = 0`` makes the call a walk
-    over the history only."""
+    over the history only. ``head_offset`` (default the pool's own): the
+    first global kv head of a tensor-parallel shard's pool, where an int8
+    pool's scale lanes start; bf16 and fp8 pools ignore it."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if head_offset is None:
+        head_offset = kv_pool.head_offset
     args = (q, k, v, chunk_lens.to(torch.int32), start_pos.to(torch.int32), kv_pool.pages,
-            kv_pool.page_size, layer, table_rows.to(torch.int32), sm_scale, kv_pool.scales)
+            kv_pool.page_size, layer, table_rows.to(torch.int32), sm_scale, kv_pool.scales,
+            head_offset if kv_pool.quantized else 0)
     if q.is_cuda:
         launch = _CHUNKED_LAUNCHERS.get(kv_pool.pages.dtype)
         if launch is None:

@@ -22,10 +22,11 @@ multiply by the row scale. The plain versions here repeat that arithmetic
 with exact float64 dots, so kernel and plain version agree bit for bit.
 
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
-takes the plain version. The routing predicate ``qmm_supported`` is the JAX
-package's at its default caps; its ``LITE_LLAMA_TPU_QMM_*`` switches are not
-ported. On the card the kernels take scale groups (and fold spans) of any
-multiple of 8 rows and C a multiple of 32.
+takes the plain version. The routing predicates ``qmm_supported`` and, under
+tensor parallelism, ``qmm_tp_supported`` are the JAX package's at its
+default caps; its ``LITE_LLAMA_TPU_QMM_*`` switches are not ported. On the
+card the kernels take scale groups (and fold spans) of any multiple of 8
+rows and C a multiple of 32.
 
 Where the output tiles alone leave SMs idle, the kernels split C across
 blocks and fold the splits' fp32 terms in order: K6 (:func:`plan_splits`)
@@ -98,6 +99,23 @@ def qmm_supported(C: int, Oh: int, n_groups: Optional[int], M: int) -> bool:
     if _pick_bc(C, n_groups) is None:
         return False
     return Oh % 128 == 0
+
+
+def qmm_tp_supported(kind: str, C: int, Oh: int, n_groups: Optional[int], M: int,
+                     tp: int) -> bool:
+    """Whether a tensor-parallel rank runs the packed kernel on its shard
+    (the JAX routing rule; C, Oh and n_groups are the whole weight's):
+    "out" shards the stored output axis Oh (wqkv, gate_up, the head), each
+    rank running [M, C] x [C, Oh/tp]; "contract" shards C (o_proj, down),
+    grouped scales needing whole groups on every rank."""
+    nG = n_groups or 1
+    if kind == "out":
+        return Oh % tp == 0 and qmm_supported(C, Oh // tp, nG, M)
+    if kind == "contract":
+        if C % tp or (nG > 1 and nG % tp):
+            return False
+        return qmm_supported(C // tp, Oh, max(1, nG // tp), M)
+    return False
 
 
 def _fold_span(C: int, nG: int) -> int:
@@ -498,6 +516,24 @@ def quantized_matmul_packed(x, q, scale, layer, out_dtype=None, interleave=True,
         return launch_quantized_matmul_packed(x, q, scale, layer, out_dtype, interleave,
                                               out_width)
     return quantized_matmul_packed_plain(x, q, scale, layer, out_dtype, interleave, out_width)
+
+
+def quantized_matmul_packed_tp(x, q, scale, layer, shard, kind, out_dtype=None,
+                               interleave=True, out_width=None):
+    """K6 under tensor parallelism, on this rank's shard of the weight
+    (``parallel/shardings.py`` slices it): ``kind="out"`` returns the
+    rank's output columns [M, out_width] (no collective); ``kind=
+    "contract"`` takes x as the rank's contraction slice, whose int8 rows it
+    fits itself (a tighter fit than the whole row's, as JAX's shard_map
+    body quantizes per shard), and all-reduces the fp32 partials over the
+    tp group before the cast to ``out_dtype``."""
+    if kind == "out":
+        return quantized_matmul_packed(x, q, scale, layer, out_dtype, interleave, out_width)
+    if kind != "contract":
+        raise ValueError(f"tp kind must be 'out' or 'contract', got {kind!r}")
+    out_dtype = out_dtype or activations(x).dtype
+    y = quantized_matmul_packed(x, q, scale, layer, torch.float32, interleave, out_width)
+    return shard.all_reduce(y).to(out_dtype)
 
 
 def _check_int8_shape(x, q, scale):

@@ -143,7 +143,8 @@ def gather_kv_pages(kv_pool, layer: int, page_table: torch.Tensor, max_seq_len: 
     kv = pool_rows(pages, layer, rows).reshape(2, B, S, Hkv, D)
     if kv_pool.scales is not None:
         srow = kv_pool.scales[layer][rows]  # [B, S, SCALE_LANES]
-        sc = torch.stack([srow[..., :Hkv], srow[..., SCALE_HALF:SCALE_HALF + Hkv]])
+        h0 = kv_pool.head_offset  # a tensor-parallel shard's first global kv head
+        sc = torch.stack([srow[..., h0:h0 + Hkv], srow[..., SCALE_HALF + h0:SCALE_HALF + h0 + Hkv]])
         kv = kv.float() * sc.float()[..., None]
     kv = kv.transpose(2, 3)
     return kv[0], kv[1]

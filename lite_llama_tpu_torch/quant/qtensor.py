@@ -10,9 +10,15 @@ quantizer's output and quantizes the same weights to the same bytes:
 - Packed int4 (``packed=True``) stores two nibbles per byte along the output
   axis, ``byte = 16*hi + (lo + 8)`` with hi, lo in [-7, 7], and PAIRED
   scales ``[*stack, (nG,) O/2]`` (one per byte column). Classic order packs
-  output columns (2j, 2j+1); riffle order (``riffle_groups=1``) packs
-  (j, j + O/2), so the W4A8 kernel's [evens | odds] output is already in
-  canonical column order.
+  output columns (2j, 2j+1); riffle order (``riffle_groups=N``) packs, in
+  each of N blocks of the output axis, block columns (j, j + Wb/2), so the
+  W4A8 kernel's [evens | odds] output of one block is already in canonical
+  column order. N = tp makes one tensor-parallel shard of the byte axis one
+  block.
+- σ-FFN (``sigma_ffn``): gate/up flattened to [L, H, 2I], per σ block
+  [gate_b | up_b], its output left in the kernel's [evens | odds] order, and
+  down_proj's contraction rows pre-permuted to match (``sigma_in``);
+  ``sigma_groups`` = the tp the blocks were laid out for.
 - Wide output axes of >= 8192 columns whose packed width is not a multiple
   of 512 are padded to a multiple of 1024 (the 128256-wide llama vocab);
   consumers slice back to the logical width.
@@ -23,10 +29,11 @@ W4A16 dual dot in plain PyTorch, as the JAX package leaves it to XLA. Its
 activations may come as ``QuantizedRows`` (their int8 rows made by the norm
 that wrote them, ``ops/norms.py``): K6 takes those rows, every other route
 the activations (``takes_int8_rows`` says which route a weight takes).
-
-Refused with NotImplementedError, until multi-GPU: the σ-FFN layouts
-(``sigma_ffn``, ``sigma_tp``) and riffle blocks for tensor parallelism
-(``riffle_tp > 1``, ``riffle_blocks > 1``).
+Under tensor parallelism (``shard`` with tp > 1) each rank holds its shard
+of the weight (``parallel/shardings.py``) and ``tp_kind`` names the layout:
+"out" (the rank's output columns) or "contract" (the rank's contraction
+rows, whose fp32 partials are all-reduced), as JAX's manual-tp kernel
+wrapper runs them.
 """
 
 from __future__ import annotations
@@ -39,7 +46,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.qmatmul import QuantizedRows, qmm_supported, quantized_matmul_packed
+from ..ops.qmatmul import (
+    QuantizedRows,
+    qmm_supported,
+    qmm_tp_supported,
+    quantized_matmul_packed,
+    quantized_matmul_packed_tp,
+)
 
 
 def qdtype_name(qdtype) -> str:
@@ -69,6 +82,9 @@ class QTensor:
     packed: bool = False
     riffle_groups: int = 0
     fused_tp: int = 0
+    sigma_out: bool = False
+    sigma_in: bool = False
+    sigma_groups: int = 1
     layer: Optional[int] = None
 
     @property
@@ -102,8 +118,9 @@ class QTensor:
     def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
         if self.riffle_groups:
             even, odd = self.unpack_halves()
-            w = torch.cat([even.float(), odd.float()], dim=-1)
-            scale = torch.cat([self.scale, self.scale], dim=-1)
+            N = self.riffle_groups
+            w = sigma_concat(even.float(), odd.float(), N)
+            scale = sigma_concat(self.scale, self.scale, N)
         else:
             w = self.unpack().float()
             scale = self.scale.repeat_interleave(2, dim=-1) if self.packed else self.scale
@@ -114,8 +131,30 @@ class QTensor:
                 *w.shape[:-2], C, O)
         else:
             w = w * scale[..., None, :]
+        if self.sigma_in:
+            # Stored row i holds canonical row sigma(i) (per σ block: evens,
+            # then odds): undo it after the scales, which were fit in stored
+            # order.
+            N = self.sigma_groups
+            W = C // N
+            half = W // 2
+            blk = np.stack([np.arange(half), half + np.arange(half)], axis=-1).reshape(-1)
+            inv = (np.arange(N)[:, None] * W + blk[None, :]).reshape(-1)
+            w = w.index_select(-2, torch.as_tensor(inv, device=w.device))
         w = w[..., : math.prod(self.unit_shape) // C]  # drop lane-alignment padding
         return w.reshape(*w.shape[:-2], *self.unit_shape).to(dtype)
+
+
+def sigma_concat(even: torch.Tensor, odd: torch.Tensor, groups: int) -> torch.Tensor:
+    """[..., h] even / odd halves -> [..., 2h] whose block b (of ``groups``)
+    is [evens_b | odds_b]: the per-block concat that riffle and σ layouts of
+    N blocks take (groups 1: [evens | odds])."""
+    if groups == 1:
+        return torch.cat([even, odd], dim=-1)
+    h = even.shape[-1]
+    e = even.reshape(*even.shape[:-1], groups, h // groups)
+    o = odd.reshape(*odd.shape[:-1], groups, h // groups)
+    return torch.cat([e, o], dim=-1).reshape(*even.shape[:-1], 2 * h)
 
 
 def quantize(w: torch.Tensor, contract_axes, qdtype="int8", group_size: Optional[int] = None,
@@ -124,8 +163,9 @@ def quantize(w: torch.Tensor, contract_axes, qdtype="int8", group_size: Optional
     (contiguous, preceded only by stack axes and followed only by output
     axes), stored flattened to [*stack, C, O]. ``group_size`` (dividing C)
     switches to C-grouped scales; ``qdtype="int4"`` stores packed nibble
-    pairs, ``riffle_blocks=1`` in riffle column order. Quantizes one stack
-    slice at a time, so the fp32 transient is one layer's worth."""
+    pairs, ``riffle_blocks=N`` in the riffle column order of N blocks.
+    Quantizes one stack slice at a time, so the fp32 transient is one
+    layer's worth."""
     name = qdtype_name(qdtype)
     axes = contract_axes if isinstance(contract_axes, (tuple, list)) else (contract_axes,)
     axes = tuple(sorted(ax % w.ndim for ax in axes))
@@ -137,13 +177,15 @@ def quantize(w: torch.Tensor, contract_axes, qdtype="int8", group_size: Optional
     out_shape = tuple(w.shape[last + 1:])
     O = math.prod(out_shape)
     pad_to = 0
-    if riffle_blocks > 1:
-        raise NotImplementedError("riffle blocks for tensor parallelism wait for multi-GPU")
     if name == "int4":
         if O % 2:
             raise ValueError(f"int4 packing needs an even output width, got {O}")
         if O >= 8192 and (O // 2) % 512:
             pad_to = -(-O // 1024) * 1024
+        O_p = pad_to or O
+        if riffle_blocks and (O_p % riffle_blocks or (O_p // riffle_blocks) % 2):
+            raise ValueError(f"riffle_blocks={riffle_blocks} needs blocks of an even width "
+                             f"dividing the stored output axis {O_p}")
     elif riffle_blocks:
         raise ValueError("riffle_blocks is int4-packing-only")
     if group_size is not None and C % group_size:
@@ -162,11 +204,14 @@ def _quantize_one(w, name, group_size, pad_to, riffle_blocks):
     if pad_to > w.shape[-1]:
         w = torch.nn.functional.pad(w, (0, pad_to - w.shape[-1]))
     if riffle_blocks:
-        # Permuted col 2j = block col j, col 2j+1 = block col j + O/2: the
-        # classic pair packing of the permuted matrix gives the riffle bytes
-        # and correctly paired scales.
-        half = w.shape[-1] // 2
-        perm = np.stack([np.arange(half), half + np.arange(half)], axis=-1).reshape(-1)
+        # Permuted col 2j = block col j, col 2j+1 = block col j + Wb/2 (per
+        # block of Wb columns): the classic pair packing of the permuted
+        # matrix gives the riffle bytes and correctly paired scales.
+        N = riffle_blocks
+        Wb = w.shape[-1] // N
+        half = Wb // 2
+        blk = np.stack([np.arange(half), half + np.arange(half)], axis=-1).reshape(-1)
+        perm = (np.arange(N)[:, None] * Wb + blk[None, :]).reshape(-1)
         w = w.index_select(-1, torch.as_tensor(perm, device=w.device))
     C, O = w.shape
     wf = w.float()
@@ -238,11 +283,14 @@ def takes_int8_rows(w, M: int) -> bool:
     return qmm_supported(w.q.shape[-2], w.q.shape[-1], nG, M)
 
 
-def _qeinsum_layered(x, w: QTensor, out_dtype):
+def _qeinsum_layered(x, w: QTensor, out_dtype, shard=None, tp_kind=None):
     """A layer-stacked QTensor used at ``w.layer``: packed int4 at shapes
     the kernel takes rides K6 against the stacked storage (on the int8 rows
     of a ``QuantizedRows`` x where it has them); every other case slices the
-    layer and takes the plain path."""
+    layer and takes the plain path. Under tensor parallelism (``shard.tp >
+    1`` and a ``tp_kind``) the kernel runs on this rank's shard through
+    ``quantized_matmul_packed_tp`` where ``qmm_tp_supported`` holds at the
+    whole weight's shapes, as the JAX package routes it."""
     rows = x if isinstance(x, QuantizedRows) else None
     x = x.x if rows is not None else x
     dt = out_dtype or x.dtype
@@ -250,37 +298,69 @@ def _qeinsum_layered(x, w: QTensor, out_dtype):
     rest = tuple(w.q.shape[1:-2])  # stack dims after the layer axis
     n_rest = math.prod(rest)
     xr = x.reshape(-1, C)
+    M = xr.shape[0]
     nG = w.scale.shape[-2] if w.grouped else None
-    if w.packed and qmm_supported(C, Os, nG, xr.shape[0]):
+    tp = shard.tp if shard is not None else 1
+    if tp > 1 and tp_kind is not None:
+        whole = ((C * tp, Os, nG and nG * tp) if tp_kind == "contract"
+                 else (C, Os * tp, nG))
+        use = w.packed and qmm_tp_supported(tp_kind, *whole, M, tp)
+    else:
+        use = w.packed and qmm_supported(C, Os, nG, M)
+    if use:
         qf = w.q.reshape(-1, C, Os)
         sf = w.scale.reshape(-1, *w.scale.shape[1 + len(rest):])
-        width = math.prod(w.out_shape)
         xk = xr if rows is None else QuantizedRows(xr, rows.xi, rows.xs)
-        outs = [quantized_matmul_packed(xk, qf, sf, w.layer * n_rest + j, out_dtype=dt,
-                                        interleave=not w.riffle_groups, out_width=width)
-                for j in range(n_rest)]
+        interleave = not (w.sigma_out or w.riffle_groups)
+        width = math.prod(w.out_shape)
+        # Riffle and σ outputs come as whole-axis [evens | odds]: N > 1
+        # blocks (a tensor-parallel layout run on one device) take every
+        # column and re-block, padding (at the canonical end) dropped after.
+        n = w.sigma_groups if w.sigma_out else w.riffle_groups
+        outs = []
+        for j in range(n_rest):
+            li = w.layer * n_rest + j
+            if tp > 1 and tp_kind is not None:
+                y = quantized_matmul_packed_tp(xk, qf, sf, li, shard, tp_kind, out_dtype=dt,
+                                               interleave=interleave,
+                                               out_width=None if n > 1 else width)
+            else:
+                y = quantized_matmul_packed(xk, qf, sf, li, out_dtype=dt, interleave=interleave,
+                                            out_width=None if n > 1 else width)
+            if n > 1:
+                y = sigma_concat(y[:, :Os], y[:, Os:], n)[:, :width]
+            outs.append(y)
         y = outs[0] if not rest else torch.stack(outs, dim=1)
         batch = x.shape[: x.ndim - _contract_ndims(x, C)]
         return y.reshape(*batch, *rest, *w.out_shape).to(dt)
     sliced = dataclasses.replace(w, q=w.q[w.layer], scale=w.scale[w.layer], layer=None)
-    return qeinsum(None, x, sliced, out_dtype)
+    return qeinsum(None, x, sliced, out_dtype, shard=shard, tp_kind=tp_kind)
 
 
-def qeinsum(pattern, x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
+def qeinsum(pattern, x: torch.Tensor, w, out_dtype=None, shard=None,
+            tp_kind=None) -> torch.Tensor:
     """einsum that also takes a QTensor for ``w``. For a QTensor the pattern
     is ignored: x's trailing dims collapse to the stored contraction width
     C, the dot runs on the quantized values and the scale multiplies the
     result; the output takes the weight's logical out dims. Packed int4
     runs two dots on the nibble halves (W4A16) and recombines the small
     results, never the weight. ``x`` may be ``QuantizedRows``: K6 takes its
-    int8 rows, every other route its activations."""
+    int8 rows, every other route its activations.
+
+    ``shard`` (a ``parallel.shardings.ShardingPolicy``) with tp > 1 and
+    ``tp_kind`` "contract": ``w`` and x's trailing dims are this rank's
+    contraction slice, and the fp32 partial products are all-reduced over
+    the tp group before the cast. "out": this rank's output columns, no
+    collective."""
     if isinstance(w, QTensor) and w.layer is not None:
-        return _qeinsum_layered(x, w, out_dtype)
+        return _qeinsum_layered(x, w, out_dtype, shard, tp_kind)
     if isinstance(x, QuantizedRows):
         x = x.x
     if not isinstance(w, QTensor):
         return torch.einsum(pattern, x, w)
     dt = out_dtype or x.dtype
+    if shard is not None and shard.tp > 1 and tp_kind == "contract":
+        return shard.all_reduce(qeinsum(pattern, x, w, torch.float32)).to(dt)
     C, Os = w.q.shape[-2], w.q.shape[-1]
     batch = x.shape[: x.ndim - _contract_ndims(x, C)]
     xr = x.reshape(-1, C)
@@ -314,8 +394,11 @@ def qeinsum(pattern, x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     width = math.prod(w.out_shape)
     if len(ys) == 1:
         y = ys[0][..., :width]
+    elif w.sigma_out:  # σ order: each half sliced to its own width, then per block
+        h = width // 2
+        y = sigma_concat(ys[0][..., :h], ys[1][..., :h], w.sigma_groups)
     elif w.riffle_groups:
-        y = torch.cat(ys, dim=-1)[..., :width]
+        y = sigma_concat(ys[0], ys[1], w.riffle_groups)[..., :width]
     else:
         y = torch.stack(ys, dim=-1).reshape(M, S, 2 * Os)[..., :width]
     return y.reshape(*batch, *stack, *w.out_shape).to(dt)
@@ -340,64 +423,90 @@ def quantize_decoder_params(params: dict, qdtype="int8", group_size: Optional[in
                             sigma_ffn: bool = False, sigma_tp: int = 1, riffle: bool = False,
                             riffle_tp: int = 1) -> dict:
     """Quantize the projection matrices of a decoder tree (returns a new
-    tree; norms, biases and the embedding stay). ``riffle=True`` (packed
-    int4) fuses wq/wkv into wqkv before
-    packing, flattens gate_up to one [L, H, 2I] matmul laid out [gate | up],
-    and stores every packed weight in riffle order. A tied embedding gets a
-    quantized head built from ``embed.T`` (the bf16 table stays for the
-    input gather), unless int4 meets an odd vocabulary."""
+    tree; norms, biases and the embedding stay), in the JAX quantizer's
+    layouts bit for bit:
+
+    - ``riffle=True`` (packed int4) fuses wq/wkv into wqkv before packing
+      (shard-periodic for ``riffle_tp``), flattens gate_up to one [L, H, 2I]
+      matmul laid out [gate_b | up_b] per block, and stores every packed
+      weight in riffle order: ``riffle_tp`` blocks for the weights whose
+      output axis tensor parallelism shards (wqkv, gate_up, the head), one
+      for o_proj and down, whose contraction it shards.
+    - ``sigma_ffn=True`` (packed int4) flattens gate_up the same way, per σ
+      block of ``sigma_tp``, leaves its output in the kernel's [evens |
+      odds] order and pre-permutes down_proj's contraction rows to match.
+
+    A tied embedding gets a quantized head built from ``embed.T`` (the bf16
+    table stays for the input gather), unless int4 meets an odd vocabulary."""
     name = qdtype_name(qdtype)
     is4 = name == "int4"
-    if sigma_ffn and is4:
-        raise NotImplementedError("σ-FFN layouts (sigma_ffn, sigma_tp) are not ported: riffle "
-                                  "supersedes them on one device")
+    sigma = sigma_ffn and is4
     riff = riffle and is4
-    if riff and riffle_tp > 1:
-        raise NotImplementedError("riffle_tp > 1 (tensor-parallel riffle blocks) waits for "
-                                  "multi-GPU")
+    if sigma and riff:
+        raise ValueError("sigma_ffn and riffle are mutually exclusive packing layouts")
+    N = max(int(sigma_tp), 1)
+    Nr = max(int(riffle_tp), 1) if riff else 0
     fused_tp = 0
     if riff and "wq" in params.get("layers", {}):
         from ..models.decoder import fuse_qkv_params
 
-        params = fuse_qkv_params(params)
-        fused_tp = 1
+        params = fuse_qkv_params(params, tp=Nr)
+        fused_tp = Nr
     out = dict(params)
     layers = dict(params["layers"])
     for key, axes in _LAYER_QUANT_AXES.items():
         if key not in layers:
             continue
         w = layers[key]
-        if riff and key == "gate_up_proj":
+        if sigma and key == "down_proj":
+            # Stored row i <- canonical row sigma(i): per σ block, evens then
+            # odds, the order of the σ gate/up output it consumes.
+            I_ = w.shape[1]
+            W = I_ // N
+            if I_ % N or W % 2:
+                raise ValueError(f"sigma_tp={N} needs even blocks of the ffn width {I_}")
+            blk = np.concatenate([np.arange(0, W, 2), np.arange(1, W, 2)])
+            perm = (np.arange(N)[:, None] * W + blk[None, :]).reshape(-1)
+            w = w.index_select(1, torch.as_tensor(perm, device=w.device))
+        if (riff or sigma) and key == "gate_up_proj":
+            n = Nr if riff else N
             L_, _, H_, I_ = w.shape
-            w = w.permute(0, 2, 1, 3).reshape(L_, H_, 2 * I_)  # [gate | up]
+            if I_ % n or (I_ // n) % 2:
+                raise ValueError(f"{n} blocks need even blocks of the ffn width {I_}")
+            w = w.reshape(L_, 2, H_, n, I_ // n).permute(0, 2, 3, 1, 4).reshape(L_, H_, 2 * I_)
             axes = (1,)
-        qt = quantize(w, axes, name, group_size=group_size, riffle_blocks=1 if riff else 0)
+        nr_key = 0 if not riff else (Nr if key in ("wq", "wkv", "wqkv", "gate_up_proj") else 1)
+        qt = quantize(w, axes, name, group_size=group_size, riffle_blocks=nr_key)
         if key == "wqkv" and fused_tp:
             qt = dataclasses.replace(qt, fused_tp=fused_tp)
-        if riff and key == "gate_up_proj" and 2 * qt.q.shape[-1] != w.shape[-1]:
-            raise ValueError("riffle gate_up hit the lane-alignment padding: unsupported")
+        if (riff or sigma) and key == "gate_up_proj" and 2 * qt.q.shape[-1] != w.shape[-1]:
+            raise ValueError("a flat gate_up hit the lane-alignment padding: unsupported")
+        if sigma and key in ("gate_up_proj", "down_proj"):
+            qt = dataclasses.replace(qt, sigma_groups=N, **{
+                "sigma_out" if key == "gate_up_proj" else "sigma_in": True})
         layers[key] = qt
     out["layers"] = layers
-    riffle_blocks = 1 if riff else 0
     if "lm_head" in params:
         out["lm_head"] = quantize(params["lm_head"], (0,), name, group_size=group_size,
-                                  riffle_blocks=riffle_blocks)
+                                  riffle_blocks=Nr)
     elif "embed" in params and not (is4 and params["embed"].shape[0] % 2):
         out["lm_head"] = quantize(params["embed"].t(), (0,), name, group_size=group_size,
-                                  riffle_blocks=riffle_blocks)
+                                  riffle_blocks=Nr)
     return out
 
 
 def dequantize_tree(params, dtype=torch.bfloat16):
     """Every QTensor replaced by its dequantized tensor in the model's
-    original layout (a flat riffle gate_up folds back to [L, 2, H, I])."""
+    original layout (a flat riffle or σ gate_up folds back to [L, 2, H, I])."""
 
     def walk(node, key=None):
         if isinstance(node, QTensor):
             w = node.dequant(dtype)
-            if key == "gate_up_proj" and w.ndim == 3 and node.riffle_groups:
+            if key == "gate_up_proj" and w.ndim == 3 and (node.sigma_out or node.riffle_groups):
+                n = node.sigma_groups if node.sigma_out else node.riffle_groups
                 L_, H_, I2 = w.shape
-                w = w.reshape(L_, H_, 2, I2 // 2).permute(0, 2, 1, 3).contiguous()
+                w = w.reshape(L_, H_, n, 2, I2 // (2 * n)).permute(0, 3, 1, 2, 4).reshape(
+                    L_, 2, H_, I2 // 2).contiguous()
             return w
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}

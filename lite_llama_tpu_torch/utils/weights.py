@@ -70,13 +70,12 @@ def params_from_numpy(tree, cfg, device="cuda"):
     Quantized leaves come as ``QTensor``s whose ``q`` and ``scale`` are numpy
     arrays (the JAX quantizer's output, with its static fields): ``q`` int8
     stays int8, ``q`` uint8 is the bit pattern of float8_e4m3fn (numpy has
-    no fp8 type), scales stay fp32. Riffle blocks for tensor parallelism
-    (``riffle_groups > 1``) are refused."""
+    no fp8 type), scales stay fp32. The static fields carry across as they
+    are, the tensor-parallel layouts (riffle blocks, the shard-periodic
+    fused wqkv, σ-FFN blocks) included."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, cfg, device) for k, v in tree.items()}
     if isinstance(tree, QTensor):
-        if tree.riffle_groups > 1 or tree.fused_tp > 1:
-            raise NotImplementedError("tensor-parallel riffle/fused layouts wait for multi-GPU")
         q = np.ascontiguousarray(tree.q)
         if q.dtype == np.uint8:
             qt = torch.from_numpy(q).to(device).view(torch.float8_e4m3fn)

@@ -20,10 +20,8 @@ Dry-fixture builds a tiny random-init HF Llama in process, converts it
 through the real converter (``utils/weights.convert_hf_state_dict``), scores a
 random-token corpus under every config, and applies the same gates.
 
-The ``int4`` config is packed int4 with C-grouped scales of 128 in riffle
-order, without the JAX recipe's σ-FFN layout (the port refuses σ-FFN until
-multi-GPU; riffle supersedes it on one device), under the JAX recipe's
-tolerance.
+The ``int4`` config is the JAX recipe's: packed int4 with C-grouped scales
+of 128 in the σ-FFN layout (``sigma_ffn=True``), under its tolerance.
 """
 
 from __future__ import annotations
@@ -41,7 +39,7 @@ import torch
 TOLERANCES = {
     "int8": 0.01,        # int8 weights, per-channel scales
     "fp8": 0.01,         # fp8 (e4m3) weights
-    "int4": 0.05,        # packed int4, g=128 grouped scales, riffle order
+    "int4": 0.05,        # packed int4, g=128 grouped scales, σ-FFN layout
     "int8_kv": 0.02,     # bf16 weights + int8 KV pool
     "int4_int8kv": 0.06, # int4 weights + int8 KV pool
 }
@@ -52,7 +50,7 @@ def _configs(names):
     from .quant.qtensor import quantize_decoder_params
 
     def int4(p):
-        return quantize_decoder_params(p, "int4", group_size=128, riffle=True)
+        return quantize_decoder_params(p, "int4", group_size=128, sigma_ffn=True)
 
     table = {
         "bf16": (lambda p: p, False),

@@ -184,13 +184,24 @@ def test_corpus_perplexity_int4_riffle_matches_jax_kernel_path(monkeypatch):
     a random model's logits by ~1 %, which says nothing about the port.
     Weights at 0.02, the scale of the models' own init (numpy_params draws
     0.1, whose larger logits carry such a flip further)."""
+    _int4_perplexity_matches_jax_kernel_path(monkeypatch, riffle=True)
+
+
+def test_corpus_perplexity_int4_sigma_matches_jax_kernel_path(monkeypatch):
+    """The validation recipe's int4 layout, σ-FFN g32 (gate/up in the
+    kernel's [evens | odds] order, down's rows pre-permuted), on the same
+    W4A8 route as the riffle case above."""
+    _int4_perplexity_matches_jax_kernel_path(monkeypatch, sigma_ffn=True)
+
+
+def _int4_perplexity_matches_jax_kernel_path(monkeypatch, **layout):
     from lite_llama_tpu.ops import ref as jref
 
     jcfg, tcfg, npp, seqs = _fixture(num_hidden_layers=1, hidden_size=256, head_dim=64,
                                      vocab_size=256, scale=0.2)
-    jp = jq.quantize_decoder_params(_jax_tree(npp), jnp.int4, group_size=32, riffle=True)
+    jp = jq.quantize_decoder_params(_jax_tree(npp), jnp.int4, group_size=32, **layout)
     tp = tq.quantize_decoder_params(params_from_numpy(npp, tcfg, device="cpu"), "int4",
-                                    group_size=32, riffle=True)
+                                    group_size=32, **layout)
     calls = []
     real = tq.quantized_matmul_packed
     monkeypatch.setattr(tq, "quantized_matmul_packed",
@@ -206,8 +217,9 @@ def test_corpus_perplexity_int4_riffle_matches_jax_kernel_path(monkeypatch):
     finally:
         jops.set_backend(prev)
     got = teval.corpus_perplexity(tcfg, tp, seqs, device="cpu", **PPL)
-    # wqkv, o_proj, gate_up, down and the head, each chunk of each batch
-    assert len(calls) == 5 * 4
+    # wqkv (riffle fuses it; σ keeps wq and wkv), o_proj, gate_up, down and
+    # the head, each chunk of each batch
+    assert len(calls) == (5 if layout.get("riffle") else 6) * 4
     assert abs(got["nll"] - want["nll"]) < 1e-5, (got, want)
 
 
@@ -310,9 +322,24 @@ def test_validate_dry_fixture_in_process(capsys):
 def test_validate_configs_and_tolerances():
     jv = _jax_recipe()
     assert tvalidate.TOLERANCES == jv.TOLERANCES
-    assert list(tvalidate._configs(list(jv.TOLERANCES))) == list(jv.TOLERANCES)
+    configs = tvalidate._configs(list(jv.TOLERANCES))
+    assert list(configs) == list(jv.TOLERANCES)
     with pytest.raises(ValueError):
         tvalidate._configs(["int3"])
-    with pytest.raises(NotImplementedError, match="σ-FFN"):  # the JAX recipe's int4 layout
-        tq.quantize_decoder_params({"layers": {}, "embed": torch.zeros(2, 2)}, "int4",
-                                   sigma_ffn=True)
+    # The int4 rows take the JAX recipe's layout, σ-FFN g128 (examples/validate.py).
+    rng = np.random.default_rng(0)
+    tree = {"layers": {"gate_up_proj": rng.standard_normal((1, 2, 128, 256)).astype(np.float32),
+                       "down_proj": rng.standard_normal((1, 256, 128)).astype(np.float32)},
+            "embed": rng.standard_normal((8, 128)).astype(np.float32)}
+    want = jq.quantize_decoder_params(_jax_tree(tree), jnp.int4, group_size=128,
+                                      sigma_ffn=True)
+    for name in ("int4", "int4_int8kv"):
+        got = configs[name][0]({"layers": {k: torch.from_numpy(a)
+                                           for k, a in tree["layers"].items()},
+                                "embed": torch.from_numpy(tree["embed"])})
+        for key in ("gate_up_proj", "down_proj"):
+            g, w = got["layers"][key], want["layers"][key]
+            assert (g.sigma_out, g.sigma_in, g.sigma_groups) == (w.sigma_out, w.sigma_in,
+                                                                 w.sigma_groups)
+            np.testing.assert_array_equal(g.q.numpy(), np.asarray(w.q))
+            np.testing.assert_array_equal(g.scale.numpy(), np.asarray(w.scale))

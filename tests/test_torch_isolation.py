@@ -1,6 +1,7 @@
 """The port stands alone: lite_llama_tpu_torch imports neither JAX nor the
-JAX package, no source file of it names them in an import, and its entry
-points refuse to fall back to the CPU when CUDA is absent."""
+JAX package (its ``parallel/`` package included), no source file of it names
+them in an import, and its entry points refuse to fall back to the CPU when
+CUDA is absent; its public surface matches the JAX package's."""
 
 import ast
 import os
@@ -66,6 +67,27 @@ def _assert_imports_no_jax(path):
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_no_source_file_imports_jax(path):
     _assert_imports_no_jax(path)
+
+
+def test_parallel_package_is_ported_and_covered():
+    """The tensor-parallel modules (the JAX package's ``parallel/``) exist in
+    the port and are among the modules checked above."""
+    names = {name for _, name in _modules()}
+    for mod in ("distributed", "shardings", "tp_attention"):
+        assert f"lite_llama_tpu_torch.parallel.{mod}" in names
+    from lite_llama_tpu_torch.parallel import shardings
+
+    with pytest.raises(NotImplementedError, match="A7b"):
+        shardings.make_mesh(tp=1, dp=2)
+
+
+def test_public_surface_matches_the_jax_package():
+    """C7: the package exports LlavaConfig as JAX's does, and its docstring
+    names only the kernels it has (CUDA C++, no Triton since PR 11)."""
+    import lite_llama_tpu_torch as pkg
+
+    assert pkg.LlavaConfig.__name__ == "LlavaConfig" and "LlavaConfig" in pkg.__all__
+    assert "Triton" not in pkg.__doc__
 
 
 def test_chip_smoke_imports_no_jax():

@@ -13,8 +13,9 @@ projections from 1 to 256 rows, at every scale-group size and split, bit
 for bit in fp32 and bf16, K3 / K4 (csrc/norms.cu) from 1 to 4096 rows at
 widths from 96 to 40000, off the 16-byte grid and on strided views, their
 residual sums and int8 rows bit for bit (K6 fed by the rows equal to K6
-fed by the activations) and under CUDA-graph replay, plus the refusals
-that keep the card off the plain code. This file imports no JAX, so it
+fed by the activations) and under CUDA-graph replay, K1q / K5q on a
+tensor-parallel shard's int8 pool at a head_offset (its global scale
+lanes), plus the refusals that keep the card off the plain code. This file imports no JAX, so it
 runs on a machine with a card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -729,6 +730,80 @@ def test_quantized_pool_chunked_prefill_kernel_matches_plain(cuda, kv, D, Nq, Hk
     assert _within(out, po)
     assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
     assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+
+
+def _shard_of(pool, hoff, hl):
+    """Global kv heads [hoff, hoff + hl) of a whole int8 pool as a tp shard's
+    pool: their channels, the whole scale slab (global lanes)."""
+    D = pool.head_dim
+    return KVPool(pool.pages[..., hoff * D:(hoff + hl) * D].contiguous(), pool.page_size, hl, D,
+                  pool.scales, head_offset=hoff)
+
+
+SHARDS = [(1, 2), (4, 4), (6, 2)]  # (head_offset, kv heads) of a shard of 8 kv heads
+
+
+@pytest.mark.parametrize("hoff,hl", SHARDS)
+def test_int8_pool_decode_kernel_at_a_head_offset_matches_plain(cuda, hoff, hl):
+    """K1q on a tp shard of 2 or 4 of 8 kv heads (an odd offset splits the
+    slab's aligned bf16 lane pair): the shard's heads read through their
+    global scale lanes, as the plain version and the whole pool's kernel
+    read them; the mirrored offset reads other lanes."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    B, ps, P, ppr, D = 5, 16, 64, 8, 128
+    whole = _quant_pool(cuda, "int8", 8, D, P, ps)
+    pool = _shard_of(whole, hoff, hl)
+    lens = torch.tensor([0, 1, 16, 77, 128], dtype=torch.int32, device=cuda)
+    table = torch.randperm(P, generator=g, device=cuda)[: B * ppr].view(B, ppr).int()
+    q = torch.randn((B, 3 * 8, D), generator=g, device=cuda).bfloat16()
+    ql = q[:, 3 * hoff:3 * (hoff + hl)].contiguous()
+    out, m, l = paged_flash_decode(ql, pool, 1, table, lens, return_state=True)
+    po, pm, pl = paged_decode_state_plain(ql, pool.pages, ps, 1, table, lens, D**-0.5,
+                                          pool.scales, hoff)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    full = paged_flash_decode(q, whole, 1, table, lens)
+    assert _within(out[1:], full[1:, 3 * hoff:3 * (hoff + hl)])
+    wrong = paged_flash_decode(ql, pool, 1, table, lens, head_offset=(hoff + hl) % 8)
+    assert not _within(wrong[1:], po[1:])
+
+
+@pytest.mark.parametrize("hoff,hl", SHARDS)
+def test_int8_pool_chunked_prefill_kernel_at_a_head_offset_matches_plain(cuda, hoff, hl):
+    g = torch.Generator(device=cuda).manual_seed(18)
+    B, S, ps, P, D = 4, 128, 16, 200, 128
+    whole = _quant_pool(cuda, "int8", 8, D, P, ps)
+    pool = _shard_of(whole, hoff, hl)
+    ppr = 50
+    start = torch.tensor([0, 16, 500, 700], dtype=torch.int32, device=cuda)
+    clen = torch.tensor([S, 70, 0, S], dtype=torch.int32, device=cuda)
+    table = torch.randperm(P, generator=g, device=cuda)[: B * ppr].view(B, ppr).int()
+    q = torch.randn((B, S, 3 * hl, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, hl, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, hl, D), generator=g, device=cuda).bfloat16()
+    out, m, l = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table, return_state=True)
+    po, pm, pl = chunked_prefill_state_plain(q, k, v, clen, start, pool.pages, ps, 1, table,
+                                             D**-0.5, pool.scales, hoff)
+    assert _within(out, po)
+    assert torch.allclose(m, pm, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(l, pl, rtol=1e-3, atol=1e-6)
+    wrong = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table,
+                                  head_offset=(hoff + hl) % 8)
+    assert not _within(wrong[2:], po[2:])
+
+
+def test_int8_pool_kernels_refuse_scale_lanes_past_the_slab(cuda):
+    whole = _quant_pool(cuda, "int8", 8, 128, 4, 16)
+    pool = _shard_of(whole, 4, 4)
+    q = torch.zeros((1, 12, 128), device=cuda).bfloat16()
+    t = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_offset"):
+        paged_flash_decode(q, pool, 0, t, one, head_offset=61)
+    with pytest.raises(ValueError, match="head_offset"):
+        flash_prefill_chunked(q[None], q[None, :, :4], q[None, :, :4], one, one, pool, 0, t,
+                              head_offset=-1)
 
 
 def test_quantized_pool_kernels_refuse_a_pool_without_its_scales(cuda):

@@ -124,15 +124,20 @@ def test_quantize_takes_torch_dtypes_and_refuses_tp_layouts():
     b = tq.quantize(w, (1,), "int8")
     assert torch.equal(a.q, b.q) and a.q.dtype == torch.int8
     assert tq.quantize(w, (1,), torch.float8_e4m3fn).q.dtype == torch.float8_e4m3fn
-    with pytest.raises(NotImplementedError):
-        tq.quantize(w, (1,), "int4", riffle_blocks=2)
+    # The tensor-parallel layouts are taken now (bit-equality with JAX:
+    # tests/test_torch_sharding.py); what JAX's quantizer refuses, the
+    # port refuses too.
+    assert tq.quantize(w, (1,), "int4", riffle_blocks=2).riffle_groups == 2
+    with pytest.raises(ValueError):
+        tq.quantize(w, (1,), "int4", riffle_blocks=3)  # blocks must divide the 16 columns
     with pytest.raises(ValueError):
         tq.quantize(w, (1,), "int5")
-    p = {"layers": {"wq": w}, "embed": torch.randn(8, 4)}
-    with pytest.raises(NotImplementedError):
-        tq.quantize_decoder_params(p, "int4", sigma_ffn=True)
-    with pytest.raises(NotImplementedError):
-        tq.quantize_decoder_params(p, "int4", riffle=True, riffle_tp=2)
+    p = {"layers": {"gate_up_proj": torch.randn(1, 2, 8, 6), "down_proj": torch.randn(1, 6, 8)},
+         "embed": torch.randn(8, 8)}
+    with pytest.raises(ValueError):
+        tq.quantize_decoder_params(p, "int4", sigma_ffn=True, riffle=True)
+    with pytest.raises(ValueError):
+        tq.quantize_decoder_params(p, "int4", sigma_ffn=True, sigma_tp=2)  # blocks of 3
 
 
 TREE_CASES = {  # name -> (config case, vocab, quantize_decoder_params kwargs)
@@ -184,11 +189,21 @@ def test_quantize_decoder_params_matches_jax(name):
 
 
 def test_params_from_numpy_refuses_tp_layouts():
+    """The tensor-parallel layouts carry across with their fields; a leaf
+    whose bytes are neither int8 nor fp8 bits is still refused."""
     _, tcfg = _configs("llama_tied")
     leaf = tq.QTensor(q=np.zeros((2, 4, 4), np.int8), scale=np.ones((2, 4), np.float32),
-                      unit_shape=(4, 8), out_shape=(8,), packed=True, riffle_groups=2)
-    with pytest.raises(NotImplementedError):
-        params_from_numpy({"lm_head": leaf}, tcfg, device="cpu")
+                      unit_shape=(4, 8), out_shape=(8,), packed=True, riffle_groups=2,
+                      fused_tp=2)
+    got = params_from_numpy({"lm_head": leaf}, tcfg, device="cpu")["lm_head"]
+    assert (got.riffle_groups, got.fused_tp, got.q.dtype) == (2, 2, torch.int8)
+    sigma = dataclasses.replace(leaf, riffle_groups=0, fused_tp=0, sigma_in=True,
+                                sigma_groups=2)
+    got = params_from_numpy({"down_proj": sigma}, tcfg, device="cpu")["down_proj"]
+    assert (got.sigma_in, got.sigma_groups) == (True, 2)
+    with pytest.raises(ValueError):
+        params_from_numpy({"lm_head": dataclasses.replace(leaf, q=np.zeros((2, 4, 4)))},
+                          tcfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -209,3 +209,28 @@ def test_chunk_log_and_steady_state_accounting(weights, jax_outputs):
     assert abs(s["occupancy_weighted_tokens_per_s"] - 20 / 6 * 2) < 0.05
     assert s["mean_occupancy"] == 1.5
     assert steady_state_tps(synth[:1], full_occupancy=2) is None
+
+
+def test_request_result_is_the_jax_scheduler_s(weights, jax_outputs):
+    """C7: ``Request.result()`` reports what JAX's does (req_id, tokens,
+    logprobs, finish_reason), on the same request's run."""
+    jcfg, jp, _, _ = weights
+    jeng = JEngine(jcfg, jp, page_size=4, max_reqs=8, num_pages=64, decode_chunk=4)
+    jsched = JScheduler(jeng)
+    jrid = jsched.submit([3, 1, 4, 1, 5], max_gen_len=5, temperature=0.0)
+    want = {r.req_id: r for r in jsched.run()}[jrid].result()
+    sched = ContinuousBatchingScheduler(make_engine(weights))
+    rid = sched.submit([3, 1, 4, 1, 5], max_gen_len=5, temperature=0.0)
+    got = {r.req_id: r for r in sched.run()}[rid].result()
+    assert set(got) == set(want) == {"req_id", "tokens", "logprobs", "finish_reason"}
+    assert got["req_id"] == rid and got["tokens"] == want["tokens"]
+    assert got["finish_reason"] == want["finish_reason"]
+    np.testing.assert_allclose(got["logprobs"], want["logprobs"], rtol=1e-4, atol=1e-4)
+
+
+def test_scheduler_refuses_a_tp_engine(weights):
+    """At tp > 1 the scheduler needs requests broadcast from rank 0 (A7d)."""
+    engine = make_engine(weights)
+    engine.shard = mock.Mock(tp=2)
+    with pytest.raises(NotImplementedError, match="A7d"):
+        ContinuousBatchingScheduler(engine)
