@@ -165,8 +165,45 @@ Phases, in order; any failure exits non-zero:
    on both ranks, at head offsets 0 and 4. Step times there are two ranks
    time-sharing one card with their collectives through gloo, not tp's
    speed.
-12. Summary: the whole script's seconds, one JSON line with every kernel,
+12. Data parallelism (dp_phase): Llama-3.2-3B at full width and depth at
+   dp 2, two processes of this script (``--dp-child``) on the card over
+   gloo, each holding the device state of its data group (16 of 32 slots,
+   512 of 1,024 pages) and the host accounting of both, the prefix cache
+   on; bf16, and int4 g128 riffle weights on an int8 pool. Phase 4's 12 x
+   25 prompts (64 new tokens, greedy, eos off), then a warm-up of a
+   256-token prefix and 8 prompts sharing it. Against the dp 1 engine on
+   the same weights in this process: every admission's slots equal the
+   host model's (``HostModel``, JAX's placement rule written apart from
+   the engine), every prefix hit lands in the entry's group, each rank's
+   decode step is a replayed graph at its group's width that equals its
+   eager run bit for bit (a planted stale replay caught), each rank's K1
+   launches are one a layer a step, and the streams equal dp 1's but where
+   one parts at a tie within twice the measured max-abs difference. Each
+   rank's ms a token is two ranks time-sharing one card.
+13. Context parallelism (cp_phase): Llama-3.2-3B at full width and depth
+   at cp 2, two processes (``--cp-child``) each holding half of the pool's
+   pages, bf16 and an int8 pool: 4 prompts of 4,000 random ids through
+   chunked prefill 512 (K5 / K5q history walks on both ranks), 64 new
+   tokens. Against cp 1 on the same weights: the relative RMS of the
+   first-token logits and of the logits after 8 teacher-forced decode steps
+   within ``CP_REL_RMS``, the streams equal but at ties, and planted
+   faults (a rank that skips the combine, the chunk scored on both ranks,
+   the tail page counted on both) must fail it; each rank's K1 / K5
+   launches and the kv tokens it holds (the two make up the whole) are
+   printed.
+14. Summary: the whole script's seconds, one JSON line with every kernel,
    then the last line {"ok": true, "device": {...}}.
+
+Phase 3 holds K1 / K1q and K5 / K5q at phase 13's shapes on a pool split in
+two halves (``cp_decode_case``, ``cp_chunked_case``): each half's compacted
+view against the plain version, rows with kv_len 0 under a split plan and
+chunk_lens 0, the halves combined against the whole pool's call, and the
+tail page or the chunk counted on both halves (planted faults) refused.
+Phase 4 reads each decode kernel's nodes in the captured step
+(``step_graph_nodes``, through the driver) beside the counters and the
+profiler's device events. Phase 5 gates ``prefill_async``: a chunked
+prefill returns while the device still runs the work queued before it
+(``prefill_dispatch_gate``).
 
 Phase 3 times K3 / K4 (csrc/norms.cu) at decode widths (12 and 64 rows),
 at the prefill widths of serving's chunk step (8 x 512 rows) and of a 4 x
@@ -210,6 +247,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -936,6 +974,217 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
                         + (" and dequantized to bf16" if kv else "") + " + chunk, boolean mask)")
 
 
+# Phase 13's context-parallel shapes in phase 3 (Llama-3.2-3B): a pool split
+# in two halves, as two cp ranks hold it; 4 requests of 4,000 tokens whose
+# pages are shuffled over both halves, one of 300 tokens whose pages all lie
+# in half 0 and an empty one, so half 1 runs K1 / K1q on kv_len 0 rows
+# under a split plan. The chunked case: B 4, a 512-row chunk over 4,000
+# tokens of history each, half 1 at chunk_lens 0 (a walk over its history).
+CP_LENS = [4000] * 4 + [300, 0]
+CP_FAULTS = ("tail page on both halves", "chunk scored on both halves")
+
+
+def tail_on_both_view(page_table, kv_lens, page_size, pages_loc, idx):
+    """A planted fault: ``local_page_view`` (parallel/context_parallel.py)
+    with the tail page counted on every rank, its ownership unchecked: the
+    rank that does not own it reads another page through the clamped id."""
+    B, ppr = page_table.shape
+    ps, lo = page_size, idx * pages_loc
+    kv_lens = kv_lens.to(torch.int32)
+    n_pages = (kv_lens + ps - 1) // ps
+    j = torch.arange(ppr, dtype=torch.int32, device=page_table.device)[None, :]
+    valid = j < n_pages[:, None]
+    is_tail = j == (n_pages - 1)[:, None]
+    full = valid & (page_table >= lo) & (page_table < lo + pages_loc) & ~is_tail
+    tail = valid & is_tail
+    key = torch.where(full, j, torch.where(tail, ppr + j, 2 * ppr + j))
+    order = torch.argsort(key, dim=1)
+    local_pt = (torch.gather(page_table, 1, order) - lo).clamp(0, pages_loc - 1).to(torch.int32)
+    tail_count = kv_lens - (n_pages - 1) * ps
+    local_len = full.sum(dim=1, dtype=torch.int32) * ps + torch.where(
+        tail.any(dim=1), tail_count, torch.zeros_like(tail_count))
+    return local_pt, local_len.to(torch.int32)
+
+
+def cp_pool(lens, ps, g, dev, kv, Hkv, D, half0=()):
+    """A shuffled pool for ``lens`` split in two halves: (pages, scales,
+    dequantized pool, table [B, ppr], pages per half). Requests ``half0``
+    take pages of half 0 only."""
+    used = [math.ceil(n / ps) for n in lens]
+    P = 2 * math.ceil((sum(used) + 1) / 2)
+    loc = P // 2
+    pages = torch.randn((2, 2, P * ps, Hkv * D), generator=g, device=dev).bfloat16()
+    pages, scales, deq = quantized_pages(pages, kv, Hkv)
+    perm = torch.randperm(P, generator=g, device=dev).tolist()
+    low = [i for i in perm if i < loc]
+    ppr = max(1, max(used))
+    table = torch.zeros((len(lens), ppr), dtype=torch.int32, device=dev)
+    taken = set()
+    for b in half0:
+        ids = low[:used[b]]
+        low = low[used[b]:]
+        taken.update(ids)
+        table[b, :used[b]] = torch.tensor(ids, dtype=torch.int32, device=dev)
+    rest = [i for i in perm if i not in taken]
+    for b, n in enumerate(used):
+        if b not in half0:
+            table[b, :n] = torch.tensor(rest[:n], dtype=torch.int32, device=dev)
+            rest = rest[n:]
+    return pages, scales, deq, table, loc
+
+
+def half_pool(pages, scales, ps, Hkv, D, loc, c):
+    """Half ``c`` of a pool as context rank c of 2 holds it."""
+    from lite_llama_tpu_torch.executor.kv_cache import KVPool
+
+    rows = slice(c * loc * ps, (c + 1) * loc * ps)
+    return KVPool(pages[:, :, rows].contiguous(), ps, Hkv, D,
+                  None if scales is None else scales[:, rows].contiguous(),
+                  page_offset=c * loc, total_pages=2 * loc)
+
+
+def cp_decode_case(kv=None, lens=CP_LENS, ps=16):
+    """K1 / K1q with ``return_state`` on each half's compacted view
+    (``local_page_view``) against the plain version; the two halves'
+    states combined (``combine_decode_splits``, as the cp ranks combine
+    them) against the whole pool's kernel call; the tail page counted on
+    both halves (a planted fault) must fail. Timed: half 1's call."""
+    from lite_llama_tpu_torch.executor.kv_cache import KVPool
+    from lite_llama_tpu_torch.ops.attention_decode import (
+        combine_decode_splits, paged_decode_state_plain, paged_flash_decode)
+    from lite_llama_tpu_torch.parallel.context_parallel import local_page_view
+
+    m = MODELS["llama-3.2-3b"]
+    D, Nq, Hkv = m["D"], m["Nq"], m["Hkv"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    B = len(lens)
+    pages, scales, _, table, loc = cp_pool(lens, ps, g, dev, kv, Hkv, D, half0=(4,))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((B, Nq, D), generator=g, device=dev).bfloat16()
+    scale = D**-0.5
+    halves = [half_pool(pages, scales, ps, Hkv, D, loc, c) for c in (0, 1)]
+
+    def kernel(q, pages, scales, table, kv_lens):
+        pool = KVPool(pages, ps, Hkv, D, scales)
+        return paged_flash_decode(q, pool, 1, table, kv_lens, scale, return_state=True)
+
+    def plain(q, pages, scales, table, kv_lens):
+        return paged_decode_state_plain(q, pages, ps, 1, table, kv_lens, scale, scales)
+
+    whole = kernel(q, pages, scales, table, kv_lens)
+    views = [local_page_view(table, kv_lens, ps, loc, c) for c in (0, 1)]
+    calls = [(q, h.pages, h.scales, *v) for h, v in zip(halves, views)]
+    states = [kernel(*a) for a in calls]
+    errs, ok = [], True
+    for st, a in zip(states, calls):
+        po, pm, pl = plain(*a)
+        e, o = max_err(st[0], po)
+        errs.append(e)
+        ok = ok and o and bool(torch.all((st[2] - pl).abs() <= 1e-3 * pl.abs() + 1e-6))
+    out, mm, ll = combine_decode_splits(states)
+    comb_err, comb_ok = max_err(out, whole[0])
+    l_ok = bool(torch.all((ll - whole[2]).abs() <= 1e-3 * whole[2].abs() + 1e-6))
+    bad = [kernel(q, h.pages, h.scales, *tail_on_both_view(table, kv_lens, ps, loc, c))
+           for c, h in enumerate(halves)]
+    f_err, f_ok = max_err(combine_decode_splits(bad)[0], whole[0])
+    faults = {CP_FAULTS[0]: dict(max_abs_err=f_err, caught=not f_ok)}
+    local = [v[1].tolist() for v in views]
+    require([a + b for a, b in zip(*local)] == lens, f"cp views lose tokens: {local}")
+    tokens = sum(local[1])
+    scale_bytes = tokens * 2 * Hkv * 2 if scales is not None else 0
+    used1 = sum(math.ceil(n / ps) for n in local[1])
+    bytes_moved = (tokens * 2 * Hkv * D * pages.element_size() + scale_bytes
+                   + 2 * B * Nq * D * 2 + B * Nq * 8 + B * 4 + used1 * 4)
+    t_bound, by = bound(bytes_moved, 4 * tokens * Nq * D)
+    t = timings(kernel, plain, calls[1], bytes_moved, None, plain_in_graph=False)
+    half0_ms = graph_ms(kernel, input_copies(calls[0], bytes_moved))
+    whole_ms = graph_ms(kernel, input_copies((q, pages, scales, table, kv_lens), 2 * bytes_moved))
+    return dict(model="llama-3.2-3b cp2",
+                shape=f"cp half 1 of 2: B={B} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
+                      f"kv_lens={compact_lens(lens)} local={compact_lens(local[1])} "
+                      f"pool={kv or 'bf16'}",
+                max_abs_err=max(errs + [comb_err]), combined_max_abs_err=comb_err,
+                ok=ok and comb_ok and l_ok and not f_ok, faults=faults, **t,
+                half0_ms=half0_ms, whole_ms=whole_ms, local_kv_lens=local,
+                bound_ms=t_bound, bound_by=by, library=None,
+                launch=decode_launch_info(B, Hkv, D, ps, table.shape[1], local[1], kv))
+
+
+def cp_chunked_case(kv=None, B=4, hist=4000, S=512, ps=16):
+    """K5 / K5q with ``return_state`` on each half's history: half 0 scores
+    the chunk over its history, half 1 walks its history at chunk_lens 0;
+    each against the plain version, the two combined against the whole
+    pool's kernel call, and the chunk scored on both halves (a planted
+    fault) must fail. Timed: half 1's call."""
+    from lite_llama_tpu_torch.executor.kv_cache import KVPool
+    from lite_llama_tpu_torch.ops.attention_decode import combine_decode_splits
+    from lite_llama_tpu_torch.ops.attention_prefill import (
+        chunked_prefill_state_plain, flash_prefill_chunked)
+    from lite_llama_tpu_torch.parallel.context_parallel import local_page_view
+
+    m = MODELS["llama-3.2-3b"]
+    D, Nq, Hkv = m["D"], m["Nq"], m["Hkv"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    pages, scales, _, table, loc = cp_pool([hist] * B, ps, g, dev, kv, Hkv, D)
+    q = torch.randn((B, S, Nq, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
+    sp = torch.full((B,), hist, dtype=torch.int32, device=dev)
+    cl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    none = torch.zeros_like(cl)
+    scale = D**-0.5
+    halves = [half_pool(pages, scales, ps, Hkv, D, loc, c) for c in (0, 1)]
+
+    def kernel(q, k, v, cl, sp, pages, scales, table):
+        return flash_prefill_chunked(q, k, v, cl, sp, KVPool(pages, ps, Hkv, D, scales), 1,
+                                     table, scale, return_state=True)
+
+    def plain(q, k, v, cl, sp, pages, scales, table):
+        return chunked_prefill_state_plain(q, k, v, cl, sp, pages, ps, 1, table, scale, scales)
+
+    whole = kernel(q, k, v, cl, sp, pages, scales, table)
+    views = [local_page_view(table, sp, ps, loc, c) for c in (0, 1)]
+    calls = [(q, k, v, cl if c == 0 else none, views[c][1], halves[c].pages, halves[c].scales,
+              views[c][0]) for c in (0, 1)]
+    states = [kernel(*a) for a in calls]
+    errs, ok = [], True
+    for st, a in zip(states, calls):
+        po, pm, pl = plain(*a)
+        e, o = max_err(st[0], po)
+        errs.append(e)
+        ok = ok and o and bool(torch.all((st[2] - pl).abs() <= 1e-3 * pl.abs() + 1e-6))
+        del po, pm, pl
+    out, _, ll = combine_decode_splits(states)
+    comb_err, comb_ok = max_err(out, whole[0])
+    twice = kernel(q, k, v, cl, views[1][1], halves[1].pages, halves[1].scales, views[1][0])
+    f_err, f_ok = max_err(combine_decode_splits([states[0], twice])[0], whole[0])
+    faults = {CP_FAULTS[1]: dict(max_abs_err=f_err, caught=not f_ok)}
+    local = [x[1].tolist() for x in views]
+    require([a + b for a, b in zip(*local)] == [hist] * B, f"cp views lose tokens: {local}")
+    hist1 = sum(local[1])
+    scale_bytes = 2 * hist1 * Hkv * 2 if scales is not None else 0
+    bytes_moved = (2 * hist1 * Hkv * D * pages.element_size() + scale_bytes
+                   + B * S * (2 * Nq * D * 2 + 2 * Hkv * D * 2) + B * S * Nq * 8 + 2 * B * 4
+                   + sum(math.ceil(n / ps) for n in local[1]) * 4)
+    flops = 4 * Nq * D * S * hist1
+    t_bound, by = bound(bytes_moved, flops)
+    t = timings(kernel, plain, calls[1], bytes_moved, None, plain_in_graph=False)
+    half0_ms = graph_ms(kernel, input_copies(calls[0], bytes_moved))
+    whole_ms = graph_ms(kernel, input_copies((q, k, v, cl, sp, pages, scales, table),
+                                             2 * bytes_moved))
+    return dict(model="llama-3.2-3b cp2",
+                shape=f"cp half 1 of 2: B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} page_size={ps} "
+                      f"start_pos={hist} x {B} local={local[1]} chunk_lens=0 "
+                      f"return_state=True pool={kv or 'bf16'}",
+                max_abs_err=max(errs + [comb_err]), combined_max_abs_err=comb_err,
+                ok=ok and comb_ok and not f_ok, faults=faults, **t,
+                half0_ms=half0_ms, whole_ms=whole_ms, local_hist=local,
+                bound_ms=t_bound, bound_by=by, library=None,
+                tflops=flops / t["ms"] / 1e9, library_tflops=None)
+
+
 def swiglu_case(rows, I, int8=False):
     """K4 at [rows, I] against its plain version. ``int8``: on the row-strided
     halves of one [rows, 2I] product (the int4 path's riffle gate_up), also
@@ -1286,6 +1535,7 @@ def kernel_phase():
             decode_case("open-llama-3b-v2", ragged),
             decode_case("llama-3.2-3b", serving),
             decode_case("vicuna-7b", [680] * 4),  # phase 9: 615 expanded rows + 64 new
+            cp_decode_case(),  # phase 13: a cp rank's half of the pool
         ],
         "flash_prefill": [
             prefill_case("llama-3.2-3b", 12, 25, [25] * 12),
@@ -1340,6 +1590,7 @@ def kernel_phase():
             # that end mid-page, ragged chunk widths
             chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[5], S=5),
             chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[9], S=9),
+            cp_chunked_case(),  # phase 13: a cp rank's history walk at chunk_lens 0
         ],
         "quantized_matmul_packed": [
             *(qmm_case(n, 12) for n in QMM_SHAPES),  # gate_up first: the main case
@@ -1376,6 +1627,7 @@ def kernel_phase():
             decode_case("llama-3.2-3b", serving, kv=kv),
             # phase 11: a tp 2 rank's shard (4 of 8 kv heads) at both offsets
             *(decode_case("llama-3.2-3b tp2", [88] * 12, kv=kv, hoff=h) for h in (0, 4)),
+            *([cp_decode_case(kv)] if kv == "int8" else []),  # phase 13's int8 pool
         ]
         cases[f"flash_prefill_chunked_{kv}"] = [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8, kv=kv),
@@ -1388,6 +1640,7 @@ def kernel_phase():
             # phase 11: a tp 2 rank's shard, its chunked prefill at both offsets
             *(chunked_case("llama-3.2-3b tp2", [512] * 8, [512] * 8, kv=kv, hoff=h)
               for h in (0, 4)),
+            *([cp_chunked_case(kv)] if kv == "int8" else []),  # phase 13's int8 pool
         ]
     for name, cs in cases.items():
         for c in cs:
@@ -1401,7 +1654,9 @@ def kernel_phase():
                          f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) library_ms={lib} "
                          f"copies={c['copies']}")
             if "tflops" in c:
-                line += f" TFLOP/s={c['tflops']:.1f} library_TFLOP/s={c['library_tflops']:.1f}"
+                lib_tf = c["library_tflops"]
+                line += (f" TFLOP/s={c['tflops']:.1f} library_TFLOP/s="
+                         + ("-" if lib_tf is None else f"{lib_tf:.1f}"))
             if "library_kernels" in c:
                 line += f" library_kernels={c['library_kernels']}"
             for k in (k for k in c if k.endswith("bit_equal")):
@@ -1410,6 +1665,9 @@ def kernel_phase():
                 line += f" faults={json.dumps(c['faults'])}"
             if "launch" in c:
                 line += f" launch={json.dumps(c['launch'])}"
+            if "half0_ms" in c:
+                line += (f" cp: half0_ms={c['half0_ms']:.5f} whole_ms={c['whole_ms']:.5f} "
+                         f"combined_max_abs_err={c['combined_max_abs_err']:.3e}")
             if "ms_by_splits" in c:
                 line += f" ms_by_splits={json.dumps(c['ms_by_splits'])}"
             if "int8_library_ms" in c:
@@ -1646,12 +1904,14 @@ def profile_decode(engine, prompts, steps=16):
         per_step[f"{name}_device_ms_per_step"] = us / 1e3 / steps if us else None
         per_step[f"{name}_launches_per_step"] = sum(n for _, n in mine) / steps
     counted = {k: (c1[k] - c0[k]) / steps for k in DEVICE_KERNELS}
+    nodes = step_graph_nodes(engine, B)  # C6: the graph's own count, past CUPTI
     if device_us:
         seen = {k: per_step[f"{k}_launches_per_step"] for k in DEVICE_KERNELS}
         require(counted == seen, f"launch counters per decode step {counted} differ from "
-                                 f"the device events' {seen}")
+                                 f"the device events' {seen}; the replayed graph holds "
+                                 f"{nodes} kernel nodes")
     return dict(
-        counted_launches_per_step=counted,
+        counted_launches_per_step=counted, graph_kernel_nodes=nodes,
         steps=steps, profiled_wall_ms=wall_us / 1e3,
         device_ms=device_us / 1e3 if device_us else None,
         device_ms_per_step=device_us / 1e3 / steps if device_us else None,
@@ -1659,6 +1919,161 @@ def profile_decode(engine, prompts, steps=16):
         device_busy_share_profiled=device_us / wall_us if device_us else None,
         top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n) for k, us, n in top],
     )
+
+
+def demangle(names):
+    """C++ names as the profiler prints them (c++filt, or CUDA's cu++filt);
+    the mangled names where neither runs."""
+    for tool in ("c++filt", "/usr/local/cuda/bin/cu++filt"):
+        try:
+            res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                                 timeout=60, check=True)
+            out = res.stdout.splitlines()
+            if len(out) == len(names):
+                return out
+        except (OSError, subprocess.SubprocessError):
+            continue
+    return list(names)
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of the driver API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def step_graph_nodes(engine, width, mode="greedy"):
+    """C6's second count of a decode step's launches, past CUPTI: the
+    step's body captured once more (``keep_graph``, on the engine's graph
+    stream; the capture launches nothing, and the wrappers' counts made
+    during it are taken back out) and its kernel nodes read through the
+    driver (cuGraphGetNodes, cuGraphKernelNodeGetParams, cuFuncGetName /
+    cuKernelGetName), counted per DEVICE_KERNELS pattern. A replay launches
+    every node of its graph, so these are the launches a replay makes."""
+    from lite_llama_tpu_torch.ops import add_launches, launch_counts
+
+    step = engine._steps[(width, mode)]
+    drv = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = launch_counts()
+    with torch.inference_mode(), torch.cuda.graph(graph, stream=engine._graph_stream,
+                                                  capture_error_mode="thread_local"):
+        step.body()
+    add_launches({k: n - before[k] for k, n in launch_counts().items()}, -1)
+    h = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    require(drv.cuGraphGetNodes(h, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    drv.cuGraphGetNodes(h, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        prm = _KernelNodeParams()
+        drv.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(prm))
+        name = ctypes.c_char_p()
+        if prm.func and drv.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(prm.func)) == 0:
+            names.append(name.value.decode())
+        elif prm.kern and drv.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(prm.kern)) == 0:
+            names.append(name.value.decode())
+        else:
+            names.append("?")
+    names = demangle(names)
+    del graph
+    return dict(kernel_nodes=len(names),
+                **{k: sum(1 for nm in names if re.search(pat, nm))
+                   for k, pat in DEVICE_KERNELS.items()})
+
+
+def prefill_dispatch_gate(dev, cfg, params):
+    """C5: ``prefill_async`` returns at dispatch, as JAX's does. Serving's
+    wave 1 prompts (8 x 1500 random ids and the 256-token prefix prompt:
+    three full chunks at prefill_chunk 512, prefix cache on), with host
+    sampling rows as the scheduler passes them, on two engines of the same
+    weights whose full-chunk step of 9 rows is made first, as the scheduler
+    makes it. One engine runs its chunk steps eagerly
+    (``eager_chunk_steps``, the path before the steps were replayed), the
+    other replays them and dispatches the wave while the device runs a
+    sleep kernel queued first: the call must return while that kernel still
+    runs (an event recorded after it not yet complete), and the first
+    tokens, logprobs and prefix hits must equal the eager engine's bit for
+    bit. Before it, a wave of 9 other prompts of 1500 ids on each engine is
+    timed: dispatch ms on the host, device ms from events. Beside them, how
+    many launches CUDA holds in flight: 1,000 and 1,200 small launches
+    queued behind a sleeping device, whether each batch returned while it
+    slept (an eager 3B chunk launches ~1,700)."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from tests.torch_decode_steps import eager_chunk_steps
+
+    prompts = serving_prompts(cfg)
+    batch = prompts["long"] + [prompts["prefix"] + prompts["tail"]]
+    other = np.random.default_rng(SEED + 17).integers(0, cfg.vocab_size, (9, 1500)).tolist()
+    samp = SamplingParams.make(len(batch), temperature=0.0, device="cpu")
+    kw = dict(device=dev, prefix_cache=True, prefill_chunk=512, page_size=16, max_reqs=64,
+              decode_chunk=32, num_pages=2048)
+
+    def wave(engine, rows, sleep=False):
+        lens = [len(p) + 1 for p in rows]
+        slots = engine.admit_requests(lens, prompts=rows)
+        sync(dev)
+        start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if sleep:
+            torch.cuda._sleep(int(3e9))  # ~1.5 s of device time at the H100's clocks
+        slept = torch.cuda.Event()
+        slept.record()
+        start.record()
+        t0 = time.perf_counter()
+        bundle = engine.prefill_async(rows, samp, slots)
+        rec = dict(dispatch_ms=(time.perf_counter() - t0) * 1e3,
+                   returned_while_device_busy=not slept.query())
+        tok, _, _, lp = engine.prefill_collect(bundle)
+        done.record()
+        done.synchronize()
+        rec["device_ms"] = start.elapsed_time(done)
+        engine.release_slots(slots, lens)
+        return tok, lp, rec
+
+    queued = {}
+    x = torch.zeros(16, device=dev)
+    x.add_(1)  # its kernel loaded before the probe
+    for n in (1000, 1200):
+        sync(dev)
+        torch.cuda._sleep(int(3e9))
+        slept = torch.cuda.Event()
+        slept.record()
+        for _ in range(n):
+            x.add_(1)
+        queued[n] = not slept.query()
+    sync(dev)
+    outs = {}
+    for name in ("eager", "replayed"):
+        engine = InferenceEngine(cfg, params, **kw)
+        engine.chunk_step_for(len(batch), 512)
+        with eager_chunk_steps(engine) if name == "eager" else contextlib.nullcontext():
+            timed = wave(engine, other)[2]
+            tok, lp, rec = wave(engine, batch, sleep=name == "replayed")
+        rec.update(timed=timed, prefix_hits=engine.stats.prefix_hits)
+        outs[name] = (tok, lp, rec)
+        del engine
+        free_device()
+    (t_ref, lp_ref, ref), (t_got, lp_got, rec) = outs["eager"], outs["replayed"]
+    rec.update(eager_timed=ref["timed"], eager_prefix_hits=ref["prefix_hits"],
+               launches_returned_while_device_busy=queued,
+               tokens_equal=bool(np.array_equal(t_ref, t_got)),
+               logprobs_bit_equal=bool(np.array_equal(lp_ref.view(np.int32),
+                                                      lp_got.view(np.int32))))
+    log(f"  prefill_async dispatch gate (C5): {json.dumps(rec)}")
+    require(rec["returned_while_device_busy"],
+            f"prefill_async waited for the device (C5): {rec}")
+    require(rec["tokens_equal"] and rec["logprobs_bit_equal"]
+            and rec["prefix_hits"] == ref["prefix_hits"],
+            f"the replayed prefill's outputs differ from the eager one's: {rec}")
+    return rec
 
 
 def batch_prompts(cfg, B=12, P=25):
@@ -1706,14 +2121,16 @@ def graph_gate(engine, prompts, steps=75, pixel_values=None):
                 left -= n
             return np.concatenate(toks), np.concatenate(lps)
 
+        # A data-parallel rank's step holds its group's rows of the batch.
+        width = B if engine.dp == 1 else sum(engine._mine(s) for s in slots)
         t0 = time.perf_counter()
         graph = decode(first)
         graph_s = time.perf_counter() - t0
-        with eager_step(engine, B):
+        with eager_step(engine, width):
             t0 = time.perf_counter()
             eager = decode(first)
             eager_s = time.perf_counter() - t0
-        step = engine._steps[(B, "greedy")]
+        step = engine._steps[(width, "greedy")]
         decode(np.roll(first, 1), engine.decode_chunk)
         load = step.load
 
@@ -1728,7 +2145,8 @@ def graph_gate(engine, prompts, steps=75, pixel_values=None):
     def same(a, b):
         return bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
 
-    rec = dict(batch=B, steps=steps, chunk=engine.decode_chunk, bit_equal=same(graph, eager),
+    rec = dict(batch=B, width=width, steps=steps, chunk=engine.decode_chunk,
+               bit_equal=same(graph, eager),
                tokens_differing=int((graph[0] != eager[0]).sum()),
                logprobs_differing=int((graph[1] != eager[1]).sum()),
                planted_fault_caught=not same(fault, graph),
@@ -3841,7 +4259,7 @@ def spec_phase(dev):
 # ---------------------------------------------------------------------------
 # Phase 11: tensor parallelism, two ranks sharing the card over gloo
 
-TP_GEN = 64  # new tokens of every tp run (12 x 25 prompts, eos off; 128 took 130 s)
+TP_GEN = 32  # new tokens of every tp run (12 x 25 prompts, eos off; 128 took 130 s, 64 96 s)
 TP_FORCED = 8  # teacher-forced decode steps of the logits gate
 TP_PATHS = {  # path -> (kv_quant, int4 riffle_tp=2 weights)
     "bf16": (False, False),
@@ -4172,6 +4590,648 @@ def tp_gates(cfg, ref, workdir, ranks):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: data parallelism, two ranks sharing the card over gloo
+
+DP_GEN = 64  # new tokens of the batch (12 x 25 prompts, eos off)
+DP_SHARED_GEN = 16  # of the batch behind the shared prefix
+DP_PATHS = {  # path -> (kv_quant, int4 g128 riffle weights)
+    "bf16": (False, False),
+    "int4_int8_pool": ("int8", True),
+}
+# The kernels of each path's timed batch: its prompts hit the one-page
+# prefix entries their warm-up registered, so their prefill is K5's.
+DP_PATH_KERNELS = {
+    "bf16": ("paged_flash_decode", "flash_prefill_chunked", "rms_norm", "swiglu"),
+    "int4_int8_pool": ("quantized_matmul_packed", "paged_flash_decode_int8",
+                       "flash_prefill_chunked_int8", "rms_norm", "swiglu"),
+}
+DP_ENGINE = dict(page_size=16, max_reqs=32, num_pages=1024, decode_chunk=32, prefix_cache=True,
+                 prefill_chunk=512)
+
+
+def dp_prompts(cfg):
+    """Phase 12's prompts: phase 4's batch; a warm-up of a 256-token prefix
+    and 8 own tokens (its 16 full pages, the prefix exactly, register when
+    it ends); 8 prompts of the prefix and 8 own tokens each."""
+    rng = np.random.default_rng(SEED + 12)
+    ids = lambda n: rng.integers(0, cfg.vocab_size, n).tolist()  # noqa: E731
+    prefix = ids(256)
+    return dict(batch=batch_prompts(cfg), warm=prefix + ids(8),
+                shared=[prefix + ids(8) for _ in range(8)])
+
+
+def dp_weights(cfg, dev, int4):
+    """The seeded weights of phase 12 (every process builds them alike)."""
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    return quantize_decoder_params(params, "int4", group_size=128, riffle=True) if int4 else params
+
+
+def dp_flow(engine, prompts, gen_kw=None):
+    """The runs of phase 12 on one engine (dp 1 in this process, or a dp 2
+    rank): the batch (timed, after a warm-up that captures the decode
+    graph), its first-token logits, the warm-up of the shared prefix and the
+    batch behind it. Records every admission and release."""
+    from lite_llama_tpu_torch.generation.generate import TextGenerator
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+
+    dev = engine.device
+    events = []
+    admit, release = engine.admit_requests, engine.release_slots
+
+    def ints(xs):
+        return [int(x) for x in xs]
+
+    def admit_rec(lens, prompts=None):
+        slots = admit(lens, prompts)
+        events.append(("admit", ints(lens), prompts and [ints(p) for p in prompts], ints(slots)))
+        return slots
+
+    def release_rec(slots, lens):
+        events.append(("release", ints(slots), ints(lens)))
+        return release(slots, lens)
+
+    engine.admit_requests, engine.release_slots = admit_rec, release_rec
+    gen = TextGenerator(engine)
+    batch = prompts["batch"]
+    gen.generate_tokens(batch, max_gen_len=2, temperature=0.0)  # warm-up: captures the graph
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = gen.generate_tokens(batch, max_gen_len=DP_GEN, temperature=0.0)
+    sync(dev)
+    rec = dict(generate_s=time.perf_counter() - t0, launches=read_counts(),
+               widths=sorted({k[0] for k in engine._steps}))
+    stream = [o.token_ids for o in out]
+    # The first-token logits on the streams' path: each prompt hits the
+    # one-page entry its warm-up registered (K5 at its group's width).
+    slots = engine.admit_requests([len(p) + 1 for p in batch], prompts=batch)
+    _, lens, first, _ = engine.prefill(batch, SamplingParams.make(len(batch), 0.0, device="cpu"),
+                                       slots, return_logits=True)
+    engine.release_slots(slots, lens)
+    rec["graph_gate"] = graph_gate(engine, batch) if engine.dp > 1 else None
+    hits0 = engine.stats.prefix_hits
+    gen.generate_tokens([prompts["warm"]], max_gen_len=4, temperature=0.0)
+    shared = gen.generate_tokens(prompts["shared"], max_gen_len=DP_SHARED_GEN, temperature=0.0)
+    rec["shared_hits"] = engine.stats.prefix_hits - hits0
+    engine.admit_requests, engine.release_slots = admit, release
+    return dict(stream=stream, first=torch.from_numpy(first).float(),
+                shared=[o.token_ids for o in shared], events=events, rec=rec)
+
+
+class HostModel:
+    """The plain reference of data-parallel admission: JAX's ``try_admit``
+    rule written apart from the engine. ``dp`` groups of ``M`` slots and
+    ``P`` pages and a prefix registry each (key: the prefix's tokens), the
+    group with the longest hit chosen, then the most free pages, evicting
+    only there, least recently used first; a released request that hit
+    drops its reference, one that did not registers its prompt's full
+    pages."""
+
+    def __init__(self, dp, M, P, ps):
+        self.ps, self.M = ps, M
+        self.slots = [list(range(g * M, (g + 1) * M)) for g in range(dp)]
+        self.pages = [P] * dp
+        self.reg = [{} for _ in range(dp)]  # key -> [n_pages, refs, tick]
+        self.tick = 0
+        self.hit, self.prompt = {}, {}
+
+    def _hit(self, g, prompt):
+        use = (len(prompt) - 1) // self.ps
+        for k in range(len(prompt) // self.ps, 0, -1):
+            e = self.reg[g].get(tuple(prompt[:k * self.ps]))
+            if e is not None and min(k, use) > 0:
+                return tuple(prompt[:k * self.ps]), min(k, use)
+        return None
+
+    def _evictable(self, g, protect):
+        return sorted(((key, e) for key, e in self.reg[g].items() if e[1] == 0 and key != protect),
+                      key=lambda it: it[1][2])
+
+    def admit(self, total, prompt):
+        need_all = -(-total // self.ps)
+        best = None
+        for g in range(len(self.slots)):
+            if not self.slots[g]:
+                continue
+            h = self._hit(g, prompt) if prompt is not None else None
+            k = h[1] if h else 0
+            free = self.pages[g] + sum(e[0] for _, e in self._evictable(g, h and h[0]))
+            if free < need_all - k:
+                continue
+            if best is None or (k, self.pages[g]) > best[0]:
+                best = ((k, self.pages[g]), g, h)
+        if best is None:
+            return None
+        _, g, h = best
+        need = need_all - (h[1] if h else 0)
+        for key, e in self._evictable(g, h and h[0]):
+            if self.pages[g] >= need:
+                break
+            self.pages[g] += self.reg[g].pop(key)[0]
+        self.pages[g] -= need
+        slot = self.slots[g].pop(0)
+        if h:
+            self.tick += 1
+            e = self.reg[g][h[0]]
+            e[1] += 1
+            e[2] = self.tick
+            self.hit[slot] = h
+        if prompt is not None:
+            self.prompt[slot] = list(prompt)
+        return slot
+
+    def release(self, slots, lens):
+        for s, n in zip(slots, lens):
+            g, back = s // self.M, -(-n // self.ps)
+            h, prompt = self.hit.pop(s, None), self.prompt.pop(s, None)
+            if h:
+                self.reg[g][h[0]][1] -= 1
+                back -= h[1]
+            elif prompt is not None and len(prompt) >= self.ps:
+                full = len(prompt) // self.ps
+                key = tuple(prompt[:full * self.ps])
+                if key not in self.reg[g]:
+                    self.tick += 1
+                    self.reg[g][key] = [full, 0, self.tick]
+                    back -= full
+            self.pages[g] += back
+            self.slots[g].append(s)
+
+
+def host_placements(events, dp, engine_kw):
+    """The slots the host model gives each recorded admission."""
+    model = HostModel(dp, engine_kw["max_reqs"] // dp, engine_kw["num_pages"] // dp,
+                      engine_kw["page_size"])
+    out = []
+    for ev in events:
+        if ev[0] == "admit":
+            _, lens, prompts, _ = ev
+            out.append([model.admit(n, prompts[i] if prompts else None)
+                        for i, n in enumerate(lens)])
+        else:
+            model.release(ev[1], ev[2])
+    return out
+
+
+def dp_child(rank, port, workdir, dev=None):
+    """One dp 2 rank (``--dp-child``): joins the gloo group on the card,
+    builds each path's engine from the same seeded weights on the dp 2
+    mesh, runs phase 12's flow (``dp_flow``) and the teacher-forced gaps at
+    dp 1's streams, and writes its results to ``workdir``."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.ops import _build
+    from lite_llama_tpu_torch.parallel import distributed, shardings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda")
+    if dev.type == "cuda":
+        _build.build()  # the parent built every kernel: this loads them
+    distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=600)
+    mesh = shardings.make_mesh(dp=2)
+    cfg = spec_config()
+    prompts = dp_prompts(cfg)
+    ref = torch.load(f"{workdir}/dp_reference.pt")
+    res = {"rank": rank, "paths": {}}
+    for path, (kv, int4) in DP_PATHS.items():
+        params = dp_weights(cfg, dev, int4)
+        engine = InferenceEngine(cfg, params, device=dev, kv_quant=kv, mesh=mesh, **DP_ENGINE)
+        del params
+        got = dp_flow(engine, prompts)
+        rec = got.pop("rec")
+        rec["generate_ms_per_token"] = rec["generate_s"] / DP_GEN * 1e3
+        rec["dp_rank"] = engine.shard.dp_rank
+        # Forced decode of the group's own rows at the group's width: the
+        # logits the dp 1 engine reads at width 12, per request.
+        timed = [ev[3] for ev in got["events"] if ev[0] == "admit"][1]
+        mine = [i for i, s in enumerate(timed) if engine.group_of(s) == engine.shard.dp_rank]
+        forced = forced_logits(engine, [prompts["batch"][i] for i in mine],
+                               [ref[path]["stream"][i] for i in mine]).cpu()
+        torch.save(dict(rows=mine, forced=forced), f"{workdir}/dp_{path}_rank{rank}.pt")
+        if rank == 0:
+            got["gaps"] = teacher_forced_gaps(engine, prompts["batch"], ref[path]["stream"])[1]
+            got["shared_gaps"] = teacher_forced_gaps(engine, prompts["shared"],
+                                                     ref[path]["shared"])[1]
+            torch.save(got, f"{workdir}/dp_{path}.pt")
+        res["paths"][path] = rec
+        del engine
+        free_device()
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("DP_CHILD " + json.dumps(res), flush=True)
+    return 0
+
+
+def run_children(flag, workdir, timeout=900):
+    """Two processes of this script (``flag`` r --port p --dir d) on the
+    card; returns their JSON result lines. A child that fails fails the
+    phase, and none outlives it."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, __file__, flag, str(r), "--tp-port", str(port),
+                               "--tp-dir", workdir], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(text[-6000:])
+        require(p.returncode == 0, f"{flag} rank {r} failed with exit code {p.returncode}")
+    tag = {"--dp-child": "DP_CHILD ", "--cp-child": "CP_CHILD "}[flag]
+    return [json.loads(next(ln for ln in text.splitlines() if ln.startswith(tag))[len(tag):])
+            for text in logs]
+
+
+def parting_problems(name, got, want, gaps, max_abs):
+    """Streams equal, but where one parts from the reference its
+    teacher-forced gap there is within 2x the measured max-abs difference
+    (the rule of phases 4, 10 and 11): (partings, worst gap, problems)."""
+    partings, worst, problems = 0, 0.0, []
+    for b, (g, w) in enumerate(zip(got, want)):
+        t = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if t is None:
+            continue
+        partings += 1
+        gap = gaps[b][t]
+        worst = max(worst, gap)
+        if gap > 2 * max_abs:
+            problems.append(f"{name}: request {b} parts at token {t} with gap {gap}")
+    return partings, worst, problems
+
+
+def dp_phase(dev):
+    """Llama-3.2-3B at full width and depth, dp 2: two processes of this
+    script on the one card over a gloo group, against the dp 1 engine on
+    the same seeded weights in this process (module docstring, phase 12)."""
+    import tempfile
+
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+
+    t_phase = time.perf_counter()
+    cfg = spec_config()
+    prompts = dp_prompts(cfg)
+    ref = {}
+    for path, (kv, int4) in DP_PATHS.items():
+        params = dp_weights(cfg, dev, int4)
+        engine = InferenceEngine(cfg, params, device=dev, kv_quant=kv, **DP_ENGINE)
+        del params
+        r = dp_flow(engine, prompts)
+        ref[path] = dict(stream=r["stream"], first=r["first"], shared=r["shared"],
+                         generate_s=r["rec"]["generate_s"],
+                         forced=forced_logits(engine, prompts["batch"], r["stream"]).cpu())
+        del engine
+        free_device()
+    workdir = tempfile.mkdtemp(prefix="dp_phase_")
+    torch.save(ref, f"{workdir}/dp_reference.pt")
+    t0 = time.perf_counter()
+    ranks = run_children("--dp-child", workdir)
+    out, problems, by_path = {"children_s": time.perf_counter() - t0}, [], {}
+    L = cfg.num_hidden_layers
+    for path in DP_PATHS:
+        got, want = torch.load(f"{workdir}/dp_{path}.pt"), ref[path]
+        forced = torch.empty_like(want["forced"])
+        for r in range(2):
+            part = torch.load(f"{workdir}/dp_{path}_rank{r}.pt")
+            forced[part["rows"]] = part["forced"]
+        max_abs = float(max((got["first"] - want["first"]).abs().max(),
+                            (forced - want["forced"]).abs().max()))
+        rec = dict(first_rel_rms=rel_rms(got["first"], want["first"]),
+                   forced_rel_rms=rel_rms(forced, want["forced"]), max_abs_diff=max_abs,
+                   dp1_ms_per_token=want["generate_s"] / DP_GEN * 1e3)
+        for name, g, w, gaps in (("batch", got["stream"], want["stream"], got["gaps"]),
+                                 ("shared", got["shared"], want["shared"],
+                                  got["shared_gaps"])):
+            n, worst, probs = parting_problems(f"{path} {name}", g, w, gaps, max_abs)
+            rec[f"{name}_streams_equal"] = sum(a == b for a, b in zip(g, w))
+            rec[f"{name}_partings"], rec[f"{name}_max_parting_gap"] = n, worst
+            problems += probs
+        model = host_placements(got["events"], 2, DP_ENGINE)
+        engine_slots = [ev[3] for ev in got["events"] if ev[0] == "admit"]
+        rec["placements_equal_host_model"] = model == engine_slots
+        if model != engine_slots:
+            problems.append(f"{path}: placements {engine_slots} differ from the host model's "
+                            f"{model}")
+        M = DP_ENGINE["max_reqs"] // 2
+        warm, shared = engine_slots[-2][0], engine_slots[-1]
+        rec["shared_groups"] = sorted({s // M for s in shared})
+        if rec["shared_groups"] != [warm // M]:
+            problems.append(f"{path}: prefix hits outside the entry's group {warm // M}: "
+                            f"{shared}")
+        steps = DP_GEN - 1
+        for rk in ranks:
+            prec = rk["paths"][path]
+            d = prec["dp_rank"]
+            group_width = sum(1 for s in engine_slots[1] if s // M == d)
+            k1 = "paged_flash_decode_int8" if DP_PATHS[path][0] else "paged_flash_decode"
+            rec[f"rank{d}"] = dict(
+                decode_ms_per_token=prec["generate_ms_per_token"], widths=prec["widths"],
+                group_width=group_width, k1_launches=prec["launches"][k1],
+                shared_hits=prec["shared_hits"],
+                graph_gate={k: prec["graph_gate"][k] for k in
+                            ("width", "bit_equal", "planted_fault_caught", "graph_ms_per_step",
+                             "eager_ms_per_step")})
+            log(f"  dp rank {d} {path} launches: "
+                + json.dumps({k: v for k, v in prec["launches"].items() if v}))
+            if prec["launches"][k1] != L * steps or prec["widths"][-1:] != [group_width]:
+                problems.append(f"{path}: rank {d} launched {k1} {prec['launches'][k1]} times "
+                                f"at widths {prec['widths']}, not {L} x {steps} at its "
+                                f"group's {group_width}")
+            gg = prec["graph_gate"]
+            if not (gg["bit_equal"] and gg["planted_fault_caught"]):
+                problems.append(f"{path}: rank {d} graph gate {gg}")
+            if prec["shared_hits"] != len(prompts["shared"]):
+                problems.append(f"{path}: rank {d} counted {prec['shared_hits']} prefix hits")
+            missing = [k for k in DP_PATH_KERNELS[path] if prec["launches"][k] == 0]
+            if missing:
+                problems.append(f"{path}: rank {d} never launched {missing}")
+        by_path[path] = {k: sum(rk["paths"][path]["launches"][k] for rk in ranks)
+                         for k in KERNELS}
+        out[path] = rec
+    shutil.rmtree(workdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["time_shared"] = "two ranks time-share one card; their ms are not dp's speed"
+    log("dp: " + json.dumps(out))
+    require(not problems, f"phase 12 gates failed: {problems}")
+    return out, by_path
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: context parallelism, two ranks sharing the card over gloo
+
+CP_PROMPT = 4000  # ids in each of 4 prompts: both ranks own pages of every request
+CP_GEN = 64
+CP_FORCED = 8  # teacher-forced decode steps of the logits gate
+CP_PATHS = {"bf16": False, "int8_pool": "int8"}
+CP_PATH_KERNELS = {"bf16": ("paged_flash_decode", "flash_prefill_chunked"),
+                   "int8_pool": ("paged_flash_decode_int8", "flash_prefill_chunked_int8")}
+CP_ENGINE = dict(page_size=16, max_reqs=4, num_pages=1056, decode_chunk=32, prefill_chunk=512)
+# The logits gate, relative RMS of cp 2's logits against cp 1's on the same
+# weights (the first token after chunked prefill, and after CP_FORCED
+# teacher-forced decode steps), set between the readings and the planted
+# faults on an H100 (PERF.md).
+# Read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 0.045-0.046 (bf16 and
+# int8 pool, first token and forced); faults 0.11-1.34, the tail on both
+# ranks the smallest (0.11-0.27: which rank owns a tail follows the pages'
+# placement).
+CP_REL_RMS = {"bf16": 0.075, "int8_pool": 0.075}
+CP_PLANTED = ("a rank skips the combine", "the chunk scored on both ranks",
+              "the tail page counted on both ranks")
+CP_PATH_FAULTS = {"bf16": CP_PLANTED, "int8_pool": CP_PLANTED[2:]}
+
+
+def cp_config():
+    """Llama-3.2-3B as phase 11 runs it, with room for phase 13's prompts."""
+    return dataclasses.replace(spec_config(), max_seq_len=CP_PROMPT + CP_GEN + 96)
+
+
+def cp_prompts(cfg):
+    rng = np.random.default_rng(SEED + 13)
+    return rng.integers(0, cfg.vocab_size, (4, CP_PROMPT)).tolist()
+
+
+@contextlib.contextmanager
+def cp_fault(name):
+    """One of phase 13's planted faults in ``parallel/context_parallel.py``
+    for the duration (None: none)."""
+    from unittest import mock
+
+    from lite_llama_tpu_torch.parallel import context_parallel as cpm
+
+    if name is None:
+        yield
+        return
+    if name == CP_PLANTED[0]:
+        patch = mock.patch.object(cpm, "combine_ranks", lambda out, m, l, shard: (out, m, l))
+    elif name == CP_PLANTED[1]:
+        def both(q, k, v, chunk_lens, start_pos, kv_pool, layer, table_rows, shard,
+                 sm_scale=None):  # every rank scores the chunk
+            loc = cpm.rank_share(kv_pool, shard)
+            pt, hist = cpm.local_page_view(table_rows, start_pos, kv_pool.page_size, loc,
+                                           shard.cp_rank)
+            out, m, l = cpm.flash_prefill_chunked(q, k, v, chunk_lens, hist, kv_pool, layer, pt,
+                                                  sm_scale, return_state=True)
+            return cpm.combine_ranks(out, m, l, shard)[0]
+
+        patch = mock.patch.object(cpm, "cp_flash_prefill_chunked", both)
+    else:
+        patch = mock.patch.object(cpm, "local_page_view", tail_on_both_view)
+    with patch:
+        yield
+
+
+def cp_forced(engine, prompts, forced, steps):
+    """Prefill ``prompts`` through the engine (chunked, first-token logits),
+    then ``steps`` decode steps through decoder_decode on the engine's own
+    cache, fed the ``forced`` streams (step s feeds token s): (first-token
+    logits, logits after CP_FORCED steps, each position's argmax and its
+    top logit minus the stream's token's, the local kv tokens each context
+    rank holds after the prefill)."""
+    from lite_llama_tpu_torch.executor import kv_cache as kvc
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_decode
+    from lite_llama_tpu_torch.parallel.context_parallel import local_page_view
+
+    dev, cfg = engine.device, engine.config
+    B = len(prompts)
+    total = [len(p) + steps + 1 for p in prompts]
+    slots = engine.admit_requests(total)
+    try:
+        _, _, first, _ = engine.prefill(prompts, SamplingParams.make(B, 0.0, device="cpu"), slots,
+                                        return_logits=True)
+        c = engine.cache
+        sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+        loc = c.kv_pages.num_tokens // engine.page_size
+        local = [int(local_page_view(c.page_table[sl.long()], c.seq_lens[sl.long()],
+                                     engine.page_size, loc, r)[1].sum())
+                 for r in range(engine.cp)]
+        at, tops, gaps = None, [], []
+
+        def read(lg, pos):  # the argmax and the gap at the stream's token ``pos``
+            want = torch.tensor([f[pos] for f in forced], device=dev)
+            tops.append(lg.argmax(-1).tolist())
+            gaps.append((lg.max(-1).values - lg.gather(-1, want[:, None])[:, 0]).tolist())
+
+        read(torch.from_numpy(first).to(dev).float(), 0)
+        with torch.inference_mode():
+            for step in range(steps):
+                tok = torch.tensor([f[step] for f in forced], dtype=torch.long, device=dev)
+                kvc.alloc_decode(c, sl)
+                n = c.seq_lens[sl.long()]
+                ctx = AttnContext(c.page_table[sl.long()], n, n - 1, torch.ones_like(n))
+                lg = decoder_decode(engine.params, cfg, c.kv_pages, ctx, tok,
+                                    shard=engine.shard)[0].float()
+                if step + 1 == CP_FORCED:
+                    at = lg.cpu()
+                if step + 1 < len(forced[0]):
+                    read(lg, step + 1)
+    finally:
+        engine.release_slots(slots, total)
+    return (torch.from_numpy(first).float(), at, np.asarray(tops).T.tolist(),
+            np.asarray(gaps).T.tolist(), local)
+
+
+def cp_run(engine, prompts, forced_stream=None, faults=()):
+    """Phase 13's runs on one engine: the timed generate (its prefill
+    included: the steps run eagerly, there is no graph to capture first),
+    then the forced readings (on ``forced_stream``, default the engine's
+    own), with each planted fault's first-token and forced logits."""
+    from lite_llama_tpu_torch.generation.generate import TextGenerator
+
+    dev = engine.device
+    gen = TextGenerator(engine)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = gen.generate_tokens(prompts, max_gen_len=CP_GEN, temperature=0.0)
+    sync(dev)
+    rec = dict(generate_s=time.perf_counter() - t0, launches=read_counts())
+    stream = [o.token_ids for o in out]
+    forced = forced_stream or stream
+    first, at, tops, gaps, local = cp_forced(engine, prompts, forced, CP_GEN - 1)
+    rec["local_kv_tokens"] = local
+    fault_logits = {}
+    for name in faults:
+        with cp_fault(name):
+            f_first, f_at, _, _, _ = cp_forced(engine, prompts, forced, CP_FORCED)
+        fault_logits[name] = (f_first, f_at)
+    return dict(stream=stream, first=first, forced=at, tops=tops, gaps=gaps,
+                faults=fault_logits, rec=rec)
+
+
+def cp_child(rank, port, workdir, dev=None):
+    """One cp 2 rank (``--cp-child``): joins the gloo group on the card,
+    builds each path's engine on the cp 2 mesh (the rank's half of the
+    pool), runs phase 13's readings and planted faults, and writes its
+    results to ``workdir``."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.ops import _build
+    from lite_llama_tpu_torch.parallel import distributed, shardings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda")
+    if dev.type == "cuda":
+        _build.build()
+    distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=600)
+    mesh = shardings.make_mesh(cp=2)
+    cfg = cp_config()
+    prompts = cp_prompts(cfg)
+    ref = torch.load(f"{workdir}/cp_reference.pt")
+    params = dp_weights(cfg, dev, False)
+    res = {"rank": rank, "paths": {}}
+    for path, kv in CP_PATHS.items():
+        engine = InferenceEngine(cfg, params, device=dev, kv_quant=kv, mesh=mesh, **CP_ENGINE)
+        got = cp_run(engine, prompts, ref[path]["stream"], CP_PATH_FAULTS[path])
+        rec = got.pop("rec")
+        rec["generate_ms_per_token"] = rec["generate_s"] / CP_GEN * 1e3
+        rec["cp_rank"] = engine.shard.cp_rank
+        rec["pool_pages"] = engine.cache.kv_pages.num_tokens // engine.page_size
+        if rank == 0:
+            torch.save(got, f"{workdir}/cp_{path}.pt")
+        res["paths"][path] = rec
+        del engine
+        free_device()
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("CP_CHILD " + json.dumps(res), flush=True)
+    return 0
+
+
+def cp_phase(dev):
+    """Llama-3.2-3B at full width and depth, cp 2: two processes of this
+    script on the one card over a gloo group, each holding half of the
+    pool, against the cp 1 engine on the same seeded weights in this
+    process (module docstring, phase 13)."""
+    import tempfile
+
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+
+    t_phase = time.perf_counter()
+    cfg = cp_config()
+    prompts = cp_prompts(cfg)
+    params = dp_weights(cfg, dev, False)
+    ref = {}
+    for path, kv in CP_PATHS.items():
+        engine = InferenceEngine(cfg, params, device=dev, kv_quant=kv, **CP_ENGINE)
+        r = cp_run(engine, prompts)
+        ref[path] = dict(stream=r["stream"], first=r["first"], forced=r["forced"],
+                         generate_s=r["rec"]["generate_s"])
+        del engine
+        free_device()
+    del params
+    free_device()
+    workdir = tempfile.mkdtemp(prefix="cp_phase_")
+    torch.save(ref, f"{workdir}/cp_reference.pt")
+    t0 = time.perf_counter()
+    ranks = run_children("--cp-child", workdir)
+    out, problems, by_path = {"children_s": time.perf_counter() - t0}, [], {}
+    total = len(prompts) * CP_PROMPT
+    for path in CP_PATHS:
+        got, want = torch.load(f"{workdir}/cp_{path}.pt"), ref[path]
+        limit = CP_REL_RMS[path]
+        max_abs = float(max((got["first"] - want["first"]).abs().max(),
+                            (got["forced"] - want["forced"]).abs().max()))
+        rec = dict(first_rel_rms=rel_rms(got["first"], want["first"]),
+                   forced_rel_rms=rel_rms(got["forced"], want["forced"]),
+                   max_abs_diff=max_abs, limit=limit,
+                   cp1_ms_per_token=want["generate_s"] / CP_GEN * 1e3)
+        for name in ("first_rel_rms", "forced_rel_rms"):
+            if rec[name] > limit:
+                problems.append(f"{path}: {name} {rec[name]:.4f} > {limit}")
+        n, worst, probs = parting_problems(path, got["stream"], want["stream"], got["gaps"],
+                                           max_abs)
+        rec.update(streams_equal=sum(a == b for a, b in zip(got["stream"], want["stream"])),
+                   partings=n, max_parting_gap=worst)
+        problems += probs
+        rec["faults"] = {}
+        for fname, (f_first, f_at) in got["faults"].items():
+            r = max(rel_rms(f_first, want["first"]), rel_rms(f_at, want["forced"]))
+            rec["faults"][fname] = dict(rel_rms=r, caught=r > limit)
+            if r <= limit:
+                problems.append(f"{path}: planted fault '{fname}' passed the gate ({r:.4f})")
+        sums = []
+        for rk in ranks:
+            prec = rk["paths"][path]
+            c = prec["cp_rank"]
+            sums.append(prec["local_kv_tokens"][c])
+            k1, k5 = CP_PATH_KERNELS[path]
+            rec[f"rank{c}"] = dict(decode_ms_per_token=prec["generate_ms_per_token"],
+                                   pool_pages=prec["pool_pages"], k1_launches=prec["launches"][k1],
+                                   k5_launches=prec["launches"][k5],
+                                   local_kv_tokens=prec["local_kv_tokens"][c])
+            log(f"  cp rank {c} {path}: {k1} {prec['launches'][k1]}, {k5} "
+                f"{prec['launches'][k5]}, local kv tokens {prec['local_kv_tokens'][c]} of {total}")
+            if not (prec["launches"][k1] and prec["launches"][k5]):
+                problems.append(f"{path}: rank {c} launched {k1} / {k5} "
+                                f"{prec['launches'][k1]} / {prec['launches'][k5]} times")
+            if prec["pool_pages"] * 2 != CP_ENGINE["num_pages"]:
+                problems.append(f"{path}: rank {c} holds {prec['pool_pages']} pages")
+        rec["local_kv_tokens_sum"] = sum(sums)
+        if sum(sums) != total or min(sums) == 0:
+            problems.append(f"{path}: the ranks' local kv tokens {sums} do not make up {total}")
+        by_path[path] = {k: sum(rk["paths"][path]["launches"][k] for rk in ranks)
+                         for k in KERNELS}
+        out[path] = rec
+    shutil.rmtree(workdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["time_shared"] = "two ranks time-share one card; their ms are not cp's speed"
+    log("cp: " + json.dumps(out))
+    require(not problems, f"phase 13 gates failed: {problems}")
+    return out, by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4179,6 +5239,8 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase (no slice, no final ok line)")
     ap.add_argument("--tp-child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--cp-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4189,6 +5251,10 @@ def main() -> int:
         return 1
     if args.tp_child is not None:  # one rank of phase 11, started by phase 11
         return tp_child(args.tp_child, args.tp_port, args.tp_dir)
+    if args.dp_child is not None:  # one rank of phase 12
+        return dp_child(args.dp_child, args.tp_port, args.tp_dir)
+    if args.cp_child is not None:  # one rank of phase 13
+        return cp_child(args.cp_child, args.tp_port, args.tp_dir)
     from lite_llama_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references stay fp32
@@ -4224,7 +5290,8 @@ def main() -> int:
     by_path = {p: {k: None for k in KERNELS}
                for p in ("batch", "serving", "quantized", "fp8_kv", "open_llama", "checkpoint",
                          "eval", "eval_int8_kv", "eval_fp8_kv", "llava", "spec",
-                         "spec_quantized", "tp_bf16", "tp_int8_pool", "tp_int4_riffle_tp2")}
+                         "spec_quantized", "tp_bf16", "tp_int8_pool", "tp_int4_riffle_tp2",
+                         "dp_bf16", "dp_int4_int8_pool", "cp_bf16", "cp_int8_pool")}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
@@ -4241,6 +5308,7 @@ def main() -> int:
         t0 = time.perf_counter()
         serving, by_path["serving"] = serving_phase(dev, cfg, params)
         serving["prefill_invariants"] = prefill_invariants(dev, cfg, params)
+        serving["prefill_dispatch"] = prefill_dispatch_gate(dev, cfg, params)
         serving["seconds"] = time.perf_counter() - t0
         log("serving: " + json.dumps(serving))
 
@@ -4287,6 +5355,16 @@ def main() -> int:
         summary, tp_paths = tp_phase(dev)
         by_path.update({f"tp_{k}": v for k, v in tp_paths.items()})
         log(f"  phase 11 took {summary['seconds']:.1f} s")
+        free_device()
+        log("phase 12: data parallelism (Llama-3.2-3B, dp 2: two ranks on the card, gloo)")
+        summary, dp_paths = dp_phase(dev)
+        by_path.update({f"dp_{k}": v for k, v in dp_paths.items()})
+        log(f"  phase 12 took {summary['seconds']:.1f} s")
+        free_device()
+        log("phase 13: context parallelism (Llama-3.2-3B, cp 2: two ranks on the card, gloo)")
+        summary, cp_paths = cp_phase(dev)
+        by_path.update({f"cp_{k}": v for k, v in cp_paths.items()})
+        log(f"  phase 13 took {summary['seconds']:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -8,8 +8,9 @@ and the prefix cache, and runs prefill and decode:
   ``prefill_chunk`` with no prefix-cache hit go as one padded [B, S_max]
   batch through ``decoder_prefill`` with ``last_only`` (K2 on the card).
   Longer prompts and prefix-cache hits go chunk by chunk through the
-  paged-history path (``_prefill_chunk_step``, K5), each request starting
-  after its cached pages. The first token is sampled on the device, and the
+  paged-history path (``ChunkStep``, K5), each request starting after its
+  cached pages; on the card a full chunk is a replayed CUDA graph, so a
+  long prompt's prefill returns at dispatch. The first token is sampled on the device, and the
   host-bound outputs are copied back without blocking the dispatch.
 - decode: a ``DecodeSession`` holds one batch's slots, tokens, done flags,
   stop lengths and sampling rows on the device. ``dispatch_decode_chunk``
@@ -43,9 +44,8 @@ and the prefix cache, and runs prefill and decode:
   raise).
 
 The JAX engine pads batch and prompt widths to buckets to bound XLA
-recompiles and lays batches out in data-parallel groups. PyTorch compiles
-nothing per shape and the port has no data parallelism, so every batch runs
-at its own width in caller order (no sentinel rows, no group layout).
+recompiles. PyTorch compiles nothing per shape, so every batch runs at its
+own width (no sentinel rows).
 
 Quantized weights (``quant/qtensor.py``) and int8 / fp8 KV pools
 (``kv_quant``) run through the same paths; packed int4 wq/wkv are fused into
@@ -59,11 +59,30 @@ accounting, as the JAX package's SPMD host replication does: the caller
 issues the same requests in the same order on every rank, and the seeded
 generator samples the same token on each from the gathered logits. At tp >
 1 the decode steps run eagerly (no CUDA graph: a gloo collective cannot be
-captured, and a captured NCCL step needs a card per rank to be checked);
-speculative decoding, the scheduler and the server refuse tp > 1 (they
-need a rank-0 broadcast of requests, ROADMAP A7d).
+captured, and a captured NCCL step needs a card per rank to be checked).
 
-Not ported yet, and refused: data and context parallelism.
+Data parallelism (a mesh with dp > 1), as the JAX engine's SPMD host
+replication runs it: every rank issues the same calls and keeps the host
+accounting of every data group (``dp`` groups of ``max_reqs / dp`` slots
+and ``num_pages / dp`` pages, a prefix registry each), so admission places
+each request in the group with the longest prefix hit, then the most free
+pages, alike on every rank. A rank holds the device state of its own group
+only: a pool of the group's pages with local slot and page ids. Each
+prefill or decode call runs the group's rows of the batch, and one
+all-gather over the data groups puts the sampled tokens and logprobs in the
+caller's order on every rank (JAX's ``_fetch``); every rank knows each
+group's rows, so the gather needs no size exchange, and a group with no row
+in a call joins it with zeros. Each rank's generator folds in its group
+index (JAX's ``_dp_key``). At tp 1 a rank's decode step stays a replayed
+CUDA graph: the gather comes after the chunk.
+
+Context parallelism (cp > 1; it composes with neither dp nor tp, as in the
+JAX engine): the weights and the host state are whole on every rank, the
+pool holds the rank's share of the pages (``parallel/context_parallel.py``),
+and the steps run eagerly (each layer holds a collective).
+
+Speculative decoding, the scheduler and the server refuse a mesh of more
+than one rank: they need requests broadcast from rank 0 (ROADMAP A7e).
 """
 
 from __future__ import annotations
@@ -82,6 +101,7 @@ from ..config import BaseConfig
 from ..generation.sampling import SamplingParams, log_softmax_gather, needs_exact_sampling, sample
 from ..models.decoder import AttnContext, decoder_decode, decoder_prefill, fuse_qkv_params
 from ..ops import add_launches, launch_counts
+from ..parallel import distributed
 from ..parallel.shardings import ShardingPolicy
 from ..quant.qtensor import QTensor
 from .kv_cache import (
@@ -110,6 +130,9 @@ class DecodeSession:
     stop: torch.Tensor
     samp: SamplingParams
     mode: str
+    # Data parallelism: the caller's rows of each data group, in order; the
+    # tensors above hold this rank's group's rows only (local slot ids).
+    layout: Optional[tuple] = None
 
 
 def require_device(device) -> torch.device:
@@ -253,6 +276,59 @@ class DecodeStep(_ReplayedStep):
         self.done.copy_(done | torch.isin(next_tok, e._eos) | (seq >= self.stop))
         self.tok.copy_(next_tok)
         self.step.add_(1)
+
+
+class ChunkStep(_ReplayedStep):
+    """One chunk of a chunked prefill (long prompts, prefix hits) of B
+    requests and chunk width W, over static buffers: the chunk's ids, each
+    request's length and chunk start, its table row, and the running
+    last-position logits. Positions [start[b], start[b] + W) of request b
+    run, with min(start[b], lens[b]) tokens of history in the pool (a
+    request already consumed runs an empty chunk); the logits of a request
+    whose prompt ends in the chunk replace its running row, and ``start``
+    advances by W. On the card a full chunk's step is captured and replayed
+    once a chunk (``InferenceEngine.chunk_step_for``): an eager chunk of a
+    28-layer model launches ~1,700 kernels, and CUDA holds about 1,024
+    launches in flight, so where the device ran longer than the host took
+    to launch, the caller's thread waited for the device through the
+    prefill; replayed, a prefill enqueues a few launches a chunk and
+    returns at dispatch. Its warm-up runs with every length 0: no KV row
+    changes, and the logits stay as they are.
+    ``hist_bound`` bounds the history the plain CPU form gathers (the
+    kernel walks each request's own pages)."""
+
+    def __init__(self, engine: "InferenceEngine", width: int, W: int):
+        dev = engine.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        super().__init__(engine)
+        self.W = W
+        self.hist_bound = None
+        self.ids = torch.zeros((width, W), dtype=torch.long, device=dev)
+        self.lens = torch.zeros(width, **i32)
+        self.start = torch.zeros(width, **i32)
+        self.table = torch.zeros((width, engine.cache.pages_per_req), **i32)
+        self.last = torch.zeros((width, engine.config.vocab_size), dtype=torch.float32,
+                                device=dev)
+
+    @torch.inference_mode()
+    def load(self, lens, start, table) -> None:
+        """A prefill's lengths, first chunk starts (its cached tokens) and
+        table rows; the running logits zeroed."""
+        for dst, src in ((self.lens, lens), (self.start, start), (self.table, table)):
+            dst.copy_(src)
+        self.last.zero_()
+
+    def body(self) -> None:
+        e, W, lens, start = self.engine, self.W, self.lens, self.start
+        ctx = AttnContext(table_rows=self.table, seq_lens=lens,
+                          start_pos=torch.minimum(lens, start),  # history per request
+                          chunk_lens=(lens - start).clamp(0, W))
+        logits, _ = decoder_prefill(e.params, e.config, e.cache.kv_pages, ctx, self.ids,
+                                    last_only=True, chunked=True, hist_bound=self.hist_bound,
+                                    shard=e.shard)
+        ends_here = (lens > start) & (lens <= start + W)
+        self.last.copy_(torch.where(ends_here[:, None], logits, self.last))
+        self.start.add_(W)
 
 
 def accepted_drafts(chunk: torch.Tensor, chunk_lens: torch.Tensor,
@@ -446,7 +522,8 @@ class PrefixCache:
 
 
 class InferenceEngine:
-    """Owns params + paged KV cache for one model on one device."""
+    """Owns params + paged KV cache for one model: on one device, or one
+    rank's share of them on a mesh (module docstring)."""
 
     def __init__(
         self,
@@ -466,6 +543,13 @@ class InferenceEngine:
         seed: int = 0,
     ):
         self.shard = ShardingPolicy(mesh=mesh)
+        self.dp, self.cp = self.shard.dp, self.shard.cp
+        if self.cp > 1 and (self.dp > 1 or self.shard.tp > 1):
+            raise ValueError(
+                "context parallelism (cp mesh axis) composes with neither dp nor tp inside the "
+                "engine, as in the JAX engine: build the mesh with cp alone (make_mesh(cp=N))")
+        if max_reqs % self.dp:
+            raise ValueError(f"dp={self.dp} does not divide max_reqs={max_reqs}")
         self.device = require_device(device)
         if "lm" in params:
             raise ValueError("a LLaVA parameter tree: build a LlavaEngine "
@@ -489,25 +573,36 @@ class InferenceEngine:
         self.kv_quant = kv_quant
         self.page_size = page_size
         self.max_reqs = max_reqs
+        self.M_local = max_reqs // self.dp  # slots of one data group
         self.decode_chunk = decode_chunk
         self.prefill_chunk = prefill_chunk
         if num_pages is None:
             num_pages = self._auto_num_pages(hbm_util)
+        # Equal pools per data group, equal shares per context rank.
+        num_pages -= num_pages % (self.dp * self.cp)
         self.num_pages = num_pages
+        group_pages = num_pages // self.dp
         kv_heads, head_offset = self.shard.local_kv_heads(config.num_key_value_heads)
+        # This rank's device state: its data group's pool (local slot and
+        # page ids), its context rank's share of the pages.
         self.cache = create_kv_cache(
             config.num_hidden_layers, kv_heads, config.head_dim,
-            num_pages=num_pages, page_size=page_size, max_reqs=max_reqs,
+            num_pages=group_pages, page_size=page_size, max_reqs=self.M_local,
             max_seq_len=config.max_seq_len, dtype=config.dtype, device=self.device,
-            quantized=kv_quant, head_offset=head_offset,
+            quantized=kv_quant, head_offset=head_offset, cp=(self.shard.cp_rank, self.cp),
         )
         self._gen = torch.Generator(device=self.device)
+        if self.dp > 1:  # each group draws its own numbers (JAX's _dp_key)
+            seed = int(np.random.SeedSequence([seed, self.shard.dp_rank]).generate_state(1)[0])
         self._gen.manual_seed(seed)
-        self._free_slots = list(range(max_reqs))
-        self._host_free_pages = num_pages
+        # Host accounting of every data group, identical on every rank.
+        self._slots_by_group = [list(range(g * self.M_local, (g + 1) * self.M_local))
+                                for g in range(self.dp)]
+        self._pages_by_group = [group_pages] * self.dp
+        self._group_pages_total = group_pages
         self.stats = EngineStats()
-        self.prefix = PrefixCache() if prefix_cache else None
-        self._slot_prefix = {}  # slot -> (key, n_pages, page_ids) of its prefix hit
+        self.prefixes = [PrefixCache() for _ in range(self.dp)] if prefix_cache else None
+        self._slot_prefix = {}  # slot -> (group, key, n_pages, page_ids) of its prefix hit
         self._slot_prompt = {}  # slot -> prompt tokens (registered on release)
         # Slots that actually ran prefill: only these may donate pages on
         # release (a rolled-back admission's table rows are zeros or stale).
@@ -518,6 +613,8 @@ class InferenceEngine:
         self._steps = {}
         # Speculative verify steps by (width, K, ngram, history length, steps).
         self._spec_steps = {}
+        # Chunked-prefill steps by (batch width, chunk width).
+        self._chunk_steps = {}
         self._graph_pool = None
         self._graph_stream = None
         self._eos_list = None
@@ -541,56 +638,93 @@ class InferenceEngine:
         self.eos_ids = [t for t in ids if t >= 0]
         self._eos = torch.tensor(ids, dtype=torch.int32, device=self.device)
 
-    # -- host capacity accounting -----------------------------------------
+    # -- host capacity accounting (per data group) -------------------------
+    @property
+    def prefix(self) -> Optional[PrefixCache]:
+        """The prefix registry of data group 0: the engine's only one at dp
+        1 (None without the prefix cache); ``prefixes`` holds every group's."""
+        return self.prefixes[0] if self.prefixes else None
+
+    @property
+    def _free_slots(self) -> List[int]:
+        return [s for g in self._slots_by_group for s in g]
+
+    @property
+    def _host_free_pages(self) -> int:
+        return sum(self._pages_by_group)
+
+    def group_of(self, slot: int) -> int:
+        """The data group that owns a slot."""
+        return slot // self.M_local
+
+    def _mine(self, slot: int) -> bool:
+        return self.group_of(slot) == self.shard.dp_rank
+
     def admit_feasible(self, total_len: int) -> bool:
         """Could a request of ``total_len`` tokens EVER be admitted (with an
         idle engine)? False means waiting is pointless."""
         return (
             0 < total_len <= self.config.max_seq_len
-            and cdiv(total_len, self.page_size) <= self.num_pages
+            and cdiv(total_len, self.page_size) <= self._group_pages_total
         )
 
     def try_admit(self, total_len: int, prompt_tokens=None):
-        """Reserve a slot and the pages for ``total_len`` tokens beyond any
-        cached prefix of ``prompt_tokens``; returns the slot, or None when
-        either is short even after evicting unreferenced prefix entries. A
-        hit takes a reference on its entry and records the splice for
-        prefill."""
+        """Place one request: the data group with the longest prefix hit of
+        ``prompt_tokens`` (with the prefix cache), ties broken by the most
+        free pages, among the groups with a free slot and the pages for
+        ``total_len`` tokens beyond the hit (counting the entries it could
+        evict); evict there only, reserve the pages and return the slot, or
+        None. A hit takes a reference on its entry and records the splice
+        for prefill."""
         with self._admission_lock:
-            total_pages = cdiv(total_len, self.page_size)
-            hit = None
-            if self.prefix is not None and prompt_tokens is not None:
-                keys = PrefixCache.chain_keys(prompt_tokens, self.page_size)
-                # Never reuse the whole prompt: its last token is recomputed
-                # so that the logits for the first output token exist.
-                max_use = (len(prompt_tokens) - 1) // self.page_size
-                h = self.prefix.lookup(keys)
+            return self._try_admit_locked(total_len, prompt_tokens)
+
+    def _try_admit_locked(self, total_len: int, prompt_tokens=None):
+        total_pages = cdiv(total_len, self.page_size)
+        hits = [None] * self.dp
+        if self.prefixes is not None and prompt_tokens is not None:
+            keys = PrefixCache.chain_keys(prompt_tokens, self.page_size)
+            # Never reuse the whole prompt: its last token is recomputed so
+            # that the logits for the first output token exist.
+            max_use = (len(prompt_tokens) - 1) // self.page_size
+            for g, reg in enumerate(self.prefixes):
+                h = reg.lookup(keys)
                 if h is not None and min(h[1], max_use) > 0:
                     k_use = min(h[1], max_use)
-                    hit = (h[0], k_use, h[2][:k_use])
-            if not self._free_slots:
-                return None
-            need = total_pages - (hit[1] if hit else 0)
-            protect = hit[0] if hit else None
-            evictable = (sum(n for key, n in self.prefix.evictable() if key != protect)
-                         if self.prefix is not None else 0)
-            if self._host_free_pages + evictable < need:
-                return None
-            if self._host_free_pages < need:
-                self._evict_for(need, protect)
-            if self._host_free_pages < need:
-                return None  # fail closed rather than oversubscribe
-            self._host_free_pages -= need
-            slot = self._free_slots.pop(0)
-            if hit:
-                key, k_use, pages = hit
-                self.prefix.acquire(key)
-                self._slot_prefix[slot] = hit
-                self.stats.prefix_hits += 1
-                self.stats.prefix_tokens_reused += k_use * self.page_size
-            if self.prefix is not None and prompt_tokens is not None:
-                self._slot_prompt[slot] = list(prompt_tokens)
-            return slot
+                    hits[g] = (h[0], k_use, h[2][:k_use])
+        best, best_rank = None, None
+        for g in range(self.dp):
+            if not self._slots_by_group[g]:
+                continue
+            k = hits[g][1] if hits[g] else 0
+            protect = hits[g][0] if hits[g] else None
+            # Rank on the capacity the group could free; only the winner evicts.
+            evictable = (sum(n for key, n in self.prefixes[g].evictable() if key != protect)
+                         if self.prefixes is not None else 0)
+            if self._pages_by_group[g] + evictable < total_pages - k:
+                continue
+            rank = (k, self._pages_by_group[g])
+            if best is None or rank > best_rank:
+                best, best_rank = g, rank
+        if best is None:
+            return None
+        hit = hits[best]
+        need = total_pages - (hit[1] if hit else 0)
+        if self._pages_by_group[best] < need:
+            self._evict_for(best, need, hit[0] if hit else None)
+        if self._pages_by_group[best] < need:
+            return None  # fail closed rather than oversubscribe
+        self._pages_by_group[best] -= need
+        slot = self._slots_by_group[best].pop(0)
+        if hit:
+            key, k_use, pages = hit
+            self.prefixes[best].acquire(key)
+            self._slot_prefix[slot] = (best, key, k_use, pages)
+            self.stats.prefix_hits += 1
+            self.stats.prefix_tokens_reused += k_use * self.page_size
+        if self.prefixes is not None and prompt_tokens is not None:
+            self._slot_prompt[slot] = list(prompt_tokens)
+        return slot
 
     def admit_requests(self, total_lens: Sequence[int], prompts=None) -> List[int]:
         """try_admit for a whole batch; raises (and rolls back) if any
@@ -603,62 +737,88 @@ class InferenceEngine:
                     self.release_slots(slots, total_lens[: len(slots)])
                     raise RuntimeError(
                         f"KV capacity exhausted: {len(slots)}/{len(total_lens)} requests "
-                        f"placed (free pages: {self._host_free_pages}, free slots: "
-                        f"{len(self._free_slots)})"
+                        f"placed (free pages per group: {self._pages_by_group}, free slots per "
+                        f"group: {[len(g) for g in self._slots_by_group]})"
                     )
                 slots.append(s)
             return slots
 
-    def _evict_for(self, need: int, protect=None) -> None:
-        """Evict unreferenced prefix entries, least recently used first,
-        until ``need`` pages are free or nothing evictable remains.
-        ``protect`` shields the entry the caller is about to splice in."""
-        for key, _ in self.prefix.evictable():
-            if self._host_free_pages >= need:
+    def acquire_slots(self, n: int) -> List[int]:
+        """Slots alone, round-robin over the data groups, with no pages
+        reserved (JAX's legacy ``acquire_slots``; ``admit_requests`` also
+        reserves each request's pages in its group)."""
+        with self._admission_lock:
+            if len(self._free_slots) < n:
+                raise RuntimeError(f"request slots exhausted: want {n}, free "
+                                   f"{len(self._free_slots)}")
+            out, g = [], 0
+            while len(out) < n:
+                if self._slots_by_group[g % self.dp]:
+                    out.append(self._slots_by_group[g % self.dp].pop(0))
+                g += 1
+            return out
+
+    def _evict_for(self, g: int, need: int, protect=None) -> None:
+        """Evict data group ``g``'s unreferenced prefix entries, least
+        recently used first, until ``need`` pages are free or nothing
+        evictable remains. ``protect`` shields the entry the caller is about
+        to splice in. Only the group's own rank holds the pages."""
+        for key, _ in self.prefixes[g].evictable():
+            if self._pages_by_group[g] >= need:
                 return
             if key == protect:
                 continue
-            pages = self.prefix.pop(key)
-            with torch.inference_mode():
-                push_pages(self.cache, self._ids(pages),
-                           torch.ones(len(pages), dtype=torch.bool, device=self.device))
-            self._host_free_pages += len(pages)
+            pages = self.prefixes[g].pop(key)
+            if g == self.shard.dp_rank:
+                with torch.inference_mode():
+                    push_pages(self.cache, self._ids(pages),
+                               torch.ones(len(pages), dtype=torch.bool, device=self.device))
+            self._pages_by_group[g] += len(pages)
 
     @torch.inference_mode()
     def release_slots(self, slots: Sequence[int], lens: Sequence[int]):
         """Free finished requests' slots and pages. With the prefix cache, a
         request that hit keeps its shared pages (they belong to the entry;
         its reference is dropped), and one that prefilled without a hit
-        donates its prompt's full pages as a new entry."""
+        donates its prompt's full pages as a new entry of its group (their
+        ids are known on the group's own rank only, which alone uses them)."""
         with self._admission_lock:
             if not slots:
                 return
             keep = [0] * len(slots)
             returned = [cdiv(n, self.page_size) for n in lens]
-            if self.prefix is not None:
+            if self.prefixes is not None:
                 table_host = None
                 for i, s in enumerate(slots):
+                    g = self.group_of(s)
                     used = self._slot_prefix.pop(s, None)
                     prompt = self._slot_prompt.pop(s, None)
                     filled = s in self._slot_filled
                     self._slot_filled.discard(s)
                     if used is not None:
-                        key, n_pages, _ = used
-                        self.prefix.release(key)
+                        _, key, n_pages, _ = used
+                        self.prefixes[g].release(key)
                         keep[i] = n_pages
                         returned[i] -= n_pages
                     elif filled and prompt is not None and len(prompt) >= self.page_size:
                         keys = PrefixCache.chain_keys(prompt, self.page_size)
-                        if keys[-1] not in self.prefix.entries:
-                            if table_host is None:
-                                table_host = self.cache.page_table.cpu().numpy()
-                            self.prefix.register(keys[-1], table_host[s, :len(keys)].tolist())
+                        if keys[-1] not in self.prefixes[g].entries:
+                            pages = [-1] * len(keys)
+                            if self._mine(s):
+                                if table_host is None:
+                                    table_host = self.cache.page_table.cpu().numpy()
+                                pages = table_host[s % self.M_local, :len(keys)].tolist()
+                            self.prefixes[g].register(keys[-1], pages)
                             keep[i] = len(keys)
                             returned[i] -= len(keys)
-            free_requests(self.cache, self._ids(slots), self._ids(keep))
+            mine = [i for i, s in enumerate(slots) if self._mine(s)]
+            if mine:
+                free_requests(self.cache, self._ids([slots[i] % self.M_local for i in mine]),
+                              self._ids([keep[i] for i in mine]))
             for s, n in zip(slots, returned):
-                self._host_free_pages += n
-                self._free_slots.append(s)
+                g = self.group_of(s)
+                self._pages_by_group[g] += n
+                self._slots_by_group[g].append(s)
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -712,7 +872,9 @@ class InferenceEngine:
         1/tp of the weights (its shard is on the device already, as the JAX
         engine counts param_bytes / tp) and a page of its kv heads, and the
         ranks take the least of their budgets, so every rank's accounting is
-        the same. Ranks sharing one card must pass ``num_pages``."""
+        the same. A dp or cp rank holds 1/dp or 1/cp of the pages, so the
+        pool is its budget times dp * cp. Ranks sharing one card must pass
+        ``num_pages``."""
         cfg = self.config
         want = self.max_reqs * cdiv(cfg.max_seq_len, self.page_size)
         if self.device.type != "cuda":
@@ -723,11 +885,10 @@ class InferenceEngine:
         )
         free, total = torch.cuda.mem_get_info(self.device)
         budget = total * hbm_util - (total - free)
-        fit = max(64, min(want, int(budget // per_page)))
-        if self.shard.tp > 1:
-            from ..parallel.distributed import all_reduce_min_int
-
-            fit = all_reduce_min_int(fit, self.device, self.shard.group)
+        fit = max(64, min(want, int(budget // per_page) * self.dp * self.cp))
+        if self.shard.size > 1:
+            group = self.shard.group if self.shard.size == self.shard.tp else None
+            fit = distributed.all_reduce_min_int(fit, self.device, group)
         return fit
 
     # -- host <-> device ------------------------------------------------------
@@ -791,27 +952,6 @@ class InferenceEngine:
         tok = sample(last, self._gen, sampling, mode=mode)
         return tok, last, log_softmax_gather(last, tok)
 
-    def _prefill_chunk_step(self, ids_chunk, lens, start, table, last_logits, hist_bound):
-        """One chunk of long or prefix-cached prompts: positions
-        [start[b], start[b] + W) of every request, with ``start[b]`` tokens
-        already in the pool (``lens`` and ``start`` are host arrays; requests
-        already fully consumed run with an empty chunk). Carries the running
-        last-position logits, so sampling happens once after the last
-        chunk."""
-        W = ids_chunk.shape[1]
-        ctx = AttnContext(
-            table_rows=table,
-            seq_lens=self._ids(lens),
-            start_pos=self._ids(np.minimum(lens, start)),  # history per request
-            chunk_lens=self._ids(np.clip(lens - start, 0, W)),
-        )
-        logits, _ = decoder_prefill(
-            self.params, self.config, self.cache.kv_pages, ctx, ids_chunk, last_only=True,
-            chunked=True, hist_bound=hist_bound, shard=self.shard,
-        )
-        ends_here = self._ids((lens > start) & (lens <= start + W), torch.bool)
-        return torch.where(ends_here[:, None], logits, last_logits)
-
     def prefill(self, token_lists: Sequence[Sequence[int]], sampling: SamplingParams,
                 slots, return_logits: bool = False):
         """Blocking prefill: dispatch + collect. Returns (first_tokens [B] np,
@@ -825,15 +965,45 @@ class InferenceEngine:
         """Dispatch the prefill of a batch of prompts into their slots and the
         first-token sampling; returns a bundle for :meth:`prefill_collect`
         (or for ``update_session_rows``, which reads its device-side first
-        tokens)."""
-        B = len(token_lists)
+        tokens). At dp > 1 this rank prefills its data group's rows and the
+        outputs are gathered into the caller's order (module docstring)."""
         lens = np.asarray([len(t) for t in token_lists], np.int32)
         if int(lens.max()) > self.config.max_seq_len:
             raise ValueError(f"prompt of {int(lens.max())} tokens exceeds max_seq_len="
                              f"{self.config.max_seq_len}")
         mode = self._samp_mode(sampling)
+        cached = np.asarray([self._slot_prefix[s][2] * self.page_size
+                             if s in self._slot_prefix else 0 for s in slots], np.int32)
+        # The whole batch decides the path and the chunk width, as in the
+        # JAX engine: a data group's rows take the batch's.
+        resid = lens - cached
+        W = None
+        if lens.max() > self.prefill_chunk or cached.any():
+            W = min(self.prefill_chunk, max(int(resid.max()), 1))
+        layout = self._layout(slots)
+        mine = list(range(len(slots))) if layout is None else layout[self.shard.dp_rank]
+        rows = (token_lists, sampling, list(slots)) if layout is None else (
+            [token_lists[i] for i in mine], SamplingParams(*(t[mine] for t in sampling)),
+            [slots[i] for i in mine])
+        tok = lp = last = None
+        if mine:
+            tok, lp, last = self._prefill_rows(*rows, mode, W)
+        if layout is not None:
+            tok, lp, last = self._gathered(layout, tok, lp, last, return_logits)
+        self.stats.prefill_tokens += int(resid.sum())
+        self._slot_filled.update(slots)
+        packed = torch.stack([tok.to(torch.int32), lp.float().view(torch.int32)])
+        return _PrefillBundle(packed=self._to_host(packed), tok_dev=tok, lens=lens,
+                              last=last if return_logits else None)
+
+    def _prefill_rows(self, token_lists, sampling: SamplingParams, slots, mode, W):
+        """The prefill of rows of this rank's data group (all rows at dp 1),
+        in one shot or (``W``: the chunk width) chunk by chunk: (first
+        tokens [n], their logprobs [n], last logits [n, V]) on the device."""
+        B = len(token_lists)
+        lens = np.asarray([len(t) for t in token_lists], np.int32)
         samp = self._dev_sampling(sampling)
-        req_ids = self._ids(slots)
+        req_ids = self._ids([s % self.M_local for s in slots])
         ps = self.page_size
         ppr = self.cache.pages_per_req
         # Prefix-cache splice info (slot state set by try_admit).
@@ -843,47 +1013,82 @@ class InferenceEngine:
         for i, s in enumerate(slots):
             hit = self._slot_prefix.get(s)
             if hit is not None:
-                _, n_use, pages = hit
+                _, _, n_use, pages = hit
                 cached[i] = n_use * ps
                 prefix_pages[i] = n_use
                 prefix_rows[i, :n_use] = pages
 
-        if lens.max() > self.prefill_chunk or cached.any():
+        if W is not None:
             # Chunked path: chunks of W tokens through the paged-history
             # attention, each request starting after its cached pages.
             resid = lens - cached
-            W = min(self.prefill_chunk, max(int(resid.max()), 1))
-            n_chunks = cdiv(int(resid.max()), W)
+            n_chunks = max(cdiv(int(resid.max()), W), 1)
             ids = np.full((B, n_chunks * W), self.pad_id, np.int32)
             for i, t in enumerate(token_lists):
                 ids[i, : len(t) - cached[i]] = t[cached[i]:]
-            alloc_prefill(self.cache, req_ids, self._ids(lens), self._ids(prefix_rows),
+            lens_d = self._ids(lens)
+            alloc_prefill(self.cache, req_ids, lens_d, self._ids(prefix_rows),
                           self._ids(prefix_pages))
-            table = self.cache.page_table[req_ids.long()]
+            step = self.chunk_step_for(B, W)
+            step.load(lens_d, self._ids(cached), self.cache.page_table[req_ids.long()])
             ids_d = self._ids(ids, torch.long)
-            last = torch.zeros((B, self.config.vocab_size), dtype=torch.float32,
-                               device=self.device)
             for ci in range(n_chunks):
                 # No request has more pool history than this chunk's bound:
                 # the plain CPU form gathers only that much.
                 hist_tok = min(int(cached.max()) + ci * W, int(lens.max()))
-                hist_bound = min(cdiv(hist_tok, ps), ppr) * ps
-                last = self._prefill_chunk_step(ids_d[:, ci * W:(ci + 1) * W], lens,
-                                                cached + ci * W, table, last, hist_bound)
+                step.hist_bound = min(cdiv(hist_tok, ps), ppr) * ps
+                step.ids.copy_(ids_d[:, ci * W:(ci + 1) * W])
+                step.run(1)
+            last = step.last.clone()  # the step's buffer serves the next prefill
             tok = sample(last, self._gen, samp, mode=mode)
-            lp = log_softmax_gather(last, tok)
-            self.stats.prefill_tokens += int(resid.sum())
-        else:
-            ids = np.full((B, int(lens.max())), self.pad_id, np.int32)
-            for i, t in enumerate(token_lists):
-                ids[i, : len(t)] = t
-            tok, last, lp = self._prefill_step(self._ids(ids, torch.long), self._ids(lens),
-                                               req_ids, samp, mode)
-            self.stats.prefill_tokens += int(lens.sum())
-        self._slot_filled.update(slots)
-        packed = torch.stack([tok.to(torch.int32), lp.float().view(torch.int32)])
-        return _PrefillBundle(packed=self._to_host(packed), tok_dev=tok, lens=lens,
-                              last=last if return_logits else None)
+            return tok, log_softmax_gather(last, tok), last
+        ids = np.full((B, int(lens.max())), self.pad_id, np.int32)
+        for i, t in enumerate(token_lists):
+            ids[i, : len(t)] = t
+        tok, last, lp = self._prefill_step(self._ids(ids, torch.long), self._ids(lens), req_ids,
+                                           samp, mode)
+        return tok, lp, last
+
+    # -- data parallelism ---------------------------------------------------
+    def _layout(self, slots) -> Optional[tuple]:
+        """At dp > 1, the caller's rows of each data group, in order (None at
+        dp 1: every row is this rank's)."""
+        if self.dp == 1:
+            return None
+        rows = tuple([] for _ in range(self.dp))
+        for i, s in enumerate(slots):
+            rows[self.group_of(s)].append(i)
+        return rows
+
+    def _gather_rows(self, layout, x: Optional[torch.Tensor], cols: int) -> torch.Tensor:
+        """Every data group's rows of an int32 [n, cols] (this rank's:
+        ``x``, None when it has none) in the caller's order, [B, cols] on
+        every rank: one all-gather over the data groups, padded to the
+        widest group (each group's width is known from ``layout``)."""
+        if x is None:
+            x = torch.zeros((0, cols), dtype=torch.int32, device=self.device)
+        width = max(len(r) for r in layout)
+        parts = distributed.all_gather_padded(x, width, self.shard.mesh.dp_group)
+        out = torch.empty((sum(len(r) for r in layout), cols), dtype=x.dtype, device=x.device)
+        for rows, part in zip(layout, parts):
+            if rows:
+                out[self._ids(rows, torch.long)] = part[:len(rows)]
+        return out
+
+    def _gathered(self, layout, tok, lp, last, with_last: bool):
+        """A prefill's (first tokens, logprobs, last logits if ``with_last``)
+        of every data group in the caller's order, from this rank's rows
+        (None where it has none)."""
+        cols = 2 + (self.config.vocab_size if with_last else 0)
+        x = None
+        if tok is not None:
+            parts = [tok.to(torch.int32)[:, None], lp.float().view(torch.int32)[:, None]]
+            if with_last:
+                parts.append(last.float().view(torch.int32))
+            x = torch.cat(parts, dim=1)
+        out = self._gather_rows(layout, x, cols)
+        return (out[:, 0].contiguous(), out[:, 1].contiguous().view(torch.float32),
+                out[:, 2:].contiguous().view(torch.float32) if with_last else None)
 
     def prefill_collect(self, bundle: _PrefillBundle):
         """Wait for a dispatched prefill's host-bound outputs. Returns
@@ -899,7 +1104,19 @@ class InferenceEngine:
                              sampling: SamplingParams) -> DecodeSession:
         """Upload one batch's decode state once; decode chunks then run
         against it with no further uploads. The session owns its token and
-        done tensors (chunks update them in place)."""
+        done tensors (chunks update them in place). At dp > 1 it holds this
+        rank's data group's rows (``layout``)."""
+        mode = self._samp_mode(sampling)
+        layout = self._layout(slots)
+        if layout is not None:
+            mine = layout[self.shard.dp_rank]
+
+            def rows(x):
+                return x[mine] if isinstance(x, torch.Tensor) else np.asarray(x)[mine]
+
+            slots = [slots[i] % self.M_local for i in mine]
+            tok, done, stop_lens = rows(tok), rows(done), rows(stop_lens)
+            sampling = SamplingParams(*(t[mine] for t in sampling))
         return DecodeSession(
             slots=tuple(slots),
             req_ids=self._ids(slots),
@@ -907,7 +1124,8 @@ class InferenceEngine:
             done=self._ids(done, torch.bool).clone(),
             stop=self._ids(stop_lens),
             samp=self._dev_sampling(sampling),
-            mode=self._samp_mode(sampling),
+            mode=mode,
+            layout=layout,
         )
 
     @torch.inference_mode()
@@ -946,18 +1164,23 @@ class InferenceEngine:
         n = min(n, self.decode_chunk)
         if n < 1:
             raise ValueError("a decode chunk needs at least one step")
-        step = self.decode_step_for(len(s.slots), s.mode)
-        step.load(s)
-        step.run(n)
-        s.tok.copy_(step.tok)
-        s.done.copy_(step.done)
-        packed = torch.cat([
-            step.toks[:n],
-            step.lps[:n].view(torch.int32),
-            step.done.to(torch.int32)[None],
-        ])
+        packed = None
+        if s.slots:
+            step = self.decode_step_for(len(s.slots), s.mode)
+            step.load(s)
+            step.run(n)
+            s.tok.copy_(step.tok)
+            s.done.copy_(step.done)
+            packed = torch.cat([
+                step.toks[:n],
+                step.lps[:n].view(torch.int32),
+                step.done.to(torch.int32)[None],
+            ])
+        if s.layout is not None:  # every data group's rows, in the caller's order
+            packed = self._gather_rows(s.layout, None if packed is None else packed.t(),
+                                       2 * n + 1).t()
         self.stats.chunks += 1
-        return _ChunkBundle(packed=self._to_host(packed), n=n)
+        return _ChunkBundle(packed=self._to_host(packed.contiguous()), n=n)
 
     @torch.inference_mode()
     def decode_step_for(self, width: int, mode: str) -> DecodeStep:
@@ -971,10 +1194,28 @@ class InferenceEngine:
             self._steps[key] = step
         return step
 
+    @torch.inference_mode()
+    def chunk_step_for(self, width: int, W: int) -> ChunkStep:
+        """The chunked-prefill step of a batch width and chunk width. Full
+        chunks (W = ``prefill_chunk``: long prompts, where the device runs
+        longer than the host takes to launch a chunk) are made once and
+        captured on the card; a narrower chunk (the tail after a prefix hit,
+        a prompt that fits one chunk) gets an eager step of its own, as
+        its widths vary from call to call and a capture costs more than
+        its launches."""
+        key = (width, W)
+        step = self._chunk_steps.get(key)
+        if step is None:
+            step = ChunkStep(self, width, W)
+            if W == self.prefill_chunk:
+                self._chunk_steps[key] = self._captured(step)
+        return step
+
     def _captured(self, step):
         """``step`` captured on the card (every graph in one memory pool, on
-        one stream); on the CPU, and at tp > 1, it stays eager."""
-        if self.device.type == "cuda" and self.shard.tp == 1:
+        one stream); on the CPU, and at tp > 1 or cp > 1 (whose steps hold
+        collectives), it stays eager."""
+        if self.device.type == "cuda" and self.shard.tp == 1 and self.cp == 1:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
                 self._graph_stream = torch.cuda.Stream(self.device)
@@ -999,10 +1240,13 @@ class InferenceEngine:
         time, stopping early once every row is done. Returns (tokens
         [n, B], logprobs [n, B], done [B] bool), pad-filled after each row's
         eos."""
-        B = len(s.slots)
         if n_steps <= 0:  # degenerate budget: report state, emit nothing
+            done = s.done.to(torch.int32)[:, None]
+            if s.layout is not None:
+                done = self._gather_rows(s.layout, done if s.slots else None, 1)
+            B = done.shape[0]
             return (np.zeros((0, B), np.int32), np.zeros((0, B), np.float32),
-                    s.done.cpu().numpy())
+                    done[:, 0].cpu().numpy().astype(bool))
         all_toks, all_lps = [], []
         remaining = n_steps
         while remaining > 0:
@@ -1022,14 +1266,20 @@ class InferenceEngine:
         [n, B] np.float32). The host syncs once per ``decode_chunk``
         steps."""
         s = self.start_decode_session(slots, tok, done, stop_lens, sampling)
-        toks, lps, _ = self.decode_session(s, n_steps)
-        return s.tok, s.done, toks, lps
+        toks, lps, done_h = self.decode_session(s, n_steps)
+        if s.layout is None:
+            return s.tok, s.done, toks, lps
+        # At dp > 1 the session holds one group's rows: the caller's next
+        # tokens are the last step's (a row done before it emitted pad,
+        # and is done).
+        tok = torch.from_numpy(toks[-1].copy()) if len(toks) else torch.as_tensor(np.asarray(tok))
+        return tok, torch.from_numpy(done_h), toks, lps
 
-    def _refuse_tp(self, what: str) -> None:
-        if self.shard.tp > 1:
+    def _refuse_mesh(self, what: str) -> None:
+        if self.shard.tp > 1 or self.dp > 1 or self.cp > 1:
             raise NotImplementedError(
-                f"{what} at tp > 1 is not ported yet: it needs requests broadcast from rank "
-                "0 (ROADMAP A7d) and a tensor-parallel test of its own")
+                f"{what} on a mesh of more than one rank (dp, cp or tp) is not ported yet: it "
+                "needs requests broadcast from rank 0 (ROADMAP A7e)")
 
     # -- speculative decoding (greedy verify) ------------------------------------
     def _spec_verify_body(self, req_ids, chunk, chunk_lens):
@@ -1045,7 +1295,7 @@ class InferenceEngine:
         (emit [B, K]: the accepted drafts, then the bonus token, pad after;
         n_emit [B] = a + 1; next_tok [B], the bonus token). The plain CPU
         attention reads the whole page-table span of history."""
-        self._refuse_tp("speculative decoding")
+        self._refuse_mesh("speculative decoding")
         cache, ps = self.cache, self.page_size
         K = chunk.shape[1]
         req = req_ids.long()
@@ -1105,7 +1355,7 @@ class InferenceEngine:
         (history, hist_len, cur, done, emits [n_steps, B, K] np, keeps
         [n_steps, B] np, done [B] np bool); step s of row b emitted
         ``keeps[s, b]`` tokens, eos- and budget-truncated."""
-        self._refuse_tp("speculative decoding")
+        self._refuse_mesh("speculative decoding")
         B = len(slots)
         K = draft_len + 1
         step = self.spec_step_for(B, K, ngram, history.shape[1], n_steps)

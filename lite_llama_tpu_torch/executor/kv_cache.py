@@ -13,6 +13,12 @@
   JAX package: the rank writes and reads lanes [head_offset, head_offset +
   Hkv/tp) and [64 + head_offset, ...), and the attention kernels take the
   offset (``parallel/tp_attention.py``).
+- Under context parallelism each rank's pool holds its share of the pages,
+  global pages ``[c * P/cp, (c+1) * P/cp)`` of context rank c
+  (``create_kv_cache(..., cp=(c, cp))``), while the page table, the lengths
+  and the allocator stay whole: page ids are global, the free stack deals
+  them out round-robin over the ranks, and the KV writes drop the rows of
+  the other ranks (``parallel/context_parallel.py``).
 - A free-page stack plus a stack top: popping N pages reads
   ``free_stack[free_top - 1 - rank]``, with ranks from a cumsum over the
   need mask, so allocation is a few tensor ops on the device with no host
@@ -30,7 +36,7 @@ indices and sends each dropped scatter row where no live write of the same
 call lands: the dump row past the end of the table, the lengths and the
 free stack (``_set_slots``, ``_push``), or, in the pool, the row of the
 call's first live position with that position's own value
-(``kv_write_prefill``). None of them reads a mask back to the host, so the
+(``kv_write_prefill``, ``kv_write_decode_all``). None of them reads a mask back to the host, so the
 allocator, the rewind and the KV writes run inside a captured CUDA graph
 (the engine's decode and speculative verify steps).
 
@@ -55,7 +61,10 @@ class KVPool:
     """The paged K/V storage: pages [L, 2, T, Hkv*D], plus the merged scale
     slab [L, T, SCALE_LANES] bf16 of an int8 pool (None otherwise).
     ``head_offset``: the global index of kv head 0 of a tensor-parallel
-    shard's pool (0 on one device), where its scale lanes start."""
+    shard's pool (0 on one device), where its scale lanes start.
+    ``page_offset`` / ``total_pages``: a context-parallel rank's pool holds
+    global pages [page_offset, page_offset + T / page_size) of
+    ``total_pages`` (0: the pool is whole)."""
 
     pages: torch.Tensor
     page_size: int = 64
@@ -63,6 +72,8 @@ class KVPool:
     head_dim: int = 128
     scales: Optional[torch.Tensor] = None
     head_offset: int = 0
+    page_offset: int = 0
+    total_pages: int = 0
 
     @property
     def quantized(self) -> bool:
@@ -147,15 +158,24 @@ class PagedKVCache:
 
 def create_kv_cache(num_layers, num_kv_heads, head_dim, num_pages, page_size=64,
                     max_reqs=64, max_seq_len=2048, dtype=torch.bfloat16,
-                    device="cuda", quantized=False, head_offset=0) -> PagedKVCache:
+                    device="cuda", quantized=False, head_offset=0, cp=(0, 1)) -> PagedKVCache:
     """``quantized``: False (a ``dtype`` pool), True or "int8" (int8 values
     + merged per-(token, head) bf16 scales), or "fp8" (float8_e4m3fn, no
     scales). A tensor-parallel rank's pool holds its ``num_kv_heads`` local
-    heads, the first of them global head ``head_offset``."""
+    heads, the first of them global head ``head_offset``. ``cp = (rank,
+    size)``: the pool holds context rank ``rank``'s ``num_pages / size``
+    pages, while the table and the allocator span all ``num_pages``; the
+    free stack then deals pages out round-robin over the ranks (rank
+    ``cp - 1``'s last page first), so every rank holds a share of each
+    request's pages."""
     if quantized not in (False, True, "int8", "fp8"):
         raise ValueError(f"quantized must be False, True, 'int8' or 'fp8', got {quantized!r}")
+    cp_rank, cp_size = cp
+    if num_pages % cp_size:
+        raise ValueError(f"cp={cp_size} does not divide num_pages={num_pages}")
     ppr = cdiv(max_seq_len, page_size)
-    T = num_pages * page_size
+    pages_loc = num_pages // cp_size
+    T = pages_loc * page_size
     shape = (num_layers, 2, T, num_kv_heads * head_dim)
     scales = None
     if quantized == "fp8":
@@ -170,12 +190,15 @@ def create_kv_cache(num_layers, num_kv_heads, head_dim, num_pages, page_size=64,
         scales = torch.zeros((num_layers, T, SCALE_LANES), dtype=torch.bfloat16, device=device)
     pool = KVPool(pages=torch.zeros(shape, dtype=dtype, device=device), page_size=page_size,
                   num_kv_heads=num_kv_heads, head_dim=head_dim, scales=scales,
-                  head_offset=head_offset)
+                  head_offset=head_offset, page_offset=cp_rank * pages_loc,
+                  total_pages=num_pages if cp_size > 1 else 0)
     return PagedKVCache(
         kv_pages=pool,
         table_buf=torch.zeros((max_reqs + 1, ppr), dtype=torch.int32, device=device),
         lens_buf=torch.zeros((max_reqs + 1,), dtype=torch.int32, device=device),
-        stack_buf=torch.arange(num_pages + 1, dtype=torch.int32, device=device),
+        stack_buf=torch.cat([
+            torch.arange(num_pages, dtype=torch.int32, device=device).view(cp_size, -1).t()
+            .reshape(-1), torch.tensor([num_pages], dtype=torch.int32, device=device)]),
         free_top=torch.tensor(num_pages, dtype=torch.int32, device=device),
     )
 
@@ -342,8 +365,9 @@ def push_pages(cache: PagedKVCache, pages: torch.Tensor, valid: torch.Tensor):
 
 def kv_write_prefill(kv: KVPool, layer: int, k_new, v_new, table_rows, start_pos, lens):
     """Scatter a prefill chunk's K/V [B, S, Hkv, D] into the pool in place.
-    Pad positions (s >= lens[b]) are dropped. An int8 pool quantizes per
-    (token, head) on the way in.
+    Pad positions (s >= lens[b]) are dropped, and so are rows of other
+    context ranks' pages. An int8 pool quantizes per (token, head) on the
+    way in.
 
     Without a host sync: a dropped position maps through a table entry that
     may not be allocated (zero, or a page another request now owns) onto a
@@ -362,7 +386,7 @@ def kv_write_prefill(kv: KVPool, layer: int, k_new, v_new, table_rows, start_pos
     s = torch.arange(S, device=k_new.device)
     pos = start_pos.long()[:, None] + s[None, :]
     page = torch.gather(table_rows.long(), 1, (pos // ps).clamp(0, ppr - 1))
-    rows = (page * ps + pos % ps).reshape(-1)
+    rows = ((page - kv.page_offset) * ps + pos % ps).reshape(-1)
     valid = ((s[None, :] < lens[:, None]).reshape(-1) & (rows >= 0) & (rows < T))
     first = torch.argmax(valid.to(torch.uint8))  # first live position (0 if none)
     src = torch.where(valid, torch.arange(B * S, device=rows.device), first)
@@ -384,10 +408,12 @@ def kv_write_prefill(kv: KVPool, layer: int, k_new, v_new, table_rows, start_pos
 def kv_write_decode_all(kv: KVPool, k_all, v_all, table_rows, pos, active=None):
     """Write every layer's new K/V [L, B, Hkv, D] for one decode step into
     the pool in place, after the layer loop (the pool stays read-only while
-    the layers run). Rows of inactive requests are dropped. Without a host
-    sync: a dropped row is written back with the value it already holds; the
-    rows of distinct live requests are distinct, and a dropped request's row
-    is its own last token, so no two writes of one call collide."""
+    the layers run). Rows of inactive requests are dropped, and so are rows
+    of other context ranks' pages. Without a host sync: the rows of
+    distinct live requests are distinct, and every dropped row writes the
+    call's first kept row again (its row and its value), so all writes to a
+    row carry one value; in a call with no kept row every write goes to the
+    first request's (clamped) row with the value that row already holds."""
     ps = kv.page_size
     ppr = table_rows.shape[1]
     B = table_rows.shape[0]
@@ -396,19 +422,21 @@ def kv_write_decode_all(kv: KVPool, k_all, v_all, table_rows, pos, active=None):
     HD = kv.pages.shape[-1]
     pos = pos.long()
     page = table_rows.long()[torch.arange(B, device=pos.device), (pos // ps).clamp(0, ppr - 1)]
-    rows = page * ps + pos % ps
+    rows = (page - kv.page_offset) * ps + pos % ps
     keep = (rows >= 0) & (rows < T)
     if active is not None:
         keep = keep & active
-    rows_c = rows.clamp(0, T - 1)
-    keep3 = keep[None, :, None]
+    first = torch.argmax(keep.to(torch.uint8))  # first kept request (0 if none)
+    src = torch.where(keep, torch.arange(B, device=pos.device), first)
+    r = rows.clamp(0, T - 1)[src]
+    live = keep.any()
+    k_all, v_all = k_all[:, src], v_all[:, src]
     if kv.quantized:
         (k_all, ksc), (v_all, vsc) = _quantize_kv(k_all), _quantize_kv(v_all)
-        kv.scales[:, rows_c] = torch.where(keep3, _scale_rows(ksc, vsc, kv.head_offset),
-                                           kv.scales[:, rows_c])
+        kv.scales[:, r] = torch.where(live, _scale_rows(ksc, vsc, kv.head_offset),
+                                      kv.scales[:, r])
     pages = byte_view(kv.pages)
     for half, val in ((0, k_all), (1, v_all)):
-        old = pages[:, half, rows_c]
         new = _cast_kv(val.reshape(L, B, HD), kv.pages.dtype)
-        pages[:, half, rows_c] = torch.where(keep3, new, old)
+        pages[:, half, r] = torch.where(live, new, pages[:, half, r])
     return kv

@@ -14,8 +14,9 @@ Where the port differs from the JAX engine: no power-of-two bucketing of
 rows or lengths, so the tower runs only on the rows that have an image (JAX
 runs a blank image through it for its pad rows); a row holds at most one
 image placeholder. On a tensor-parallel mesh the LM shards and the tower
-and the projector are whole on every rank, as in the JAX engine, which
-refuses only data parallelism (so does ``make_mesh`` here).
+and the projector are whole on every rank, as in the JAX engine; like it,
+the engine refuses data parallelism (the multimodal prefill runs the whole
+batch, with no group layout).
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ class LlavaEngine(InferenceEngine):
 
     def __init__(self, config, params: dict, **kw):
         super().__init__(config, params["lm"], **kw)
+        if self.dp > 1:
+            raise NotImplementedError(
+                "LlavaEngine does not support data parallelism (dp > 1): the multimodal "
+                "prefill runs the whole batch on every rank, with no group layout. Use a "
+                "tp-only mesh or the text-only InferenceEngine.")
         self.vision = params["vision"]
         self.projector = params["projector"]
 

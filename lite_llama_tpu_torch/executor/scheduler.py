@@ -95,9 +95,14 @@ class ContinuousBatchingScheduler:
         chunk_steps: Optional[int] = None,
         admit_every: int = 1,
     ):
-        engine._refuse_tp("the scheduler (and the server over it)")
+        engine._refuse_mesh("the scheduler (and the server over it)")
         self.engine = engine
         self.max_prefill_batch = max_prefill_batch
+        # The full-chunk steps of long prompts, one per admission width,
+        # made before any traffic (captured on the card): no request waits
+        # for their capture.
+        for width in range(1, max_prefill_batch + 1):
+            engine.chunk_step_for(width, engine.prefill_chunk)
         self.chunk_steps = chunk_steps or engine.decode_chunk
         # Admission cadence: with admit_every=N > 1 waiting requests are
         # admitted at most every N decode chunks (unless the engine is

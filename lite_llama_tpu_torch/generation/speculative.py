@@ -113,7 +113,7 @@ class SpeculativeTextGenerator:
         """``chunk_steps > 0``: device drafting and ``chunk_steps`` verify
         steps per dispatch (one host sync a chunk); ``chunk_steps=0``: host
         drafting and one ``spec_verify`` (one host copy) a step."""
-        engine._refuse_tp("speculative decoding")
+        engine._refuse_mesh("speculative decoding")
         self.engine = engine
         self.tokenizer = tokenizer
         self.draft_len = draft_len

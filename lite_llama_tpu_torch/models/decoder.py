@@ -39,6 +39,14 @@ all-reduce, the tp attention wrappers on the local heads
 (``parallel/tp_attention.py``), an all-reduce of o_proj's and of down's
 fp32 partials, and an all-gather of the vocab-sharded logits. With no
 policy (tp 1) the one-device path runs as it always did.
+
+Context parallelism (``shard`` with cp > 1; it composes with neither tp nor
+dp): the weights are whole on every rank and the pool holds the rank's share
+of the pages (``parallel/context_parallel.py``). Fresh prefill runs whole on
+every rank (K2) and only its KV write splits; chunked prefill and prefix
+hits go through ``cp_flash_prefill_chunked``, decode through
+``cp_paged_flash_decode``: each rank's kernels walk its own pages, and one
+all-gather of their states a layer combines them.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ import torch
 from .. import ops
 from ..executor.kv_cache import KVPool, kv_write_decode_all, kv_write_prefill
 from ..ops.qmatmul import activations
-from ..parallel import tp_attention
+from ..parallel import context_parallel, tp_attention
 from ..parallel.shardings import ShardingPolicy
 from ..quant.qtensor import QTensor, qeinsum, takes_int8_rows
 from .rotary import compute_inv_freq_dual
@@ -440,7 +448,11 @@ def decoder_prefill(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
         kv_write_prefill(kv_pages, li, k, v, ctx.table_rows, ctx.start_pos, ctx.chunk_lens)
-        if shard.tp > 1 and chunked:
+        if shard.cp > 1 and chunked:
+            attn = context_parallel.cp_flash_prefill_chunked(
+                q, k, v, ctx.chunk_lens, ctx.start_pos, kv_pages, li, ctx.table_rows, shard,
+                sm_scale)
+        elif shard.tp > 1 and chunked:
             attn = tp_attention.tp_flash_prefill_chunked(
                 q, k, v, ctx.chunk_lens, ctx.start_pos, kv_pages, li, ctx.table_rows, shard,
                 cfg.num_key_value_heads, sm_scale, max_hist_len=hist_bound)
@@ -490,7 +502,10 @@ def decoder_decode(params: dict, cfg, kv_pages: KVPool, ctx: AttnContext,
         q, k, v = _project_qkv(cfg, lp, normed, shard)
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
-        if shard.tp > 1:
+        if shard.cp > 1:
+            attn = context_parallel.cp_paged_flash_decode(
+                q, kv_pages, li, ctx.table_rows, ctx.seq_lens, shard, sm_scale, k_new=k, v_new=v)
+        elif shard.tp > 1:
             attn = tp_attention.tp_paged_flash_decode(
                 q, kv_pages, li, ctx.table_rows, ctx.seq_lens, shard, cfg.num_key_value_heads,
                 sm_scale, k_new=k, v_new=v)

@@ -1,11 +1,15 @@
-"""Process-group start-up and the collectives of tensor parallelism (port of
-``lite_llama_tpu/parallel/distributed.py``).
+"""Process-group start-up, the multi-process mesh and the collectives (port
+of ``lite_llama_tpu/parallel/distributed.py``).
 
-The JAX package runs tensor parallelism as one SPMD program (GSPMD inserts
-the collectives); the port runs one process per tp rank over
-``torch.distributed`` and makes the collectives explicit: an all-reduce
-after o_proj and after down, one after the masked embedding gather, and an
-all-gather of the vocab-sharded logits (``models/decoder.py``).
+The JAX package runs its mesh as one SPMD program (GSPMD inserts the
+collectives); the port runs one process per rank over ``torch.distributed``
+and makes the collectives explicit. tp: an all-reduce after o_proj and after
+down, one after the masked embedding gather, and an all-gather of the
+vocab-sharded logits (``models/decoder.py``). dp: one all-gather of each
+call's sampled tokens and logprobs over the data groups (the JAX engine's
+``_fetch``; ``executor/engine.py``). cp: one all-gather of each attention
+call's online-softmax states over the context ranks
+(``parallel/context_parallel.py``).
 
 Execution contract, as in the JAX package, SPMD host replication: every
 rank runs the same host program and issues identical engine calls (same
@@ -83,6 +87,70 @@ def all_gather_last(x: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=-1).to(x.dtype)
+
+
+def all_gather_padded(x: torch.Tensor, width: int, group=None) -> list:
+    """Each rank's ``x`` [n_r, ...] in rank order, as [width, ...] tensors:
+    the rows padded with zeros to ``width`` (>= every n_r, the same on every
+    rank) and gathered in one call; the caller knows each n_r."""
+    pad = torch.zeros((width - x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    return all_gather_stack(torch.cat([x, pad]), group)
+
+
+def all_gather_stack(x: torch.Tensor, group=None) -> list:
+    """The group's ``x`` (one shape on every rank), in rank order."""
+    t = x.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return parts
+
+
+def _host_grid(tp: Optional[int] = None, group=None):
+    """The ('dp', 'cp', 'tp') rank grid of :func:`make_multihost_mesh` and
+    this process's index among its host's ranks: the ranks grouped by host
+    (in order of each host's first rank), rank-major within a host, tp
+    ranks on one host and dp across hosts (JAX's fallback, which groups
+    devices by process). ``tp`` defaults to the ranks of one host."""
+    import socket
+
+    import numpy as np
+
+    world = dist.get_world_size(group)
+    if torch.cuda.is_available():  # NCCL gathers objects through the current card
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    hosts = [None] * world
+    dist.all_gather_object(hosts, socket.gethostname(), group=group)
+    ranks = dist.get_process_group_ranks(group) if group is not None else list(range(world))
+    order = []
+    for h in hosts:
+        if h not in order:
+            order.append(h)
+    by_host = [[r for r, h in zip(ranks, hosts) if h == name] for name in order]
+    n_local = len(by_host[0])
+    if any(len(b) != n_local for b in by_host):
+        raise ValueError(f"hosts hold unequal rank counts: {[len(b) for b in by_host]}")
+    tp = tp or n_local
+    if n_local % tp:
+        raise ValueError(f"tp={tp} does not divide the {n_local} ranks of a host")
+    me = dist.get_rank()
+    local = next(b.index(me) for b in by_host if me in b)
+    grid = np.asarray([r for b in by_host for r in b]).reshape(-1, 1, tp)
+    return grid, local
+
+
+def make_multihost_mesh(tp: Optional[int] = None, group=None):
+    """The ('dp', 'tp') mesh over every rank (counterpart of JAX's
+    ``make_multihost_mesh``): tp = ``tp`` ranks of one host (default all of
+    them), dp = the hosts times the tp groups a host holds (:func:`_host_grid`).
+    Each rank takes the card ``cuda:(its index on the host % cards)`` where
+    CUDA is available (several ranks share a card when a host runs more
+    ranks than it has cards). Every rank must call it."""
+    from .shardings import mesh_from_grid
+
+    grid, local = _host_grid(tp, group)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    return mesh_from_grid(grid, group)
 
 
 def all_reduce_min_int(value: int, device, group=None) -> int:

@@ -1,14 +1,24 @@
-"""The tensor-parallel mesh and sharding policy (port of
+"""The ('dp', 'cp', 'tp') mesh and the sharding policy (port of
 ``lite_llama_tpu/parallel/shardings.py``).
 
-Weights shard on the head axis (wq / wkv / the fused wqkv, and the
-contraction of o_proj) and the ffn axis (gate_up's output, down's
-contraction), so decode attention is rank-local: each rank owns Hkv/tp kv
-heads and its own pool of them. The embedding and the head shard on the
-vocab axis. Where the JAX package lays these out as ``NamedSharding``s of
-one SPMD program, here each rank holds only its shard (``shard_params``
-slices the whole tree) and the decoder runs it as a one-device tree of its
-local heads, with the collectives made explicit (``models/decoder.py``).
+One process per rank of ``torch.distributed``, in JAX's device order: rank
+``r = (d * cp + c) * tp + t`` holds tp rank t of context rank c of data
+group d.
+
+- tp shards the weights on the head axis (wq / wkv / the fused wqkv, and
+  the contraction of o_proj) and the ffn axis (gate_up's output, down's
+  contraction), so decode attention is rank-local: each rank owns Hkv/tp kv
+  heads and its own pool of them. The embedding and the head shard on the
+  vocab axis. Where the JAX package lays these out as ``NamedSharding``s of
+  one SPMD program, here each rank holds only its shard (``shard_params``
+  slices the whole tree) and the decoder runs it as a one-device tree of its
+  local heads, with the collectives made explicit (``models/decoder.py``).
+- dp replicates the weights and divides the requests: each data group owns
+  ``max_reqs / dp`` slots and ``num_pages / dp`` pages, and a rank holds the
+  device state of its group only (``executor/engine.py``).
+- cp replicates the weights and shards the paged pool's token rows: context
+  rank c holds pages ``[c * P/cp, (c+1) * P/cp)`` (``parallel/
+  context_parallel.py``).
 
 Requires tp | num_key_value_heads, tp | num_attention_heads, tp | ffn and
 tp | vocab. The JAX package's layouts and refusals hold: a σ-FFN tree must
@@ -16,7 +26,6 @@ have ``sigma_groups == tp``; riffle trees need ``riffle_groups == tp`` on
 the weights whose output axis shards (wqkv / wq, gate_up, the head) and 1 on
 o_proj and down; a quantized unfused ``wkv`` cannot shard (a contiguous
 shard of its flat output axis crosses the K | V boundary: fuse QKV first).
-Data (dp) and context (cp) parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..quant.qtensor import QTensor
@@ -33,36 +43,86 @@ from . import distributed
 
 @dataclass(frozen=True)
 class Mesh:
-    """A tensor-parallel group as the port runs it: this process is rank
-    ``rank`` of ``tp`` in ``group`` (None at tp = 1)."""
+    """This process's place in a ('dp', 'cp', 'tp') mesh of
+    ``torch.distributed`` ranks: tp rank ``rank`` of ``tp`` in ``group``,
+    context rank ``cp_rank`` of ``cp`` in ``cp_group``, data group
+    ``dp_rank`` of ``dp`` (``dp_group``: the ranks of the other groups that
+    share this rank's tp and cp ranks). A group is None where its axis is 1
+    (or where it is the whole world)."""
 
     tp: int = 1
     rank: int = 0
     group: Any = None
+    dp: int = 1
+    dp_rank: int = 0
+    dp_group: Any = None
+    cp: int = 1
+    cp_rank: int = 0
+    cp_group: Any = None
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.cp * self.tp
 
 
 def make_mesh(tp: int = 1, dp: int = 1, cp: int = 1, group=None) -> Mesh:
-    """The ('dp', 'tp') mesh of this process: ``tp`` ranks of
-    ``torch.distributed`` (``group``, default the whole world, which must
-    hold exactly tp ranks; ``parallel/distributed.py`` starts it)."""
-    if dp != 1:
-        raise NotImplementedError("data parallelism (dp > 1) is not ported yet (ROADMAP A7b)")
-    if cp != 1:
-        raise NotImplementedError("context parallelism (cp > 1) is not ported yet "
-                                  "(ROADMAP A7c)")
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
-    if tp == 1:
+    """The ('dp', 'cp', 'tp') mesh of this process over ``group`` (default
+    the whole world, which must hold exactly dp * cp * tp ranks;
+    ``parallel/distributed.py`` starts it), in JAX's device order (module
+    docstring). Every rank must call it, and in the same order as its other
+    group-making calls: it makes the subgroups with ``dist.new_group``.
+    A mesh of one rank needs no process group."""
+    for name, n in (("tp", tp), ("dp", dp), ("cp", cp)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
+    if dp * cp * tp == 1:
         return Mesh()
     import torch.distributed as dist
 
     if not dist.is_initialized():
-        raise RuntimeError("a tp > 1 mesh needs torch.distributed started "
+        raise RuntimeError(f"a mesh of {dp * cp * tp} ranks needs torch.distributed started "
                            "(parallel/distributed.py init_distributed)")
-    size = dist.get_world_size(group)
-    if size != tp:
-        raise ValueError(f"the process group holds {size} ranks, the mesh asks tp={tp}")
-    return Mesh(tp=tp, rank=dist.get_rank(group), group=group)
+    ranks = dist.get_process_group_ranks(group) if group is not None else list(
+        range(dist.get_world_size()))
+    if len(ranks) != dp * cp * tp:
+        raise ValueError(f"the process group holds {len(ranks)} ranks, the mesh asks "
+                         f"dp={dp} x cp={cp} x tp={tp}")
+    return mesh_from_grid(np.asarray(ranks).reshape(dp, cp, tp), group)
+
+
+def mesh_from_grid(grid: np.ndarray, group=None) -> Mesh:
+    """The Mesh of this process from ``grid`` [dp, cp, tp], the global rank
+    at each mesh position. Makes every subgroup of every axis above 1 on
+    every rank, in one order (tp, then cp, then dp groups, each in mesh
+    order), as NCCL requires; an axis that spans all of ``group`` takes
+    ``group`` itself."""
+    import torch.distributed as dist
+
+    dp, cp, tp = grid.shape
+    me = dist.get_rank()
+    where = np.argwhere(grid == me)
+    if len(where) != 1:
+        raise ValueError(f"rank {me} is not once in the mesh {grid.tolist()}")
+    d, c, t = (int(i) for i in where[0])
+    whole = grid.size
+
+    def groups(axis_len, lines):
+        if axis_len == 1:
+            return None
+        if axis_len == whole:
+            return group
+        mine = None
+        for line in lines:  # every rank makes every group, in one order
+            g = dist.new_group([int(r) for r in line])
+            if me in line:
+                mine = g
+        return mine
+
+    tp_group = groups(tp, [grid[i, j, :] for i in range(dp) for j in range(cp)])
+    cp_group = groups(cp, [grid[i, :, k] for i in range(dp) for k in range(tp)])
+    dp_group = groups(dp, [grid[:, j, k] for j in range(cp) for k in range(tp)])
+    return Mesh(tp=tp, rank=t, group=tp_group, dp=dp, dp_rank=d, dp_group=dp_group,
+                cp=cp, cp_rank=c, cp_group=cp_group)
 
 
 # Which axis of each decoder leaf tp shards (plain tensors), as the JAX
@@ -84,15 +144,16 @@ _OUT_KIND = ("wq", "wkv", "wqkv", "gate_up_proj")  # QTensor 'out' kind; the res
 @dataclass(frozen=True)
 class ShardingPolicy:
     """Where each leaf of the engine's trees shards, and this rank's share
-    of them; ``mesh=None`` (or tp 1) is one device, every leaf whole."""
+    of them; ``mesh=None`` (or tp 1) keeps every leaf whole (dp and cp
+    replicate the weights)."""
 
     mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             raise NotImplementedError(
-                "the port takes its own tensor-parallel mesh (parallel.shardings.make_mesh); "
-                "data and context parallelism are not ported yet (ROADMAP A7b, A7c)")
+                "the port takes its own mesh (parallel.shardings.make_mesh or "
+                "parallel.distributed.make_multihost_mesh)")
 
     @property
     def tp(self) -> int:
@@ -105,6 +166,26 @@ class ShardingPolicy:
     @property
     def group(self):
         return None if self.mesh is None else self.mesh.group
+
+    @property
+    def dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
+
+    @property
+    def dp_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.dp_rank
+
+    @property
+    def cp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.cp
+
+    @property
+    def cp_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.cp_rank
+
+    @property
+    def size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
 
     # -- collectives (identities at tp 1) ------------------------------------
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,7 @@ from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator
 from lite_llama_tpu_torch.models.decoder import init_decoder_params  # noqa: E402
 from lite_llama_tpu_torch.ops import attention_decode, attention_prefill  # noqa: E402
 from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params  # noqa: E402
-from tests.torch_decode_steps import eager_spec_step, eager_step  # noqa: E402
+from tests.torch_decode_steps import eager_chunk_steps, eager_spec_step, eager_step  # noqa
 
 # D 64, G 2; every int4 projection and the tied head at a width K6 takes.
 CFG = dict(hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
@@ -309,3 +309,42 @@ def test_replayed_spec_chunks_equal_the_eager_step(cuda, pool):
     assert got == want == streams(eager, chunk_steps=0)
     for eng in (graph, eager):
         assert eng._host_free_pages == eng.num_pages == int(eng.cache.free_top)
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+def test_replayed_prefill_chunks_equal_the_eager_step(cuda, pool):
+    """Chunked prefill (prompts past prefill_chunk, then prefix hits) through
+    the replayed ``ChunkStep`` graphs: first tokens, logits and logprobs bit
+    for bit those of the same steps run eagerly from the same state, the
+    graphs' launches counted a replay at a time, and the pages all back."""
+    weights, kv_quant = POOLS[pool]
+    cfg, params = _params(cuda, weights)
+    rng = np.random.default_rng(3)
+    head = rng.integers(0, 500, 48).tolist()
+    prompts = [head + rng.integers(0, 500, n).tolist() for n in (100, 9, 61)]
+    greedy = tsamp.SamplingParams.make(3, temperature=0.0, device="cpu")
+
+    def run(eng):
+        out = []
+        for _ in range(2):  # the second round hits the first's pages
+            slots = eng.admit_requests([len(p) + 1 for p in prompts], prompts=prompts)
+            first, _, last, lp = eng.prefill(prompts, greedy, slots, return_logits=True)
+            eng.release_slots(slots, [len(p) + 1 for p in prompts])
+            out.append((first, last.view(np.int32), lp.view(np.int32)))
+        return out
+
+    kw = dict(kv_quant=kv_quant, prefill_chunk=32, prefix_cache=True)
+    graph, eager = _engine(cuda, cfg, params, **kw), _engine(cuda, cfg, params, **kw)
+    before = attention_prefill.launch_flash_prefill_chunked.launches
+    got = run(graph)
+    assert graph._chunk_steps and all(st.graph is not None for st in graph._chunk_steps.values())
+    with eager_chunk_steps(eager):
+        want = run(eager)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert graph.stats.prefix_hits == eager.stats.prefix_hits == 3
+    if not kv_quant:
+        assert attention_prefill.launch_flash_prefill_chunked.launches > before
+    assert graph._host_free_pages == graph.num_pages - sum(
+        e[0] for e in graph.prefix.entries.values()) == int(graph.cache.free_top)

@@ -70,14 +70,15 @@ def test_no_source_file_imports_jax(path):
 
 
 def test_parallel_package_is_ported_and_covered():
-    """The tensor-parallel modules (the JAX package's ``parallel/``) exist in
-    the port and are among the modules checked above."""
+    """The modules of the JAX package's ``parallel/`` exist in the port and
+    are among the modules checked above; a mesh of more than one rank needs
+    a process group."""
     names = {name for _, name in _modules()}
-    for mod in ("distributed", "shardings", "tp_attention"):
+    for mod in ("distributed", "shardings", "tp_attention", "context_parallel"):
         assert f"lite_llama_tpu_torch.parallel.{mod}" in names
     from lite_llama_tpu_torch.parallel import shardings
 
-    with pytest.raises(NotImplementedError, match="A7b"):
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         shardings.make_mesh(tp=1, dp=2)
 
 

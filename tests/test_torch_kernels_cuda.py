@@ -28,6 +28,7 @@ folds in the same order. chip_smoke.py runs the same
 comparisons at the main path's full shapes.
 """
 
+import contextlib
 import math
 import shutil
 
@@ -1233,3 +1234,157 @@ def test_decode_kernel_replays_in_a_cuda_graph(cuda):
         want = paged_flash_decode(q, pool, 1, table, kv_lens, return_state=True)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip((out, m, l), want)), seed
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: each rank runs K1 / K5 over its half of the pool
+# (parallel/context_parallel.py); the halves' states combine to the whole.
+
+
+def _cp_halves(pool, P):
+    """The two halves of a pool as two context ranks hold them."""
+    from dataclasses import replace
+
+    ps, loc = pool.page_size, P // 2
+    return [replace(pool, pages=pool.pages[:, :, c * loc * ps:(c + 1) * loc * ps].contiguous(),
+                    scales=None if pool.scales is None
+                    else pool.scales[:, c * loc * ps:(c + 1) * loc * ps].contiguous(),
+                    page_offset=c * loc, total_pages=P) for c in (0, 1)]
+
+
+def _tail_on_both(table, lens, ps, loc, c):
+    """A planted fault: rank c's view with the tail page counted whether it
+    owns it or not (a page of its own read in its place)."""
+    from lite_llama_tpu_torch.parallel.context_parallel import local_page_view
+
+    pt, ln = local_page_view(table, lens, ps, loc, c)
+    n = (lens + ps - 1) // ps
+    tail = table.gather(1, (n - 1).clamp(min=0).long()[:, None])[:, 0]
+    foreign = (n > 0) & ((tail < c * loc) | (tail >= (c + 1) * loc))
+    slot = (ln // ps).long()
+    pt = pt.clone()
+    pt.scatter_(1, slot[:, None].clamp(max=pt.shape[1] - 1),
+                (tail - c * loc).clamp(0, loc - 1)[:, None].int())
+    extra = lens - (n - 1) * ps
+    return pt, torch.where(foreign, ln + extra, ln).int()
+
+
+@pytest.mark.parametrize("kv", [False, "int8"])
+def test_cp_halves_of_a_pool_combine_to_the_whole_decode(cuda, kv):
+    """K1 / K1q with ``return_state`` on each half's compacted view, under a
+    split plan (a 64-page table), with a request whose pages all lie in half
+    0 (kv_len 0 on half 1) and an empty one: each half matches its plain
+    version, the combined halves match the whole pool's call, and the tail
+    page counted on both halves does not."""
+    from lite_llama_tpu_torch.ops.attention_decode import combine_decode_splits
+    from lite_llama_tpu_torch.parallel.context_parallel import local_page_view
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    D, Nq, Hkv, ps, P, ppr = 128, 24, 8, 16, 192, 64
+    pool = _quant_pool(cuda, kv, Hkv, D, P, ps)
+    lens = torch.tensor([1000, 999, 600, 40, 0], dtype=torch.int32, device=cuda)
+    perm = torch.randperm(P, generator=g, device=cuda).int()
+    table = torch.zeros((5, ppr), dtype=torch.int32, device=cuda)
+    low = perm[perm < P // 2]
+    table[3, :3] = low[:3]  # request 3 in half 0 only
+    rest = perm[~torch.isin(perm, low[:3])]
+    for b, n in enumerate([63, 63, 38]):
+        table[b, :n] = rest[:n]
+        rest = rest[n:]
+    q = torch.randn((5, Nq, D), generator=g, device=cuda).bfloat16()
+    whole = paged_flash_decode(q, pool, 1, table, lens, return_state=True)
+    states, faulty = [], []
+    for c, half in enumerate(_cp_halves(pool, P)):
+        pt, ln = local_page_view(table, lens, ps, P // 2, c)
+        st = paged_flash_decode(q, half, 1, pt, ln, return_state=True)
+        po, pm, pl = paged_decode_state_plain(q, half.pages, ps, 1, pt, ln, D**-0.5, half.scales)
+        assert _within(st[0], po) and torch.allclose(st[2], pl, rtol=1e-3, atol=1e-6)
+        states.append(st)
+        faulty.append(paged_flash_decode(q, half, 1, *_tail_on_both(table, lens, ps, P // 2, c),
+                                         return_state=True))
+    assert int(local_page_view(table, lens, ps, P // 2, 1)[1][3]) == 0
+    out, m, l = combine_decode_splits(states)
+    assert torch.isfinite(out).all() and _within(out, whole[0])
+    assert torch.allclose(l, whole[2], rtol=1e-3, atol=1e-6)
+    assert not _within(combine_decode_splits(faulty)[0], whole[0])
+
+
+@pytest.mark.parametrize("kv", [False, "int8"])
+def test_cp_halves_of_a_pool_combine_to_the_whole_chunked_prefill(cuda, kv):
+    """K5 / K5q with ``return_state``: half 0 scores the chunk over its
+    history, half 1 walks its history at chunk_lens 0; combined they match
+    the whole pool's call, and the chunk scored on both halves does not."""
+    from lite_llama_tpu_torch.ops.attention_decode import combine_decode_splits
+    from lite_llama_tpu_torch.parallel.context_parallel import local_page_view
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    D, Nq, Hkv, ps, P, S = 128, 24, 8, 16, 200, 128
+    pool = _quant_pool(cuda, kv, Hkv, D, P, ps)
+    start = torch.tensor([0, 16, 700, 790], dtype=torch.int32, device=cuda)
+    clen = torch.tensor([S, 70, 0, S], dtype=torch.int32, device=cuda)
+    table = torch.randperm(P, generator=g, device=cuda)[: 4 * 50].view(4, 50).int()
+    q = torch.randn((4, S, Nq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((4, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((4, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    whole = flash_prefill_chunked(q, k, v, clen, start, pool, 1, table, return_state=True)
+    halves = _cp_halves(pool, P)
+    states = []
+    for c, half in enumerate(halves):
+        pt, hist = local_page_view(table, start, ps, P // 2, c)
+        cl = clen if c == 0 else torch.zeros_like(clen)
+        st = flash_prefill_chunked(q, k, v, cl, hist, half, 1, pt, return_state=True)
+        po, _, pl = chunked_prefill_state_plain(q, k, v, cl, hist, half.pages, ps, 1, pt,
+                                                D**-0.5, half.scales)
+        assert _within(st[0], po) and torch.allclose(st[2], pl, rtol=1e-3, atol=1e-6)
+        states.append(st)
+    out, _, _ = combine_decode_splits(states)
+    assert torch.isfinite(out).all() and _within(out, whole[0])
+    pt, hist = local_page_view(table, start, ps, P // 2, 1)
+    twice = flash_prefill_chunked(q, k, v, clen, hist, halves[1], 1, pt, return_state=True)
+    assert not _within(combine_decode_splits([states[0], twice])[0], whole[0])
+
+
+def test_prefill_async_returns_before_its_device_work_ends(cuda):
+    """C5: with the device held by a sleep kernel queued first, a prefill of
+    prompts longer than prefill_chunk (three full chunks, their step made
+    first, as the scheduler makes it) returns at dispatch (an event
+    recorded after the sleep not yet complete), and its first tokens and
+    logprobs equal those of an engine whose chunk steps run eagerly."""
+    import numpy as np
+
+    from lite_llama_tpu_torch.config import LlamaConfig
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+    from tests.torch_decode_steps import eager_chunk_steps
+
+    cfg = LlamaConfig(hidden_size=512, intermediate_size=1024, num_hidden_layers=4,
+                      num_attention_heads=8, num_key_value_heads=2, head_dim=64,
+                      vocab_size=1024, max_seq_len=1024, dtype=torch.bfloat16)
+    params = init_decoder_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = [rng.integers(0, 1024, 300).tolist() for _ in range(4)]
+    lens = [len(p) + 1 for p in batch]
+    samp = SamplingParams.make(4, temperature=0.0, device="cpu")
+    outs = []
+    for eager in (True, False):
+        eng = InferenceEngine(cfg, params, device=cuda, prefill_chunk=128, page_size=16,
+                              max_reqs=8, num_pages=256)
+        eng.chunk_step_for(4, 128)
+        with eager_chunk_steps(eng) if eager else contextlib.nullcontext():
+            slots = eng.admit_requests(lens)
+            torch.cuda.synchronize()
+            busy = None
+            if not eager:
+                torch.cuda._sleep(int(2e9))
+                slept = torch.cuda.Event()
+                slept.record()
+            bundle = eng.prefill_async(batch, samp, slots)
+            if not eager:
+                busy = not slept.query()
+            tok, _, _, lp = eng.prefill_collect(bundle)
+            eng.release_slots(slots, lens)
+        outs.append((tok, lp.view(np.int32), busy))
+    (t0, l0, _), (t1, l1, busy) = outs
+    assert busy, "prefill_async waited for the device"
+    assert np.array_equal(t0, t1) and np.array_equal(l0, l1)

@@ -229,8 +229,8 @@ def test_request_result_is_the_jax_scheduler_s(weights, jax_outputs):
 
 
 def test_scheduler_refuses_a_tp_engine(weights):
-    """At tp > 1 the scheduler needs requests broadcast from rank 0 (A7d)."""
+    """At tp > 1 the scheduler needs requests broadcast from rank 0 (A7e)."""
     engine = make_engine(weights)
     engine.shard = mock.Mock(tp=2)
-    with pytest.raises(NotImplementedError, match="A7d"):
+    with pytest.raises(NotImplementedError, match="A7e"):
         ContinuousBatchingScheduler(engine)

@@ -1,8 +1,9 @@
-"""The eager references of the engine's replayed decode and speculative
-steps, shared by the card tests (``test_torch_decode_graph_cuda.py``) and
+"""The eager references of the engine's replayed decode, speculative and
+chunked-prefill steps, shared by the card tests
+(``test_torch_decode_graph_cuda.py``, ``test_torch_kernels_cuda.py``) and
 ``chip_smoke.py``: for the duration, the engine's step of one key is a
-``DecodeStep`` (or ``SpecStep``) that is never captured, so each chunk
-calls its body once a step. Imports no JAX."""
+``DecodeStep`` (``SpecStep``, ``ChunkStep``) that is never captured, so
+each call runs its body once. Imports no JAX."""
 
 import contextlib
 
@@ -41,3 +42,16 @@ def eager_spec_step(engine, width, K, ngram, S, n_steps):
         del engine._spec_steps[key]
         if own is not None:
             engine._spec_steps[key] = own
+
+
+@contextlib.contextmanager
+def eager_chunk_steps(engine):
+    """Every chunked-prefill step the engine uses for the duration is a new
+    ``ChunkStep`` that is never captured (one eager chunk a call)."""
+    from lite_llama_tpu_torch.executor.engine import ChunkStep
+
+    engine.chunk_step_for = lambda width, W: ChunkStep(engine, width, W)
+    try:
+        yield
+    finally:
+        del engine.chunk_step_for  # the class's method again

@@ -1,19 +1,29 @@
-"""Worker process of the port's tensor-parallel tests (not a test module; the
+"""Worker process of the port's multi-process tests (not a test module; the
 counterpart of tests/multihost_worker.py). Imports no JAX.
 
     python tests/torch_tp_worker.py <spec.json> <rank>
 
 Each of ``world`` processes joins a gloo group through a FileStore
-rendezvous (``spec["init"]``, a ``file://`` path), builds every case of the
-spec at tp = world from the numpy trees the test wrote (``save_tree``), and
-writes its outputs as ``<out>/<case>.rank<r>.npz``. The test process holds
-them against the JAX package on ``make_mesh(tp=world)``.
+rendezvous (``spec["init"]``, a ``file://`` path), or from the ``LLT_*``
+environment where ``spec["env"]`` is set (the rank argument is then
+ignored), builds every case of the spec on its mesh (``spec["mesh"]``:
+``make_mesh`` keywords, default tp = world; with ``env``,
+``make_multihost_mesh(tp=spec["mesh"]["tp"])``) from the numpy trees the
+test wrote (``save_tree``), and writes its outputs as
+``<out>/<case>.rank<r>.npz``. The test process holds them against the JAX
+package on the same mesh.
 
 A case is a dict: ``kind`` ("engine" or "llava"), ``cfg`` (the config
 class name and fields, fp32), ``tree`` (the npz of the weights, quantized
 leaves included), ``engine`` (``InferenceEngine`` keywords), ``prompts``,
-``gen`` (new tokens, greedy), optional ``rounds`` (the prompts generated
-this many times over: a prefix-cache case) and ``pixels`` (LLaVA).
+A "cp_ops" case runs the context-parallel attention functions on the
+inputs of ``inputs`` (an npz) for each entry of ``ops``, the rank holding
+its share of each pool. ``gen`` (new tokens, greedy), optional ``rounds`` (the prompts generated
+this many times over: a prefix-cache case; a list of prompt lists instead
+generates each list in turn) and ``pixels`` (LLaVA). Besides tokens,
+logprobs and logits, a rank writes its place in the mesh, the slots each
+admission took, the widths its prefills and decode steps ran at, and its
+pool's lengths and pages right after the first prefill.
 """
 
 from __future__ import annotations
@@ -106,27 +116,49 @@ def _engine_case(case, mesh, out):
     cfg = _config(case["cfg"])
     params = params_from_numpy(load_tree(case["tree"]), cfg, device="cpu")
     engine = InferenceEngine(cfg, params, device="cpu", mesh=mesh, **case["engine"])
+    widths, admitted = [], []
+    real_rows, real_admit = engine._prefill_rows, engine.admit_requests
+
+    def rows(token_lists, *a):
+        widths.append(len(token_lists))
+        return real_rows(token_lists, *a)
+
+    def admit(*a, **k):
+        admitted.append(real_admit(*a, **k))
+        return admitted[-1]
+
+    engine._prefill_rows, engine.admit_requests = rows, admit
     prompts = case["prompts"]
-    slots = engine.admit_requests([len(p) + 1 for p in prompts])
-    _, lens, last, _ = engine.prefill(prompts, SamplingParams.make(len(prompts), 0.0,
-                                                                   device="cpu"),
+    rounds = case.get("rounds", 1)
+    lists = rounds if isinstance(rounds, list) else [prompts] * rounds
+    first = lists[0]
+    slots = engine.admit_requests([len(p) + 1 for p in first])
+    _, lens, last, _ = engine.prefill(first, SamplingParams.make(len(first), 0.0, device="cpu"),
                                       slots, return_logits=True)
+    out["prefill_seq_lens"] = engine.cache.seq_lens.numpy().copy()
+    out["prefill_pages"] = engine.cache.kv_pages.pages.float().numpy().copy()
+    out["prefill_table"] = engine.cache.page_table.numpy().copy()
     engine.release_slots(slots, lens)
     out["prefill_logits"] = last
     gen = TextGenerator(engine)
-    for r in range(case.get("rounds", 1)):
-        res = gen.generate_tokens(prompts, max_gen_len=case["gen"], temperature=0.0,
-                                  logprobs=True)
+    for r, ps in enumerate(lists):
+        res = gen.generate_tokens(ps, max_gen_len=case["gen"], temperature=0.0, logprobs=True)
         out[f"tokens{r}"] = np.asarray([o.token_ids for o in res], dtype=object)
         out[f"logprobs{r}"] = np.asarray([o.logprobs for o in res], dtype=object)
     out["prefix_hits"] = np.asarray(engine.stats.prefix_hits)
+    out["admitted"] = np.asarray(admitted, dtype=object)
+    out["prefill_widths"] = np.asarray(widths)
+    out["step_widths"] = np.asarray(sorted({k[0] for k in engine._steps}))
+    sh = engine.shard
+    out["place"] = np.asarray([sh.dp_rank, sh.cp_rank, sh.rank, sh.dp, sh.cp, sh.tp])
     pool = engine.cache.kv_pages
     out["pages"] = (pool.pages.view(torch.uint8) if pool.pages.dtype == torch.float8_e4m3fn
                     else pool.pages).numpy()
     if pool.scales is not None:
         out["scales"] = pool.scales.float().numpy()
     out["head_offset"] = np.asarray(pool.head_offset)
-    out["local_wqkv_shape"] = np.asarray(engine.params["layers"]["wqkv"].shape)
+    if "wqkv" in engine.params["layers"]:  # fused at tp > 1
+        out["local_wqkv_shape"] = np.asarray(engine.params["layers"]["wqkv"].shape)
 
 
 def _llava_case(case, mesh, out):
@@ -149,6 +181,63 @@ def _llava_case(case, mesh, out):
     out["tokens0"] = np.asarray(toks, dtype=object)
 
 
+def _cp_ops_case(case, mesh, out):
+    """Each op of the case through ``parallel/context_parallel.py`` on this
+    context rank's share of the op's pool (global pages [c * P/cp, (c+1) *
+    P/cp)); the outputs of layers ``op["layers"]`` stacked."""
+    import torch
+
+    from lite_llama_tpu_torch.executor.kv_cache import KVPool
+    from lite_llama_tpu_torch.parallel import context_parallel as cpm
+    from lite_llama_tpu_torch.parallel.shardings import ShardingPolicy
+
+    shard = ShardingPolicy(mesh)
+    data = np.load(case["inputs"])
+    for op in case["ops"]:
+        name = op["name"]
+
+        def arr(key, name=name):
+            return torch.from_numpy(data[f"{name}/{key}"])
+
+        ps = op["page_size"]
+        pages = arr("pages")
+        total = pages.shape[2] // ps
+        loc, c = total // shard.cp, shard.cp_rank
+        rows = slice(c * loc * ps, (c + 1) * loc * ps)
+        scales = arr("scales").to(torch.bfloat16)[:, rows].contiguous() if op["quantized"] else None
+        pool = KVPool(pages=pages[:, :, rows].contiguous(), page_size=ps,
+                      num_kv_heads=op["hkv"], head_dim=op["d"], scales=scales,
+                      page_offset=c * loc, total_pages=total)
+        res = []
+        for layer in op["layers"]:
+            if op["kind"] == "decode":
+                kw = dict(k_new=arr("k_new"), v_new=arr("v_new")) if op.get("virtual") else {}
+                res.append(cpm.cp_paged_flash_decode(arr("q"), pool, layer, arr("table"),
+                                                      arr("lens"), shard, **kw))
+            else:
+                res.append(cpm.cp_flash_prefill_chunked(
+                    arr("q"), arr("k"), arr("v"), arr("chunk_lens"), arr("start_pos"), pool,
+                    layer, arr("table"), shard))
+        out[name] = torch.stack(res).numpy()
+
+
+def _count_cp_calls():
+    """Count the decoder's calls of the context-parallel attention functions
+    (``cp_calls``: decode, chunked prefill)."""
+    from lite_llama_tpu_torch.parallel import context_parallel as cpm
+
+    calls = [0, 0]
+    for i, fname in enumerate(("cp_paged_flash_decode", "cp_flash_prefill_chunked")):
+        real = getattr(cpm, fname)
+
+        def counted(*a, _real=real, _i=i, **k):
+            calls[_i] += 1
+            return _real(*a, **k)
+
+        setattr(cpm, fname, counted)
+    return calls
+
+
 def main(spec_path: str, rank: int) -> int:
     import torch
 
@@ -159,13 +248,24 @@ def main(spec_path: str, rank: int) -> int:
     from lite_llama_tpu_torch.parallel.shardings import make_mesh
 
     world = spec["world"]
-    init_distributed(init_method=spec["init"], num_processes=world, process_id=rank,
-                     backend="gloo", timeout_s=120)
-    mesh = make_mesh(tp=world)
+    if spec.get("env"):
+        from lite_llama_tpu_torch.parallel.distributed import make_multihost_mesh
+
+        assert init_distributed(timeout_s=120), "the LLT_* environment must configure the group"
+        rank = torch.distributed.get_rank()
+        mesh = make_multihost_mesh(tp=spec["mesh"]["tp"])
+    else:
+        init_distributed(init_method=spec["init"], num_processes=world, process_id=rank,
+                         backend="gloo", timeout_s=120)
+        mesh = make_mesh(**spec.get("mesh", {"tp": world}))
+    cp_calls = _count_cp_calls()
+    runners = {"llava": _llava_case, "cp_ops": _cp_ops_case, "engine": _engine_case}
     for name, case in spec["cases"].items():
         out = {}
+        cp_calls[:] = [0, 0]
         try:
-            (_llava_case if case["kind"] == "llava" else _engine_case)(case, mesh, out)
+            runners[case["kind"]](case, mesh, out)
+            out["cp_calls"] = np.asarray(cp_calls)
         except Exception:  # reported to the test, which fails the case
             out = {"error": np.asarray(traceback.format_exc())}
         np.savez(os.path.join(spec["out"], f"{name}.rank{rank}.npz"), **out)
