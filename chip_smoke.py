@@ -191,7 +191,27 @@ Phases, in order; any failure exits non-zero:
    the tail page counted on both) must fail it; each rank's K1 / K5
    launches and the kv tokens it holds (the two make up the whole) are
    printed.
-14. Summary: the whole script's seconds, one JSON line with every kernel,
+14. The scheduler, the HTTP server and speculative decoding on a mesh
+   (mesh_phase): Llama-3.2-3B at full width and depth, two processes of
+   this script (``--mesh-child``) on the card over gloo. (a) tp 2: rank 0
+   serves HTTP on localhost, rank 1 follows its control messages; phase 4's
+   12 x 25 prompts posted from 4 client threads in two waves of 6 with an
+   idle gap, 64 new tokens, greedy, eos off (the decode step eager). (c)
+   tp 2: spec_extractive's streams, 64 new tokens (the verify step eager;
+   each rank's K5 launches printed). (b) dp 2 with the prefix cache, int4
+   g128 riffle weights on an int8 pool (K6, K1q and K5q through the
+   scheduler): phase 4's prompts and phase 12's warm-up of the 256-token
+   prefix in wave 1, phase 12's 8 prompts behind it in wave 2. Against one
+   rank on the same weights in this process (the tp 1 and dp 1 schedulers,
+   tp 1's spec streams): the streams equal but where one parts at a tie
+   within twice the measured max-abs difference; both ranks take as many
+   loop turns (every turn's digests agreed) and make as many engine calls;
+   at dp every admission equals the host model's placement and each rank's
+   decode step is a replayed graph at its group's width; a planted follower
+   that applies a message's two submits in reverse order must make both
+   ranks fail within seconds. Each rank's launch counters are printed; its
+   seconds are two ranks time-sharing one card.
+15. Summary: the whole script's seconds, one JSON line with every kernel,
    then the last line {"ok": true, "device": {...}}.
 
 Phase 3 holds K1 / K1q and K5 / K5q at phase 13's shapes on a pool split in
@@ -4849,7 +4869,8 @@ def run_children(flag, workdir, timeout=900):
         if p.returncode != 0:
             log(text[-6000:])
         require(p.returncode == 0, f"{flag} rank {r} failed with exit code {p.returncode}")
-    tag = {"--dp-child": "DP_CHILD ", "--cp-child": "CP_CHILD "}[flag]
+    tag = {"--dp-child": "DP_CHILD ", "--cp-child": "CP_CHILD ",
+           "--mesh-child": "MESH_CHILD "}[flag]
     return [json.loads(next(ln for ln in text.splitlines() if ln.startswith(tag))[len(tag):])
             for text in logs]
 
@@ -5232,6 +5253,400 @@ def cp_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the scheduler, the HTTP server and speculative decoding on a mesh
+
+MESH_GEN = 64  # new tokens of every served request and spec stream (greedy, eos off)
+MESH_THREADS = 4  # client threads posting each wave
+MESH_IDLE_S = 1.0  # the gap between the waves: rank 0's loop turns idle, the follower with it
+MESH_FAULT_S = 10.0  # the planted reorder must fail every rank within this
+MESH_TP_KERNELS = ("paged_flash_decode", "flash_prefill", "rms_norm", "swiglu")
+MESH_DP_KERNELS = ("quantized_matmul_packed", "paged_flash_decode_int8",
+                   "flash_prefill_chunked_int8", "rms_norm", "swiglu")
+MESH_SPEC_KERNELS = ("flash_prefill", "flash_prefill_chunked", "rms_norm", "swiglu")
+MESH_SPEC_KW = dict(page_size=16, max_reqs=16, num_pages=512, decode_chunk=32)
+
+
+def mesh_requests(cfg):
+    """Phase 14's served prompts and waves: (a) phase 4's 12 x 25 prompts,
+    6 a wave; (b) those 12 and phase 12's warm-up of the 256-token prefix
+    in wave 1, phase 12's 8 prompts behind the prefix in wave 2."""
+    batch = batch_prompts(cfg)
+    dp = dp_prompts(cfg)
+    return dict(tp=(batch, [list(range(6)), list(range(6, 12))]),
+                dp=(batch + [dp["warm"]] + dp["shared"],
+                    [list(range(13)), list(range(13, 21))]))
+
+
+def post_waves(port, prompts, waves):
+    """Post each wave's prompts to rank 0's /generate from MESH_THREADS
+    client threads (each sends its share, then reads the responses; odd
+    requests streamed), MESH_IDLE_S apart; returns the token lists in
+    prompt order and each wave's wall seconds."""
+    import http.client
+    import threading
+
+    got, errors, walls = {}, [], []
+
+    def client(mine):
+        try:
+            conns = []
+            for i in mine:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+                conn.request("POST", "/generate", body=json.dumps(
+                    {"tokens": prompts[i], "max_gen_len": MESH_GEN, "temperature": 0.0,
+                     "stream": bool(i % 2)}))
+                conns.append((i, conn))
+            for i, conn in conns:
+                body = conn.getresponse().read().decode()
+                if i % 2:
+                    lines = [json.loads(x) for x in body.splitlines()]
+                    require(lines[-1].get("done") is True, f"request {i}: stream not closed")
+                    got[i] = [t for x in lines[:-1] for t in x["tokens"]]
+                else:
+                    got[i] = json.loads(body)["tokens"]
+        except Exception as e:  # reported below; the phase fails on it
+            errors.append(repr(e))
+
+    for w, wave in enumerate(waves):
+        if w:
+            time.sleep(MESH_IDLE_S)
+        t0 = time.perf_counter()
+        pool = [threading.Thread(target=client, args=(wave[t::MESH_THREADS],))
+                for t in range(MESH_THREADS)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=900)
+        walls.append(time.perf_counter() - t0)
+    require(not errors and len(got) == len(prompts), f"mesh serving clients failed: {errors}")
+    return [got[i] for i in range(len(prompts))], walls
+
+
+def served(engine, prompts, waves, kw=None):
+    """``serve`` on this rank of the engine's mesh: rank 0 serves HTTP on
+    localhost and posts the waves to itself, the other rank follows. Returns
+    this rank's record (streams on rank 0; turns, engine calls, launches,
+    seconds)."""
+    from lite_llama_tpu_torch.server import serve, serve_background
+
+    sync(engine.device)
+    reset_counts()
+    t0 = time.perf_counter()
+    if torch.distributed.get_rank() == engine.shard.mesh.leader:
+        httpd, fe = serve_background(engine, port=0, scheduler_kw=kw)
+        try:
+            streams, walls = post_waves(httpd.server_address[1], prompts, waves)
+        finally:
+            httpd.shutdown()
+            fe.shutdown()
+        require(fe.error is None and not fe._thread.is_alive(),
+                f"rank 0's serving loop: {fe.error!r}")
+        rec = dict(streams=streams, wave_s=walls, turns=fe.turns)
+    else:
+        _, follower = serve(engine, scheduler_kw=kw)
+        rec = dict(turns=follower.turns, steps=follower.steps)
+    sync(engine.device)
+    rec.update(seconds=time.perf_counter() - t0, launches=read_counts(), calls=engine.stats.calls)
+    return rec
+
+
+def planted_reorder(engine):
+    """The planted fault: this rank's follower applies a message's submits
+    in reverse order while rank 0 submits two requests in one message; each
+    rank returns what it raised (None: the fault passed) and the seconds
+    to it."""
+    from lite_llama_tpu_torch import server
+
+    t0, raised = time.perf_counter(), None
+    if torch.distributed.get_rank() == engine.shard.mesh.leader:
+        fe = server.ServingFrontend(server.ContinuousBatchingScheduler(engine))
+        p = batch_prompts(engine.config)
+        with fe._lock:  # one message carries both
+            rids = [fe.submit(p[i], max_gen_len=4, temperature=0.0) for i in (0, 1)]
+        try:
+            fe.result(rids[0], timeout=120)
+        except RuntimeError as e:  # the failure the fault must cause
+            raised = repr(e)
+        fe.shutdown()
+    else:
+        real = server.MeshFollower._apply
+        server.MeshFollower._apply = lambda self, subs: real(self, subs[::-1])
+        try:
+            server.serve(engine)
+        except RuntimeError as e:  # the failure the fault must cause
+            raised = repr(e)
+        finally:
+            server.MeshFollower._apply = real
+    return dict(raised=raised, seconds=time.perf_counter() - t0)
+
+
+def mesh_readings(engine, prompts, stream):
+    """The tie rule's readings on the engine at ``stream`` (every rank of a
+    tp mesh calls it): first-token logits, the logits after TP_FORCED
+    teacher-forced decode steps, and the teacher-forced gaps."""
+    first = forced_logits(engine, prompts, stream, steps=0).cpu()
+    forced = forced_logits(engine, prompts, stream).cpu()
+    return dict(first=first, forced=forced, gaps=teacher_forced_gaps(engine, prompts, stream)[1])
+
+
+def recording_admissions(engine):
+    """Record every try_admit and release_slots of the engine, in
+    ``host_placements``' event format."""
+    events = []
+    admit, release = engine.try_admit, engine.release_slots
+
+    def admit_rec(total, prompt=None):
+        slot = admit(total, prompt)
+        events.append(("admit", [int(total)], [list(map(int, prompt))] if prompt else None,
+                       [slot]))
+        return slot
+
+    def release_rec(slots, lens):
+        events.append(("release", [int(x) for x in slots], [int(x) for x in lens]))
+        return release(slots, lens)
+
+    engine.try_admit, engine.release_slots = admit_rec, release_rec
+    return events
+
+
+def mesh_child(rank, port, workdir, dev=None):
+    """One rank of phase 14 (``--mesh-child``): joins the gloo group on the
+    card; (a) serves or follows phase 4's prompts at tp 2, then the planted
+    reorder; (c) spec_extractive's streams at tp 2; (b) serves or follows
+    at dp 2 with int4 weights on an int8 pool; writes its results to
+    ``workdir``."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+    from lite_llama_tpu_torch.ops import _build
+    from lite_llama_tpu_torch.parallel import distributed, shardings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda")
+    if dev.type == "cuda":
+        _build.build()  # the parent built every kernel: this loads them
+    distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=600)
+    cfg = spec_config()
+    reqs = mesh_requests(cfg)
+    ref = torch.load(f"{workdir}/mesh_reference.pt")
+    res, keep = {"rank": rank}, {}
+    # (a) tp 2 behind the HTTP server.
+    tp_mesh = shardings.make_mesh(tp=2)
+    engine = InferenceEngine(cfg, tp_weights(cfg, dev, False), device=dev, mesh=tp_mesh,
+                             **TP_ENGINE)
+    prompts, waves = reqs["tp"]
+    rec = served(engine, prompts, waves)
+    keep["tp"] = dict(streams=rec.pop("streams", None),
+                      **mesh_readings(engine, prompts, ref["tp"]["stream"]))
+    rec["fault"] = planted_reorder(engine)
+    res["tp"] = rec
+    del engine
+    free_device()
+    # (c) speculative decoding at tp 2: spec_extractive's weights and drafts.
+    scale, draft_len = SPEC_WORKLOADS["spec_extractive"]
+    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED), scale)
+    engine = InferenceEngine(cfg, params, device=dev, mesh=tp_mesh, **MESH_SPEC_KW)
+    del params
+    batch = reqs["tp"][0]
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = SpeculativeTextGenerator(engine, draft_len=draft_len, ngram=SPEC_NGRAM,
+                                   chunk_steps=SPEC_CHUNK_STEPS).generate_tokens(
+        batch, max_gen_len=MESH_GEN)
+    sync(dev)
+    res["spec"] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                       calls=engine.stats.calls,
+                       eager=all(st.graph is None for st in engine._spec_steps.values()),
+                       pages_conserved=pages_conserved(engine))
+    keep["spec"] = dict(streams=[o.token_ids for o in out],
+                        **mesh_readings(engine, batch, ref["spec"]["stream"]))
+    del engine
+    free_device()
+    # (b) dp 2 behind the HTTP server: int4 g128 riffle weights, an int8 pool.
+    dp_mesh = shardings.make_mesh(dp=2)
+    engine = InferenceEngine(cfg, dp_weights(cfg, dev, True), device=dev, kv_quant="int8",
+                             mesh=dp_mesh, **DP_ENGINE)
+    events = recording_admissions(engine)
+    prompts, waves = reqs["dp"]
+    rec = served(engine, prompts, waves)
+    rec["replayed"] = [[k[0], st.graph is not None] for k, st in engine._steps.items()]
+    rec["dp_rank"] = engine.shard.dp_rank
+    slot_of = {tuple(ev[2][0]): ev[3][0] for ev in events if ev[0] == "admit"}
+    mine = [i for i, p in enumerate(batch) if engine.group_of(slot_of[tuple(p)]) == rec["dp_rank"]]
+    stream = ref["dp"]["stream"]
+    part = dict(rows=mine, first=forced_logits(engine, [batch[i] for i in mine],
+                                               [stream[i] for i in mine], steps=0).cpu(),
+                forced=forced_logits(engine, [batch[i] for i in mine],
+                                     [stream[i] for i in mine]).cpu())
+    torch.save(part, f"{workdir}/mesh_dp_rank{rank}.pt")
+    if rank == 0:
+        keep["dp"] = dict(streams=rec.pop("streams"), events=events,
+                          gaps=teacher_forced_gaps(engine, prompts, stream)[1])
+        torch.save(keep, f"{workdir}/mesh_rank0.pt")
+    res["dp"] = rec
+    del engine
+    free_device()
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("MESH_CHILD " + json.dumps(res), flush=True)
+    return 0
+
+
+def mesh_reference(dev, cfg):
+    """Phase 14's one-rank references in this process: the tp 1 scheduler's
+    streams of (a), tp 1's spec_extractive streams (c), the dp 1
+    scheduler's streams of (b) on its int4 weights and int8 pool, and the
+    tie rule's logits beside each."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.executor.scheduler import ContinuousBatchingScheduler
+    from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+
+    def scheduled(engine, prompts, waves):
+        sched, out = ContinuousBatchingScheduler(engine), {}
+        for wave in waves:
+            ids = {sched.submit(prompts[i], max_gen_len=MESH_GEN, temperature=0.0): i
+                   for i in wave}
+            out.update({ids[r.req_id]: r.output_tokens for r in sched.run()})
+        return [out[i] for i in range(len(prompts))]
+
+    reqs, ref = mesh_requests(cfg), {}
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, tp_weights(cfg, dev, False), device=dev, **TP_ENGINE)
+    stream = scheduled(engine, *reqs["tp"])
+    ref["tp"] = dict(stream=stream, **mesh_readings(engine, reqs["tp"][0], stream))
+    del engine
+    free_device()
+    scale, draft_len = SPEC_WORKLOADS["spec_extractive"]
+    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED), scale)
+    engine = InferenceEngine(cfg, params, device=dev, **MESH_SPEC_KW)
+    del params
+    batch = reqs["tp"][0]
+    stream = [o.token_ids for o in SpeculativeTextGenerator(
+        engine, draft_len=draft_len, ngram=SPEC_NGRAM, chunk_steps=SPEC_CHUNK_STEPS)
+        .generate_tokens(batch, max_gen_len=MESH_GEN)]
+    ref["spec"] = dict(stream=stream, **mesh_readings(engine, batch, stream))
+    del engine
+    free_device()
+    engine = InferenceEngine(cfg, dp_weights(cfg, dev, True), device=dev, kv_quant="int8",
+                             **DP_ENGINE)
+    stream = scheduled(engine, *reqs["dp"])
+    ref["dp"] = dict(stream=stream,
+                     first=forced_logits(engine, batch, stream[:12], steps=0).cpu(),
+                     forced=forced_logits(engine, batch, stream[:12]).cpu())
+    del engine
+    free_device()
+    ref["seconds"] = time.perf_counter() - t0
+    return ref
+
+
+def mesh_phase(dev):
+    """Llama-3.2-3B at full width and depth: the HTTP server over the
+    scheduler at tp 2 and at dp 2 (int4 weights, int8 pool), and speculative
+    decoding at tp 2, two processes of this script on the one card over
+    gloo, against one rank in this process (module docstring, phase 14)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cfg = spec_config()
+    reqs = mesh_requests(cfg)
+    ref = mesh_reference(dev, cfg)
+    workdir = tempfile.mkdtemp(prefix="mesh_phase_")
+    torch.save(ref, f"{workdir}/mesh_reference.pt")
+    t0 = time.perf_counter()
+    ranks = sorted(run_children("--mesh-child", workdir), key=lambda r: r["rank"])
+    out = {"references_s": ref["seconds"], "children_s": time.perf_counter() - t0}
+    got, problems, by_path = torch.load(f"{workdir}/mesh_rank0.pt"), [], {}
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def common(name, key, kernels):
+        """Both ranks: turns and engine calls equal, kernels launched."""
+        recs = [rk[key] for rk in ranks]
+        rec = dict(turns=[r.get("turns") for r in recs], calls=[r["calls"] for r in recs],
+                   seconds=[r["seconds"] for r in recs])
+        if len(set(rec["turns"])) != 1 or len(set(rec["calls"])) != 1:
+            problems.append(f"{name}: turns {rec['turns']} / engine calls {rec['calls']} "
+                            "differ between the ranks")
+        for r, pr in enumerate(recs):
+            log(f"  mesh rank {r} {name} launches: "
+                + json.dumps({k: v for k, v in pr["launches"].items() if v}))
+            missing = [k for k in kernels if pr["launches"][k] == 0]
+            if missing:
+                problems.append(f"{name}: rank {r} never launched {missing}")
+        by_path[name] = {k: sum(r["launches"][k] for r in recs) for k in KERNELS}
+        return rec
+
+    # (a) tp 2 server.
+    want, g = ref["tp"], got["tp"]
+    rec = common("tp2_server", "tp", MESH_TP_KERNELS)
+    max_abs = max(diff(g["first"], want["first"]), diff(g["forced"], want["forced"]))
+    n, worst, probs = parting_problems("tp2 server", g["streams"], want["stream"], g["gaps"],
+                                       max_abs)
+    problems += probs
+    rec.update(max_abs_diff=max_abs, streams_equal=sum(
+        a == b for a, b in zip(g["streams"], want["stream"])), partings=n, max_parting_gap=worst,
+        wave_s=ranks[0]["tp"]["wave_s"], follower_steps=ranks[1]["tp"]["steps"],
+        fault=[rk["tp"]["fault"] for rk in ranks])
+    for r, f in enumerate(rec["fault"]):
+        if not (f["raised"] and "ControlMismatch" in f["raised"]
+                and f["seconds"] < MESH_FAULT_S):
+            problems.append(f"tp2 server: the planted reorder was not caught on rank {r}: {f}")
+    out["tp2_server"] = rec
+    # (c) tp 2 speculative decoding.
+    want, g = ref["spec"], got["spec"]
+    rec = common("tp2_spec", "spec", MESH_SPEC_KERNELS)
+    max_abs = max(diff(g["first"], want["first"]), diff(g["forced"], want["forced"]))
+    n, worst, probs = parting_problems("tp2 spec", g["streams"], want["stream"], g["gaps"],
+                                       max_abs)
+    problems += probs
+    rec.update(max_abs_diff=max_abs, streams_equal=sum(
+        a == b for a, b in zip(g["streams"], want["stream"])), partings=n, max_parting_gap=worst,
+        k5_launches=[rk["spec"]["launches"]["flash_prefill_chunked"] for rk in ranks])
+    for r, rk in enumerate(ranks):
+        if not (rk["spec"]["eager"] and rk["spec"]["pages_conserved"]):
+            problems.append(f"tp2 spec: rank {r} verify step replayed or pages lost: "
+                            f"{ {k: rk['spec'][k] for k in ('eager', 'pages_conserved')} }")
+    log(f"  mesh tp2 spec K5 launches by rank: {rec['k5_launches']}")
+    out["tp2_spec"] = rec
+    # (b) dp 2 server, int4 weights on an int8 pool.
+    want, g = ref["dp"], got["dp"]
+    rec = common("dp2_int4_int8_pool_server", "dp", MESH_DP_KERNELS)
+    first, forced = torch.empty_like(want["first"]), torch.empty_like(want["forced"])
+    for r in range(2):
+        part = torch.load(f"{workdir}/mesh_dp_rank{r}.pt")
+        first[part["rows"]], forced[part["rows"]] = part["first"], part["forced"]
+    max_abs = max(diff(first, want["first"]), diff(forced, want["forced"]))
+    n, worst, probs = parting_problems("dp2 server", g["streams"], want["stream"], g["gaps"],
+                                       max_abs)
+    problems += probs
+    model = host_placements(g["events"], 2, DP_ENGINE)
+    slots = [ev[3] for ev in g["events"] if ev[0] == "admit"]
+    rec.update(max_abs_diff=max_abs, streams_equal=sum(
+        a == b for a, b in zip(g["streams"], want["stream"])), partings=n, max_parting_gap=worst,
+        admissions=len(slots), placements_equal_host_model=model == slots,
+        replayed=[rk["dp"]["replayed"] for rk in ranks], wave_s=ranks[0]["dp"]["wave_s"])
+    if model != slots:
+        problems.append(f"dp2 server: placements {slots} differ from the host model's {model}")
+    for rk in ranks:
+        steps = rk["dp"]["replayed"]
+        if not steps or not all(cap for _, cap in steps) or {w for w, _ in steps} != {
+                DP_ENGINE["max_reqs"] // 2}:
+            problems.append(f"dp2 server: rank {rk['dp']['dp_rank']} decode steps {steps} are "
+                            "not replayed graphs at its group's width")
+    out["dp2_int4_int8_pool_server"] = rec
+    shutil.rmtree(workdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["time_shared"] = ("two ranks time-share one card through gloo; their seconds are not "
+                          "the mesh's speed")
+    log("mesh serving: " + json.dumps(out))
+    require(not problems, f"phase 14 gates failed: {problems}")
+    return out, by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -5241,6 +5656,7 @@ def main() -> int:
     ap.add_argument("--tp-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--cp-child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5255,6 +5671,8 @@ def main() -> int:
         return dp_child(args.dp_child, args.tp_port, args.tp_dir)
     if args.cp_child is not None:  # one rank of phase 13
         return cp_child(args.cp_child, args.tp_port, args.tp_dir)
+    if args.mesh_child is not None:  # one rank of phase 14
+        return mesh_child(args.mesh_child, args.tp_port, args.tp_dir)
     from lite_llama_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references stay fp32
@@ -5291,7 +5709,8 @@ def main() -> int:
                for p in ("batch", "serving", "quantized", "fp8_kv", "open_llama", "checkpoint",
                          "eval", "eval_int8_kv", "eval_fp8_kv", "llava", "spec",
                          "spec_quantized", "tp_bf16", "tp_int8_pool", "tp_int4_riffle_tp2",
-                         "dp_bf16", "dp_int4_int8_pool", "cp_bf16", "cp_int8_pool")}
+                         "dp_bf16", "dp_int4_int8_pool", "cp_bf16", "cp_int8_pool",
+                         "mesh_tp2_server", "mesh_tp2_spec", "mesh_dp2_int4_int8_pool_server")}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
@@ -5365,6 +5784,12 @@ def main() -> int:
         summary, cp_paths = cp_phase(dev)
         by_path.update({f"cp_{k}": v for k, v in cp_paths.items()})
         log(f"  phase 13 took {summary['seconds']:.1f} s")
+        free_device()
+        log("phase 14: the server, the scheduler and speculative decoding on a mesh "
+            "(Llama-3.2-3B, tp 2 and dp 2: two ranks on the card, gloo)")
+        summary, mesh_paths = mesh_phase(dev)
+        by_path.update({f"mesh_{k}": v for k, v in mesh_paths.items()})
+        log(f"  phase 14 took {summary['seconds']:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():

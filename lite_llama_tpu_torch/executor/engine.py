@@ -81,8 +81,14 @@ JAX engine): the weights and the host state are whole on every rank, the
 pool holds the rank's share of the pages (``parallel/context_parallel.py``),
 and the steps run eagerly (each layer holds a collective).
 
-Speculative decoding, the scheduler and the server refuse a mesh of more
-than one rank: they need requests broadcast from rank 0 (ROADMAP A7e).
+The scheduler and the server run on every mesh through the same calls
+(``start_decode_session``, ``update_session_rows``, ``dispatch_decode_chunk``
+/ ``collect_decode_chunk``, ``prefill_async`` / ``prefill_collect``,
+``try_admit`` / ``release_slots``, ``chunk_step_for``): the server's rank 0
+broadcasts its requests so that every rank makes them alike (``server.py``),
+and ``stats.calls`` counts the calls, which the ranks compare each
+iteration. Speculative decoding runs at tp and cp (its verify step eager
+there); at dp it is refused, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -460,6 +466,9 @@ class EngineStats:
     chunks: int = 0
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
+    # Engine calls that change the accounting or queue device work: every
+    # rank of a mesh makes the same ones (the serving digest compares them).
+    calls: int = 0
 
 
 class PrefixCache:
@@ -680,6 +689,7 @@ class InferenceEngine:
             return self._try_admit_locked(total_len, prompt_tokens)
 
     def _try_admit_locked(self, total_len: int, prompt_tokens=None):
+        self.stats.calls += 1
         total_pages = cdiv(total_len, self.page_size)
         hits = [None] * self.dp
         if self.prefixes is not None and prompt_tokens is not None:
@@ -785,6 +795,7 @@ class InferenceEngine:
         with self._admission_lock:
             if not slots:
                 return
+            self.stats.calls += 1
             keep = [0] * len(slots)
             returned = [cdiv(n, self.page_size) for n in lens]
             if self.prefixes is not None:
@@ -967,6 +978,7 @@ class InferenceEngine:
         (or for ``update_session_rows``, which reads its device-side first
         tokens). At dp > 1 this rank prefills its data group's rows and the
         outputs are gathered into the caller's order (module docstring)."""
+        self.stats.calls += 1
         lens = np.asarray([len(t) for t in token_lists], np.int32)
         if int(lens.max()) > self.config.max_seq_len:
             raise ValueError(f"prompt of {int(lens.max())} tokens exceeds max_seq_len="
@@ -1106,6 +1118,7 @@ class InferenceEngine:
         against it with no further uploads. The session owns its token and
         done tensors (chunks update them in place). At dp > 1 it holds this
         rank's data group's rows (``layout``)."""
+        self.stats.calls += 1
         mode = self._samp_mode(sampling)
         layout = self._layout(slots)
         if layout is not None:
@@ -1138,13 +1151,21 @@ class InferenceEngine:
         row's done flag is computed on the device (the first token is eos,
         or the prompt already fills its budget). Nothing waits for the
         prefill. Rows >= max_reqs are dropped, as JAX drops out-of-bounds
-        scatter rows."""
+        scatter rows. At dp > 1 the session holds this rank's data group's
+        rows only: a row of the group is written at its local position,
+        and the other groups' rows are left to their ranks."""
+        self.stats.calls += 1
         rows = np.asarray(rows, np.int64)
-        keep = rows < self.max_reqs
-        if not keep.any():
+        keep = np.flatnonzero(rows < self.max_reqs)  # the prefill's requests that land
+        dst = rows[keep]
+        if s.layout is not None:
+            local = {row: j for j, row in enumerate(s.layout[self.shard.dp_rank])}
+            keep = np.asarray([k for k in keep if rows[k] in local], np.int64)
+            dst = np.asarray([local[rows[k]] for k in keep], np.int64)
+        if not keep.size:
             return
-        r = self._ids(rows[keep], torch.long)
-        newtok = bundle.tok_dev[self._ids(np.flatnonzero(keep), torch.long)]
+        r = self._ids(dst, torch.long)
+        newtok = bundle.tok_dev[self._ids(keep, torch.long)]
         stop_new = self._ids(np.asarray(stop_lens)[keep])
         plens = self._ids(np.asarray(prompt_lens)[keep])
         s.tok[r] = newtok.to(s.tok.dtype)
@@ -1164,6 +1185,7 @@ class InferenceEngine:
         n = min(n, self.decode_chunk)
         if n < 1:
             raise ValueError("a decode chunk needs at least one step")
+        self.stats.calls += 1
         packed = None
         if s.slots:
             step = self.decode_step_for(len(s.slots), s.mode)
@@ -1275,11 +1297,11 @@ class InferenceEngine:
         tok = torch.from_numpy(toks[-1].copy()) if len(toks) else torch.as_tensor(np.asarray(tok))
         return tok, torch.from_numpy(done_h), toks, lps
 
-    def _refuse_mesh(self, what: str) -> None:
-        if self.shard.tp > 1 or self.dp > 1 or self.cp > 1:
-            raise NotImplementedError(
-                f"{what} on a mesh of more than one rank (dp, cp or tp) is not ported yet: it "
-                "needs requests broadcast from rank 0 (ROADMAP A7e)")
+    def refuse_dp(self) -> None:
+        """Speculative decoding has no data-group layout of its verify chunk:
+        refused at dp > 1 with the JAX engine's message."""
+        if self.dp > 1:
+            raise NotImplementedError("speculative decoding: dp meshes unsupported")
 
     # -- speculative decoding (greedy verify) ------------------------------------
     def _spec_verify_body(self, req_ids, chunk, chunk_lens):
@@ -1294,8 +1316,10 @@ class InferenceEngine:
         and the accepted drafts; the bonus token stays virtual). Returns
         (emit [B, K]: the accepted drafts, then the bonus token, pad after;
         n_emit [B] = a + 1; next_tok [B], the bonus token). The plain CPU
-        attention reads the whole page-table span of history."""
-        self._refuse_mesh("speculative decoding")
+        attention reads the whole page-table span of history. At tp > 1
+        the vocab-sharded logits are all-gathered, so every rank reads the
+        whole [B, K, V]."""
+        self.refuse_dp()
         cache, ps = self.cache, self.page_size
         K = chunk.shape[1]
         req = req_ids.long()
@@ -1306,7 +1330,7 @@ class InferenceEngine:
         ctx = AttnContext(table_rows=cache.page_table[req], seq_lens=new_total, start_pos=L,
                           chunk_lens=chunk_lens)
         logits, _ = decoder_prefill(self.params, self.config, cache.kv_pages, ctx,
-                                    chunk.long(), chunked=True)
+                                    chunk.long(), chunked=True, shard=self.shard)
         pred = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, K]
         a = accepted_drafts(chunk, chunk_lens, pred)
         next_tok = torch.gather(pred, 1, a[:, None].long())  # [B, 1]
@@ -1323,6 +1347,7 @@ class InferenceEngine:
         (``_spec_verify_body``), run eagerly. ``chunk_tokens`` [B, K] and
         ``chunk_lens`` [B] are host arrays. Returns (emit [B, K], n_emit [B],
         next_tok [B]) as numpy int32, from one host copy."""
+        self.stats.calls += 1
         chunk = np.asarray(chunk_tokens, np.int32)
         K = chunk.shape[1]
         emit, n_emit, next_tok = self._spec_verify_body(
@@ -1355,7 +1380,8 @@ class InferenceEngine:
         (history, hist_len, cur, done, emits [n_steps, B, K] np, keeps
         [n_steps, B] np, done [B] np bool); step s of row b emitted
         ``keeps[s, b]`` tokens, eos- and budget-truncated."""
-        self._refuse_mesh("speculative decoding")
+        self.refuse_dp()
+        self.stats.calls += 1
         B = len(slots)
         K = draft_len + 1
         step = self.spec_step_for(B, K, ngram, history.shape[1], n_steps)

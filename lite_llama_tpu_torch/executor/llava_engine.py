@@ -73,6 +73,7 @@ class LlavaEngine(InferenceEngine):
         prompt has one. The bundle's ``lens`` are the expanded lengths,
         what the pool holds, so the scheduler splices image requests into a
         session as it does text requests."""
+        self.stats.calls += 1
         B = len(token_lists)
         raw = np.asarray([len(t) for t in token_lists], np.int32)
         exp = np.asarray(self.expanded_lens(token_lists), np.int32)

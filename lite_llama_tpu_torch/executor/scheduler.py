@@ -22,13 +22,26 @@ splice into the one session. A text engine rejects them
 (``rejected_multimodal_unsupported``); a LLaVA engine rejects one whose
 prompt holds no placeholder (``rejected_missing_image_placeholder``) or more
 than one (``rejected_multiple_images``).
+
+On a mesh of more than one rank (tp, dp, cp, or dp x tp) every rank runs
+its own scheduler over its share of the engine, and the SPMD contract
+holds as for the engine's batch calls: driven by the same ``submit`` calls,
+in the same order, at the same ``step`` calls, the schedulers make the
+same admissions, dispatches and releases on every rank. Nothing here
+branches on time or on device completion: the accounting reads only the
+gathered tokens, which are the same on every rank (``submitted_at``,
+``first_token_at`` and ``chunk_log`` are rank-local and decide nothing).
+``server.py`` feeds the ranks from rank 0; :meth:`digest` summarises the
+accounting the ranks compare before each iteration.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import time
+import zlib
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -61,6 +74,9 @@ class Request:
     state: str = "waiting"  # waiting | running | done
     finish_reason: Optional[str] = None
     max_total: int = 0
+    # crc32 of the prompt, the knobs and the image: the serving digest
+    # tells requests apart by it, not only by their ids.
+    fingerprint: int = 0
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
@@ -95,12 +111,11 @@ class ContinuousBatchingScheduler:
         chunk_steps: Optional[int] = None,
         admit_every: int = 1,
     ):
-        engine._refuse_mesh("the scheduler (and the server over it)")
         self.engine = engine
         self.max_prefill_batch = max_prefill_batch
         # The full-chunk steps of long prompts, one per admission width,
-        # made before any traffic (captured on the card): no request waits
-        # for their capture.
+        # made before any traffic (captured on the card, eager at tp > 1 and
+        # cp > 1): no request waits for their capture.
         for width in range(1, max_prefill_batch + 1):
             engine.chunk_step_for(width, engine.prefill_chunk)
         self.chunk_steps = chunk_steps or engine.decode_chunk
@@ -149,8 +164,26 @@ class ContinuousBatchingScheduler:
             pixel_values=pixel_values,
             submitted_at=time.perf_counter(),
         )
+        knobs = repr((max_gen_len, float(temperature), float(top_p), int(top_k))).encode()
+        r.fingerprint = zlib.crc32(np.asarray(r.prompt_tokens, np.int64).tobytes() + knobs)
+        if pixel_values is not None:
+            r.fingerprint = zlib.crc32(np.ascontiguousarray(pixel_values).tobytes(), r.fingerprint)
         self.waiting.append(r)
         return r.req_id
+
+    def digest(self) -> bytes:
+        """16 bytes summarising the accounting every rank of a mesh must
+        share: the waiting and running requests (id, fingerprint, tokens
+        so far, slot), each data group's free slots and pages, and the
+        engine's call count."""
+        eng = self.engine
+        state = (
+            [(r.req_id, r.fingerprint) for r in self.waiting],
+            [(s, r.req_id, r.fingerprint, len(r.output_tokens))
+             for s, r in sorted(self.running.items())],
+            eng._slots_by_group, eng._pages_by_group, eng.stats.calls,
+        )
+        return hashlib.sha256(repr(state).encode()).digest()[:16]
 
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)

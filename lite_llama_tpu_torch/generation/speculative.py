@@ -31,6 +31,10 @@ Two modes:
 
 Greedy only: ``temperature != 0`` raises, as sampling would need rejection
 resampling to keep its distribution.
+
+On a mesh it runs at tp and cp, every rank making the same calls (the
+verify step eager there: it holds collectives), and refuses dp, as the JAX
+generator does: the verify chunk has no data-group layout.
 """
 
 from __future__ import annotations
@@ -113,7 +117,7 @@ class SpeculativeTextGenerator:
         """``chunk_steps > 0``: device drafting and ``chunk_steps`` verify
         steps per dispatch (one host sync a chunk); ``chunk_steps=0``: host
         drafting and one ``spec_verify`` (one host copy) a step."""
-        engine._refuse_mesh("speculative decoding")
+        engine.refuse_dp()
         self.engine = engine
         self.tokenizer = tokenizer
         self.draft_len = draft_len

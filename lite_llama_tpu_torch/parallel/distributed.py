@@ -16,7 +16,13 @@ rank runs the same host program and issues identical engine calls (same
 requests, same order, same seed), so the host accounting (slots, pages,
 prefix entries, the sampler's generator) stays identical on every rank
 with no coordination messages, and every rank samples the same token from
-the gathered logits. Start it from the ``LLT_*`` environment:
+the gathered logits. Serving keeps the contract with one message a
+scheduler iteration (``ControlChannel``): the requests reach rank 0 only,
+so rank 0 broadcasts them, in submit order, to every rank over a CPU gloo
+group of the whole mesh that the mesh makes for it, apart from the step's
+collectives; every rank then submits and steps alike, and the ranks agree
+on a digest of their accounting before any of them steps. Start it from
+the ``LLT_*`` environment:
 
     LLT_DIST=1 LLT_COORD=localhost:8476 LLT_NUM_PROCS=2 LLT_PROC_ID=0 python ...
 
@@ -34,6 +40,7 @@ are (torch 2.11 on an H100: no staging through host memory).
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Optional
@@ -42,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 300.0
+_timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)  # init_distributed's, for new groups
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -66,10 +74,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    global _timeout
+    _timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend, init_method=init_method or f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        world_size=num_processes, rank=process_id, timeout=_timeout)
     return True
 
 
@@ -162,3 +171,80 @@ def all_reduce_min_int(value: int, device, group=None) -> int:
     t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
     return int(t.item())
+
+
+# ---------------------------------------------------------------------------
+# The serving control channel: rank 0's requests, broadcast to every rank
+
+
+def control_group(ranks):
+    """A CPU gloo group over ``ranks`` (the whole mesh) for the control
+    messages, with the process group's timeout: its messages never share a
+    communicator or a stream with the steps' collectives. Every rank of
+    the world must call it, in the same order as its other group-making
+    calls (``shardings.mesh_from_grid`` does)."""
+    return dist.new_group([int(r) for r in ranks], backend="gloo", timeout=_timeout)
+
+
+@dataclasses.dataclass
+class ControlMessage:
+    """One scheduler iteration's orders from rank 0: the requests submitted
+    since the last message, in submit order (dicts of ``rid``,
+    ``prompt_tokens``, ``max_gen_len``, ``temperature``, ``top_p``,
+    ``top_k``, ``pixel_values``), whether the iteration steps, whether the
+    server stops, and rank 0's accounting digest after the previous
+    iteration (``ContinuousBatchingScheduler.digest``)."""
+
+    submits: list
+    step: bool
+    stop: bool
+    digest: bytes
+
+
+class ControlMismatch(RuntimeError):
+    """The ranks' scheduler accounting differs: a rank would compute on
+    another batch than rank 0's. Raised on every rank at once."""
+
+
+class ControlChannel:
+    """Rank 0's side and a follower's of the control messages over the
+    mesh's control group (``Mesh.control``; leader ``Mesh.leader``). Each
+    turn: :meth:`exchange` broadcasts rank 0's ``ControlMessage``, and,
+    once every rank has applied it, :meth:`agree` all-gathers each rank's
+    digest with a flag saying whether its accounting equalled the
+    message's before it and its requests took rank 0's ids; any difference
+    raises ``ControlMismatch`` on every rank before any of them steps, so
+    none computes on a wrong batch and none waits for a rank that left."""
+
+    def __init__(self, mesh):
+        if mesh.control is None:
+            raise RuntimeError(
+                "serving on a mesh of more than one rank needs the mesh's control group: build "
+                "the mesh with parallel.shardings.make_mesh or "
+                "parallel.distributed.make_multihost_mesh")
+        self.group, self.leader = mesh.control, mesh.leader
+        self.ranks = dist.get_process_group_ranks(self.group)
+        self.is_leader = dist.get_rank() == self.leader
+
+    def exchange(self, msg: Optional[ControlMessage] = None) -> ControlMessage:
+        """Rank 0 passes its message; every rank returns it."""
+        box = [msg]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]
+
+    def agree(self, digest: bytes, matched: bool = True) -> None:
+        """Every rank's ``digest`` (after applying the message) and whether
+        it ``matched`` rank 0 in applying it (its accounting equalled the
+        message's digest before, its requests took rank 0's ids); raises
+        ``ControlMismatch`` on every rank if any rank differs from rank 0."""
+        mine = torch.tensor([int(matched), *digest], dtype=torch.uint8)
+        parts = all_gather_stack(mine, self.group)
+        lead = parts[self.ranks.index(self.leader)]
+        before = [r for r, p in zip(self.ranks, parts) if not int(p[0])]
+        after = [r for r, p in zip(self.ranks, parts) if not torch.equal(p[1:], lead[1:])]
+        if before or after:
+            raise ControlMismatch(
+                f"serving control: rank(s) {before} differed from rank {self.leader} in "
+                "applying this message (their accounting after the previous iteration, or "
+                f"the ids their requests took), rank(s) {after} after this message's "
+                "submits; no rank steps on it")

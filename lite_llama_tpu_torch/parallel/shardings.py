@@ -48,7 +48,9 @@ class Mesh:
     context rank ``cp_rank`` of ``cp`` in ``cp_group``, data group
     ``dp_rank`` of ``dp`` (``dp_group``: the ranks of the other groups that
     share this rank's tp and cp ranks). A group is None where its axis is 1
-    (or where it is the whole world)."""
+    (or where it is the whole world). ``control``: a CPU gloo group of every
+    rank of the mesh, for the serving loop's messages from rank ``leader``
+    (the mesh's first rank; ``distributed.ControlChannel``)."""
 
     tp: int = 1
     rank: int = 0
@@ -59,6 +61,8 @@ class Mesh:
     cp: int = 1
     cp_rank: int = 0
     cp_group: Any = None
+    control: Any = None
+    leader: int = 0
 
     @property
     def size(self) -> int:
@@ -94,8 +98,8 @@ def mesh_from_grid(grid: np.ndarray, group=None) -> Mesh:
     """The Mesh of this process from ``grid`` [dp, cp, tp], the global rank
     at each mesh position. Makes every subgroup of every axis above 1 on
     every rank, in one order (tp, then cp, then dp groups, each in mesh
-    order), as NCCL requires; an axis that spans all of ``group`` takes
-    ``group`` itself."""
+    order, then the control group of the whole mesh), as NCCL requires; an
+    axis that spans all of ``group`` takes ``group`` itself."""
     import torch.distributed as dist
 
     dp, cp, tp = grid.shape
@@ -121,8 +125,10 @@ def mesh_from_grid(grid: np.ndarray, group=None) -> Mesh:
     tp_group = groups(tp, [grid[i, j, :] for i in range(dp) for j in range(cp)])
     cp_group = groups(cp, [grid[i, :, k] for i in range(dp) for k in range(tp)])
     dp_group = groups(dp, [grid[:, j, k] for j in range(cp) for k in range(tp)])
+    control = distributed.control_group(grid.reshape(-1)) if whole > 1 else None
     return Mesh(tp=tp, rank=t, group=tp_group, dp=dp, dp_rank=d, dp_group=dp_group,
-                cp=cp, cp_rank=c, cp_group=cp_group)
+                cp=cp, cp_rank=c, cp_group=cp_group, control=control,
+                leader=int(grid.reshape(-1)[0]))
 
 
 # Which axis of each decoder leaf tp shards (plain tensors), as the JAX

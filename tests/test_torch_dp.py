@@ -21,8 +21,8 @@ case, all started before the JAX references are computed. Gates, fp32:
 - the multihost mesh: every rank's tokens equal, greedy parity with JAX's
   one-device engine, logprobs within JAX's 1e-3.
 
-The refusals (LLaVA, the scheduler and the server, speculative decoding)
-run in-process: they raise before any collective.
+The refusals that remain at dp (LLaVA, speculative decoding) run
+in-process: they raise before any collective.
 """
 
 import json
@@ -281,24 +281,27 @@ def _tiny_engine(mesh, **kw):
     return InferenceEngine(cfg, params, device="cpu", mesh=mesh, **ENGINE, **kw)
 
 
-@pytest.mark.parametrize("mesh", [Mesh(dp=2), Mesh(dp=2, dp_rank=1), Mesh(cp=2)],
-                         ids=["dp2_rank0", "dp2_rank1", "cp2"])
-def test_scheduler_server_and_speculative_decoding_refuse_a_mesh(mesh):
-    """They need rank 0's requests broadcast to every rank (ROADMAP A7e):
-    any mesh of more than one rank is refused before a collective runs."""
-    from lite_llama_tpu_torch.executor.scheduler import ContinuousBatchingScheduler
+@pytest.mark.parametrize("what", ["generator", "spec_verify", "spec_decode_chunk"])
+def test_speculative_decoding_refuses_dp_with_jax_s_message(what):
+    """What still refuses a mesh: speculative decoding at dp 2, on both
+    ranks, with the JAX engine's message, before any collective (its
+    verify chunk has no data-group layout; the scheduler, the server and
+    speculative decoding at tp and cp run: tests/test_torch_mesh_serving.py;
+    LlavaEngine's dp refusal: the test below)."""
     from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator
-    from lite_llama_tpu_torch.server import serve_background
 
-    eng = _tiny_engine(mesh)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        ContinuousBatchingScheduler(eng)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        serve_background(eng, port=0)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        SpeculativeTextGenerator(eng)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        eng.spec_verify([0], [[1, 2]], [2])
+    for dp_rank in (0, 1):
+        eng = _tiny_engine(Mesh(dp=2, dp_rank=dp_rank))
+        with pytest.raises(NotImplementedError,
+                           match="speculative decoding: dp meshes unsupported"):
+            if what == "generator":
+                SpeculativeTextGenerator(eng)
+            elif what == "spec_verify":
+                eng.spec_verify([0], [[1, 2]], [2])
+            else:
+                one = torch.ones(1, dtype=torch.int32)
+                eng.spec_decode_chunk([0], torch.zeros((1, 64), dtype=torch.int32), one, one,
+                                      torch.zeros(1, dtype=torch.bool), [8])
 
 
 def test_dp_engine_keeps_every_group_s_accounting():

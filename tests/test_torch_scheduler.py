@@ -226,11 +226,3 @@ def test_request_result_is_the_jax_scheduler_s(weights, jax_outputs):
     assert got["req_id"] == rid and got["tokens"] == want["tokens"]
     assert got["finish_reason"] == want["finish_reason"]
     np.testing.assert_allclose(got["logprobs"], want["logprobs"], rtol=1e-4, atol=1e-4)
-
-
-def test_scheduler_refuses_a_tp_engine(weights):
-    """At tp > 1 the scheduler needs requests broadcast from rank 0 (A7e)."""
-    engine = make_engine(weights)
-    engine.shard = mock.Mock(tp=2)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        ContinuousBatchingScheduler(engine)

@@ -283,20 +283,3 @@ def test_tp1_mesh_is_the_one_device_path():
         make_mesh(tp=1, dp=2)
     with pytest.raises(RuntimeError, match="torch.distributed"):
         make_mesh(tp=1, cp=2)
-
-
-def test_speculative_decoding_refuses_a_tp_engine():
-    """Until it has a tensor-parallel test of its own (and A7e's request
-    broadcast), speculative decoding refuses tp > 1."""
-    from unittest import mock
-
-    from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator
-
-    cfg = tconfig.LlamaConfig(dtype=torch.float32, **BASE)
-    eng = InferenceEngine(cfg, init_decoder_params(cfg, torch.Generator().manual_seed(0)),
-                          device="cpu", **ENGINE)
-    eng.shard = mock.Mock(tp=2)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        SpeculativeTextGenerator(eng)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        eng.spec_verify([0], [[1, 2]], [2])

@@ -24,6 +24,18 @@ generates each list in turn) and ``pixels`` (LLaVA). Besides tokens,
 logprobs and logits, a rank writes its place in the mesh, the slots each
 admission took, the widths its prefills and decode steps ran at, and its
 pool's lengths and pages right after the first prefill.
+
+The serving kinds build the engine of an engine case (``llava``: a
+``LlavaEngine`` of the LLaVA tree) and take ``requests`` ([prompt,
+max_gen_len, image row or None]): "sched" runs a
+``ContinuousBatchingScheduler`` (``sched`` keywords) over them on every rank;
+"server" serves them over HTTP on rank 0 in ``waves`` (lists of request
+indices, ``idle_s`` apart, each posted from ``threads`` client threads,
+odd indices streamed) while the other ranks follow (``serve``, or
+``serve_background`` and ``join`` with ``background``), then shuts down;
+"fault" plants a follower that applies a message's submits in reverse
+order and submits two requests in one message; "spec" runs
+``SpeculativeTextGenerator`` for each ``chunk_steps`` of ``modes``.
 """
 
 from __future__ import annotations
@@ -181,6 +193,182 @@ def _llava_case(case, mesh, out):
     out["tokens0"] = np.asarray(toks, dtype=object)
 
 
+def _serving_engine(case, mesh):
+    import torch
+
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.utils.weights import params_from_numpy
+
+    if case.get("llava"):
+        from lite_llama_tpu_torch.config import LlavaConfig
+        from lite_llama_tpu_torch.executor.llava_engine import LlavaEngine
+
+        cfg = LlavaConfig(dtype=torch.float32, **case["cfg"]["fields"])
+        params = params_from_numpy(load_tree(case["tree"]), cfg, device="cpu")
+        return LlavaEngine(cfg, params, device="cpu", mesh=mesh, **case["engine"])
+    cfg = _config(case["cfg"])
+    params = params_from_numpy(load_tree(case["tree"]), cfg, device="cpu")
+    return InferenceEngine(cfg, params, device="cpu", mesh=mesh, **case["engine"])
+
+
+def _submit_kw(case, req):
+    prompt, gen, image = req
+    px = None if image is None else np.load(case["pixels"])[image]
+    return dict(max_gen_len=gen, temperature=0.0, pixel_values=px), prompt
+
+
+def _accounting(engine, out):
+    """The engine's call count and whether every slot and page came back
+    (pages held by this rank's group's prefix entries count as back)."""
+    held = [0] * engine.dp
+    for g, reg in enumerate(engine.prefixes or ()):
+        held[g] = sum(e[0] for e in reg.entries.values())
+    out["calls"] = np.asarray(engine.stats.calls)
+    out["drained"] = np.asarray(
+        len(engine._free_slots) == engine.max_reqs
+        and engine._host_free_pages + sum(held) == engine.num_pages
+        and int(engine.cache.free_top) + held[engine.shard.dp_rank]
+        == engine.num_pages // engine.dp)
+
+
+def _sched_case(case, mesh, out):
+    from lite_llama_tpu_torch.executor.scheduler import ContinuousBatchingScheduler
+
+    engine = _serving_engine(case, mesh)
+    sched = ContinuousBatchingScheduler(engine, **case.get("sched", {}))
+    ids = []
+    for req in case["requests"]:
+        kw, prompt = _submit_kw(case, req)
+        ids.append(sched.submit(prompt, **kw))
+    done = {r.req_id: r for r in sched.run()}
+    res = [done[i] for i in ids]
+    out["tokens0"] = np.asarray([r.output_tokens for r in res], dtype=object)
+    out["logprobs0"] = np.asarray([r.output_logprobs for r in res], dtype=object)
+    out["finish"] = np.asarray([r.finish_reason for r in res])
+    out["slots"] = np.asarray([-1 if r.slot is None else r.slot for r in res])
+    out["step_widths"] = np.asarray(sorted({k[0] for k in engine._steps}))
+    out["prefix_hits"] = np.asarray(engine.stats.prefix_hits)
+    _accounting(engine, out)
+
+
+def _post(port, prompt, gen, stream):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/generate", body=json.dumps(
+        {"tokens": prompt, "max_gen_len": gen, "temperature": 0.0, "stream": stream}))
+    body = conn.getresponse().read().decode()
+    if not stream:
+        r = json.loads(body)
+        return r["tokens"], r["logprobs"], r["finish_reason"]
+    lines = [json.loads(x) for x in body.splitlines()]
+    assert lines[-1]["done"] is True
+    return [t for x in lines[:-1] for t in x["tokens"]], None, lines[-1]["finish_reason"]
+
+
+def _server_case(case, mesh, out):
+    import threading
+    import time
+
+    import torch
+
+    from lite_llama_tpu_torch.server import serve, serve_background
+
+    engine = _serving_engine(case, mesh)
+    kw = case.get("sched")
+    if engine.shard.mesh.leader != torch.distributed.get_rank():
+        if case.get("background"):
+            _, follower = serve_background(engine, scheduler_kw=kw)
+            follower.join(timeout=300)
+        else:
+            _, follower = serve(engine, scheduler_kw=kw)
+        out["turns"], out["steps"] = np.asarray(follower.turns), np.asarray(follower.steps)
+        _accounting(engine, out)
+        return
+    httpd, fe = serve_background(engine, port=0, scheduler_kw=kw)
+    port = httpd.server_address[1]
+    reqs, got, errors = case["requests"], {}, []
+
+    def client(mine):
+        try:
+            for i in mine:
+                prompt, gen, _ = reqs[i]
+                got[i] = _post(port, prompt, gen, stream=bool(i % 2))
+        except Exception as e:  # reported through the case's error
+            errors.append(repr(e))
+
+    try:
+        for w, wave in enumerate(case["waves"]):
+            if w:
+                time.sleep(case["idle_s"])  # idle turns: the followers keep receiving
+            n = case["threads"]
+            pool = [threading.Thread(target=client, args=(wave[t::n],)) for t in range(n)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=300)
+    finally:
+        httpd.shutdown()
+        fe.shutdown()
+    assert not errors and fe.error is None, (errors, fe.error)
+    assert not fe._thread.is_alive()
+    order = range(len(reqs))
+    out["tokens0"] = np.asarray([got[i][0] for i in order], dtype=object)
+    out["logprobs0"] = np.asarray([got[i][1] or [] for i in order], dtype=object)
+    out["finish"] = np.asarray([got[i][2] for i in order])
+    out["turns"] = np.asarray(fe.turns)
+    _accounting(engine, out)
+
+
+def _fault_case(case, mesh, out):
+    """A follower that reverses the order of a message's submits: every
+    rank must raise the digest mismatch on that turn, before a step."""
+    import time
+
+    import torch
+
+    from lite_llama_tpu_torch import server
+
+    engine = _serving_engine(case, mesh)
+    t0 = time.perf_counter()
+    if engine.shard.mesh.leader != torch.distributed.get_rank():
+        real = server.MeshFollower._apply
+        server.MeshFollower._apply = lambda self, subs: real(self, subs[::-1])
+        try:
+            server.serve(engine)
+        except Exception as e:  # the expected failure
+            out["raised"] = np.asarray(f"{type(e).__name__}: {e}")
+        finally:
+            server.MeshFollower._apply = real
+    else:
+        fe = server.ServingFrontend(server.ContinuousBatchingScheduler(engine))
+        with fe._lock:  # both land in one message
+            rids = [fe.submit(p, max_gen_len=g, temperature=0.0) for p, g, _ in case["requests"]]
+        try:
+            fe.result(rids[0], timeout=60)
+        except Exception as e:  # the expected failure
+            out["raised"] = np.asarray(f"{type(e).__name__}: {e}")
+        fe.shutdown()
+        out["loop_ended"] = np.asarray(not fe._thread.is_alive())
+    out["calls"] = np.asarray(engine.stats.calls)
+    out["seconds"] = np.asarray(time.perf_counter() - t0)
+
+
+def _spec_case(case, mesh, out):
+    from lite_llama_tpu_torch.generation.speculative import SpeculativeTextGenerator
+
+    engine = _serving_engine(case, mesh)
+    for chunk_steps in case["modes"]:
+        gen = SpeculativeTextGenerator(engine, draft_len=case["draft_len"], ngram=3,
+                                       chunk_steps=chunk_steps)
+        res = gen.generate_tokens(case["prompts"], max_gen_len=case["gen"])
+        out[f"tokens_{chunk_steps}"] = np.asarray([o.token_ids for o in res], dtype=object)
+        out[f"finish_{chunk_steps}"] = np.asarray([o.finish_reason for o in res])
+        _accounting(engine, out)
+        out[f"drained_{chunk_steps}"] = out.pop("drained")
+    out["spec_graphs"] = np.asarray([st.graph is not None for st in engine._spec_steps.values()])
+
+
 def _cp_ops_case(case, mesh, out):
     """Each op of the case through ``parallel/context_parallel.py`` on this
     context rank's share of the op's pool (global pages [c * P/cp, (c+1) *
@@ -259,7 +447,9 @@ def main(spec_path: str, rank: int) -> int:
                          backend="gloo", timeout_s=120)
         mesh = make_mesh(**spec.get("mesh", {"tp": world}))
     cp_calls = _count_cp_calls()
-    runners = {"llava": _llava_case, "cp_ops": _cp_ops_case, "engine": _engine_case}
+    runners = {"llava": _llava_case, "cp_ops": _cp_ops_case, "engine": _engine_case,
+               "sched": _sched_case, "server": _server_case, "fault": _fault_case,
+               "spec": _spec_case}
     for name, case in spec["cases"].items():
         out = {}
         cp_calls[:] = [0, 0]
