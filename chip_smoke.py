@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 1. Device: refuse to run without CUDA (there is no CPU fallback); print the
    card's name and power limit from nvidia-smi.
 2. Build: compile the CUDA kernels from csrc/ with nvcc for sm_90a (one
-   nvcc per source, in parallel; each source with the headers it includes,
+   nvcc per source, in parallel, each spreading its kernels' optimisation
+   over the cores (--split-compile); each source with the headers it includes,
    csrc/common.cuh).
 3. Kernels: each kernel's wrapper against its plain PyTorch version on the
    card in bf16, at the main-path shapes of Llama-3.2-3B (D=128, Nq=24,
@@ -25,8 +26,17 @@ Phases, in order; any failure exits non-zero:
    global 8, head_offset 0 and 4, the other shard's scale lanes holding
    other scales; the mirrored offset is a planted fault that must fail) and
    K6 / K7 at the shard shapes of the five projections (wqkv O 2560,
-   o_proj C 1536, gate_up O 8192, down C 4096, the head O 64128): max abs
-   error against the
+   o_proj C 1536, gate_up O 8192, down C 4096, the head O 64128); head dim
+   256 at Falcon3-7B's shapes (Nq 12, Hkv 4: K1 and K1q (int8, fp8) at B
+   12, kv_len 88; K2 at 12 x 25 and at 4 prompts of 2048 / 1541 / 37 / 1;
+   K5 and K5q at B 8, S 512 over 512 and at a prefix hit), and 12 and 16
+   query heads per kv head (Mistral-Large-2: Nq 96, Hkv 8; Llama-3.1-405B:
+   Nq 128, Hkv 8; K1, K2 and K5) and a tp 8 rank of each (12 and 16 query
+   heads on one kv head: K1q / K5q on an int8 pool at head_offset 3 of 8,
+   the mirrored offset a planted fault), each main case with a planted
+   fault (another request's pages, or keys and values) that must fail the
+   tolerance. Every even head dim from 16 to 128, and 256, with up to 16
+   query heads per kv head is taken; others raise. Max abs error against the
    stated tolerance, device time from CUDA events with the inputs rotated
    through HBM (and, beside it, replayed warm in L2), the least time the
    card could take (bytes over 3.35 TB/s or bf16 operations over 989
@@ -47,8 +57,9 @@ Phases, in order; any failure exits non-zero:
    ms per step is timed through the replayed graph and, in the same call,
    with the step run eagerly; a profiled decode gives the device time, the
    busy share and each decode kernel's launches per step from the device's
-   own events (every decode kernel of the path must be among them, and the
-   launch counters must read the same per step). The graph-vs-eager gate
+   own events (every decode kernel of the path must be among them, none
+   above the launch counters, which must equal the captured step's kernel
+   nodes read through libcuda). The graph-vs-eager gate
    (graph_gate) decodes one batch through the graph and through the eager
    step from the same cache state: tokens and logprobs must be bit-equal,
    and a planted stale-token replay must be caught. Decode through the
@@ -153,8 +164,8 @@ Phases, in order; any failure exits non-zero:
    building the same seeded weights and keeping its shard (12 query heads,
    4 kv heads, ffn 4096, 64128 vocab rows), on three paths: bf16, an int8
    pool, int4 g128 riffle_tp=2 weights with an int8 pool; phase 4's 12 x 25
-   prompts, eos off, 64 new tokens, greedy, the decode step eager (no CUDA
-   graph at tp > 1). Against the tp 1 engine on the same weights and
+   prompts, eos off, 32 new tokens (TP_GEN), greedy, the decode step eager
+   (no CUDA graph at tp > 1). Against the tp 1 engine on the same weights and
    prompts in this process: the streams equal, but where one parts, tp 2's
    teacher-forced logits there tie within twice the measured max-abs
    difference (the rule of phases 4 and 10); the relative RMS of the
@@ -183,8 +194,8 @@ Phases, in order; any failure exits non-zero:
 13. Context parallelism (cp_phase): Llama-3.2-3B at full width and depth
    at cp 2, two processes (``--cp-child``) each holding half of the pool's
    pages, bf16 and an int8 pool: 4 prompts of 4,000 random ids through
-   chunked prefill 512 (K5 / K5q history walks on both ranks), 64 new
-   tokens. Against cp 1 on the same weights: the relative RMS of the
+   chunked prefill 512 (K5 / K5q history walks on both ranks), 32 new
+   tokens (CP_GEN). Against cp 1 on the same weights: the relative RMS of the
    first-token logits and of the logits after 8 teacher-forced decode steps
    within ``CP_REL_RMS``, the streams equal but at ties, and planted
    faults (a rank that skips the combine, the chunk scored on both ranks,
@@ -196,8 +207,9 @@ Phases, in order; any failure exits non-zero:
    this script (``--mesh-child``) on the card over gloo. (a) tp 2: rank 0
    serves HTTP on localhost, rank 1 follows its control messages; phase 4's
    12 x 25 prompts posted from 4 client threads in two waves of 6 with an
-   idle gap, 64 new tokens, greedy, eos off (the decode step eager). (c)
-   tp 2: spec_extractive's streams, 64 new tokens (the verify step eager;
+   idle gap, 32 new tokens (MESH_GEN), greedy, eos off (the decode step
+   eager). (c) tp 2: spec_extractive's streams, 32 new tokens (the verify
+   step eager;
    each rank's K5 launches printed). (b) dp 2 with the prefix cache, int4
    g128 riffle weights on an int8 pool (K6, K1q and K5q through the
    scheduler): phase 4's prompts and phase 12's warm-up of the 256-token
@@ -211,7 +223,28 @@ Phases, in order; any failure exits non-zero:
    that applies a message's two submits in reverse order must make both
    ranks fail within seconds. Each rank's launch counters are printed; its
    seconds are two ranks time-sharing one card.
-15. Summary: the whole script's seconds, one JSON line with every kernel,
+15. Falcon3-7B (falcon3_phase): tiiuae/Falcon3-7B-Base's published
+   config.json (hidden 3072, intermediate 23040, 28 layers, 12 heads over 4
+   kv heads of head dim 256, vocab 131072, rope_theta 1000042, untied) at
+   full width and depth, random bf16 weights from the seed: the phase-4
+   batch run (K2, K1, K3, K4 must launch; K8 must not, on any path of the
+   phase) with its graph-vs-eager gate and the decode-vs-re-prefill
+   invariant with K1 faults; one serving wave (phase 5's wave 1, prefix
+   cache on, chunk 512: K5) and the chunked-vs-single-shot invariant with
+   K5 faults; phase 6's fp8-pool decode (K5q-fp8, K1q-fp8); then int4 g128
+   riffle weights on an int8 pool: the batch run (64 new tokens; K6,
+   K1q-int8) with its decode invariant and K1q faults, and two 1500-token
+   prompts chunked through K5q-int8 against a single-shot prefill. It
+   prints the decode floor (the weights but the embedding table read once
+   at 3.35 TB/s) and its seconds by part.
+16. Mistral-Large-2 (mistral_phase): Mistral-Large-Instruct-2407's
+   published widths (hidden 12288, intermediate 28672, 96 heads over 8 kv
+   heads, G 12, vocab 32768, rope_theta 1e6) at 4 of its 88 layers
+   (``reduced``: 88 layers in bf16 are 246 GB), random bf16 weights: the
+   phase-4 batch run with its graph gate and the decode-vs-re-prefill
+   invariant with K1 faults, and the chunked-vs-single-shot invariant with
+   K5 faults.
+17. Summary: the whole script's seconds, one JSON line with every kernel,
    then the last line {"ok": true, "device": {...}}.
 
 Phase 3 holds K1 / K1q and K5 / K5q at phase 13's shapes on a pool split in
@@ -288,6 +321,10 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores (K6 / K7's integer dots)
 L2_BYTES = 50 * 2**20  # H100 SXM L2
 COLD_BYTES = 4 * L2_BYTES  # inputs one timed pass rotates through
 WARM_MS = 20.0  # device time a timed graph runs before, and at least while, it is timed
+# Seconds a profiled decode waits after its trace starts: windows whose
+# kernels began at once lost their first device events now and then
+# (ROADMAP C6).
+PROFILER_LEAD_S = 0.1
 ATOL, RTOL = 1e-2, 1e-2  # bf16 outputs: one bf16 step is 2^-8 relative
 # Decode vs re-prefill after 127 steps: relative RMS of the logit difference
 # and max |difference| over max |logit|. On an H100 (PERF.md) the plain
@@ -318,17 +355,18 @@ SEED = 0
 NORM_NO_RESIDUAL = 3  # index of K3's no-residual case in kernel_phase()
 # The launch counters (read_counts()) of the kernels a decode step runs,
 # each with a pattern of its device kernels' names: launches per step are
-# read from the profiler's device events of the replayed steps
-# (profile_decode), which the counters must equal.
-# K1 / K1q by pool (paged_decode_kernel<DP, KV>); K3 (rows_kernel<0>,
+# read from the captured step's kernel nodes, which the counters must equal,
+# and from the profiler's device events of the replayed steps, which must
+# not exceed them (profile_decode).
+# K1 / K1q by pool (paged_decode_kernel<DP, KV, NT>); K3 (rows_kernel<0>,
 # rows_loop_kernel<0>) and, apart, its launches that write K6's int8 rows
 # (EMIT, rows_kernel's last template flag); K4 (swiglu_kernel, and
 # rows_kernel<1> whenever it writes int8 rows); K6's matmul (no model path
 # runs K7) and its activation quantizer.
 DEVICE_KERNELS = {
-    "paged_flash_decode": r"paged_decode_kernel<\d+, 0>",
-    "paged_flash_decode_int8": r"paged_decode_kernel<\d+, 1>",
-    "paged_flash_decode_fp8": r"paged_decode_kernel<\d+, 2>",
+    "paged_flash_decode": r"paged_decode_kernel<\d+, 0, \d+>",
+    "paged_flash_decode_int8": r"paged_decode_kernel<\d+, 1, \d+>",
+    "paged_flash_decode_fp8": r"paged_decode_kernel<\d+, 2, \d+>",
     "rms_norm": r"rows(_loop)?_kernel<0,",
     "rms_norm_int8_rows": r"rows_kernel<0,[^>]*, true>",
     "swiglu": r"swiglu_kernel|rows(_loop)?_kernel<1,",
@@ -453,6 +491,15 @@ MODELS = {  # head_dim, query heads, kv heads (attention shapes of phase 3)
     "vicuna-7b": dict(D=128, Nq=32, Hkv=32),  # LLaVA-1.5-7B's LM: one query head per kv head
     # Phase 11: a tp 2 rank of Llama-3.2-3B, 12 query heads and 4 kv heads of a global 8
     "llama-3.2-3b tp2": dict(D=128, Nq=12, Hkv=4, global_Hkv=8),
+    # Phase 15: Falcon3-7B, head dim 256 (tiiuae/Falcon3-7B-Base's config.json)
+    "falcon3-7b": dict(D=256, Nq=12, Hkv=4),
+    # More than 8 query heads per kv head: Mistral-Large-Instruct-2407 (G 12,
+    # phase 16) and Llama-3.1-405B (G 16), and a tp 8 rank of each (one kv
+    # head of a global 8; tp splits the kv heads and keeps G)
+    "mistral-large-2": dict(D=128, Nq=96, Hkv=8),
+    "llama-3.1-405b": dict(D=128, Nq=128, Hkv=8),
+    "mistral-large-2 tp8": dict(D=128, Nq=12, Hkv=1, global_Hkv=8),
+    "llama-3.1-405b tp8": dict(D=128, Nq=16, Hkv=1, global_Hkv=8),
 }
 # The tp 2 shard shapes of the 3B projections (phase 11's int4 riffle_tp=2
 # rank): (C, logical O, fp32 output); "out" weights keep C and take half of
@@ -655,11 +702,12 @@ def quantized_pages(pages, kv, Hkv, hoff=0, global_Hkv=None):
     return qv.view(L, 2, T, HD), rows, deq
 
 
-def decode_launch_info(B, Hkv, D, ps, ppr, lens, kv):
-    """K1 / K1q's launch at this shape: the split plan (S_max, the least
-    span), each request's live splits as the device decides them, the
-    blocks with an item, the grid (one wave of resident blocks at most),
-    dynamic shared memory and the instance's ptxas report."""
+def decode_launch_info(B, Hkv, D, ps, ppr, lens, kv, G):
+    """K1 / K1q's launch at this shape (G query heads per kv head): the
+    split plan (S_max, the least span), each request's live splits as the
+    device decides them, the blocks with an item, the grid (one wave of
+    resident blocks at most), dynamic shared memory and the instance's
+    ptxas report."""
     import ctypes
 
     from lite_llama_tpu_torch.ops import _build
@@ -667,26 +715,28 @@ def decode_launch_info(B, Hkv, D, ps, ppr, lens, kv):
 
     plan = ad.plan_decode_splits(ppr, ps)
     dtype = {None: torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
-    slots = ad.decode_grid_slots(D, dtype, B, Hkv, plan.s_max)
+    slots = ad.decode_grid_slots(D, dtype, B, Hkv, plan.s_max, G)
     live = [len(sp) for sp in ad.decode_spans(lens, ps, plan.s_max, plan.min_span, slots)]
-    lib = _build.library("paged_decode", "paged_decode_smem", [ctypes.c_int] * 2)
+    lib = _build.library("paged_decode", "paged_decode_smem", [ctypes.c_int] * 3)
     dp = -(-D // (16 if kv is None else 32)) * (16 if kv is None else 32)
-    inst = f"paged_decode_kernelILi{dp}ELi{ad._KV_CODES[dtype]}E"  # mangled <DP, KV>
+    nt = 1 if G <= 8 else 2  # the instance's n8 tiles of heads
+    inst = f"paged_decode_kernelILi{dp}ELi{ad._KV_CODES[dtype]}ELi{nt}E"  # <DP, KV, NT>
     ptxas = [v for k, v in ptxas_report("paged_decode").items() if inst in k]
     return dict(s_max=plan.s_max, min_span_pages=plan.min_span,
                 live_splits=live, blocks_with_an_item=Hkv * sum(live), grid=[Hkv, slots],
-                smem_bytes=lib.paged_decode_smem(D, ad._KV_CODES[dtype]),
+                smem_bytes=lib.paged_decode_smem(D, ad._KV_CODES[dtype], G),
                 ptxas=ptxas[0] if ptxas else "not found")
 
 
-def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048, hoff=None):
+def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048, hoff=None, fault=False):
     """K1 (bf16 pool) or K1q (``kv`` "int8" / "fp8") at ``lens`` tokens per
     request against its plain version, through a page table as wide as the
     engine gives it (``max_seq_len`` / ``ps`` pages; zeros past a request's
     pages, shuffled page ids before). ``hoff``: a tp shard's pool (a model
     with ``global_Hkv``) whose first kv head is global head ``hoff``; the
     other shard's scale lanes hold other scales, and the kernel at the
-    mirrored offset (a planted fault) must fail the tolerance."""
+    mirrored offset (a planted fault) must fail the tolerance. ``fault``:
+    the kernel handed another request's pages must fail it too."""
     from lite_llama_tpu_torch.executor.kv_cache import KVPool
     from lite_llama_tpu_torch.ops.attention_decode import (
         paged_decode_state_plain, paged_flash_decode)
@@ -729,6 +779,9 @@ def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048, hoff=None):
         wrong = m["global_Hkv"] - Hkv - h0  # the other shard's offset
         ferr, fok = max_err(kernel(*args, offset=wrong)[0], po)
         faults[f"head_offset {wrong} for {h0}"] = dict(max_abs_err=ferr, caught=not fok)
+    if fault:
+        ferr, fok = max_err(kernel(q, pages, scales, table.roll(1, 0), kv_lens)[0], po)
+        faults["another request's pages"] = dict(max_abs_err=ferr, caught=not fok)
     tokens = sum(lens)
     value_bytes = pages.element_size()
     scale_bytes = tokens * 2 * Hkv * 2 if scales is not None else 0  # the lanes read
@@ -759,7 +812,7 @@ def decode_case(model, lens, ps=16, kv=None, max_seq_len=2048, hoff=None):
                 ok=ok and m_ok and l_ok and all(f["caught"] for f in faults.values()),
                 **({"faults": faults} if faults else {}), **t,
                 bound_ms=t_bound, bound_by=by,
-                launch=decode_launch_info(B, Hkv, D, ps, ppr, lens, kv),
+                launch=decode_launch_info(B, Hkv, D, ps, ppr, lens, kv, Nq // Hkv),
                 library="F.scaled_dot_product_attention (dense K/V, boolean mask"
                         + (", dequantized to bf16)" if kv else ")"))
 
@@ -777,9 +830,11 @@ def compact_lens(lens):
     return " + ".join(f"{c} x {n}" for c, n in runs)
 
 
-def prefill_case(model, B, S, lens):
-    """ops.prefill_attention (K2 at head dims 64 and 128, K8 at the others)
-    against its plain version; ``ran`` names the kernel that launched."""
+def prefill_case(model, B, S, lens, fault=False):
+    """ops.prefill_attention (K2 at head dims 64, 128 and 256, K8 at the
+    others) against its plain version; ``ran`` names the kernel that
+    launched. ``fault``: the kernel handed another request's keys and
+    values must fail the tolerance."""
     from lite_llama_tpu_torch import ops
     from lite_llama_tpu_torch.ops import attention_prefill as ap
     from lite_llama_tpu_torch.ops import ref
@@ -799,10 +854,19 @@ def prefill_case(model, B, S, lens):
     ran = [n for n, f in launchers.items() if f.launches != before[n]]
     want = ref.prefill_attention(q, k, v, sl)
     torch.cuda.synchronize()
-    err, ok = 0.0, True
-    for b, n in enumerate(lens):  # pad rows are never read
-        e, o = max_err(got[b, :n], want[b, :n])
-        err, ok = max(err, e), ok and o
+    def rows_err(out):
+        err, ok = 0.0, True
+        for b, n in enumerate(lens):  # pad rows are never read
+            e, o = max_err(out[b, :n], want[b, :n])
+            err, ok = max(err, e), ok and o
+        return err, ok
+
+    err, ok = rows_err(got)
+    faults = {}
+    if fault:
+        ferr, fok = rows_err(ops.prefill_attention(q, k.roll(1, 0), v.roll(1, 0), sl))
+        faults["another request's keys and values"] = dict(max_abs_err=ferr, caught=not fok)
+        ok = ok and not fok
     pairs = sum(n * (n + 1) // 2 for n in lens)
     flops = 4 * Nq * D * pairs
     # Rows past seq_lens[b] are neither read nor needed: q, out, k and v
@@ -816,7 +880,7 @@ def prefill_case(model, B, S, lens):
                  sum(a.numel() * a.element_size() for a in lib_args)))
     return dict(model=model, shape=f"B={B} S={S} Nq={Nq} Hkv={Hkv} D={D} lens={lens}",
                 ran=ran[0] if len(ran) == 1 else ran,
-                max_abs_err=err, ok=ok,
+                max_abs_err=err, ok=ok, **({"faults": faults} if faults else {}),
                 **t, bound_ms=t_bound, bound_by=by,
                 tflops=flops / t["ms"] / 1e9, library_tflops=flops / t["library_ms"] / 1e9,
                 library="F.scaled_dot_product_attention (is_causal, full length S)")
@@ -899,12 +963,14 @@ def norm_case(rows, H, residual, int8=False, fault=False):
                 library="F.rms_norm (normalisation alone, no residual add)")
 
 
-def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None, hoff=None):
+def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None, hoff=None,
+                 fault=False):
     """K5 (bf16 pool) or K5q (``kv`` "int8" / "fp8") on one chunk of S query
     rows per request over a paged history of ``starts[b]`` tokens (page ids
     shuffled) plus the chunk's own ``clens[b]`` keys, against its plain
     version on out (and m, l). ``hoff``: a tp shard's pool, as in
-    ``decode_case`` (the mirrored offset a planted fault)."""
+    ``decode_case`` (the mirrored offset a planted fault); ``fault``: the
+    kernel handed another request's pages must fail the tolerance."""
     from lite_llama_tpu_torch.executor.kv_cache import KVPool
     from lite_llama_tpu_torch.ops.attention_prefill import (
         chunked_prefill_state_plain, flash_prefill_chunked)
@@ -948,6 +1014,11 @@ def chunked_case(model, starts, clens, S=512, ps=16, return_state=False, kv=None
         bad = kernel(*args, offset=wrong)
         ferr, fok = max_err(bad[0] if return_state else bad, po)
         faults[f"head_offset {wrong} for {h0}"] = dict(max_abs_err=ferr, caught=not fok)
+        ok = ok and not fok
+    if fault:
+        bad = kernel(q, k, v, cl, sp, pages, scales, table.roll(1, 0))
+        ferr, fok = max_err(bad[0] if return_state else bad, po)
+        faults["another request's pages"] = dict(max_abs_err=ferr, caught=not fok)
         ok = ok and not fok
     if return_state:
         mm, ll = got[1], got[2]
@@ -1128,7 +1199,8 @@ def cp_decode_case(kv=None, lens=CP_LENS, ps=16):
                 ok=ok and comb_ok and l_ok and not f_ok, faults=faults, **t,
                 half0_ms=half0_ms, whole_ms=whole_ms, local_kv_lens=local,
                 bound_ms=t_bound, bound_by=by, library=None,
-                launch=decode_launch_info(B, Hkv, D, ps, table.shape[1], local[1], kv))
+                launch=decode_launch_info(B, Hkv, D, ps, table.shape[1], local[1], kv,
+                                          Nq // Hkv))
 
 
 def cp_chunked_case(kv=None, B=4, hist=4000, S=512, ps=16):
@@ -1556,6 +1628,10 @@ def kernel_phase():
             decode_case("llama-3.2-3b", serving),
             decode_case("vicuna-7b", [680] * 4),  # phase 9: 615 expanded rows + 64 new
             cp_decode_case(),  # phase 13: a cp rank's half of the pool
+            # phase 15's decode step (head dim 256), and G 12 and 16 (two n8 tiles)
+            decode_case("falcon3-7b", [88] * 12, fault=True),
+            decode_case("mistral-large-2", [88] * 12, fault=True),
+            decode_case("llama-3.1-405b", [88] * 12, fault=True),
         ],
         "flash_prefill": [
             prefill_case("llama-3.2-3b", 12, 25, [25] * 12),
@@ -1569,6 +1645,12 @@ def kernel_phase():
             prefill_case("vicuna-7b", 4, 615, [615] * 4),
             # phase 9's wave: an image sub-batch, 256-token prefix + 40 ids, 871 rows each
             prefill_case("vicuna-7b", 8, 871, [871] * 8),
+            # phase 15 (head dim 256: K2, as JAX streams it): its batch and a
+            # 2048-token prompt batch; G 12 and 16
+            prefill_case("falcon3-7b", 12, 25, [25] * 12, fault=True),
+            prefill_case("falcon3-7b", 4, 2048, [2048, 1541, 37, 1]),
+            prefill_case("mistral-large-2", 12, 25, [25] * 12, fault=True),
+            prefill_case("llama-3.1-405b", 4, 512, [512, 389, 37, 1], fault=True),
         ],
         "flash_prefill_vmem": [  # K8: OpenLLaMA-3B's batch shape first
             prefill_case("open-llama-3b-v2", 12, 25, [25] * 12),
@@ -1611,6 +1693,12 @@ def kernel_phase():
             chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[5], S=5),
             chunked_case("llama-3.2-3b", SPEC_STARTS, SPEC_CLENS[9], S=9),
             cp_chunked_case(),  # phase 13: a cp rank's history walk at chunk_lens 0
+            # phase 15's serving chunk and a prefix hit (head dim 256), G 12 and 16
+            chunked_case("falcon3-7b", [512] * 8, [512] * 8, fault=True),
+            chunked_case("falcon3-7b", [256] * 16, [8] * 16, S=8, return_state=True),
+            chunked_case("mistral-large-2", [512] * 4, [512] * 4, fault=True),
+            chunked_case("llama-3.1-405b", [0, 16, 500, 1536], [512, 300, 0, 512],
+                         return_state=True, fault=True),
         ],
         "quantized_matmul_packed": [
             *(qmm_case(n, 12) for n in QMM_SHAPES),  # gate_up first: the main case
@@ -1648,6 +1736,10 @@ def kernel_phase():
             # phase 11: a tp 2 rank's shard (4 of 8 kv heads) at both offsets
             *(decode_case("llama-3.2-3b tp2", [88] * 12, kv=kv, hoff=h) for h in (0, 4)),
             *([cp_decode_case(kv)] if kv == "int8" else []),  # phase 13's int8 pool
+            decode_case("falcon3-7b", [88] * 12, kv=kv, fault=True),  # phase 15
+            # a tp 8 rank of Mistral-Large-2 (G 12) and of Llama-3.1-405B (G 16)
+            *(decode_case(m, [88] * 12, kv=kv, hoff=3)
+              for m in ("mistral-large-2 tp8", "llama-3.1-405b tp8") if kv == "int8"),
         ]
         cases[f"flash_prefill_chunked_{kv}"] = [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8, kv=kv),
@@ -1661,6 +1753,10 @@ def kernel_phase():
             *(chunked_case("llama-3.2-3b tp2", [512] * 8, [512] * 8, kv=kv, hoff=h)
               for h in (0, 4)),
             *([cp_chunked_case(kv)] if kv == "int8" else []),  # phase 13's int8 pool
+            chunked_case("falcon3-7b", [512] * 8, [512] * 8, kv=kv, fault=True),  # phase 15
+            chunked_case("falcon3-7b", [256] * 16, [8] * 16, S=8, kv=kv),
+            *(chunked_case(m, [512] * 8, [512] * 8, kv=kv, hoff=3)
+              for m in ("mistral-large-2 tp8", "llama-3.1-405b tp8") if kv == "int8"),
         ]
     for name, cs in cases.items():
         for c in cs:
@@ -1888,8 +1984,13 @@ def profile_decode(engine, prompts, steps=16):
     time, device time by kernel name, and device time and launches per step
     of each kernel of DEVICE_KERNELS. Kernel rows are the profiler's
     device-side events; "not measured" (None) when the profiler records no
-    device time. Where it does, the launch counters' per-step reading of
-    each DEVICE_KERNELS kernel must equal its device events'."""
+    device time. The launch counters' per-step reading of each
+    DEVICE_KERNELS kernel must equal the step's kernel nodes, read from the
+    graph through libcuda (``step_graph_nodes``: a replay launches every
+    node). The profiler's device events must not exceed them; where they
+    fall short, the shortfall is reported: CUPTI loses a window's first
+    events now and then (ROADMAP C6), so the decode starts PROFILER_LEAD_S
+    into the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1905,6 +2006,7 @@ def profile_decode(engine, prompts, steps=16):
         sync(dev)
         c0 = read_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_LEAD_S)
             t0 = time.perf_counter()
             engine.decode(slots, first, np.zeros(B, bool), total, sampling, n_steps=steps)
             sync(dev)
@@ -1925,13 +2027,23 @@ def profile_decode(engine, prompts, steps=16):
         per_step[f"{name}_launches_per_step"] = sum(n for _, n in mine) / steps
     counted = {k: (c1[k] - c0[k]) / steps for k in DEVICE_KERNELS}
     nodes = step_graph_nodes(engine, B)  # C6: the graph's own count, past CUPTI
+    require(all(counted[k] == nodes[k] for k in DEVICE_KERNELS),
+            f"launch counters per decode step {counted} differ from the replayed graph's "
+            f"kernel nodes {nodes}")
+    lost = {}
     if device_us:
         seen = {k: per_step[f"{k}_launches_per_step"] for k in DEVICE_KERNELS}
-        require(counted == seen, f"launch counters per decode step {counted} differ from "
-                                 f"the device events' {seen}; the replayed graph holds "
-                                 f"{nodes} kernel nodes")
+        require(all(seen[k] <= counted[k] for k in DEVICE_KERNELS),
+                f"the device events' launches per decode step {seen} exceed the counters' "
+                f"{counted}")
+        lost = {k: round((counted[k] - seen[k]) * steps) for k in DEVICE_KERNELS
+                if seen[k] != counted[k]}
+        if lost:
+            log(f"  the profiler's device events are short of the graph's launches in this "
+                f"window by {lost} (CUPTI lost events, ROADMAP C6)")
     return dict(
         counted_launches_per_step=counted, graph_kernel_nodes=nodes,
+        profiler_lost_launches=lost,
         steps=steps, profiled_wall_ms=wall_us / 1e3,
         device_ms=device_us / 1e3 if device_us else None,
         device_ms_per_step=device_us / 1e3 / steps if device_us else None,
@@ -2262,9 +2374,9 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     The warm-up, at the batch's width, captures its decode graph (timed
     apart, ``capture_ms``), so no timed run holds the capture. The counted
     generate_tokens run holds the prefill's launches and each replay's;
-    launches per decode step come from the device events of a profiled
-    decode (which the counters must equal), and every decode kernel of
-    ``path`` must be among them."""
+    launches per decode step come from the captured step's kernel nodes
+    (which the counters must equal) and the device events of a profiled
+    decode, and every decode kernel of ``path`` must be among them."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.generate import TextGenerator
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
@@ -2653,7 +2765,11 @@ def prefill_invariants(dev, cfg, params, engine_kw=None,
                 r["b"] = compare_logits(cached, uncached)
         return r
 
-    inv = {"kernels": read(None), "plain": read(plain_ops())}
+    c0 = read_counts()
+    inv = {"kernels": read(None)}
+    c1 = read_counts()
+    inv["launches"] = {k: c1[k] - c0[k] for k in c1}  # the kernels' reading alone
+    inv["plain"] = read(plain_ops())
     inv["faults"] = {name: read(dict(chunked_prefill_attention=f))
                      for name, f in planted_k5_faults().items()}
     inv["limit"] = dict(rel_rms=limits[0], max_abs_of_max_logit=limits[1])
@@ -2734,6 +2850,12 @@ def logits_invariant(dev, cfg, qparams, prompts, bf16_logits):
     log(f"  K6 planted faults caught: {caught}")
     require(all(caught.values()), f"the logits invariant misses a planted K6 fault: {caught}")
     return inv
+
+
+def param_count(params):
+    """Parameters of a bf16 decoder tree (embeddings, head, norms, layers)."""
+    return sum(t.numel() for t in [params["embed"], params["lm_head"], params["final_norm"],
+                                    *params["layers"].values()])
 
 
 def weight_bytes(tree):
@@ -2898,8 +3020,7 @@ def open_llama_phase(dev):
     t0 = time.perf_counter()
     cfg = open_llama_3b_v2()
     params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
-    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"], params["final_norm"],
-                                        *params["layers"].values()])
+    n_params = param_count(params)
     log(f"  {n_params / 1e9:.3f} G parameters, {weight_bytes(params) / 1e9:.3f} GB in bf16; "
         f"head_dim {cfg.head_dim}")
 
@@ -4992,7 +5113,7 @@ def dp_phase(dev):
 # Phase 13: context parallelism, two ranks sharing the card over gloo
 
 CP_PROMPT = 4000  # ids in each of 4 prompts: both ranks own pages of every request
-CP_GEN = 64
+CP_GEN = 32  # cut from 64 to keep the whole script within its time limit
 CP_FORCED = 8  # teacher-forced decode steps of the logits gate
 CP_PATHS = {"bf16": False, "int8_pool": "int8"}
 CP_PATH_KERNELS = {"bf16": ("paged_flash_decode", "flash_prefill_chunked"),
@@ -5255,7 +5376,8 @@ def cp_phase(dev):
 # ---------------------------------------------------------------------------
 # Phase 14: the scheduler, the HTTP server and speculative decoding on a mesh
 
-MESH_GEN = 64  # new tokens of every served request and spec stream (greedy, eos off)
+MESH_GEN = 32  # new tokens of every served request and spec stream (greedy, eos off; cut
+# from 64 to keep the whole script within its time limit)
 MESH_THREADS = 4  # client threads posting each wave
 MESH_IDLE_S = 1.0  # the gap between the waves: rank 0's loop turns idle, the follower with it
 MESH_FAULT_S = 10.0  # the planted reorder must fail every rank within this
@@ -5647,6 +5769,241 @@ def mesh_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: Falcon3-7B (head dim 256), and phase 16: Mistral-Large-2 (G 12)
+
+# Phase 15's paths. Fresh prefill at head dim 256 takes K2, as JAX streams it
+# (_flash_prefill_impl); K8 must not launch on any of them.
+FALCON_BATCH_PATH = ("paged_flash_decode", "flash_prefill", "rms_norm", "swiglu")
+FALCON_SERVING_PATH = ("paged_flash_decode", "flash_prefill_chunked", "rms_norm", "swiglu")
+FALCON_INT4_BATCH_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8",
+                          "flash_prefill", "rms_norm", "swiglu")
+FALCON_ABSENT = ("flash_prefill_vmem",)
+FALCON_REPEATS = (2, 3, 1)  # as phase 7's: timed runs, prefill + decode runs, eager runs
+SINGLE_RUNS = (1, 1, 1)  # phase 15's int4 run and phase 16's: one run of each kind
+# New tokens of phase 15's int4 run: its W4A16 down projection (ROADMAP C8)
+# makes a step 3x bf16's, and its decode invariant reads 63 eager steps.
+FALCON_INT4_GEN = 64
+# Phase 15's limits (relative RMS, max |difference| over max |logit|), each
+# set between the plain versions' reading and the smallest planted fault, as
+# read on an H100 (PERF.md): decode vs re-prefill after 127 steps (K1
+# faults), plain 0.043 / 0.044, kernels 0.051 / 0.053, smallest fault (two
+# pages swapped) 0.128 / 0.131; chunked (K5) vs single-shot (K2) prefill of
+# the 1500-token prompts (K5 faults), kernels 0 / 0, plain 0.029 / 0.025,
+# smallest fault 0.481 / 0.512; under int4 g128 riffle weights on an int8
+# pool, decode vs re-prefill after 63 steps (K1q faults, top-1 not
+# compared, as in phase 6), plain 0.147 / 0.160, kernels 0.157 / 0.172,
+# smallest fault 0.873 / 0.870, and chunked (K5q) vs single-shot prefill,
+# plain 0.071 / 0.069 on all eight prompts, smallest K5q fault 0.485 / 0.512
+# (the phase reads two: kernels 0.075 / 0.056).
+# Phase 16 (Mistral-Large-2, 4 layers): decode plain 0.022 / 0.023, kernels
+# 0.026 / 0.025, smallest fault 0.181 / 0.184; chunked kernels 0 / 0, plain
+# 0.014 / 0.015, smallest fault 0.380 / 0.539.
+FALCON_INVARIANT = (INVARIANT_REL_RMS, INVARIANT_MAX_ABS)
+FALCON_PREFILL = (PREFILL_REL_RMS, PREFILL_MAX_ABS)
+FALCON_QUANT_INVARIANT = (QUANT_INVARIANT_REL_RMS, QUANT_INVARIANT_MAX_ABS)
+FALCON_QPREFILL = (QPREFILL_REL_RMS, QPREFILL_MAX_ABS)
+# Phase 16: Mistral-Large-2's published widths at 4 of its 88 layers (88
+# layers in bf16 are 246 GB; 4 are 12.7 GB with the embeddings and head).
+MISTRAL_LAYERS = 4
+MISTRAL_PUBLISHED_LAYERS = 88
+MISTRAL_INVARIANT = (INVARIANT_REL_RMS, INVARIANT_MAX_ABS)
+MISTRAL_PREFILL = (PREFILL_REL_RMS, PREFILL_MAX_ABS)
+
+
+def falcon3_7b():
+    """Falcon3-7B as the published config.json of tiiuae/Falcon3-7B-Base
+    gives it: LlamaForCausalLM, hidden 3072, intermediate 23040, 28 layers,
+    12 heads and 4 kv heads of head_dim 256, vocab 131072, rope_theta
+    1000042, rms_norm_eps 1e-6, untied embeddings, no biases, bos and eos
+    11. Its 32768 positions are not needed: the engine's 2048 hold every
+    prompt here."""
+    from lite_llama_tpu_torch.config import load_config
+
+    return load_config(dict(
+        architectures=["LlamaForCausalLM"], model_type="llama", hidden_size=3072,
+        intermediate_size=23040, num_hidden_layers=28, num_attention_heads=12,
+        num_key_value_heads=4, head_dim=256, vocab_size=131072, rms_norm_eps=1e-6,
+        rope_theta=1000042.0, rope_scaling=None, max_position_embeddings=32768,
+        tie_word_embeddings=False, attention_bias=False, hidden_act="silu", bos_token_id=11,
+        eos_token_id=11), dtype=torch.bfloat16)
+
+
+def mistral_large_2(layers=MISTRAL_LAYERS):
+    """Mistral-Large-Instruct-2407 as its published config.json gives it
+    (model_type "mistral", which both packages read as a Llama): hidden
+    12288, intermediate 28672, 96 heads and 8 kv heads (head dim 128, 12
+    query heads per kv head), vocab 32768, rope_theta 1e6, rms_norm_eps
+    1e-5, untied embeddings, no sliding window, bos 1, eos 2; ``layers`` of
+    its 88."""
+    from lite_llama_tpu_torch.config import load_config
+
+    return load_config(dict(
+        architectures=["MistralForCausalLM"], model_type="mistral", hidden_size=12288,
+        intermediate_size=28672, num_hidden_layers=layers, num_attention_heads=96,
+        num_key_value_heads=8, vocab_size=32768, rms_norm_eps=1e-5, rope_theta=1e6,
+        max_position_embeddings=131072, tie_word_embeddings=False, hidden_act="silu",
+        bos_token_id=1, eos_token_id=2), dtype=torch.bfloat16)
+
+
+def decode_floor_ms(cfg, params):
+    """The least time a decode step could take: every weight but the
+    embedding table (a step reads B of its rows) read once at HBM speed."""
+    embed = cfg.vocab_size * cfg.hidden_size * 2
+    return (weight_bytes(params) - embed) / HBM_BYTES_PER_S * 1e3
+
+
+def falcon3_phase(dev):
+    """Falcon3-7B at full width and depth, random bf16 weights from the seed
+    (head dim 256: K2 for fresh prefill, never K8; K1 / K5 at DP 256): the
+    phase-4 batch run with its graph-vs-eager gate and the decode-vs-re-
+    prefill invariant with K1 faults; one serving wave (wave 1 of phase 5,
+    prefix cache on, chunk 512: K5) and the chunked-vs-single-shot invariant
+    with K5 faults; an fp8-pool decode (phase 6's: K5q-fp8, K1q-fp8, its
+    graph gate); then int4 g128 riffle weights on an int8 pool: the batch
+    run (K6, K1q-int8, K2) with its decode invariant and K1q faults, and two
+    1500-token prompts prefilled in 512-token chunks (K5q-int8) against one
+    single-shot prefill. Returns (summary, {path: launches}); the int4
+    path's launches include its chunked prefill."""
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    t0 = time.perf_counter()
+    cfg = falcon3_7b()
+    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    out = dict(params=param_count(params), weight_gb=weight_bytes(params) / 1e9,
+               decode_floor_ms=decode_floor_ms(cfg, params))
+    log(f"  {out['params'] / 1e9:.3f} G parameters, {out['weight_gb']:.3f} GB in bf16; head_dim "
+        f"{cfg.head_dim}, {cfg.num_attention_heads} query heads over {cfg.num_key_value_heads}; "
+        f"decode floor {out['decode_floor_ms']:.3f} ms a step (weights but the embedding "
+        f"table at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+    def invariant(prompts, outs):
+        return check_invariant(dev, cfg, params, prompts[:2], [o.token_ids for o in outs[:2]],
+                               limits=FALCON_INVARIANT)
+
+    paths, seconds = {}, {}
+    t1 = time.perf_counter()
+    out["batch"], batch = slice_phase(dev, cfg, params, path=FALCON_BATCH_PATH,
+                                      invariant=invariant, absent=FALCON_ABSENT,
+                                      repeats=FALCON_REPEATS)
+    log("Falcon3 batch: " + json.dumps(out["batch"]))
+    free_device()
+    seconds["batch"], t1 = time.perf_counter() - t1, time.perf_counter()
+    out["serving"], serving = serving_phase(dev, cfg, params, path=FALCON_SERVING_PATH,
+                                            profile=False, n_waves=1)
+    paths["falcon3"] = {k: batch[k] + serving[k] for k in KERNELS}
+    free_device()
+    out["serving"]["prefill_invariants"] = prefill_invariants(dev, cfg, params,
+                                                              limits=FALCON_PREFILL, sides=("a",))
+    log("Falcon3 serving: " + json.dumps(out["serving"]))
+    free_device()
+    seconds["serving"], t1 = time.perf_counter() - t1, time.perf_counter()
+    out["fp8_kv"], paths["falcon3_fp8_kv"] = fp8_kv_phase(dev, cfg, params)
+    free_device()
+    seconds["fp8_kv"], t1 = time.perf_counter() - t1, time.perf_counter()
+    qparams = quantize_decoder_params(params, "int4", group_size=128, riffle=True)
+    sync(dev)
+    out["int4_weight_gb"] = weight_bytes(qparams) / 1e9
+    del params
+    free_device()
+    seconds["quantize"], t1 = time.perf_counter() - t1, time.perf_counter()
+
+    def q_invariant(prompts, outs):
+        return check_invariant(dev, cfg, qparams, prompts[:1], [outs[0].token_ids],
+                               kv_quant="int8", faults=planted_k1q_faults(),
+                               limits=FALCON_QUANT_INVARIANT, top1=False)
+
+    out["int4"], int4 = slice_phase(dev, cfg, qparams, G=FALCON_INT4_GEN,
+                                    engine_kw=dict(kv_quant="int8"),
+                                    path=FALCON_INT4_BATCH_PATH, invariant=q_invariant,
+                                    absent=FALCON_ABSENT, repeats=SINGLE_RUNS)
+    free_device()
+    seconds["int4_batch"], t1 = time.perf_counter() - t1, time.perf_counter()
+    out["int4"]["chunked_vs_single_shot"], chunked = int4_chunked_prefill(dev, cfg, qparams)
+    paths["falcon3_int4_int8_pool"] = {k: int4[k] + chunked[k] for k in KERNELS}
+    log("Falcon3 int4 + int8 pool: " + json.dumps(out["int4"]))
+    del qparams
+    free_device()
+    seconds["int4_chunked"] = time.perf_counter() - t1
+    out["seconds_by_part"] = seconds
+    log(f"  phase 15 seconds by part: {json.dumps(seconds)}")
+    ran = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
+    want = set(FALCON_BATCH_PATH + FALCON_SERVING_PATH + FALCON_INT4_BATCH_PATH
+               + ("flash_prefill_chunked_int8",) + FP8_KV_PATH)
+    missing = sorted(k for k in want if not ran[k])
+    require(not missing, f"phase 15: kernels never launched: {missing}")
+    require(not any(ran[k] for k in FALCON_ABSENT), f"phase 15: K8 launched: {ran}")
+    out["launches"] = ran
+    out["seconds"] = time.perf_counter() - t0
+    return out, paths
+
+
+def int4_chunked_prefill(dev, cfg, qparams, n=2):
+    """``n`` of phase 5's 1500-token prompts prefilled on an int8 pool in
+    512-token chunks (K5q-int8 over the history) against one single-shot
+    prefill: the last logits within FALCON_QPREFILL. Returns (the reading,
+    the chunked prefill's launches)."""
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+
+    prompts = serving_prompts(cfg)["long"][:n]
+
+    def engine(chunk):
+        return InferenceEngine(cfg, qparams, device=dev, kv_quant="int8", page_size=16,
+                               max_reqs=n, num_pages=n * 100, decode_chunk=32,
+                               prefill_chunk=chunk)
+
+    c0 = read_counts()
+    chunked, _ = _last_logits(engine(512), prompts)
+    c1 = read_counts()
+    single, _ = _last_logits(engine(2048), prompts)
+    r = compare_logits(chunked, single)
+    r["limit"] = dict(rel_rms=FALCON_QPREFILL[0], max_abs_of_max_logit=FALCON_QPREFILL[1])
+    log(f"  int4 + int8 pool, chunked (K5q) vs single-shot prefill: {json.dumps(r)}")
+    require(prefill_holds(r, FALCON_QPREFILL), f"int4 chunked prefill disagrees: {r}")
+    launches = {k: c1[k] - c0[k] for k in c1}
+    require(launches["flash_prefill_chunked_int8"] > 0, "K5q-int8 never launched")
+    return r, launches
+
+
+def mistral_phase(dev):
+    """Mistral-Large-2 at its published widths with depth cut to
+    MISTRAL_LAYERS of 88 (listed as ``reduced``), random bf16 weights from
+    the seed: G 12 through the engine, the pool and the decode graph. The
+    phase-4 batch run (K2, K1, K3, K4) with its graph-vs-eager gate and the
+    decode-vs-re-prefill invariant with K1 faults, and the chunked (K5) vs
+    single-shot (K2) prefill invariant with K5 faults. Returns (summary,
+    launches of the batch run)."""
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+
+    t0 = time.perf_counter()
+    cfg = mistral_large_2()
+    params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    out = dict(params=param_count(params), weight_gb=weight_bytes(params) / 1e9,
+               reduced={"num_hidden_layers": f"{MISTRAL_LAYERS} of {MISTRAL_PUBLISHED_LAYERS} "
+                        "(88 layers in bf16 are 246 GB, above one card's 80)"},
+               decode_floor_ms=decode_floor_ms(cfg, params))
+    log(f"  {out['params'] / 1e9:.3f} G parameters, {out['weight_gb']:.3f} GB in bf16; "
+        f"{cfg.num_attention_heads} query heads over {cfg.num_key_value_heads} (G "
+        f"{cfg.num_kv_groups}), head_dim {cfg.head_dim}; reduced: {out['reduced']}")
+
+    def invariant(prompts, outs):
+        return check_invariant(dev, cfg, params, prompts[:2], [o.token_ids for o in outs[:2]],
+                               limits=MISTRAL_INVARIANT)
+
+    out["batch"], batch = slice_phase(dev, cfg, params, path=BATCH_PATH, invariant=invariant,
+                                      absent=FALCON_ABSENT, repeats=SINGLE_RUNS)
+    log("Mistral-Large-2 batch: " + json.dumps(out["batch"]))
+    free_device()
+    inv = prefill_invariants(dev, cfg, params, limits=MISTRAL_PREFILL, sides=("a",))
+    out["prefill_invariants"] = inv
+    require(inv["launches"]["flash_prefill_chunked"] > 0, "phase 16: K5 never launched")
+    out["seconds"] = time.perf_counter() - t0
+    del params
+    free_device()
+    return out, {k: batch[k] + inv["launches"][k] for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -5695,7 +6052,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name} ...{fn[-40:]}: {line.strip()}")
     log("  flash_prefill_chunked dynamic shared memory (bytes): " + json.dumps(
-        {f"D={D} {kv}": chunked_smem(D, i) for D in (64, 100, 128)
+        {f"D={D} {kv}": chunked_smem(D, i) for D in (64, 100, 128, 256)
          for i, kv in enumerate(("bf16", "int8", "fp8", "fresh"))}))
     build_s = time.perf_counter() - t0
     log(f"  nvcc builds {built}; all kernels ready in {build_s:.1f} s")
@@ -5710,7 +6067,9 @@ def main() -> int:
                          "eval", "eval_int8_kv", "eval_fp8_kv", "llava", "spec",
                          "spec_quantized", "tp_bf16", "tp_int8_pool", "tp_int4_riffle_tp2",
                          "dp_bf16", "dp_int4_int8_pool", "cp_bf16", "cp_int8_pool",
-                         "mesh_tp2_server", "mesh_tp2_spec", "mesh_dp2_int4_int8_pool_server")}
+                         "mesh_tp2_server", "mesh_tp2_spec", "mesh_dp2_int4_int8_pool_server",
+                         "falcon3", "falcon3_fp8_kv", "falcon3_int4_int8_pool",
+                         "mistral_large_2")}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
@@ -5790,6 +6149,20 @@ def main() -> int:
         summary, mesh_paths = mesh_phase(dev)
         by_path.update({f"mesh_{k}": v for k, v in mesh_paths.items()})
         log(f"  phase 14 took {summary['seconds']:.1f} s")
+        free_device()
+        log("phase 15: Falcon3-7B (head dim 256) at full width and depth")
+        summary, falcon_paths = falcon3_phase(dev)
+        by_path.update(falcon_paths)
+        log("Falcon3: " + json.dumps({k: summary[k] for k in (
+            "params", "weight_gb", "int4_weight_gb", "decode_floor_ms", "launches")}))
+        log(f"  phase 15 took {summary['seconds']:.1f} s")
+        free_device()
+        log(f"phase 16: Mistral-Large-2 (12 query heads per kv head), {MISTRAL_LAYERS} of "
+            f"{MISTRAL_PUBLISHED_LAYERS} layers")
+        summary, by_path["mistral_large_2"] = mistral_phase(dev)
+        log("Mistral-Large-2: " + json.dumps({k: summary[k] for k in (
+            "params", "weight_gb", "reduced", "decode_floor_ms")}))
+        log(f"  phase 16 took {summary['seconds']:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -31,7 +31,8 @@
 // the plain versions' and the TPU's _flash_prefill_vmem's logits); P is
 // rounded to bf16 before PV and l sums the unrounded P. int8 history is
 // bf16(float(k) * float(scale)), rounded once; fp8 e4m3 converts exactly.
-// Any even head dim from 16 to 128, at most 8 query heads per kv head.
+// Any even head dim from 16 to 128, and 256; at most 16 query heads per kv
+// head.
 //
 // What bounds it: tensor-core operations for long chunks, about
 // 4 * Nq * D * sum_b(chunk_b * hist_b + chunk_b^2 / 2) FLOPs against 989
@@ -98,6 +99,12 @@
 //    in flight. An int8 value becomes a float through the float's mantissa
 //    (a byte permute and a subtraction, no conversion instruction), and two
 //    of them meet their scale in one bf16x2 product.
+// 7. Head dim 256 (Falcon3): a stage is 64 KB and the q rows 64 KB, so the
+//    ring has two stages, a 1-byte pool one raw slot (the next raw tile goes
+//    out once the last one is dequantized), and each key's thread reads its
+//    page's table entry itself (no page-id slots); 227 KB in all. A
+//    consumer's O is 128 fp32 registers a thread: setmaxnreg moves registers
+//    from the producer warpgroup (40) to the consumers (232).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -123,9 +130,8 @@ constexpr int BM = 64 * WARPGROUPS;
 constexpr int CONSUMERS = 128 * WARPGROUPS;
 constexpr int PRODUCERS = 128;      // one warpgroup fills the ring
 constexpr int THREADS = CONSUMERS + PRODUCERS;
-constexpr int STAGES = 4;          // ring stages
-constexpr int MAX_G = 8;
-constexpr int MAX_D = 128;
+constexpr int MAX_G = 16;
+constexpr int SMEM_MAX = 227 * 1024;  // dynamic shared memory a block may opt into (sm_90)
 constexpr int SCALE_LANES = 128;  // the int8 pool's merged scale slab
 constexpr float NEG = -1e30f;
 
@@ -134,25 +140,32 @@ constexpr float NEG = -1e30f;
 // contiguous bytes): K K-major, core matrix (key block n/8, dim block d/8)
 // at (n/8) * 16 DP + (d/8) * 128 bytes; V MN-major, core matrix (dim block
 // d/8, key block n/8) at (d/8) * 16 BK + (n/8) * 128 bytes. The q rows use
-// K's layout. A stage is a K tile and a V tile. A 1-byte pool adds two raw
-// slots (rows of RS bytes) and their scale words.
+// K's layout. A stage is a K tile and a V tile. A 1-byte pool adds RAW_SLOTS
+// raw slots (rows of RS bytes) and their scale words. DP 256 has room for
+// two stages, one raw slot and no page ids (design note 7).
 template <int DP>
 struct Layout {
+  static constexpr bool WIDE = DP > 128;
+  static constexpr int STAGES = WIDE ? 2 : 4;  // ring stages
+  static constexpr int RAW_SLOTS = WIDE ? 1 : 2;
   static constexpr int RS = DP + 16;       // raw 1-byte row stride (bytes)
   static constexpr int TILE = BK * DP * 2; // bytes of one bf16 K or V tile
   static constexpr int STAGE = 2 * TILE;
   static constexpr int QTILE = BM * DP * 2;  // the block's q rows
   static constexpr int RAW = 2 * BK * RS;  // one raw 1-byte K + V tile
   static constexpr int SCALES = BK * 2 * 4;  // K and V scale words per key
-  // ring | q | full, empty barriers | page ids | pool rows | 1-byte pools:
-  // 2 scale slots, 2 raw slots
+  // ring | q | full, empty barriers | page ids (not WIDE) | pool rows |
+  // 1-byte pools: RAW_SLOTS scale slots, RAW_SLOTS raw slots
   static constexpr int OFF_Q = STAGES * STAGE;
   static constexpr int OFF_BAR = OFF_Q + QTILE;
   static constexpr int OFF_PAGE = OFF_BAR + 2 * STAGES * 8;
-  static constexpr int OFF_ROWS = OFF_PAGE + BK * 4;
+  static constexpr int OFF_ROWS = OFF_PAGE + (WIDE ? 0 : BK * 4);
   static constexpr int OFF_SCL = OFF_ROWS + BK * 4;
-  static constexpr int OFF_RAW = OFF_SCL + 2 * SCALES;
-  static constexpr int bytes(bool one_byte) { return one_byte ? OFF_RAW + 2 * RAW : OFF_SCL; }
+  static constexpr int OFF_RAW = OFF_SCL + RAW_SLOTS * SCALES;
+  static constexpr int bytes(bool one_byte) {
+    return one_byte ? OFF_RAW + RAW_SLOTS * RAW : OFF_SCL;
+  }
+  static_assert(bytes(true) <= SMEM_MAX && bytes(false) <= SMEM_MAX, "shared memory");
   // Byte offset of the 16-byte piece p (values 8p..8p+7) of key (or q row) n.
   static __device__ __forceinline__ int k_off(int n, int p) {
     return (n >> 3) * (16 * DP) + p * 128 + (n & 7) * 16;
@@ -597,6 +610,7 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
   constexpr bool HIST = KV != KV_NONE;
   constexpr bool ONE_BYTE = one_byte_kv(KV);
   constexpr int EB = ONE_BYTE ? 1 : 2;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
   uint64_t* empty = full + STAGES;
@@ -620,6 +634,7 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
   if (threadIdx.x >= CONSUMERS) {
     // Producer warpgroup: fills the ring, STAGES tiles ahead of the consumers,
     // running on into the block's next item while they finish this one.
+    if constexpr (L::WIDE) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     const int pt = threadIdx.x - CONSUMERS;
     const __nv_bfloat16* sbase =
         KV == KV_INT8 ? a.scales + (long long)a.layer * a.T * SCALE_LANES : nullptr;
@@ -639,16 +654,21 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
       const __nv_bfloat16* vb = a.v + (long long)w.b * S * ks + (long long)w.h * D;
       // The pool rows of history tile t (-1 past hist): the thread of a
       // page's first key in the tile reads the page's entry, then each key's
-      // thread forms its row. Neither this nor history() runs without a
-      // history (n_hist is 0).
+      // thread forms its row (WIDE: each key's thread reads the entry).
+      // Neither this nor history() runs without a history (n_hist is 0).
       auto fill_rows = [&](int t) {
         const int pos = t * BK + pt;
         const int page = pos / a.ps;
         const int off = pos - page * a.ps;
         producer_sync();  // every producer thread is done with the previous rows
-        if (pt < BK && pos < w.hist && (pt == 0 || off == 0)) page_s[pt] = tb[min(page, a.ppr - 1)];
-        producer_sync();
-        if (pt < BK) rows_s[pt] = pos < w.hist ? page_s[max(pt - off, 0)] * a.ps + off : -1;
+        if constexpr (L::WIDE) {
+          if (pt < BK) rows_s[pt] = pos < w.hist ? tb[min(page, a.ppr - 1)] * a.ps + off : -1;
+        } else {
+          if (pt < BK && pos < w.hist && (pt == 0 || off == 0))
+            page_s[pt] = tb[min(page, a.ppr - 1)];
+          producer_sync();
+          if (pt < BK) rows_s[pt] = pos < w.hist ? page_s[max(pt - off, 0)] * a.ps + off : -1;
+        }
         producer_sync();
       };
       auto history = [&](uint8_t* dst, uint32_t* sc) {
@@ -675,10 +695,14 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
         const int s = g % STAGES;
         uint8_t* stage = smem + s * L::STAGE;
         if (ONE_BYTE && t < w.n_hist) {
-          // Raw tile t+1 goes out before tile t is dequantized into its stage.
-          if (t + 1 < w.n_hist) {
+          // Two raw slots: raw tile t+1 goes out before tile t is dequantized
+          // into its stage. One: once it is (fill_rows' first barrier: every
+          // producer is done reading the slot).
+          constexpr bool TWO = L::RAW_SLOTS == 2;
+          const int slot = TWO ? t & 1 : 0;
+          if (TWO && t + 1 < w.n_hist) {
             fill_rows(t + 1);
-            history(raw + ((t + 1) & 1) * L::RAW, scl + ((t + 1) & 1) * (L::SCALES / 4));
+            history(raw + (slot ^ 1) * L::RAW, scl + (slot ^ 1) * (L::SCALES / 4));
             commit_group();
             wait_group<1>();
           } else {
@@ -686,10 +710,15 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
           }
           producer_sync();  // every producer's copies of raw tile t have landed
           if (g >= STAGES) mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
-          dequant_tile<DP, KV>(pt, stage, raw + (t & 1) * L::RAW,
-                               scl + (t & 1) * (L::SCALES / 4), lh);
+          dequant_tile<DP, KV>(pt, stage, raw + slot * L::RAW, scl + slot * (L::SCALES / 4),
+                               lh);
           fence_async_smem();
           mbar_arrive(&full[s]);
+          if (!TWO && t + 1 < w.n_hist) {
+            fill_rows(t + 1);
+            history(raw, scl);
+            commit_group();
+          }
         } else {
           if (g >= STAGES) mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
           if (t < w.n_hist) {
@@ -714,6 +743,7 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
   }
 
   // Consumer warpgroups.
+  if constexpr (L::WIDE) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int wg = warp >> 2;
@@ -759,8 +789,8 @@ __global__ void __launch_bounds__(THREADS, 1) chunked_prefill_kernel(const Args 
       // Each thread loads its QU pieces of 8 values (piece p of row m) first,
       // in loads of ub_q bytes, so that they take one trip to memory. Row m
       // is flat row gf + m: position p0 + x / G and head g0 + m - (x / G) *
-      // G for x = g0 + m < 72, where x / G is (x * rG) >> 10 (exact below
-      // 209 for G <= 8).
+      // G for x = g0 + m < 80, where x / G is (x * rG) >> 10 (exact below
+      // 97 for G <= 16).
       constexpr int QU = DP / 16;
       const int p0 = gf / G, g0 = gf - p0 * G;
       const int rG = (1024 + G - 1) / G;
@@ -908,10 +938,13 @@ int copy_bytes(int D, int EB, const void* p, int min_bytes) {
   return ((EB * D) % ub == 0 && aligned(p, ub)) ? ub : 0;
 }
 
+// Head dims the kernel takes: every even one from 2 to 128, and 256.
+bool head_dim_ok(int D) { return D % 2 == 0 && ((D > 0 && D <= 128) || D == 256); }
+
 template <int KV>
 int launch(Args a, void* stream) {
   if (a.Hkv <= 0 || a.Nq % a.Hkv != 0 || a.Nq / a.Hkv > MAX_G) return (int)cudaErrorInvalidValue;
-  if (a.D <= 0 || a.D > MAX_D || a.D % 2 != 0) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(a.D)) return (int)cudaErrorInvalidValue;
   if ((a.m_out == nullptr) != (a.l_out == nullptr)) return (int)cudaErrorInvalidValue;
   if constexpr (KV != KV_NONE) {  // the pool
     if (a.ps <= 0 || a.ppr <= 0) return (int)cudaErrorInvalidValue;
@@ -948,7 +981,8 @@ int launch(Args a, void* stream) {
     case 80: return run<80, KV>(a, grid, st);
     case 96: return run<96, KV>(a, grid, st);
     case 112: return run<112, KV>(a, grid, st);
-    default: return run<128, KV>(a, grid, st);
+    case 128: return run<128, KV>(a, grid, st);
+    default: return run<256, KV>(a, grid, st);
   }
 }
 
@@ -970,12 +1004,13 @@ extern "C" int flash_prefill_chunked_smem(int D, int kv) {
     case 80: return Layout<80>::bytes(one_byte);
     case 96: return Layout<96>::bytes(one_byte);
     case 112: return Layout<112>::bytes(one_byte);
-    default: return Layout<128>::bytes(one_byte);
+    case 128: return Layout<128>::bytes(one_byte);
+    default: return Layout<256>::bytes(one_byte);
   }
 }
 
 // K5 (bf16 pool) and K5q (int8 / fp8 pool): a chunk over the pool's history,
-// any even head dim up to 128. scales: the int8 pool's merged [L, T, 128]
+// any even head dim up to 128, and 256. scales: the int8 pool's merged [L, T, 128]
 // bf16 slab, null otherwise. m and l may be null (no state out).
 // head_offset: the first global kv head of the pool's tensor-parallel shard,
 // which shifts the int8 scale lanes (other pools ignore it).
@@ -1017,9 +1052,9 @@ CHUNKED_ENTRY(flash_prefill_chunked_int8, KV_INT8)
 CHUNKED_ENTRY(flash_prefill_chunked_fp8, KV_FP8)
 
 // K2 and K8: fresh prefill, the instance with no history (chunk_lens =
-// seq_lens, no pool, no state out). K2 takes head dims 64 and 128, K8 any
-// even one up to 128 (the callers send it the others); both launch the same
-// instances. Rows at or past seq_lens[b] are left as they were.
+// seq_lens, no pool, no state out). K2 takes head dims 64, 128 and 256 (those
+// the TPU streams unpadded), K8 any even one up to 128 and 256 (the callers
+// send it the others); both launch the same instances. Rows at or past seq_lens[b] are left as they were.
 extern "C" int flash_prefill_vmem_bf16(const void* q, const void* k, const void* v,
                                        const void* seq_lens, void* out, int B, int S, int Nq,
                                        int Hkv, int D, float qscale, void* stream) {
@@ -1041,6 +1076,6 @@ extern "C" int flash_prefill_vmem_bf16(const void* q, const void* k, const void*
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   const void* seq_lens, void* out, int B, int S, int Nq,
                                   int Hkv, int D, float qscale, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
   return flash_prefill_vmem_bf16(q, k, v, seq_lens, out, B, S, Nq, Hkv, D, qscale, stream);
 }

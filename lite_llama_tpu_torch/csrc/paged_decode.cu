@@ -15,8 +15,8 @@
 // a tensor-parallel shard, 0 on one device) apply in the score domain: s = (q . k_int) *
 // k_scale, l sums the unscaled P, and PV takes bf16(P * v_scale) against the
 // integer V values. fp8 e4m3 values convert to bf16 exactly. kv_len 0 gives
-// m = -1e30, l = 0, out = 0. Any even head dim from 16 to 128, 1 to 8 query
-// heads per kv head.
+// m = -1e30, l = 0, out = 0. Any even head dim from 16 to 128, and 256; 1
+// to 16 query heads per kv head.
 //
 // What bounds it: device-memory bytes. Every K and V row of every live token
 // is read once, sum(kv_len) * 2 * Hkv * D bytes per pool byte, against a few
@@ -73,13 +73,15 @@
 //    16 bytes so that ldmatrix's eight rows fall on distinct banks. Any page
 //    size.
 // 3. Tensor cores on packed query heads: mma.sync m16n8k16 in bf16 with the
-//    16 tokens of a warp's subtile on M and the G <= 8 query heads of the
-//    kv head on N: S^T = K . q^T (K by ldmatrix, q as B fragments held in
-//    registers, loaded once), then out^T = V^T . P^T (V^T by ldmatrix.trans,
-//    P^T from S^T's accumulators by movmatrix.trans: the C layout of S^T and
-//    the B layout of P^T are each other's transposes). A thread holds two
-//    heads of its subtile's scores: the row max over 16 tokens is three
-//    shuffle levels and the row sums are reduced once at the end. A 1-byte
+//    16 tokens of a warp's subtile on M and the G query heads of the kv head
+//    on N, in NT n8 tiles (NT 1 for G <= 8, 2 for G <= 16: each K and V
+//    fragment, loaded once, meets both): S^T = K . q^T (K by ldmatrix, q as
+//    B fragments held in registers, loaded once), then out^T = V^T . P^T
+//    (V^T by ldmatrix.trans, P^T from S^T's accumulators by movmatrix.trans:
+//    the C layout of S^T and the B layout of P^T are each other's
+//    transposes). A thread holds two heads of each n8 tile's scores: the row
+//    max over 16 tokens is three shuffle levels and the row sums are reduced
+//    once at the end. A 1-byte
 //    pool's raw rows go through the same ldmatrix (as pairs of bytes) and
 //    become bf16 in registers, exactly: for K the contraction order of the
 //    dims is permuted (and q's fragments with it), for V the output dims
@@ -89,7 +91,8 @@
 // 4. Four warps take a chunk's four 16-token subtiles, each keeping its own
 //    online softmax (exp2 of the SFU, fp32 in registers); at the end only
 //    the warps that saw a token merge their states through shared memory
-//    (the ring's space).
+//    (the ring's space), each thread taking one dim of every head (two at
+//    DP 256).
 // Not carried over from the TPU: the wide MXU form with a block-identity
 // mask and the cross-program DMA lookahead (a GPU grid has no order); the
 // split-KV two-stage decoding the TPU kernel's docstring names as its
@@ -111,7 +114,7 @@ constexpr int SUB = 16;            // tokens per warp subtile (the mma's M)
 constexpr int CH = SUB * WARPS;    // tokens per ring stage
 constexpr int STAGES = 2;         // ring stages: the next chunk loads while one is computed
 constexpr int MAX_SPLITS = 16;     // ops/attention_decode.py DECODE_MAX_SPLITS
-constexpr int MAX_G = 8;           // query heads per kv head (the mma's N)
+constexpr int MAX_G = 16;          // query heads per kv head: two n8 tiles of the mma's N
 constexpr int PER_LANE = 8;        // requests per lane of the item scan
 constexpr int MAX_B = 32 * PER_LANE;  // requests per group of the scan
 constexpr int SCALE_LANES = 128;   // the int8 pool's merged scale slab
@@ -123,19 +126,22 @@ enum KvType { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
 // then the pool rows of the tokens of STAGES + 1 chunks. A stage is CH rows
 // of K and CH rows of V (RB value bytes each, stride RS) and, for int8, two
 // scale words per token. DP, the padded head dim, is a multiple of 16 (bf16) or 32
-// (1-byte pools), so RB is a multiple of 32 and RS / 16 is odd.
-template <int DP, int KV>
+// (1-byte pools), so RB is a multiple of 32 and RS / 16 is odd. GT = 8 NT
+// heads: the instance's n8 tiles.
+template <int DP, int KV, int NT>
 struct Layout {
+  static constexpr int GT = 8 * NT;
   static constexpr int EB = KV == KV_BF16 ? 2 : 1;  // bytes per pool value
   static constexpr int RB = DP * EB;
   static constexpr int RS = RB + 16;
   static constexpr int TILE = CH * RS;
   static constexpr int STAGE = 2 * TILE + (KV == KV_INT8 ? CH * 8 : 0);
-  static constexpr int MERGE = (WARPS * MAX_G * DP + 2 * WARPS * MAX_G) * 4;
-  static_assert(MERGE <= STAGE, "the warps' merge reuses the first stage");
-  static_assert((2 * MAX_SPLITS + 2 + DP) * MAX_G * 4 <= STAGE,
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int MERGE = (WARPS * GT * DP + 2 * WARPS * GT) * 4;
+  static_assert(MERGE <= RING, "the warps' merge reuses the ring");
+  static_assert((2 * MAX_SPLITS + 2 + DP) * GT * 4 <= RING,
                 "so does the splits' combine: every (m, l) and one acc partial at least");
-  static constexpr int BYTES = STAGES * STAGE + STAGES * 8 + (STAGES + 1) * CH * 4;
+  static constexpr int BYTES = RING + STAGES * 8 + (STAGES + 1) * CH * 4;
 };
 
 struct Args {
@@ -147,7 +153,7 @@ struct Args {
   __nv_bfloat16* out;           // [B, Nq, D]
   float* m_out;                 // [B, Nq]
   float* l_out;                 // [B, Nq]
-  float* ws;                    // split partials [B * Hkv * s_max][roundup(G*D, 4) + 16]
+  float* ws;                    // split partials [B * Hkv * s_max][roundup(G*D, 4) + 2 GT]
                                 // (s_max > 1)
   int* counters;                // [B * Hkv], 0 between launches (s_max > 1)
   int B, Nq, Hkv, D, G;
@@ -429,7 +435,7 @@ __device__ __forceinline__ int lookup_empty(const ItemScan& sc, int e, int lane)
 template <int DP, int KV, int UB>
 __device__ __forceinline__ void fill_stage(const Args& a, uint8_t* st, const int* rows,
                                            uint64_t* full, int h, int tid) {
-  using L = Layout<DP, KV>;
+  using L = Layout<DP, KV, 1>;  // the ring's geometry is the same for any NT
   constexpr int EB = L::EB;
   constexpr int NP = L::RB / UB;  // copies per row
   const long long rb = (long long)EB * a.Hkv * a.D;  // bytes per pool row
@@ -481,17 +487,21 @@ __device__ __forceinline__ void fill(const Args& a, uint8_t* st, const int* rows
 }
 
 // One warp's 16-token subtile (rows jl.. of stage st, the first of them
-// token j0 of the span) against the G query heads: scores, online-softmax
-// update, out^T += V^T P^T. lh: the kv head's scale lane (int8 pools).
-template <int DP, int KV>
+// token j0 of the span) against the G query heads, NT n8 tiles of them:
+// scores, online-softmax update, out^T += V^T P^T. lh: the kv head's scale
+// lane (int8 pools).
+template <int DP, int KV, int NT>
 __device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_tok, int lh,
-                                       const uint32_t (&qf)[DP / 16][2], float (&acc)[DP / 16][4],
-                                       float (&mrun)[2], float (&lrun)[2], int lane) {
-  using L = Layout<DP, KV>;
+                                       const uint32_t (&qf)[NT][DP / 16][2],
+                                       float (&acc)[NT][DP / 16][4], float (&mrun)[NT][2],
+                                       float (&lrun)[NT][2], int lane) {
+  using L = Layout<DP, KV, NT>;
   constexpr int KT = DP / 16;
   const int r = lane >> 2;
   // S^T = K q^T: A from ldmatrix, each x4 32 bytes of 16 rows.
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  float s[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
   const uint32_t kaddr =
       smem_u32(st) + (jl + (lane & 7) + ((lane >> 3) & 1) * 8) * L::RS + (lane >> 4) * 16;
 #pragma unroll
@@ -499,19 +509,24 @@ __device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_
     uint32_t m4[4];
     ldsm_x4(m4, kaddr + 32 * x);
     if constexpr (KV == KV_BF16) {
-      mma_bf16(s, m4, qf[x][0], qf[x][1]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_bf16(s[nt], m4, qf[nt][x][0], qf[nt][x][1]);
     } else {
       // Each register holds four consecutive dims of one token: the first
       // pair is the k step's low half, the second its high half.
       const uint32_t a0[4] = {bytes_bf16x2<KV, 0, 1>(m4[0]), bytes_bf16x2<KV, 0, 1>(m4[1]),
                               bytes_bf16x2<KV, 2, 3>(m4[0]), bytes_bf16x2<KV, 2, 3>(m4[1])};
-      mma_bf16(s, a0, qf[2 * x][0], qf[2 * x][1]);
       const uint32_t a1[4] = {bytes_bf16x2<KV, 0, 1>(m4[2]), bytes_bf16x2<KV, 0, 1>(m4[3]),
                               bytes_bf16x2<KV, 2, 3>(m4[2]), bytes_bf16x2<KV, 2, 3>(m4[3])};
-      mma_bf16(s, a1, qf[2 * x + 1][0], qf[2 * x + 1][1]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_bf16(s[nt], a0, qf[nt][2 * x][0], qf[nt][2 * x][1]);
+        mma_bf16(s[nt], a1, qf[nt][2 * x + 1][0], qf[nt][2 * x + 1][1]);
+      }
     }
   }
-  // Rows r and r + 8 of S^T (tokens), columns 2c and 2c + 1 (heads).
+  // Rows r and r + 8 of S^T (tokens), columns 2c and 2c + 1 of each n8 tile
+  // (heads 8 nt + 2c and 8 nt + 2c + 1).
   const bool v0 = j0 + r < n_tok;
   const bool v1 = j0 + r + 8 < n_tok;
   float vs0 = 1.f, vs1 = 1.f;
@@ -522,42 +537,50 @@ __device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_
     const float ks1 = __uint_as_float((scl[2 * (jl + r + 8)] >> sh) << 16);
     vs0 = __uint_as_float((scl[2 * (jl + r) + 1] >> sh) << 16);
     vs1 = __uint_as_float((scl[2 * (jl + r + 8) + 1] >> sh) << 16);
-    s[0] *= ks0;
-    s[1] *= ks0;
-    s[2] *= ks1;
-    s[3] *= ks1;
-  }
-  float mx[2] = {fmaxf(v0 ? s[0] : NEG, v1 ? s[2] : NEG), fmaxf(v0 ? s[1] : NEG, v1 ? s[3] : NEG)};
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] *= ks0;
+      s[nt][1] *= ks0;
+      s[nt][2] *= ks1;
+      s[nt][3] *= ks1;
+    }
   }
-  float corr[2];
+  uint32_t b0[NT], b1[NT];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float mn = fmaxf(mrun[i], mx[i]);
-    corr[i] = ex2(mrun[i] - mn);
-    mrun[i] = mn;
-  }
-  const float p0 = v0 ? ex2(s[0] - mrun[0]) : 0.f;
-  const float p1 = v0 ? ex2(s[1] - mrun[1]) : 0.f;
-  const float p2 = v1 ? ex2(s[2] - mrun[0]) : 0.f;
-  const float p3 = v1 ? ex2(s[3] - mrun[1]) : 0.f;
-  // l sums the unrounded P (per thread; the row group's sum is taken once
-  // at the end); an int8 pool folds the V scale into P before its rounding.
-  lrun[0] = lrun[0] * corr[0] + p0 + p2;
-  lrun[1] = lrun[1] * corr[1] + p1 + p3;
+  for (int nt = 0; nt < NT; ++nt) {
+    float mx[2] = {fmaxf(v0 ? s[nt][0] : NEG, v1 ? s[nt][2] : NEG),
+                   fmaxf(v0 ? s[nt][1] : NEG, v1 ? s[nt][3] : NEG)};
 #pragma unroll
-  for (int mt = 0; mt < KT; ++mt) {
-    acc[mt][0] *= corr[0];
-    acc[mt][1] *= corr[1];
-    acc[mt][2] *= corr[0];
-    acc[mt][3] *= corr[1];
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mn = fmaxf(mrun[nt][i], mx[i]);
+      corr[i] = ex2(mrun[nt][i] - mn);
+      mrun[nt][i] = mn;
+    }
+    const float p0 = v0 ? ex2(s[nt][0] - mrun[nt][0]) : 0.f;
+    const float p1 = v0 ? ex2(s[nt][1] - mrun[nt][1]) : 0.f;
+    const float p2 = v1 ? ex2(s[nt][2] - mrun[nt][0]) : 0.f;
+    const float p3 = v1 ? ex2(s[nt][3] - mrun[nt][1]) : 0.f;
+    // l sums the unrounded P (per thread; the row group's sum is taken once
+    // at the end); an int8 pool folds the V scale into P before its rounding.
+    lrun[nt][0] = lrun[nt][0] * corr[0] + p0 + p2;
+    lrun[nt][1] = lrun[nt][1] * corr[1] + p1 + p3;
+#pragma unroll
+    for (int mt = 0; mt < KT; ++mt) {
+      acc[nt][mt][0] *= corr[0];
+      acc[nt][mt][1] *= corr[1];
+      acc[nt][mt][2] *= corr[0];
+      acc[nt][mt][3] *= corr[1];
+    }
+    // P^T as the B operand: the C layout of tokens 0-7 (8-15), transposed.
+    b0[nt] = movmatrix_trans(pack2(p0 * vs0, p1 * vs0));
+    b1[nt] = movmatrix_trans(pack2(p2 * vs1, p3 * vs1));
   }
-  // P^T as the B operand: the C layout of tokens 0-7 (8-15), transposed.
-  const uint32_t b0 = movmatrix_trans(pack2(p0 * vs0, p1 * vs0));
-  const uint32_t b1 = movmatrix_trans(pack2(p2 * vs1, p3 * vs1));
   const uint32_t sv = smem_u32(st + L::TILE);
   if constexpr (KV == KV_BF16) {
     // V^T by ldmatrix.trans: 8 x 8 blocks (tokens 0-7 | 8-15) x (dims +0 | +8).
@@ -567,7 +590,8 @@ __device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_
     for (int mt = 0; mt < KT; ++mt) {
       uint32_t m4[4];
       ldsm_x4_trans(m4, vaddr + 32 * mt);
-      mma_bf16(acc[mt], m4, b0, b1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt][mt], m4, b0[nt], b1[nt]);
     }
   } else {
     // Raw bytes by ldmatrix.trans as b16 pairs: a thread's register holds
@@ -581,18 +605,23 @@ __device__ __forceinline__ void attend(const uint8_t* st, int jl, int j0, int n_
       ldsm_x4_trans(m4, vaddr + 32 * x);
       const uint32_t a0[4] = {bytes_bf16x2<KV, 0, 2>(m4[0]), bytes_bf16x2<KV, 1, 3>(m4[0]),
                               bytes_bf16x2<KV, 0, 2>(m4[1]), bytes_bf16x2<KV, 1, 3>(m4[1])};
-      mma_bf16(acc[2 * x], a0, b0, b1);
       const uint32_t a1[4] = {bytes_bf16x2<KV, 0, 2>(m4[2]), bytes_bf16x2<KV, 1, 3>(m4[2]),
                               bytes_bf16x2<KV, 0, 2>(m4[3]), bytes_bf16x2<KV, 1, 3>(m4[3])};
-      mma_bf16(acc[2 * x + 1], a1, b0, b1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_bf16(acc[nt][2 * x], a0, b0[nt], b1[nt]);
+        mma_bf16(acc[nt][2 * x + 1], a1, b0[nt], b1[nt]);
+      }
     }
   }
 }
 
-template <int DP, int KV>
+template <int DP, int KV, int NT>
 __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_constant__ Args a) {
-  using L = Layout<DP, KV>;
+  using L = Layout<DP, KV, NT>;
   constexpr int KT = DP / 16;
+  constexpr int GT = L::GT;
+  constexpr int DPT = (DP + THREADS - 1) / THREADS;  // dims a thread takes in the merges
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ Item item;
   __shared__ int last;
@@ -607,9 +636,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
   const int D = a.D;
   const int G = a.G;
   // A split partial: acc [G][D] (padded to 16 bytes), then (m, l) of each head
-  // in 16 floats.
+  // in 2 GT floats.
   const int sa = (G * D + 3) & ~3;
-  const int sw = sa + 2 * MAX_G;
+  const int sw = sa + 2 * GT;
 
   // Warp 0 scans the kv_lens: every group's pages (one group up to MAX_B
   // requests), then the first group's splits.
@@ -652,17 +681,21 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
       const int pg = div_ps(a, j);
       return tb[min(p0 + pg, a.ppr - 1)] * a.ps + (j - pg * a.ps);
     };
-    // q's bf16 pairs as B fragments (k rows = dims, n column = head r),
-    // loaded while the page ids are: heads past G and dims past D are zeros.
-    // A 1-byte pool's k step permutes its dims as its K fragments do.
-    uint32_t qf[KT][2];
-    const __nv_bfloat16* qrow = a.q + (orow + r) * D;
+    // q's bf16 pairs as B fragments (k rows = dims, n column = head 8 nt +
+    // r), loaded while the page ids are: heads past G and dims past D are
+    // zeros. A 1-byte pool's k step permutes its dims as its K fragments do.
+    uint32_t qf[NT][KT][2];
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
+    for (int nt = 0; nt < NT; ++nt) {
+      const int hd = 8 * nt + r;
+      const __nv_bfloat16* qrow = a.q + (orow + hd) * D;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int d = KV == KV_BF16 ? 16 * kt + 8 * i + 2 * cq : 16 * kt + 4 * cq + 2 * i;
-        qf[kt][i] = r < G && d < D ? *reinterpret_cast<const uint32_t*>(qrow + d) : 0u;
+      for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int d = KV == KV_BF16 ? 16 * kt + 8 * i + 2 * cq : 16 * kt + 4 * cq + 2 * i;
+          qf[nt][kt][i] = hd < G && d < D ? *reinterpret_cast<const uint32_t*>(qrow + d) : 0u;
+        }
       }
     }
     // Rows of chunk c in slot c % R of a ring one chunk ahead of the fills:
@@ -677,26 +710,35 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
     }
     // Scaled by sm_scale*log2(e) and rounded to bf16.
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint32_t x = qf[kt][i];  // two bf16 as floats: exact
-        qf[kt][i] = pack2(__uint_as_float(x << 16) * a.qscale,
-                          __uint_as_float(x & 0xFFFF0000u) * a.qscale);
+      for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t x = qf[nt][kt][i];  // two bf16 as floats: exact
+          qf[nt][kt][i] = pack2(__uint_as_float(x << 16) * a.qscale,
+                                __uint_as_float(x & 0xFFFF0000u) * a.qscale);
+        }
       }
     }
 
-    float acc[KT][4];
+    float acc[NT][KT][4];
+    float mrun[NT][2], lrun[NT][2];
 #pragma unroll
-    for (int mt = 0; mt < KT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
-    float mrun[2] = {NEG, NEG}, lrun[2] = {0.f, 0.f};
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int mt = 0; mt < KT; ++mt)
+        acc[nt][mt][0] = acc[nt][mt][1] = acc[nt][mt][2] = acc[nt][mt][3] = 0.f;
+      mrun[nt][0] = mrun[nt][1] = NEG;
+      lrun[nt][0] = lrun[nt][1] = 0.f;
+    }
     for (int c = 0; c < n_chunks; ++c) {
       const int s = (g + c) % STAGES;
       const int j0 = c * CH + warp * SUB;
       if (j0 < n_tok) {
         mbar_wait(&full[s], ((g + c) / STAGES) & 1);
-        attend<DP, KV>(smem + s * L::STAGE, warp * SUB, j0, n_tok, a.hoff + h, qf, acc, mrun,
-                       lrun, lane);
+        attend<DP, KV, NT>(smem + s * L::STAGE, warp * SUB, j0, n_tok, a.hoff + h, qf, acc,
+                           mrun, lrun, lane);
       }
       if (c + STAGES < n_chunks) {  // refill the slot (block-uniform)
         __syncthreads();  // every warp is done with it; the chunk's rows are in
@@ -708,43 +750,53 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
     }
     g += n_chunks;
 
-    // Merge the warps that saw a token, in warp order, through the first slot.
+    // Merge the warps that saw a token, in warp order, through the ring.
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int o = 4; o < 32; o <<= 1) lrun[i] += __shfl_xor_sync(0xffffffffu, lrun[i], o);
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          lrun[nt][i] += __shfl_xor_sync(0xffffffffu, lrun[nt][i], o);
+      }
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    float* sm_acc = reinterpret_cast<float*>(smem);  // [WARPS][MAX_G][DP]
-    float* sm_m = sm_acc + WARPS * MAX_G * DP;       // [WARPS][MAX_G]
-    float* sm_l = sm_m + WARPS * MAX_G;
+    float* sm_acc = reinterpret_cast<float*>(smem);  // [WARPS][GT][DP]
+    float* sm_m = sm_acc + WARPS * GT * DP;          // [WARPS][GT]
+    float* sm_l = sm_m + WARPS * GT;
     const int n_act = min(WARPS, (n_tok + SUB - 1) / SUB);
     if (warp < n_act) {
-      const int hd = 2 * cq;  // this thread's heads hd, hd + 1
-      if (r == 0) {
-        sm_m[warp * MAX_G + hd] = mrun[0];
-        sm_m[warp * MAX_G + hd + 1] = mrun[1];
-        sm_l[warp * MAX_G + hd] = lrun[0];
-        sm_l[warp * MAX_G + hd + 1] = lrun[1];
-      }
 #pragma unroll
-      for (int mt = 0; mt < KT; ++mt) {
+      for (int nt = 0; nt < NT; ++nt) {
+        const int hd = 8 * nt + 2 * cq;  // this thread's heads hd, hd + 1
+        if (r == 0) {
+          sm_m[warp * GT + hd] = mrun[nt][0];
+          sm_m[warp * GT + hd + 1] = mrun[nt][1];
+          sm_l[warp * GT + hd] = lrun[nt][0];
+          sm_l[warp * GT + hd + 1] = lrun[nt][1];
+        }
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sm_acc[(warp * MAX_G + hd + (e & 1)) * DP + acc_dim<KV>(mt, e, r)] = acc[mt][e];
+        for (int mt = 0; mt < KT; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sm_acc[(warp * GT + hd + (e & 1)) * DP + acc_dim<KV>(mt, e, r)] = acc[nt][mt][e];
+        }
       }
     }
     __syncthreads();
     const long long slot = (long long)(b * a.Hkv + h) * a.s_max;  // the item's first split
-    // Thread tid takes dim tid of every head (DP <= THREADS).
-    for (int gg = 0; gg < G && tid < D; ++gg) {
+    // Thread tid takes dims tid, tid + THREADS, ... of every head.
+    for (int u = 0; u < G * DPT; ++u) {
+      const int gg = u / DPT;
+      const int d = tid + (u % DPT) * THREADS;
+      if (d >= D) continue;
       float mw[WARPS], lw[WARPS], aw[WARPS];  // every load before the dependent sums
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) {
-        mw[w] = w < n_act ? sm_m[w * MAX_G + gg] : NEG;
-        lw[w] = w < n_act ? sm_l[w * MAX_G + gg] : 0.f;
-        aw[w] = w < n_act ? sm_acc[(w * MAX_G + gg) * DP + tid] : 0.f;
+        mw[w] = w < n_act ? sm_m[w * GT + gg] : NEG;
+        lw[w] = w < n_act ? sm_l[w * GT + gg] : 0.f;
+        aw[w] = w < n_act ? sm_acc[(w * GT + gg) * DP + d] : 0.f;
       }
       float M = NEG;
 #pragma unroll
@@ -759,15 +811,15 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
         }
       }
       if (live == 1) {
-        a.out[(orow + gg) * D + tid] = __float2bfloat16(A / fmaxf(Ls, 1e-30f));
-        if (tid == 0) {
+        a.out[(orow + gg) * D + d] = __float2bfloat16(A / fmaxf(Ls, 1e-30f));
+        if (d == 0) {
           a.m_out[orow + gg] = M;
           a.l_out[orow + gg] = Ls;
         }
       } else {
         float* part = a.ws + (slot + z) * sw;
-        part[gg * D + tid] = A;
-        if (tid == 0) {
+        part[gg * D + d] = A;
+        if (d == 0) {
           part[sa + 2 * gg] = M;
           part[sa + 2 * gg + 1] = Ls;
         }
@@ -790,15 +842,18 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
       __syncthreads();
       if (last) {
         const float* parts = a.ws + slot * sw;
-        float* sml = reinterpret_cast<float*>(smem);  // [live][16]: (m, l), then (weight, l)
-        float* shl = sml + live * 2 * MAX_G;            // [16]: each head's l
-        float* sacc = shl + 2 * MAX_G;                  // [cap][sa]
-        const int cap = (STAGES * L::STAGE / 4 - (live + 1) * 2 * MAX_G) / sa;
-        for (int i = tid; i < live * 4; i += THREADS)
-          copy_async<16>(sml + 4 * i, parts + (i >> 2) * sw + sa + 4 * (i & 3), true);
-        float accv[MAX_G];
+        float* sml = reinterpret_cast<float*>(smem);  // [live][2 GT]: (m, l), then (weight, l)
+        float* shl = sml + live * 2 * GT;               // [2 GT]: each head's l
+        float* sacc = shl + 2 * GT;                     // [cap][sa]
+        const int cap = (L::RING / 4 - (live + 1) * 2 * GT) / sa;
+        for (int i = tid; i < live * (GT / 2); i += THREADS)
+          copy_async<16>(sml + 4 * i, parts + (i / (GT / 2)) * sw + sa + 4 * (i % (GT / 2)),
+                         true);
+        float accv[DPT][GT];
 #pragma unroll
-        for (int gg = 0; gg < MAX_G; ++gg) accv[gg] = 0.f;
+        for (int k = 0; k < DPT; ++k)
+#pragma unroll
+          for (int gg = 0; gg < GT; ++gg) accv[k][gg] = 0.f;
         for (int s0 = 0; s0 < live; s0 += cap) {
           const int n = min(cap, live - s0);
           for (int i = tid; i < n * (sa / 4); i += THREADS) {
@@ -815,7 +870,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
               for (int s8 = 0; s8 < live; s8 += 8) {
                 float m8[8];
 #pragma unroll
-                for (int i = 0; i < 8; ++i) m8[i] = s8 + i < live ? ml[(s8 + i) * 2 * MAX_G] : NEG;
+                for (int i = 0; i < 8; ++i) m8[i] = s8 + i < live ? ml[(s8 + i) * 2 * GT] : NEG;
 #pragma unroll
                 for (int i = 0; i < 8; ++i) M = fmaxf(M, m8[i]);
               }
@@ -824,14 +879,14 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
                 float w[8], l8[8];
 #pragma unroll
                 for (int i = 0; i < 8; ++i) {
-                  w[i] = s8 + i < live ? ex2(ml[(s8 + i) * 2 * MAX_G] - M) : 0.f;
-                  l8[i] = s8 + i < live ? ml[(s8 + i) * 2 * MAX_G + 1] : 0.f;
+                  w[i] = s8 + i < live ? ex2(ml[(s8 + i) * 2 * GT] - M) : 0.f;
+                  l8[i] = s8 + i < live ? ml[(s8 + i) * 2 * GT + 1] : 0.f;
                 }
 #pragma unroll
                 for (int i = 0; i < 8; ++i) {
                   if (s8 + i < live) {
                     Ls += l8[i] * w[i];
-                    ml[(s8 + i) * 2 * MAX_G] = w[i];
+                    ml[(s8 + i) * 2 * GT] = w[i];
                   }
                 }
               }
@@ -841,31 +896,37 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const __grid_cons
             }
             __syncthreads();
           }
-          if (tid < D) {
 #pragma unroll
-            for (int gg = 0; gg < MAX_G; ++gg) {
+          for (int k = 0; k < DPT; ++k) {
+            const int d = tid + k * THREADS;
+            if (d >= D) break;
+#pragma unroll
+            for (int gg = 0; gg < GT; ++gg) {
               if (gg >= G) break;
-              float A = accv[gg];
+              float A = accv[k][gg];
               for (int s8 = 0; s8 < n; s8 += 8) {
                 float v[8], w[8];
 #pragma unroll
                 for (int i = 0; i < 8; ++i) {
-                  v[i] = s8 + i < n ? sacc[(s8 + i) * sa + gg * D + tid] : 0.f;
-                  w[i] = s8 + i < n ? sml[(s0 + s8 + i) * 2 * MAX_G + 2 * gg] : 0.f;
+                  v[i] = s8 + i < n ? sacc[(s8 + i) * sa + gg * D + d] : 0.f;
+                  w[i] = s8 + i < n ? sml[(s0 + s8 + i) * 2 * GT + 2 * gg] : 0.f;
                 }
 #pragma unroll
                 for (int i = 0; i < 8; ++i) A += v[i] * w[i];  // a zero term past n adds 0
               }
-              accv[gg] = A;
+              accv[k][gg] = A;
             }
           }
           __syncthreads();  // before the next group's copies
         }
-        if (tid < D) {
 #pragma unroll
-          for (int gg = 0; gg < MAX_G; ++gg) {
+        for (int k = 0; k < DPT; ++k) {
+          const int d = tid + k * THREADS;
+          if (d >= D) break;
+#pragma unroll
+          for (int gg = 0; gg < GT; ++gg) {
             if (gg >= G) break;
-            a.out[(orow + gg) * D + tid] = __float2bfloat16(accv[gg] / fmaxf(shl[gg], 1e-30f));
+            a.out[(orow + gg) * D + d] = __float2bfloat16(accv[k][gg] / fmaxf(shl[gg], 1e-30f));
           }
         }
         if (tid == 0) a.counters[b * a.Hkv + h] = 0;  // ready for the next launch
@@ -896,13 +957,31 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
 }
 
+// Opts the instance into its dynamic shared memory, once: before its first
+// launch, and before an occupancy query (which reads 0 blocks for an
+// instance above the 48 KB default).
+template <int DP, int KV, int NT>
+int prepare() {
+  static bool ready = false;  // per instance
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<DP, KV, NT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               Layout<DP, KV, NT>::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  return 0;
+}
+
 // Blocks of the instance one SM holds.
-template <int DP, int KV>
+template <int DP, int KV, int NT>
 int resident_blocks(int* blocks) {
   static int known = 0;  // per instance
   if (known == 0) {
+    const int p = prepare<DP, KV, NT>();
+    if (p != 0) return p;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &known, paged_decode_kernel<DP, KV>, THREADS, Layout<DP, KV>::BYTES);
+        &known, paged_decode_kernel<DP, KV, NT>, THREADS, Layout<DP, KV, NT>::BYTES);
     if (e != cudaSuccess) return (int)e;
   }
   *blocks = known;
@@ -911,10 +990,10 @@ int resident_blocks(int* blocks) {
 
 // The grid's y: at most one item per block per wave of resident blocks; a
 // block walks items y, y + gridDim.y, ...
-template <int DP, int KV>
+template <int DP, int KV, int NT>
 int grid_y(const Args& a, int sms, int* ny) {
   int per_sm = 0;
-  const int e = resident_blocks<DP, KV>(&per_sm);
+  const int e = resident_blocks<DP, KV, NT>(&per_sm);
   if (e != 0) return e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long items = (long long)a.B * a.s_max;
@@ -923,20 +1002,13 @@ int grid_y(const Args& a, int sms, int* ny) {
   return 0;
 }
 
-template <int DP, int KV>
+template <int DP, int KV, int NT>
 int run(const Args& a, cudaStream_t st, int sms) {
-  static bool ready = false;  // the attribute is set once per instance
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<DP, KV>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               Layout<DP, KV>::BYTES);
-    if (e != cudaSuccess) return (int)e;
-    ready = true;
-  }
   int ny = 0;
-  const int e = grid_y<DP, KV>(a, sms, &ny);
+  const int e = grid_y<DP, KV, NT>(a, sms, &ny);  // prepares the instance
   if (e != 0) return e;
-  paged_decode_kernel<DP, KV><<<dim3(a.Hkv, ny), THREADS, Layout<DP, KV>::BYTES, st>>>(a);
+  paged_decode_kernel<DP, KV, NT>
+      <<<dim3(a.Hkv, ny), THREADS, Layout<DP, KV, NT>::BYTES, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -947,26 +1019,64 @@ int padded_dim(int D, int kv) {
   return (D + m - 1) / m * m;
 }
 
-template <int KV>
-int dispatch(const Args& a, cudaStream_t st, int sms) {
-  switch (padded_dim(a.D, KV)) {
-    case 16: if constexpr (KV == KV_BF16) return run<16, KV>(a, st, sms); break;
-    case 32: return run<32, KV>(a, st, sms);
-    case 48: if constexpr (KV == KV_BF16) return run<48, KV>(a, st, sms); break;
-    case 64: return run<64, KV>(a, st, sms);
-    case 80: if constexpr (KV == KV_BF16) return run<80, KV>(a, st, sms); break;
-    case 96: return run<96, KV>(a, st, sms);
-    case 112: if constexpr (KV == KV_BF16) return run<112, KV>(a, st, sms); break;
-    case 128: return run<128, KV>(a, st, sms);
+// The n8 tiles of G query heads.
+int n_tiles(int G) { return G > 8 ? 2 : 1; }
+
+// Calls F::template call<DP, KV, NT>() for the instance of padded head dim
+// DP (padded_dim) and NT n8 tiles; cudaErrorInvalidValue where there is none.
+template <int KV, typename F>
+int with_instance(int DP, int NT, F f) {
+#define DECODE_DP(P)                                                \
+  case P:                                                           \
+    return NT == 1 ? f.template call<P, KV, 1>() : f.template call<P, KV, 2>();
+  switch (DP) {
+    DECODE_DP(32)
+    DECODE_DP(64)
+    DECODE_DP(96)
+    DECODE_DP(128)
+    DECODE_DP(256)
   }
+  if constexpr (KV == KV_BF16) {
+    switch (DP) {
+      DECODE_DP(16)
+      DECODE_DP(48)
+      DECODE_DP(80)
+      DECODE_DP(112)
+    }
+  }
+#undef DECODE_DP
   return (int)cudaErrorInvalidValue;
 }
+
+struct RunInstance {
+  const Args& a;
+  cudaStream_t st;
+  int sms;
+  template <int DP, int KV, int NT>
+  int call() const { return run<DP, KV, NT>(a, st, sms); }
+};
+
+struct SmemOf {
+  template <int DP, int KV, int NT>
+  int call() const { return Layout<DP, KV, NT>::BYTES; }
+};
+
+struct GridOf {
+  const Args& a;
+  int sms;
+  int* ny;
+  template <int DP, int KV, int NT>
+  int call() const { return grid_y<DP, KV, NT>(a, sms, ny); }
+};
+
+// Head dims the kernel takes: every even one from 16 to 128, and 256.
+bool head_dim_ok(int D) { return D % 2 == 0 && ((D >= 16 && D <= 128) || D == 256); }
 
 template <int KV>
 int launch(Args a, void* stream) {
   constexpr int EB = KV == KV_BF16 ? 2 : 1;
   if (a.Hkv <= 0 || a.Nq % a.Hkv != 0 || a.Nq / a.Hkv > MAX_G) return (int)cudaErrorInvalidValue;
-  if (a.D < 16 || a.D > 128 || a.D % 2 != 0) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(a.D)) return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.ps <= 0 || a.ppr <= 0) return (int)cudaErrorInvalidValue;
   if (a.s_max < 1 || a.s_max > MAX_SPLITS || a.min_span < 1) return (int)cudaErrorInvalidValue;
   if (a.s_max > 1 && (a.ws == nullptr || a.counters == nullptr)) return (int)cudaErrorInvalidValue;
@@ -990,7 +1100,19 @@ int launch(Args a, void* stream) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  return dispatch<KV>(a, static_cast<cudaStream_t>(stream), sms);
+  return with_instance<KV>(padded_dim(a.D, KV), n_tiles(a.G),
+                           RunInstance{a, static_cast<cudaStream_t>(stream), sms});
+}
+
+// An instance query by pool type kv (0 bf16, 1 int8, 2 fp8).
+template <typename F>
+int by_kv(int kv, int DP, int NT, F f) {
+  switch (kv) {
+    case KV_BF16: return with_instance<KV_BF16>(DP, NT, f);
+    case KV_INT8: return with_instance<KV_INT8>(DP, NT, f);
+    case KV_FP8: return with_instance<KV_FP8>(DP, NT, f);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -999,42 +1121,26 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory (bytes) of the instance for head dim D and pool
-// type kv (0 bf16, 1 int8, 2 fp8).
-extern "C" int paged_decode_smem(int D, int kv) {
-  switch (kv * 1000 + padded_dim(D, kv)) {
-#define SMEM_CASE(KV, DP) \
-  case KV * 1000 + DP: return Layout<DP, KV>::BYTES;
-    SMEM_CASE(0, 16) SMEM_CASE(0, 32) SMEM_CASE(0, 48) SMEM_CASE(0, 64)
-    SMEM_CASE(0, 80) SMEM_CASE(0, 96) SMEM_CASE(0, 112) SMEM_CASE(0, 128)
-    SMEM_CASE(1, 32) SMEM_CASE(1, 64) SMEM_CASE(1, 96) SMEM_CASE(1, 128)
-    SMEM_CASE(2, 32) SMEM_CASE(2, 64) SMEM_CASE(2, 96) SMEM_CASE(2, 128)
-#undef SMEM_CASE
-  }
-  return -1;
+// Dynamic shared memory (bytes) of the instance for head dim D, pool type kv
+// (0 bf16, 1 int8, 2 fp8) and G query heads per kv head, or -1.
+extern "C" int paged_decode_smem(int D, int kv, int G) {
+  if (!head_dim_ok(D) || G < 1 || G > MAX_G) return -1;
+  const int bytes = by_kv(kv, padded_dim(D, kv), n_tiles(G), SmemOf{});
+  return bytes == (int)cudaErrorInvalidValue ? -1 : bytes;
 }
 
 // The grid's y of a launch (the resident blocks per SM queried on the
 // current device), or -1.
-extern "C" int paged_decode_grid_y(int D, int kv, int B, int Hkv, int s_max) {
+extern "C" int paged_decode_grid_y(int D, int kv, int B, int Hkv, int s_max, int G) {
   Args a{};
   a.B = B;
   a.Hkv = Hkv;
   a.s_max = s_max;
   int dev = 0, sms = 0, ny = -1;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
+  if (!head_dim_ok(D) || G < 1 || G > MAX_G || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return -1;
-  int e = -1;
-  switch (kv * 1000 + padded_dim(D, kv)) {
-#define GRID_CASE(KV, DP) \
-  case KV * 1000 + DP: e = grid_y<DP, KV>(a, sms, &ny); break;
-    GRID_CASE(0, 16) GRID_CASE(0, 32) GRID_CASE(0, 48) GRID_CASE(0, 64)
-    GRID_CASE(0, 80) GRID_CASE(0, 96) GRID_CASE(0, 112) GRID_CASE(0, 128)
-    GRID_CASE(1, 32) GRID_CASE(1, 64) GRID_CASE(1, 96) GRID_CASE(1, 128)
-    GRID_CASE(2, 32) GRID_CASE(2, 64) GRID_CASE(2, 96) GRID_CASE(2, 128)
-#undef GRID_CASE
-  }
+  const int e = by_kv(kv, padded_dim(D, kv), n_tiles(G), GridOf{a, sms, &ny});
   return e == 0 ? ny : -1;
 }
 

@@ -30,15 +30,22 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("paged_decode", "flash_prefill_chunked", "qmatmul", "norms")
-# Head dims the attention sources take: every even one from 16 to 128
-# (csrc/flash_prefill_chunked.cu, fresh and chunked prefill, pads each to the
-# mma k-step of 16, csrc/paged_decode.cu masks the lanes past it).
-HEAD_DIMS = range(16, 129, 2)
+# Head dims the attention sources take: every even one from 16 to 128, and
+# 256 (csrc/flash_prefill_chunked.cu, fresh and chunked prefill, pads each to
+# the mma k-step of 16, csrc/paged_decode.cu masks the lanes past it), with
+# up to MAX_GROUP query heads per kv head. Odd dims, 130-254 and wider groups
+# are refused: no published Llama-, Qwen2- or Qwen3-family checkpoint has
+# them, and each further width is another instance of both templates.
+HEAD_DIMS = (*range(16, 129, 2), 256)
+MAX_GROUP = 16
 
+# --split-compile=0: each nvcc optimises its kernels on every core, not one
+# (the attention sources' 74 template instances are most of a build;
+# chip_smoke.py phase 2 prints each source's seconds).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "--split-compile=0",
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}

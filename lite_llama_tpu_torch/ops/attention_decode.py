@@ -2,8 +2,9 @@
 
 K1 replaces the TPU kernel ``paged_flash_decode`` / ``_decode_kernel`` with
 the CUDA kernel ``csrc/paged_decode.cu`` (its header says what bounds it and
-how it is laid out), at every even head dim from 16 to 128, as the TPU
-kernel's wide form takes any; K1q, its int8 and fp8 pool instances, replace
+how it is laid out), at every even head dim from 16 to 128 and at 256, with
+up to 16 query heads per kv head, where the TPU kernel's wide form takes
+any; K1q, its int8 and fp8 pool instances, replace
 the kernel's quantized-pool branches (one launcher and launch count each).
 The kernel reads K/V through the page table straight
 out of the pool ``[L, 2, T, Hkv*D]`` and returns ``out`` with the
@@ -173,12 +174,15 @@ _KV_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 @functools.lru_cache(maxsize=None)
-def decode_grid_slots(head_dim: int, pool_dtype, batch: int, kv_heads: int, s_max: int) -> int:
+def decode_grid_slots(head_dim: int, pool_dtype, batch: int, kv_heads: int, s_max: int,
+                      groups: int = 1) -> int:
     """The items per wave of a launch on the current card (the grid's y:
     the instance's resident blocks per SM times the SMs over the kv heads,
-    at most batch * s_max), which :func:`decode_spans` takes as ``slots``."""
-    lib = _build.library("paged_decode", "paged_decode_grid_y", [ctypes.c_int] * 5)
-    slots = lib.paged_decode_grid_y(head_dim, _KV_CODES[pool_dtype], batch, kv_heads, s_max)
+    at most batch * s_max), which :func:`decode_spans` takes as ``slots``.
+    ``groups``: query heads per kv head (the instance's n8 tiles)."""
+    lib = _build.library("paged_decode", "paged_decode_grid_y", [ctypes.c_int] * 6)
+    slots = lib.paged_decode_grid_y(head_dim, _KV_CODES[pool_dtype], batch, kv_heads, s_max,
+                                    groups)
     if slots < 1:
         raise RuntimeError("paged_decode_grid_y: no grid for this launch")
     return slots
@@ -200,10 +204,10 @@ def _decode_launcher(pool_dtype):
         if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
             raise ValueError("paged_decode kernel: page_table and kv_lens must be int32")
         if (D not in _build.HEAD_DIMS or two != 2 or HD % D or Nq % (HD // D)
-                or Nq // (HD // D) > 8):
+                or Nq // (HD // D) > _build.MAX_GROUP):
             raise ValueError(f"paged_decode kernel: unsupported shape q={tuple(q.shape)} "
-                             f"pool={tuple(pages.shape)} (head dims: even, 16 to 128; at most "
-                             "8 query heads per kv head)")
+                             f"pool={tuple(pages.shape)} (head dims: even, 16 to 128, or 256; "
+                             f"at most {_build.MAX_GROUP} query heads per kv head)")
         if not (q.is_contiguous() and pages.is_contiguous() and page_table.is_contiguous()
                 and kv_lens.is_contiguous()) or page_table.shape[0] != B or kv_lens.shape != (B,):
             raise ValueError("paged_decode kernel: contiguous q [B,Nq,D], page_table [B,ppr], "
@@ -230,8 +234,10 @@ def _decode_launcher(pool_dtype):
             stream = _build.current_stream(q.device)
             ws = counters = None
             if plan.s_max > 1:
-                # a split's partial: acc [G, D] padded to 4 floats, then 16 floats of (m, l)
-                sw = -(-(Nq // Hkv * D) // 4) * 4 + 16
+                # a split's partial: acc [G, D] padded to 4 floats, then (m, l) of
+                # each head of the instance's n8 tiles (8 heads a tile)
+                G = Nq // Hkv
+                sw = -(-(G * D) // 4) * 4 + 16 * cdiv_int(G, 8)
                 ws, counters = _workspace(q.device, stream, B * Hkv * plan.s_max * sw, B * Hkv)
             lib = _build.library("paged_decode", entry, _ARGTYPES)
             code = getattr(lib, entry)(

@@ -16,10 +16,12 @@ tiles through wgmma descriptors. Its instances:
   on a persistent grid.
 - Fresh prefill, the instance with no history and no pool (chunk_lens =
   seq_lens), one block per (request, kv head, q tile): K2 (``flash_prefill``
-  -> ``_flash_prefill_impl``, head dims 64 and 128) and K8
-  (``flash_prefill`` -> ``_flash_prefill_vmem``, every other even head dim
-  from 16 to 128, padded to the mma k-step), one launcher and launch count
-  each, both launching the same instances.
+  -> ``_flash_prefill_impl``, head dims 64, 128 and 256, those the TPU
+  streams unpadded) and K8 (``flash_prefill`` -> ``_flash_prefill_vmem``,
+  every other even head dim from 16 to 128, padded to the mma k-step), one
+  launcher and launch count each, both launching the same instances.
+
+Every instance takes up to 16 query heads per kv head.
 
 A wrapper handed a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version: ``ops/ref.py`` ``prefill_attention`` for K2 and K8,
@@ -50,16 +52,16 @@ def _check_qkv(what, q, k, v):
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"{what} kernel takes bf16 q/k/v")
     if (D not in _build.HEAD_DIMS or k.shape != (B, S, Hkv, D) or v.shape != k.shape
-            or Nq % Hkv or Nq // Hkv > 8):
+            or Nq % Hkv or Nq // Hkv > _build.MAX_GROUP):
         raise ValueError(f"{what} kernel: unsupported shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} (head dims: even, 16 to 128; at most 8 "
-                         "query heads per kv head)")
+                         f"k={tuple(k.shape)} (head dims: even, 16 to 128, or 256; at most "
+                         f"{_build.MAX_GROUP} query heads per kv head)")
 
 
 def _fresh_launcher(entry, what, head_dims):
-    """K2 (``flash_prefill_bf16``, head dims 64 and 128) or K8
-    (``flash_prefill_vmem_bf16``, any even head dim): the fresh instance of
-    ``csrc/flash_prefill_chunked.cu``."""
+    """K2 (``flash_prefill_bf16``, head dims 64, 128 and 256) or K8
+    (``flash_prefill_vmem_bf16``, any head dim of ``_build.HEAD_DIMS``): the
+    fresh instance of ``csrc/flash_prefill_chunked.cu``."""
 
     def launch(q, k, v, seq_lens, sm_scale):
         B, S, Nq, D = q.shape
@@ -91,21 +93,23 @@ def _fresh_launcher(entry, what, head_dims):
     return launch
 
 
-# K2 takes the head dims the TPU streams unpadded; K8 every even one (the
-# router sends it all but 64 and 128).
-launch_flash_prefill = _fresh_launcher("flash_prefill_bf16", "flash_prefill", (64, 128))
+# K2 takes the head dims the TPU streams unpadded (D % 128 == 0, or 64); K8
+# every one of HEAD_DIMS (the router sends it all but those).
+K2_HEAD_DIMS = (64, 128, 256)
+launch_flash_prefill = _fresh_launcher("flash_prefill_bf16", "flash_prefill", K2_HEAD_DIMS)
 launch_flash_prefill_vmem = _fresh_launcher("flash_prefill_vmem_bf16", "flash_prefill_vmem",
                                             _build.HEAD_DIMS)
 
 
 def flash_prefill(q, k, v, seq_lens, sm_scale=None):
     """Fresh prefill: causal ragged GQA attention over one padded chunk. On
-    the card head dims 64 and 128 take K2, every other even one up to 128
-    K8 (the TPU's ``_flash_prefill_vmem``); anything else raises."""
+    the card head dims 64, 128 and 256 take K2 (the TPU's
+    ``_flash_prefill_impl``), every other even one up to 128 K8 (the TPU's
+    ``_flash_prefill_vmem``); anything else raises."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
-        launch = launch_flash_prefill if q.shape[-1] in (64, 128) else launch_flash_prefill_vmem
+        launch = launch_flash_prefill if q.shape[-1] in K2_HEAD_DIMS else launch_flash_prefill_vmem
         return launch(q, k, v, seq_lens.to(torch.int32), sm_scale)
     return ref.prefill_attention(q, k, v, seq_lens, sm_scale)
 

@@ -2,12 +2,13 @@
 the card, in bf16, at Llama-3.2-3B (D=128, Nq=24, Hkv=8) and Llama-3.2-1B
 (D=64, Nq=32, Hkv=8) head shapes, the quantized kernels (K6 W4A8, K7 W8A8,
 K1q / K5q on int8 and fp8 pools) included, the attention kernels at the
-other head dims (K8, and K1 / K1q / K5 / K5q at D = 16 ... 112 with 1 to 8
-query heads per kv head), fresh prefill (K2 / K8, the no-history instance
-of K5's template) at every G from 1 to 8 and S up to 2048 and against K5
-with no history, K5 / K5q over page sizes 7 to 80 and at the prefix-hit
-shape, K1 / K1q's split KV walk (flash decoding) at kv_lens around every
-page and split edge, at every G from 1 to 8 and at serving's width, bit for
+other head dims (K8, and K1 / K1q / K5 / K5q at D = 16 ... 112 and 256 with
+1 to 16 query heads per kv head), fresh prefill (K2 / K8, the no-history
+instance of K5's template; K2 at D 256) at every G from 1 to 8, 12 and 16
+and S up to 2048 and against K5 with no history, K5 / K5q over page sizes 7
+to 80 and at the prefix-hit shape, K1 / K1q's split KV walk (flash
+decoding) at kv_lens around every page and split edge, at every G from 1 to
+8 and at serving's width, bit for
 bit across launches and under CUDA-graph replay, K7 at Llama-3.2-3B's five
 projections from 1 to 256 rows, at every scale-group size and split, bit
 for bit in fp32 and bf16, K3 / K4 (csrc/norms.cu) from 1 to 4096 rows at
@@ -48,6 +49,7 @@ from lite_llama_tpu_torch.ops.attention_decode import (  # noqa: E402
     plan_decode_splits,
 )
 from lite_llama_tpu_torch.ops.attention_prefill import (  # noqa: E402
+    K2_HEAD_DIMS,
     chunked_prefill_state_plain,
     flash_prefill_chunked,
     launch_flash_prefill,
@@ -825,18 +827,20 @@ def test_quantized_pool_kernels_refuse_a_pool_without_its_scales(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Head dims other than 64 and 128: K8, and the padded K1 / K5 instances
+# Head dims other than 64 and 128: K8, and the padded K1 / K5 instances; and
+# head dim 256 (Falcon3: K2, and K1 / K5's DP 256 instances)
 
-HEAD_DIMS = [16, 40, 80, 96, 100, 112]
-GROUPS = [1, 3, 4, 8]
+HEAD_DIMS = [16, 40, 80, 96, 100, 112, 256]
+GROUPS = [1, 3, 4, 8, 12, 16]  # 12 and 16: two n8 tiles of heads in K1
 HKV = 3  # kv heads 0, 1, 2: an odd head starts at a 2 * D-byte offset
 
 
 @pytest.mark.parametrize("G", GROUPS)
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_padded_prefill_kernel_matches_plain(cuda, D, G):
-    """K8 (ops.prefill_attention routes every head dim but 64 and 128 to
-    it) against its plain version on every valid row of ragged requests."""
+    """K8 (ops.prefill_attention routes every head dim but 64, 128 and 256
+    to it; 256 to K2) against its plain version on every valid row of
+    ragged requests."""
     from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_vmem
 
     g = torch.Generator(device=cuda).manual_seed(9)
@@ -848,7 +852,9 @@ def test_padded_prefill_kernel_matches_plain(cuda, D, G):
     sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
     k8, k2 = launch_flash_prefill_vmem.launches, launch_flash_prefill.launches
     got = ops.prefill_attention(q, k, v, sl)
-    assert (launch_flash_prefill_vmem.launches, launch_flash_prefill.launches) == (k8 + 1, k2)
+    ran = (0, 1) if D in K2_HEAD_DIMS else (1, 0)
+    assert (launch_flash_prefill_vmem.launches, launch_flash_prefill.launches) == (
+        k8 + ran[0], k2 + ran[1])
     want = ref.prefill_attention(q, k, v, sl)
     for b, n in enumerate(lens):  # pad rows are never read
         assert _within(got[b, :n], want[b, :n]), b
@@ -918,7 +924,7 @@ def test_padded_chunked_prefill_kernel_matches_plain(cuda, kv, D, G):
 
 # Fresh prefill (K2 / K8): the no-history instance of K5's template
 
-FRESH_DIMS = [16, 40, 64, 80, 96, 100, 128]
+FRESH_DIMS = [16, 40, 64, 80, 96, 100, 128, 256]
 
 
 def _fresh_inputs(dev, D, G, S, lens, seed):
@@ -931,17 +937,17 @@ def _fresh_inputs(dev, D, G, S, lens, seed):
 
 
 @pytest.mark.parametrize("S", [1, 63, 65, 2048])
-@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("G", [*range(1, 9), 12, 16])
 @pytest.mark.parametrize("D", FRESH_DIMS)
 def test_fresh_prefill_kernel_matches_plain(cuda, D, G, S):
-    """ops.prefill_attention (K2 at D 64 / 128, K8 at the others) against its
-    plain version on every valid row: requests of S tokens, of about 3/4 of
-    S, of one token and of none; two calls give equal bytes."""
+    """ops.prefill_attention (K2 at D 64 / 128 / 256, K8 at the others)
+    against its plain version on every valid row: requests of S tokens, of
+    about 3/4 of S, of one token and of none; two calls give equal bytes."""
     from lite_llama_tpu_torch.ops.attention_prefill import launch_flash_prefill_vmem
 
     lens = [S, S * 3 // 4 + 1, 1, 0]
     q, k, v, sl = _fresh_inputs(cuda, D, G, S, lens, 15)
-    fresh = launch_flash_prefill if D in (64, 128) else launch_flash_prefill_vmem
+    fresh = launch_flash_prefill if D in K2_HEAD_DIMS else launch_flash_prefill_vmem
     before = fresh.launches
     got = ops.prefill_attention(q, k, v, sl)
     assert fresh.launches == before + 1
@@ -953,7 +959,7 @@ def test_fresh_prefill_kernel_matches_plain(cuda, D, G, S):
 
 
 @pytest.mark.parametrize("G", GROUPS)
-@pytest.mark.parametrize("D", [64, 100, 128])
+@pytest.mark.parametrize("D", [64, 100, 128, 256])
 def test_fresh_prefill_equals_chunked_prefill_with_no_history(cuda, D, G):
     """Fresh prefill (K2 / K8) equals K5 on the same batch with start_pos = 0
     over a pool of random pages, bit for bit on every valid row: chunked and
@@ -974,7 +980,7 @@ def test_fresh_prefill_equals_chunked_prefill_with_no_history(cuda, D, G):
 
 # K5 / K5q: packed GQA rows over the K/V ring (csrc/flash_prefill_chunked.cu)
 
-CHUNK_DIMS = [64, 100, 128]
+CHUNK_DIMS = [64, 100, 128, 256]
 
 
 def _chunked_against_plain(dev, kv, D, G, S, starts, clens, page_size, seed):
@@ -1031,11 +1037,13 @@ def test_chunked_prefill_kernel_matches_plain_at_the_prefix_hit_shape(cuda, D, G
     assert torch.all(m[3] == -1e30) and torch.all(l[3] == 0) and torch.all(out[3] == 0)
 
 
-@pytest.mark.parametrize("D", [99, 130, 8])
-def test_attention_kernels_refuse_head_dims_they_do_not_take(cuda, D):
-    """Odd, too wide or too narrow head dims raise on the card: nothing
-    falls back to a plain version."""
-    q = torch.zeros((1, 4, 2, D), device=cuda).bfloat16()
+@pytest.mark.parametrize("D,G", [(99, 2), (130, 2), (8, 2), (254, 2), (258, 2), (128, 17),
+                                 (256, 17)])
+def test_attention_kernels_refuse_head_dims_they_do_not_take(cuda, D, G):
+    """Odd, too wide (130 to 254, past 256) or too narrow head dims, and
+    more than 16 query heads per kv head, raise on the card: nothing falls
+    back to a plain version."""
+    q = torch.zeros((1, 4, G, D), device=cuda).bfloat16()
     kv = torch.zeros((1, 4, 1, D), device=cuda).bfloat16()
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
@@ -1114,7 +1122,7 @@ def _edge_lens(ps, ppr):
 
 @pytest.mark.parametrize("kv", [False, "int8", "fp8"])
 @pytest.mark.parametrize("ps", [16, 7])
-@pytest.mark.parametrize("D,G", [(128, 3), (100, 1), (64, 4)])
+@pytest.mark.parametrize("D,G", [(128, 3), (100, 1), (64, 4), (256, 3), (128, 12)])
 def test_decode_kernel_matches_plain_around_page_and_split_edges(cuda, D, G, ps, kv):
     """The engine's table width (2048 tokens), a request at each edge
     length, in one batch (where the slots' shares set the long requests'
@@ -1124,7 +1132,7 @@ def test_decode_kernel_matches_plain_around_page_and_split_edges(cuda, D, G, ps,
     lens = _edge_lens(ps, ppr)
     plan = plan_decode_splits(ppr, ps)
     dtype = {False: torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
-    slots = decode_grid_slots(D, dtype, len(lens), HKV, plan.s_max)
+    slots = decode_grid_slots(D, dtype, len(lens), HKV, plan.s_max, G)
     spans = decode_spans(lens, ps, plan.s_max, plan.min_span, slots)
     assert max(len(s) for s in spans) > 2  # the walk really splits
     _decode_against_plain(cuda, kv, D, G, lens, ps, ppr, 15)
@@ -1133,8 +1141,8 @@ def test_decode_kernel_matches_plain_around_page_and_split_edges(cuda, D, G, ps,
 
 
 @pytest.mark.parametrize("kv", [False, "int8", "fp8"])
-@pytest.mark.parametrize("G", range(1, 9))
-@pytest.mark.parametrize("D", [16, 64, 80, 98, 100, 128])
+@pytest.mark.parametrize("G", [*range(1, 9), 12, 16])
+@pytest.mark.parametrize("D", [16, 64, 80, 98, 100, 128, 256])
 def test_decode_kernel_matches_plain_at_every_group_and_head_dim(cuda, D, G, kv):
     """One-token, one-page, split and empty requests on a 1024-token table."""
     _decode_against_plain(cuda, kv, D, G, [0, 1, 16, 77, 300, 1000], 16, 64, 16)
