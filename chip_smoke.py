@@ -33,7 +33,11 @@ Phases, in order; any failure exits non-zero:
    query heads per kv head (Mistral-Large-2: Nq 96, Hkv 8; Llama-3.1-405B:
    Nq 128, Hkv 8; K1, K2 and K5) and a tp 8 rank of each (12 and 16 query
    heads on one kv head: K1q / K5q on an int8 pool at head_offset 3 of 8,
-   the mirrored offset a planted fault), each main case with a planted
+   the mirrored offset a planted fault), phase 17's Qwen2.5-3B (Nq 16, Hkv
+   2) and Qwen3-4B (Nq 32, Hkv 8: K1, K1q int8 at B 12, kv_len 88; K2 at 12
+   x 25; K5 and K5q int8 at B 8, S 512 over 512; K6 at M 12 on Qwen3-4B's
+   riffle wqkv, gate_up, o_proj and head (C 2560 and 4096) and Qwen2.5-3B's
+   interleaved gate_up and head, bit-equal), each main case with a planted
    fault (another request's pages, or keys and values) that must fail the
    tolerance. Every even head dim from 16 to 128, and 256, with up to 16
    query heads per kv head is taken; others raise. Max abs error against the
@@ -158,71 +162,68 @@ Phases, in order; any failure exits non-zero:
    self-consistency (kernels and plain versions, within SPEC_TIE), graph
    gate and profile. Phase 3 holds K5 / K5q and K6 at these verify steps'
    shapes.
-11. Tensor parallelism (tp_phase): Llama-3.2-3B at full width and depth
-   at tp 2, two processes of this script (``--tp-child``) sharing the one
-   card over a gloo group (NCCL refuses two ranks on one card), each
-   building the same seeded weights and keeping its shard (12 query heads,
-   4 kv heads, ffn 4096, 64128 vocab rows), on three paths: bf16, an int8
-   pool, int4 g128 riffle_tp=2 weights with an int8 pool; phase 4's 12 x 25
-   prompts, eos off, 32 new tokens (TP_GEN), greedy, the decode step eager
-   (no CUDA graph at tp > 1). Against the tp 1 engine on the same weights and
-   prompts in this process: the streams equal, but where one parts, tp 2's
-   teacher-forced logits there tie within twice the measured max-abs
-   difference (the rule of phases 4 and 10); the relative RMS of the
-   first-token logits and of the logits after 8 teacher-forced decode
-   steps within ``TP_REL_RMS``; planted faults (o_proj's all-reduce
-   dropped, the other rank's head_offset, the other rank's gate_up shard)
-   must fail it. Each rank's launch counters are printed: K1q must launch
-   on both ranks, at head offsets 0 and 4. Step times there are two ranks
-   time-sharing one card with their collectives through gloo, not tp's
-   speed.
-12. Data parallelism (dp_phase): Llama-3.2-3B at full width and depth at
-   dp 2, two processes of this script (``--dp-child``) on the card over
-   gloo, each holding the device state of its data group (16 of 32 slots,
-   512 of 1,024 pages) and the host accounting of both, the prefix cache
-   on; bf16, and int4 g128 riffle weights on an int8 pool. Phase 4's 12 x
-   25 prompts (64 new tokens, greedy, eos off), then a warm-up of a
-   256-token prefix and 8 prompts sharing it. Against the dp 1 engine on
-   the same weights in this process: every admission's slots equal the
-   host model's (``HostModel``, JAX's placement rule written apart from
-   the engine), every prefix hit lands in the entry's group, each rank's
-   decode step is a replayed graph at its group's width that equals its
-   eager run bit for bit (a planted stale replay caught), each rank's K1
-   launches are one a layer a step, and the streams equal dp 1's but where
-   one parts at a tie within twice the measured max-abs difference. Each
-   rank's ms a token is two ranks time-sharing one card.
-13. Context parallelism (cp_phase): Llama-3.2-3B at full width and depth
-   at cp 2, two processes (``--cp-child``) each holding half of the pool's
-   pages, bf16 and an int8 pool: 4 prompts of 4,000 random ids through
-   chunked prefill 512 (K5 / K5q history walks on both ranks), 32 new
-   tokens (CP_GEN). Against cp 1 on the same weights: the relative RMS of the
+11. Tensor parallelism (tp_phase): Llama-3.2-3B at full width and 8 of its 28
+   layers (``reduced``: PARALLEL_LAYERS, as in phases 12 and 14; phase 13 runs
+   CP_LAYERS, 12) at tp 2, two processes of this script (``--tp-child``)
+   sharing the one card over a gloo group (NCCL refuses two ranks on one
+   card), each building the same seeded weights and keeping its shard (12
+   query heads, 4 kv heads, ffn 4096, 64128 vocab rows), on three paths: bf16,
+   an int8 pool, int4 g128 riffle_tp=2 weights with an int8 pool; phase 4's 12
+   x 25 prompts, eos off, 32 new tokens (TP_GEN), greedy, the decode step
+   eager (no CUDA graph at tp > 1). Against the tp 1 engine on the same
+   weights and prompts in this process: the streams equal, but where one
+   parts, tp 2's teacher-forced logits there tie within twice the measured
+   max-abs difference (the rule of phases 4 and 10); the relative RMS of the
    first-token logits and of the logits after 8 teacher-forced decode steps
-   within ``CP_REL_RMS``, the streams equal but at ties, and planted
-   faults (a rank that skips the combine, the chunk scored on both ranks,
-   the tail page counted on both) must fail it; each rank's K1 / K5
-   launches and the kv tokens it holds (the two make up the whole) are
-   printed.
+   within ``TP_REL_RMS``; planted faults (o_proj's all-reduce dropped, the
+   other rank's head_offset, the other rank's gate_up shard) must fail it.
+   Each rank's launch counters are printed: K1q must launch on both ranks, at
+   head offsets 0 and 4. Step times there are two ranks time-sharing one card
+   with their collectives through gloo, not tp's speed.
+12. Data parallelism (dp_phase): Llama-3.2-3B at full width and 8 of 28 layers
+   at dp 2, two processes of this script (``--dp-child``) on the card over
+   gloo, each holding the device state of its data group (16 of 32 slots, 512
+   of 1,024 pages) and the host accounting of both, the prefix cache on; bf16,
+   and int4 g128 riffle weights on an int8 pool. Phase 4's 12 x 25 prompts (64
+   new tokens, greedy, eos off), then a warm-up of a 256-token prefix and 8
+   prompts sharing it. Against the dp 1 engine on the same weights in this
+   process: every admission's slots equal the host model's (``HostModel``,
+   JAX's placement rule written apart from the engine), every prefix hit lands
+   in the entry's group, each rank's decode step is a replayed graph at its
+   group's width that equals its eager run bit for bit (a planted stale replay
+   caught), each rank's K1 launches are one a layer a step, and the streams
+   equal dp 1's but where one parts at a tie within twice the measured max-abs
+   difference. Each rank's ms a token is two ranks time-sharing one card.
+13. Context parallelism (cp_phase): Llama-3.2-3B at full width and 12 of 28
+   layers (CP_LAYERS) at cp 2, two processes (``--cp-child``) each holding
+   half of the pool's pages, bf16 and an int8 pool: 4 prompts of 4,000 random
+   ids through chunked prefill 512 (K5 / K5q history walks on both ranks), 32
+   new tokens (CP_GEN). Against cp 1 on the same weights: the relative RMS of
+   the first-token logits and of the logits after 8 teacher-forced decode
+   steps within ``CP_REL_RMS``, the streams equal but at ties, and planted
+   faults (a rank that skips the combine, the chunk scored on both ranks, the
+   tail page counted on both) must fail it; each rank's K1 / K5 launches and
+   the kv tokens it holds (the two make up the whole) are printed.
 14. The scheduler, the HTTP server and speculative decoding on a mesh
-   (mesh_phase): Llama-3.2-3B at full width and depth, two processes of
-   this script (``--mesh-child``) on the card over gloo. (a) tp 2: rank 0
-   serves HTTP on localhost, rank 1 follows its control messages; phase 4's
-   12 x 25 prompts posted from 4 client threads in two waves of 6 with an
-   idle gap, 32 new tokens (MESH_GEN), greedy, eos off (the decode step
-   eager). (c) tp 2: spec_extractive's streams, 32 new tokens (the verify
-   step eager;
-   each rank's K5 launches printed). (b) dp 2 with the prefix cache, int4
-   g128 riffle weights on an int8 pool (K6, K1q and K5q through the
-   scheduler): phase 4's prompts and phase 12's warm-up of the 256-token
-   prefix in wave 1, phase 12's 8 prompts behind it in wave 2. Against one
-   rank on the same weights in this process (the tp 1 and dp 1 schedulers,
-   tp 1's spec streams): the streams equal but where one parts at a tie
-   within twice the measured max-abs difference; both ranks take as many
-   loop turns (every turn's digests agreed) and make as many engine calls;
-   at dp every admission equals the host model's placement and each rank's
-   decode step is a replayed graph at its group's width; a planted follower
-   that applies a message's two submits in reverse order must make both
-   ranks fail within seconds. Each rank's launch counters are printed; its
-   seconds are two ranks time-sharing one card.
+   (mesh_phase): Llama-3.2-3B at full width and 8 of 28 layers, two processes
+   of this script (``--mesh-child``) on the card over gloo. (a) tp 2: rank 0
+   serves HTTP on localhost, rank 1 follows its control messages; phase 4's 12
+   x 25 prompts posted from 4 client threads in two waves of 6 with an idle
+   gap, 32 new tokens (MESH_GEN), greedy, eos off (the decode step eager). (c)
+   tp 2: spec_extractive's streams, 32 new tokens (the verify step eager; each
+   rank's K5 launches printed). (b) dp 2 with the prefix cache, int4 g128
+   riffle weights on an int8 pool (K6, K1q and K5q through the scheduler):
+   phase 4's prompts and phase 12's warm-up of the 256-token prefix in wave 1,
+   phase 12's 8 prompts behind it in wave 2. Against one rank on the same
+   weights in this process (the tp 1 and dp 1 schedulers, tp 1's spec
+   streams): the streams equal but where one parts at a tie within twice the
+   measured max-abs difference; both ranks take as many loop turns (every
+   turn's digests agreed) and make as many engine calls; at dp every admission
+   equals the host model's placement and each rank's decode step is a replayed
+   graph at its group's width; a planted follower that applies a message's two
+   submits in reverse order must make both ranks fail within seconds. Each
+   rank's launch counters are printed; its seconds are two ranks time-sharing
+   one card.
 15. Falcon3-7B (falcon3_phase): tiiuae/Falcon3-7B-Base's published
    config.json (hidden 3072, intermediate 23040, 28 layers, 12 heads over 4
    kv heads of head dim 256, vocab 131072, rope_theta 1000042, untied) at
@@ -244,7 +245,25 @@ Phases, in order; any failure exits non-zero:
    phase-4 batch run with its graph gate and the decode-vs-re-prefill
    invariant with K1 faults, and the chunked-vs-single-shot invariant with
    K5 faults.
-17. Summary: the whole script's seconds, one JSON line with every kernel,
+17. The other decoder families of models/presets.py (families_phase):
+   Llama-3.2-1B (head dim 64, 16 layers), Qwen2.5-3B (q / kv biases, 2 kv
+   heads of 8 query heads, 36 layers) and Qwen3-4B (per-head q / k norms,
+   36 layers), each at full width and depth with seeded random bf16
+   weights whose norms are 1 + 0.1 N(0, 1) and biases 0.1 N(0, 1): the
+   phase-4 batch run (K2, K1, K3, K4; K8 on no path) with its graph gate
+   and the decode-vs-re-prefill invariant with K1 faults; the last prefill
+   logits of 8 prompts through the kernels against the plain versions with
+   K2 faults; one serving wave (prefix cache on, chunk 512: K5) and the
+   chunked-vs-single-shot invariant with K5 faults (within FAMILY_PREFILL,
+   tighter than phase 5's limit); then int4 g128 on an int8 pool (riffle,
+   interleaved for Qwen2.5-3B, whose flat gate_up riffle refuses): the batch run at 64 new tokens (K6, K1q-int8) with its decode
+   invariant and K1q faults, the projections the routing rule keeps off K6
+   timed (the Qwens' down, W4A16), and two 1500-token prompts chunked
+   through K5q-int8 against a single-shot prefill. On Qwen3-4B K3 without
+   a residual must run 72 times a decode step (2 a layer) in the captured
+   graph, on the others never. Each model prints its parameters, GB in
+   bf16 and int4, decode floors, ms a step and K6's launches and ms a step.
+18. Summary: the whole script's seconds, one JSON line with every kernel,
    then the last line {"ok": true, "device": {...}}.
 
 Phase 3 holds K1 / K1q and K5 / K5q at phase 13's shapes on a pool split in
@@ -360,7 +379,8 @@ NORM_NO_RESIDUAL = 3  # index of K3's no-residual case in kernel_phase()
 # not exceed them (profile_decode).
 # K1 / K1q by pool (paged_decode_kernel<DP, KV, NT>); K3 (rows_kernel<0>,
 # rows_loop_kernel<0>) and, apart, its launches that write K6's int8 rows
-# (EMIT, rows_kernel's last template flag); K4 (swiglu_kernel, and
+# (EMIT, rows_kernel's last template flag) and those with no residual (RES,
+# its second-to-last: qwen3's per-head q / k norms); K4 (swiglu_kernel, and
 # rows_kernel<1> whenever it writes int8 rows); K6's matmul (no model path
 # runs K7) and its activation quantizer.
 DEVICE_KERNELS = {
@@ -369,6 +389,7 @@ DEVICE_KERNELS = {
     "paged_flash_decode_fp8": r"paged_decode_kernel<\d+, 2, \d+>",
     "rms_norm": r"rows(_loop)?_kernel<0,",
     "rms_norm_int8_rows": r"rows_kernel<0,[^>]*, true>",
+    "rms_norm_no_residual": r"rows_kernel<0,[^>]*, false, (true|false)>",
     "swiglu": r"swiglu_kernel|rows(_loop)?_kernel<1,",
     "swiglu_int8_rows": r"rows(_loop)?_kernel<1,",
     "quantized_matmul_packed": r"qmm_kernel",
@@ -500,6 +521,9 @@ MODELS = {  # head_dim, query heads, kv heads (attention shapes of phase 3)
     "llama-3.1-405b": dict(D=128, Nq=128, Hkv=8),
     "mistral-large-2 tp8": dict(D=128, Nq=12, Hkv=1, global_Hkv=8),
     "llama-3.1-405b tp8": dict(D=128, Nq=16, Hkv=1, global_Hkv=8),
+    # Phase 17: Qwen2.5-3B (2 kv heads of 8 query heads each) and Qwen3-4B
+    "qwen2.5-3b": dict(D=128, Nq=16, Hkv=2),
+    "qwen3-4b": dict(D=128, Nq=32, Hkv=8),
 }
 # The tp 2 shard shapes of the 3B projections (phase 11's int4 riffle_tp=2
 # rank): (C, logical O, fp32 output); "out" weights keep C and take half of
@@ -511,6 +535,19 @@ QMM_TP2_SHAPES = {
     "gate_up tp2": (3072, 8192, False),
     "down tp2": (4096, 3072, False),
     "lm_head tp2": (3072, 64128, True),
+}
+# Phase 17's K6 shapes that no Llama runs: (C, logical O, fp32 output,
+# riffle). Qwen3-4B's C 2560 is one whole-C block of 20 groups (no multiple
+# of 8 groups divides it) and its o_proj one of 4096; Qwen2.5-3B's int4 run
+# is interleaved (riffle refuses its flat gate_up), gate_up padded to 11264
+# stored columns; both heads 151936 wide, stored 152576.
+QMM_FAMILY_SHAPES = {
+    "qwen3-4b wqkv": (2560, 6144, False, True),
+    "qwen3-4b gate_up": (2560, 19456, False, True),
+    "qwen3-4b o_proj": (4096, 2560, False, True),
+    "qwen3-4b lm_head": (2560, 151936, True, True),
+    "qwen2.5-3b gate_up": (2048, 11008, False, False),
+    "qwen2.5-3b lm_head": (2048, 151936, True, False),
 }
 
 
@@ -1522,17 +1559,22 @@ def qmm_launch_info(C, nG, Wn, M, packed, fp32):
 
 
 def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
-    """K6 (``packed``) or K7 on the 3B projection ``name`` at M rows: a
-    two-layer stack quantized by the port from seeded bf16 weights, layer 1
-    read by index. An fp32 output, and any output of K7 (whose bf16 rounds
-    the same fp32 product as the plain version's), must equal the plain
-    version's bit for bit, and every planted fault must fail the tolerance.
-    Timed K7 cases above 16 rows also time ``torch._int_mm`` on the same
-    int8 bytes (``int8_library_ms``)."""
+    """K6 (``packed``) or K7 on the 3B projection ``name`` at M rows (or a
+    QMM_FAMILY_SHAPES one, in its own layout): a two-layer stack quantized
+    by the port from seeded bf16 weights, layer 1 read by index. An fp32
+    output, any output of K7 (whose bf16 rounds the same fp32 product as
+    the plain version's) and any QMM_FAMILY_SHAPES output must equal the
+    plain version's bit for bit, and every planted fault must fail the
+    tolerance. Timed K7 cases above 16 rows also time ``torch._int_mm`` on
+    the same int8 bytes (``int8_library_ms``)."""
     from lite_llama_tpu_torch.ops import qmatmul as qmm
     from lite_llama_tpu_torch.quant.qtensor import quantize
 
-    C, O, fp32 = QMM_SHAPES.get(name) or QMM_TP2_SHAPES[name]
+    family = name in QMM_FAMILY_SHAPES
+    if family:
+        C, O, fp32, riffle = QMM_FAMILY_SHAPES[name]
+    else:
+        C, O, fp32 = QMM_SHAPES.get(name) or QMM_TP2_SHAPES[name]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     w = torch.randn((2, C, O), generator=g, device=dev).mul_(0.02).bfloat16()
@@ -1563,7 +1605,7 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
     rec = dict(shape=f"{name} M={M} C={C} O={O} stored={qt.q.shape[-1]} group={gs} "
                      f"{'int4 ' + ('riffle' if riffle else 'classic') if packed else 'int8'} "
                      f"out={str(out_dtype).split('.')[-1]}",
-               max_abs_err=err, ok=ok and (bit_equal or (packed and not fp32)),
+               max_abs_err=err, ok=ok and (bit_equal or (packed and not fp32 and not family)),
                bit_equal=bit_equal,
                launch=qmm_launch_info(C, nG, qt.q.shape[-1], M, packed, fp32))
     rec["faults"] = {}
@@ -1602,7 +1644,8 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
         t["int8_library_ms"] = graph_ms(torch._int_mm, input_copies(
             (xi, qt.q[1]), M * C + C * O + M * O * 4))
         t["int8_library"] = "torch._int_mm on the quantized rows and int8 weight (int32 out)"
-    return dict(rec, model="llama-3.2-3b", **t, bound_ms=t_bound, bound_by=by,
+    return dict(rec, model=name.split(" ")[0] if family else "llama-3.2-3b", **t,
+                bound_ms=t_bound, bound_by=by,
                 library="torch.matmul in bf16 on the dequantized weight (cuBLAS; the "
                         "bf16 product the quantization replaces)")
 
@@ -1632,6 +1675,8 @@ def kernel_phase():
             decode_case("falcon3-7b", [88] * 12, fault=True),
             decode_case("mistral-large-2", [88] * 12, fault=True),
             decode_case("llama-3.1-405b", [88] * 12, fault=True),
+            # phase 17's decode steps: Qwen2.5-3B (Hkv 2) and Qwen3-4B
+            *(decode_case(m, [88] * 12, fault=True) for m in ("qwen2.5-3b", "qwen3-4b")),
         ],
         "flash_prefill": [
             prefill_case("llama-3.2-3b", 12, 25, [25] * 12),
@@ -1651,6 +1696,8 @@ def kernel_phase():
             prefill_case("falcon3-7b", 4, 2048, [2048, 1541, 37, 1]),
             prefill_case("mistral-large-2", 12, 25, [25] * 12, fault=True),
             prefill_case("llama-3.1-405b", 4, 512, [512, 389, 37, 1], fault=True),
+            *(prefill_case(m, 12, 25, [25] * 12, fault=True)  # phase 17's batches
+              for m in ("qwen2.5-3b", "qwen3-4b")),
         ],
         "flash_prefill_vmem": [  # K8: OpenLLaMA-3B's batch shape first
             prefill_case("open-llama-3b-v2", 12, 25, [25] * 12),
@@ -1699,6 +1746,8 @@ def kernel_phase():
             chunked_case("mistral-large-2", [512] * 4, [512] * 4, fault=True),
             chunked_case("llama-3.1-405b", [0, 16, 500, 1536], [512, 300, 0, 512],
                          return_state=True, fault=True),
+            *(chunked_case(m, [512] * 8, [512] * 8, fault=True)  # phase 17's serving chunk
+              for m in ("qwen2.5-3b", "qwen3-4b")),
         ],
         "quantized_matmul_packed": [
             *(qmm_case(n, 12) for n in QMM_SHAPES),  # gate_up first: the main case
@@ -1714,6 +1763,8 @@ def kernel_phase():
             qmm_case("down", 12, gs=8, timed=False),  # half-masked m16n8k16 passes
             # phase 11: a tp 2 rank's shards of the projections (riffle_tp=2 blocks)
             *(qmm_case(n, 12) for n in QMM_TP2_SHAPES),
+            # phase 17: Qwen3-4B's and Qwen2.5-3B's projections that run on K6
+            *(qmm_case(n, 12) for n in QMM_FAMILY_SHAPES),
         ],
         "quantized_matmul_int8": [
             *(qmm_case(n, 12, packed=False) for n in QMM_SHAPES),  # gate_up first: the main case
@@ -1740,6 +1791,9 @@ def kernel_phase():
             # a tp 8 rank of Mistral-Large-2 (G 12) and of Llama-3.1-405B (G 16)
             *(decode_case(m, [88] * 12, kv=kv, hoff=3)
               for m in ("mistral-large-2 tp8", "llama-3.1-405b tp8") if kv == "int8"),
+            # phase 17's int4 runs on an int8 pool
+            *(decode_case(m, [88] * 12, kv=kv, fault=True)
+              for m in ("qwen2.5-3b", "qwen3-4b") if kv == "int8"),
         ]
         cases[f"flash_prefill_chunked_{kv}"] = [
             chunked_case("llama-3.2-3b", [512] * 8, [512] * 8, kv=kv),
@@ -1757,6 +1811,8 @@ def kernel_phase():
             chunked_case("falcon3-7b", [256] * 16, [8] * 16, S=8, kv=kv),
             *(chunked_case(m, [512] * 8, [512] * 8, kv=kv, hoff=3)
               for m in ("mistral-large-2 tp8", "llama-3.1-405b tp8") if kv == "int8"),
+            *(chunked_case(m, [512] * 8, [512] * 8, kv=kv, fault=True)  # phase 17
+              for m in ("qwen2.5-3b", "qwen3-4b") if kv == "int8"),
         ]
     for name, cs in cases.items():
         for c in cs:
@@ -1838,8 +1894,8 @@ def patched(patch):
     """Replace ops of ``lite_llama_tpu_torch.ops`` (and the W4A8 matmul that
     ``quant/qtensor.py`` routes to) for the duration; ``None`` patches
     nothing. A decode graph captured before the patch keeps the kernels it
-    captured: patched readings run eager code only (``_decode_vs_reprefill``,
-    prefills)."""
+    captured: patched readings capture their own (``_decode_vs_reprefill``)
+    or run eager code (prefills)."""
     from unittest import mock
 
     from lite_llama_tpu_torch import ops
@@ -1864,8 +1920,8 @@ def planted_faults():
         return k1(q, pool, layer, table, torch.clamp(seq_lens - 1, min=1), sm_scale, **kw)
 
     def pages_swapped(q, pool, layer, table, seq_lens, sm_scale=None, **kw):
-        order = [1, 0, *range(2, table.shape[1])]
-        return k1(q, pool, layer, table[:, order], seq_lens, sm_scale, **kw)
+        swapped = torch.cat([table[:, 1:2], table[:, :1], table[:, 2:]], dim=1)
+        return k1(q, pool, layer, swapped, seq_lens, sm_scale, **kw)
 
     def other_request(q, pool, layer, table, seq_lens, sm_scale=None, **kw):
         return k1(q, pool, layer, table.flip(0), seq_lens, sm_scale, **kw)
@@ -1936,12 +1992,17 @@ def prefill_last_logits(dev, cfg, params, cache, rows):
 
 
 def _decode_vs_reprefill(dev, cfg, params, prompts, generated, kv_quant=False):
-    # decoder_decode is called here directly, step by step and eagerly, never
-    # through the engine's captured decode graph: a patch of ``ops`` (the
-    # plain versions, the planted faults) would not reach a graph captured
-    # before it, and here it reaches every call.
+    # decoder_decode is called here directly, never through the engine's
+    # captured decode graph: a patch of ``ops`` (the plain versions, the
+    # planted faults) would not reach a graph captured before it. On the
+    # card the first step runs eagerly on a side stream (its warm-up), the
+    # step is captured there under the patch, and the rest are replays of
+    # that capture with the next token copied in (the engine's decode graph
+    # replays bit-equal to its eager step, graph_gate); an eager step of a
+    # 36-layer model costs its host ~10x a replay.
     from lite_llama_tpu_torch.executor import kv_cache as kvc
     from lite_llama_tpu_torch.models.decoder import AttnContext, decoder_decode
+    from lite_llama_tpu_torch.ops import add_launches, launch_counts
 
     B = len(prompts)
     n_steps = min(len(g) for g in generated) - 1
@@ -1949,12 +2010,38 @@ def _decode_vs_reprefill(dev, cfg, params, prompts, generated, kv_quant=False):
         cache = fresh_cache(dev, cfg, B, kv_quant)
         logits = prefill_last_logits(dev, cfg, params, cache, [list(p) for p in prompts])
         slots = torch.arange(B, dtype=torch.int32, device=dev)
-        for step in range(n_steps):
-            tok = torch.tensor([g[step] for g in generated], dtype=torch.long, device=dev)
+        toks = torch.tensor([[g[s] for g in generated] for s in range(n_steps)],
+                            dtype=torch.long, device=dev).view(n_steps, B)
+        tok = torch.empty(B, dtype=torch.long, device=dev)  # the step's input, in place
+
+        def step():
             kvc.alloc_decode(cache, slots)
             sl = cache.seq_lens[slots.long()]
             ctx = AttnContext(cache.page_table[slots.long()], sl, sl - 1, torch.ones_like(sl))
-            logits = decoder_decode(params, cfg, cache.kv_pages, ctx, tok)[0]
+            return decoder_decode(params, cfg, cache.kv_pages, ctx, tok)[0]
+
+        if dev.type != "cuda" or n_steps < 2:
+            for i in range(n_steps):
+                tok.copy_(toks[i])
+                logits = step()
+        else:
+            side = reading_stream(dev)
+            tok.copy_(toks[0])
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                logits = step()
+            # The capture launched nothing; each replay launches what it holds.
+            add_launches({k: n - before[k] for k, n in launch_counts().items()}, n_steps - 2)
+            for i in range(1, n_steps):
+                tok.copy_(toks[i])
+                graph.replay()
+            logits = logits.clone()
+            del graph
         want = prefill_last_logits(dev, cfg, params, fresh_cache(dev, cfg, B, kv_quant),
                                    [list(p) + list(g[:n_steps]) for p, g in zip(prompts, generated)])
     d = logits - want
@@ -1971,6 +2058,17 @@ def _decode_vs_reprefill(dev, cfg, params, prompts, generated, kv_quant=False):
         # decode's top logit minus its logit at the engine's token (0 where they agree)
         engine_margin=(logits.max(-1).values - logits.gather(-1, engine[:, None])[:, 0]).tolist(),
     )
+
+
+_READING_STREAMS = {}
+
+
+def reading_stream(dev):
+    """The side stream the invariants' decode steps are captured on, one per
+    device (the kernels keep a workspace per stream)."""
+    if dev not in _READING_STREAMS:
+        _READING_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _READING_STREAMS[dev]
 
 
 def sync(dev):
@@ -2432,9 +2530,10 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
         decode_ms.append(d_ms)
         if rep == 0:
             per_prefill = {k: c1[k] - c0[k] for k in c0}
-    with eager_step(engine, B):
-        for _ in range(repeats[2]):
-            eager_ms.append(timed_decode(engine, prompts, sampling, max_total, G)[1])
+    if repeats[2]:
+        with eager_step(engine, B):
+            for _ in range(repeats[2]):
+                eager_ms.append(timed_decode(engine, prompts, sampling, max_total, G)[1])
     decode_ms_per_step = float(np.median(decode_ms))
     # generate_tokens is one prefill and G - 1 decode steps: its own step time
     implied_ms = [(s * 1e3 - float(np.median(prefill_ms))) / (G - 1) for s in gen_s]
@@ -2469,7 +2568,7 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
         tokens_per_s_runs=[n_tokens / s for s in gen_s],
         prefill_ms=float(np.median(prefill_ms)), prefill_ms_runs=prefill_ms,
         decode_ms_per_step=decode_ms_per_step, decode_ms_per_step_runs=decode_ms,
-        eager_decode_ms_per_step=float(np.median(eager_ms)),
+        eager_decode_ms_per_step=float(np.median(eager_ms)) if eager_ms else None,
         eager_decode_ms_per_step_runs=eager_ms,
         generate_implied_decode_ms_per_step=implied_ms,
         decode_steps=steps, peak_mem_gb=peak_gb, capture_ms=capture_ms, replay=replay,
@@ -2853,9 +2952,10 @@ def logits_invariant(dev, cfg, qparams, prompts, bf16_logits):
 
 
 def param_count(params):
-    """Parameters of a bf16 decoder tree (embeddings, head, norms, layers)."""
-    return sum(t.numel() for t in [params["embed"], params["lm_head"], params["final_norm"],
-                                    *params["layers"].values()])
+    """Parameters of a bf16 decoder tree (embeddings, an untied head, norms,
+    layers)."""
+    return sum(t.numel() for t in [params["embed"], params.get("lm_head"), params["final_norm"],
+                                    *params["layers"].values()] if t is not None)
 
 
 def weight_bytes(tree):
@@ -3928,6 +4028,28 @@ def spec_config():
     return dataclasses.replace(llama32_3b(dtype=torch.bfloat16), eos_token_id=None)
 
 
+# Phases 11-14 run Llama-3.2-3B at its full width and PARALLEL_LAYERS of its
+# 28 layers (``reduced``): their gates hold two ranks against one on the
+# same weights, which a layer does as well as 28; the depth they no longer
+# run is time that phase 17 runs. Phase 13 keeps CP_LAYERS: at 8 layers its
+# smallest int8-pool fault (the tail page counted on both ranks) read 0.077
+# against CP_REL_RMS's 0.075 on an H100, at 12 layers 0.100 (PERF.md).
+PARALLEL_LAYERS = 8
+CP_LAYERS = 12
+
+
+def parallel_config(layers=PARALLEL_LAYERS):
+    """Phases 11-14's model: ``spec_config()`` at ``layers`` layers."""
+    cfg = spec_config()
+    return dataclasses.replace(cfg, num_hidden_layers=min(layers, cfg.num_hidden_layers))
+
+
+def parallel_reduced(cfg):
+    """Phases 11-14's ``reduced`` entry: the depth they run."""
+    return {"num_hidden_layers": f"{cfg.num_hidden_layers} of {spec_config().num_hidden_layers} "
+            "(the tp / dp / cp and mesh gates compare two ranks with one on the same weights)"}
+
+
 def pages_conserved(engine):
     """Every page and slot back: the host's count, the device's stack top."""
     return (engine._host_free_pages == engine.num_pages == int(engine.cache.free_top)
@@ -4548,7 +4670,7 @@ def tp_child(rank, port, workdir, dev=None):
         _build.build()  # the parent built every kernel: this loads them
     distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=600)
     mesh = shardings.make_mesh(tp=2)
-    cfg = spec_config()
+    cfg = parallel_config()
     prompts = batch_prompts(cfg)
     ref = torch.load(f"{workdir}/reference.pt")
     res = {"rank": rank, "paths": {}}
@@ -4624,14 +4746,15 @@ def rel_rms(got, want):
 
 
 def tp_phase(dev):
-    """Llama-3.2-3B at full width and depth, tp 2: two processes of this
-    script on the one card over a gloo group, against the tp 1 engine on the
-    same seeded weights in this process (module docstring, phase 11)."""
+    """Llama-3.2-3B at full width and PARALLEL_LAYERS deep, tp 2: two
+    processes of this script on the one card over a gloo group, against the
+    tp 1 engine on the same seeded weights in this process (module
+    docstring, phase 11)."""
     import socket
     import tempfile
 
     t_phase = time.perf_counter()
-    cfg = spec_config()
+    cfg = parallel_config()
     prompts = batch_prompts(cfg)
     ref = tp_reference(dev, cfg, prompts)
     workdir = tempfile.mkdtemp(prefix="tp_phase_")
@@ -4662,6 +4785,7 @@ def tp_phase(dev):
     out, problems, by_path = tp_gates(cfg, ref, workdir, ranks)
     out["children_s"] = children_s
     shutil.rmtree(workdir, ignore_errors=True)
+    out["reduced"] = parallel_reduced(cfg)
     out["seconds"] = time.perf_counter() - t_phase
     log("tp: " + json.dumps(out))
     require(not problems, f"phase 11 gates failed: {problems}")
@@ -4932,7 +5056,7 @@ def dp_child(rank, port, workdir, dev=None):
         _build.build()  # the parent built every kernel: this loads them
     distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=600)
     mesh = shardings.make_mesh(dp=2)
-    cfg = spec_config()
+    cfg = parallel_config()
     prompts = dp_prompts(cfg)
     ref = torch.load(f"{workdir}/dp_reference.pt")
     res = {"rank": rank, "paths": {}}
@@ -5014,15 +5138,16 @@ def parting_problems(name, got, want, gaps, max_abs):
 
 
 def dp_phase(dev):
-    """Llama-3.2-3B at full width and depth, dp 2: two processes of this
-    script on the one card over a gloo group, against the dp 1 engine on
-    the same seeded weights in this process (module docstring, phase 12)."""
+    """Llama-3.2-3B at full width and PARALLEL_LAYERS deep, dp 2: two
+    processes of this script on the one card over a gloo group, against the
+    dp 1 engine on the same seeded weights in this process (module
+    docstring, phase 12)."""
     import tempfile
 
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
 
     t_phase = time.perf_counter()
-    cfg = spec_config()
+    cfg = parallel_config()
     prompts = dp_prompts(cfg)
     ref = {}
     for path, (kv, int4) in DP_PATHS.items():
@@ -5102,6 +5227,7 @@ def dp_phase(dev):
                          for k in KERNELS}
         out[path] = rec
     shutil.rmtree(workdir, ignore_errors=True)
+    out["reduced"] = parallel_reduced(cfg)
     out["seconds"] = time.perf_counter() - t_phase
     out["time_shared"] = "two ranks time-share one card; their ms are not dp's speed"
     log("dp: " + json.dumps(out))
@@ -5134,8 +5260,8 @@ CP_PATH_FAULTS = {"bf16": CP_PLANTED, "int8_pool": CP_PLANTED[2:]}
 
 
 def cp_config():
-    """Llama-3.2-3B as phase 11 runs it, with room for phase 13's prompts."""
-    return dataclasses.replace(spec_config(), max_seq_len=CP_PROMPT + CP_GEN + 96)
+    """Llama-3.2-3B at CP_LAYERS layers, with room for phase 13's prompts."""
+    return dataclasses.replace(parallel_config(CP_LAYERS), max_seq_len=CP_PROMPT + CP_GEN + 96)
 
 
 def cp_prompts(cfg):
@@ -5291,9 +5417,9 @@ def cp_child(rank, port, workdir, dev=None):
 
 
 def cp_phase(dev):
-    """Llama-3.2-3B at full width and depth, cp 2: two processes of this
-    script on the one card over a gloo group, each holding half of the
-    pool, against the cp 1 engine on the same seeded weights in this
+    """Llama-3.2-3B at full width and CP_LAYERS deep, cp 2: two
+    processes of this script on the one card over a gloo group, each
+    holding half of the pool, against the cp 1 engine on the same seeded weights in this
     process (module docstring, phase 13)."""
     import tempfile
 
@@ -5366,6 +5492,7 @@ def cp_phase(dev):
                          for k in KERNELS}
         out[path] = rec
     shutil.rmtree(workdir, ignore_errors=True)
+    out["reduced"] = parallel_reduced(cfg)
     out["seconds"] = time.perf_counter() - t_phase
     out["time_shared"] = "two ranks time-share one card; their ms are not cp's speed"
     log("cp: " + json.dumps(out))
@@ -5548,7 +5675,7 @@ def mesh_child(rank, port, workdir, dev=None):
     if dev.type == "cuda":
         _build.build()  # the parent built every kernel: this loads them
     distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=600)
-    cfg = spec_config()
+    cfg = parallel_config()
     reqs = mesh_requests(cfg)
     ref = torch.load(f"{workdir}/mesh_reference.pt")
     res, keep = {"rank": rank}, {}
@@ -5664,14 +5791,14 @@ def mesh_reference(dev, cfg):
 
 
 def mesh_phase(dev):
-    """Llama-3.2-3B at full width and depth: the HTTP server over the
-    scheduler at tp 2 and at dp 2 (int4 weights, int8 pool), and speculative
+    """Llama-3.2-3B at full width and PARALLEL_LAYERS deep: the HTTP server
+    over the scheduler at tp 2 and at dp 2 (int4 weights, int8 pool), and speculative
     decoding at tp 2, two processes of this script on the one card over
     gloo, against one rank in this process (module docstring, phase 14)."""
     import tempfile
 
     t_phase = time.perf_counter()
-    cfg = spec_config()
+    cfg = parallel_config()
     reqs = mesh_requests(cfg)
     ref = mesh_reference(dev, cfg)
     workdir = tempfile.mkdtemp(prefix="mesh_phase_")
@@ -5760,6 +5887,7 @@ def mesh_phase(dev):
                             "not replayed graphs at its group's width")
     out["dp2_int4_int8_pool_server"] = rec
     shutil.rmtree(workdir, ignore_errors=True)
+    out["reduced"] = parallel_reduced(cfg)
     out["seconds"] = time.perf_counter() - t_phase
     out["time_shared"] = ("two ranks time-share one card through gloo; their seconds are not "
                           "the mesh's speed")
@@ -5780,6 +5908,9 @@ FALCON_INT4_BATCH_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8",
 FALCON_ABSENT = ("flash_prefill_vmem",)
 FALCON_REPEATS = (2, 3, 1)  # as phase 7's: timed runs, prefill + decode runs, eager runs
 SINGLE_RUNS = (1, 1, 1)  # phase 15's int4 run and phase 16's: one run of each kind
+# Phase 17's: one timed run and one prefill + decode run, no eager decode run
+# (graph_gate's eager run gives the eager ms a step beside the replayed one).
+FAMILY_RUNS = (1, 1, 0)
 # New tokens of phase 15's int4 run: its W4A16 down projection (ROADMAP C8)
 # makes a step 3x bf16's, and its decode invariant reads 63 eager steps.
 FALCON_INT4_GEN = 64
@@ -5845,11 +5976,14 @@ def mistral_large_2(layers=MISTRAL_LAYERS):
         bos_token_id=1, eos_token_id=2), dtype=torch.bfloat16)
 
 
-def decode_floor_ms(cfg, params):
-    """The least time a decode step could take: every weight but the
-    embedding table (a step reads B of its rows) read once at HBM speed."""
-    embed = cfg.vocab_size * cfg.hidden_size * 2
-    return (weight_bytes(params) - embed) / HBM_BYTES_PER_S * 1e3
+def decode_floor_ms(params):
+    """The least time a decode step could take: every weight read once at
+    HBM speed. Beside a head of its own (untied, or a quantized tree's) the
+    embedding table is left out, as a step reads B of its rows; a tied
+    model's head is that table, read whole every step, so it counts once."""
+    embed = params["embed"]
+    left_out = embed.numel() * embed.element_size() if "lm_head" in params else 0
+    return (weight_bytes(params) - left_out) / HBM_BYTES_PER_S * 1e3
 
 
 def falcon3_phase(dev):
@@ -5871,7 +6005,7 @@ def falcon3_phase(dev):
     cfg = falcon3_7b()
     params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
     out = dict(params=param_count(params), weight_gb=weight_bytes(params) / 1e9,
-               decode_floor_ms=decode_floor_ms(cfg, params))
+               decode_floor_ms=decode_floor_ms(params))
     log(f"  {out['params'] / 1e9:.3f} G parameters, {out['weight_gb']:.3f} GB in bf16; head_dim "
         f"{cfg.head_dim}, {cfg.num_attention_heads} query heads over {cfg.num_key_value_heads}; "
         f"decode floor {out['decode_floor_ms']:.3f} ms a step (weights but the embedding "
@@ -5981,7 +6115,7 @@ def mistral_phase(dev):
     out = dict(params=param_count(params), weight_gb=weight_bytes(params) / 1e9,
                reduced={"num_hidden_layers": f"{MISTRAL_LAYERS} of {MISTRAL_PUBLISHED_LAYERS} "
                         "(88 layers in bf16 are 246 GB, above one card's 80)"},
-               decode_floor_ms=decode_floor_ms(cfg, params))
+               decode_floor_ms=decode_floor_ms(params))
     log(f"  {out['params'] / 1e9:.3f} G parameters, {out['weight_gb']:.3f} GB in bf16; "
         f"{cfg.num_attention_heads} query heads over {cfg.num_key_value_heads} (G "
         f"{cfg.num_kv_groups}), head_dim {cfg.head_dim}; reduced: {out['reduced']}")
@@ -6001,6 +6135,216 @@ def mistral_phase(dev):
     del params
     free_device()
     return out, {k: batch[k] + inv["launches"][k] for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the other decoder families of models/presets.py
+
+# preset -> riffle packing of its int4 run (riffle refuses Qwen2.5-3B's flat
+# gate_up of 2 x 11008 columns, in both packages: it takes interleaved)
+FAMILIES = {"llama32_1b": True, "qwen25_3b": False, "qwen3_4b": True}
+FAMILY_INT4_GEN = 64  # new tokens of the int4 runs, as phase 15's
+FAMILY_INT4_PATH = QUANT_BATCH_PATH + ("flash_prefill_chunked_int8",)
+FAMILY_DECODE_M = 12  # the batch's rows at decode: the routing of K6 is read there
+# Phase 17's chunked (K5) vs single-shot (K2) prefill limit, tighter than
+# PREFILL_*'s 0.12: on Qwen2.5-3B (2 kv heads, q / kv biases) the smallest
+# planted K5 fault (start_pos one page short) read 0.115 / 0.112 on an H100
+# (PERF.md), the plain versions 0.026 / 0.025 and the kernels 0 / 0 (Llama-
+# 3.2-1B: fault 0.321, plain 0.020 / 0.022). 0.06 sits near the geometric
+# mean of Qwen2.5-3B's fault and plain readings, ~2x from either.
+FAMILY_PREFILL = (0.06, 0.06)
+
+
+def family_params(cfg, dev):
+    """Seeded random bf16 weights (init_decoder_params) with the norms drawn
+    as 1 + 0.1 N(0, 1) and the q / kv biases as 0.1 N(0, 1), so that qwen2's
+    bias add and qwen3's q / k norms move the logits."""
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_decoder_params(cfg, g)
+    layers = params["layers"]
+    for t in [params["final_norm"], *(layers[k] for k in ("attn_norm", "mlp_norm", "q_norm",
+                                                          "k_norm") if k in layers)]:
+        t.normal_(1.0, 0.1, generator=g)
+    for k in ("q_bias", "kv_bias"):
+        if k in layers:
+            layers[k].normal_(0.0, 0.1, generator=g)
+    return params
+
+
+def prefill_vs_plain(dev, cfg, params, n=8):
+    """The last prefill logits of phase 4's first ``n`` prompts through the
+    kernels (K2, K3 with and without a residual, K4) against the plain
+    versions patched in, and with faults planted in K2's inputs: the kernels
+    hold PREFILL_*, every fault breaks it. It holds each family's own code
+    (qwen2's bias add, qwen3's q / k norms, a tied 151,936-row head) at full
+    width against the plain versions."""
+    prompts = batch_prompts(cfg)[:n]
+
+    def read(patch):
+        with patched(patch), torch.inference_mode():
+            return prefill_last_logits(dev, cfg, params, fresh_cache(dev, cfg, n),
+                                       prompts).float().cpu()
+
+    plain = read(plain_ops())
+    c0 = read_counts()
+    kernels = read(None)
+    c1 = read_counts()
+    limits = (PREFILL_REL_RMS, PREFILL_MAX_ABS)
+    inv = dict(kernels=compare_logits(kernels, plain),
+               faults={name: compare_logits(read(dict(prefill_attention=f)), plain)
+                       for name, f in planted_k2_faults().items()},
+               launches={k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]},
+               limit=dict(rel_rms=limits[0], max_abs_of_max_logit=limits[1]))
+    log(f"  prefill, kernels vs plain versions: {json.dumps(inv)}")
+    require(prefill_holds(inv["kernels"], limits),
+            f"the prefill through the kernels parts from the plain versions: {inv}")
+    caught = {name: not prefill_holds(r, limits) for name, r in inv["faults"].items()}
+    log(f"  planted K2 faults caught: {caught}")
+    require(all(caught.values()), f"the prefill check misses a planted K2 fault: {caught}")
+    return inv
+
+
+def off_k6_ms(dev, cfg, params, M=FAMILY_DECODE_M):
+    """Each packed projection the routing rule keeps off K6 at M rows (the
+    W4A16 dual dot in plain PyTorch, ROADMAP C8's route), timed as a decode
+    step runs it: one call per layer on M random rows, every layer's weight
+    in turn (one pass reads each weight from HBM), captured in one graph.
+    Returns {name: shape, ms a call, ms a step}."""
+    from lite_llama_tpu_torch.quant.qtensor import QTensor, qeinsum, takes_int8_rows
+
+    out = {}
+    for key, w in params["layers"].items():
+        if not (isinstance(w, QTensor) and w.packed) or takes_int8_rows(w.at_layer(0), M):
+            continue
+        L, C = w.q.shape[0], w.q.shape[-2]
+        g = torch.Generator(device=dev).manual_seed(SEED + 17)
+        x = torch.randn((M, C), generator=g, device=dev).to(cfg.dtype)
+        copies = [(x, li) for li in range(L)]
+        ms = graph_ms(lambda x, li, w=w: qeinsum(None, x, w.at_layer(li)), copies)
+        out[key] = dict(C=C, stored_O=w.q.shape[-1], groups=w.scale.shape[-2] if w.grouped else 1,
+                        M=M, ms_per_call=ms, ms_per_step=ms * L)
+    return out
+
+
+def family_run(dev, name, riffle):
+    """One preset of FAMILIES at full width and depth (module docstring,
+    phase 17). Returns (summary, launches of the bf16 paths, of the int4
+    paths)."""
+    from lite_llama_tpu_torch.models import presets
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    t0 = time.perf_counter()
+    cfg = getattr(presets, name)(dtype=torch.bfloat16)
+    L = cfg.num_hidden_layers
+    params = family_params(cfg, dev)
+    qk = 2 * L if getattr(cfg, "qk_norm", False) else 0  # K3 without a residual a step
+    no_res = ("rms_norm_no_residual",)
+    out = dict(model=f"{name}: {cfg.model_type} H={cfg.hidden_size} I={cfg.intermediate_size} "
+                     f"L={L} Nq={cfg.num_attention_heads} Hkv={cfg.num_key_value_heads} "
+                     f"D={cfg.head_dim} V={cfg.vocab_size} tied={cfg.tie_word_embeddings} "
+                     f"bias={cfg.attention_bias} qk_norm={bool(qk)}",
+               reduced=None, params=param_count(params), weight_gb=weight_bytes(params) / 1e9,
+               decode_floor_ms=decode_floor_ms(params))
+    log(f"  {out['model']}: {out['params'] / 1e9:.3f} G parameters, {out['weight_gb']:.3f} GB "
+        f"in bf16, decode floor {out['decode_floor_ms']:.3f} ms a step (the weights read once "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, the tied table once)")
+    seconds = {}
+
+    def no_residual(run, what):
+        """K3 without a residual a decode step: the captured step's kernel
+        nodes (which the counters equal, profile_decode) against 2 x L."""
+        got = run["decode_profile"]["graph_kernel_nodes"]["rms_norm_no_residual"]
+        require(got == qk, f"{name} {what}: {got} launches of K3 without a residual a "
+                           f"decode step in the captured graph, not {qk}")
+        return got
+
+    def invariant(prompts, outs):
+        return check_invariant(dev, cfg, params, prompts[:2], [o.token_ids for o in outs[:2]])
+
+    out["batch"], batch = slice_phase(dev, cfg, params, path=BATCH_PATH + (no_res if qk else ()),
+                                      invariant=invariant,
+                                      absent=FALCON_ABSENT + (() if qk else no_res),
+                                      repeats=FAMILY_RUNS)
+    out["batch"]["no_residual_per_step"] = no_residual(out["batch"], "bf16")
+    free_device()
+    out["prefill_vs_plain"] = prefill_vs_plain(dev, cfg, params)
+    seconds["batch"], t1 = time.perf_counter() - t0, time.perf_counter()
+    out["serving"], serving = serving_phase(dev, cfg, params, path=FALCON_SERVING_PATH,
+                                            profile=False, n_waves=1)
+    free_device()
+    out["serving"]["prefill_invariants"] = prefill_invariants(dev, cfg, params,
+                                                              limits=FAMILY_PREFILL, sides=("a",))
+    free_device()
+    seconds["serving"], t1 = time.perf_counter() - t1, time.perf_counter()
+    bf16 = {k: batch[k] + serving[k] for k in batch}
+
+    qparams = quantize_decoder_params(params, "int4", group_size=128, riffle=riffle)
+    sync(dev)
+    del params
+    free_device()
+    out["int4_layout"] = "riffle" if riffle else "interleaved"
+    out["int4_weight_gb"] = weight_bytes(qparams) / 1e9
+    out["int4_decode_floor_ms"] = decode_floor_ms(qparams)
+
+    def q_invariant(prompts, outs):
+        return check_invariant(dev, cfg, qparams, prompts[:1], [outs[0].token_ids],
+                               kv_quant="int8", faults=planted_k1q_faults(),
+                               limits=(QUANT_INVARIANT_REL_RMS, QUANT_INVARIANT_MAX_ABS),
+                               top1=False)
+
+    out["int4"], int4 = slice_phase(dev, cfg, qparams, G=FAMILY_INT4_GEN,
+                                    engine_kw=dict(kv_quant="int8"),
+                                    path=QUANT_BATCH_PATH + (no_res if qk else ()),
+                                    invariant=q_invariant,
+                                    absent=FALCON_ABSENT + (() if qk else no_res),
+                                    repeats=FAMILY_RUNS)
+    r = out["int4"]
+    r["no_residual_per_step"] = no_residual(r, "int4")
+    r["off_k6"] = off_k6_ms(dev, cfg, qparams)
+    prof = r["decode_profile"]
+    r["k6_per_step"] = dict(launches=prof["quantized_matmul_packed_launches_per_step"],
+                            graph_nodes=prof["graph_kernel_nodes"]["quantized_matmul_packed"],
+                            device_ms=prof["quantized_matmul_packed_device_ms_per_step"])
+    free_device()
+    r["chunked_vs_single_shot"], chunked = int4_chunked_prefill(dev, cfg, qparams)
+    del qparams
+    free_device()
+    seconds["int4"] = time.perf_counter() - t1
+    int4 = {k: int4[k] + chunked[k] for k in int4}
+    ran = {k: bf16[k] + int4[k] for k in bf16}
+    missing = sorted(k for k in set(BATCH_PATH + FALCON_SERVING_PATH + FAMILY_INT4_PATH)
+                     if not ran[k])
+    require(not missing, f"phase 17, {name}: kernels never launched: {missing}")
+    require(not any(ran[k] for k in FALCON_ABSENT), f"phase 17, {name}: K8 launched: {ran}")
+    out["seconds_by_part"] = seconds
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{name}: " + json.dumps(dict(
+        {k: out[k] for k in ("params", "weight_gb", "int4_weight_gb", "decode_floor_ms",
+                             "int4_decode_floor_ms", "seconds_by_part")},
+        decode_ms_per_step=out["batch"]["decode_ms_per_step"],
+        device_ms_per_replay=out["batch"]["replay"]["device_ms_per_replay"],
+        int4_decode_ms_per_step=r["decode_ms_per_step"],
+        int4_device_ms_per_replay=r["replay"]["device_ms_per_replay"],
+        eager_ms_per_step=out["batch"]["graph_gate"]["eager_ms_per_step"],
+        int4_eager_ms_per_step=r["graph_gate"]["eager_ms_per_step"],
+        k6_per_step=r["k6_per_step"], off_k6=r["off_k6"],
+        no_residual_per_step=qk)))
+    return out, bf16, int4
+
+
+def families_phase(dev):
+    """Phase 17: each preset of FAMILIES in turn (module docstring). Returns
+    (summary, {path: launches})."""
+    t0 = time.perf_counter()
+    out, paths = {}, {}
+    for name, riffle in FAMILIES.items():
+        log(f"phase 17: {name}")
+        out[name], paths[name], paths[f"{name}_int4_int8_pool"] = family_run(dev, name, riffle)
+        free_device()
+    out["seconds"] = time.perf_counter() - t0
+    return out, paths
 
 
 # ---------------------------------------------------------------------------
@@ -6069,7 +6413,8 @@ def main() -> int:
                          "dp_bf16", "dp_int4_int8_pool", "cp_bf16", "cp_int8_pool",
                          "mesh_tp2_server", "mesh_tp2_spec", "mesh_dp2_int4_int8_pool_server",
                          "falcon3", "falcon3_fp8_kv", "falcon3_int4_int8_pool",
-                         "mistral_large_2")}
+                         "mistral_large_2",
+                         *(p for f in FAMILIES for p in (f, f"{f}_int4_int8_pool")))}
     if not args.kernels_only:
         from lite_llama_tpu_torch.models.decoder import init_decoder_params
         from lite_llama_tpu_torch.models.presets import llama32_3b
@@ -6163,6 +6508,14 @@ def main() -> int:
         log("Mistral-Large-2: " + json.dumps({k: summary[k] for k in (
             "params", "weight_gb", "reduced", "decode_floor_ms")}))
         log(f"  phase 16 took {summary['seconds']:.1f} s")
+        free_device()
+        log("phase 17: Llama-3.2-1B, Qwen2.5-3B and Qwen3-4B at full width and depth")
+        summary, family_paths = families_phase(dev)
+        by_path.update(family_paths)
+        log("families: " + json.dumps({f: {k: summary[f][k] for k in (
+            "params", "weight_gb", "int4_weight_gb", "decode_floor_ms", "int4_decode_floor_ms",
+            "seconds")} for f in FAMILIES}))
+        log(f"  phase 17 took {summary['seconds']:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -6186,6 +6539,10 @@ def main() -> int:
             entry["no_residual"] = {k: c[k] for k in (
                 "shape", "max_abs_err", "ms", "l2_warm_ms", "eager_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "library")}
+            runs = {path: counts.get("rms_norm_no_residual") for path, counts in by_path.items()
+                    if counts.get("rms_norm_no_residual")}
+            entry["no_residual"].update(launches=None if args.kernels_only else sum(runs.values()),
+                                        launches_by_path=runs)
         kernels.append(entry)
     log(f"chip_smoke: every phase ran in {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -43,7 +43,8 @@ def chunked_prefill_attention(q, k, v, chunk_lens, start_pos, kv_pool, layer, pa
 def launch_counters() -> dict:
     """{name: (launcher, counter attribute)} of every kernel wrapper: each
     adds one to its counter where it launches its kernel. K3 / K4 count
-    apart the launches that also write K6's int8 rows."""
+    apart the launches that also write K6's int8 rows, and K3 those with no
+    residual (``rms_norm``: qwen3's per-head q / k norms)."""
     from . import attention_decode, attention_prefill, norms, qmatmul
 
     launchers = {
@@ -64,6 +65,7 @@ def launch_counters() -> dict:
     out = {k: (fn, "launches") for k, fn in launchers.items()}
     out["rms_norm_int8_rows"] = (norms.launch_rms_norm, "int8_launches")
     out["swiglu_int8_rows"] = (norms.launch_swiglu, "int8_launches")
+    out["rms_norm_no_residual"] = (norms.launch_rms_norm, "no_residual_launches")
     return out
 
 

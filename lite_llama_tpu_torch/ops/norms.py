@@ -104,11 +104,13 @@ def launch_rms_norm(x, residual, weight, eps, int8_rows=False):
         _build.check(lib, code, "norms_rms")
         launch_rms_norm.launches += 1
         launch_rms_norm.int8_launches += int8_rows
+        launch_rms_norm.no_residual_launches += residual is None
     return (out if xi is None else QuantizedRows(out, xi, xs)), (x if res is None else res)
 
 
 launch_rms_norm.launches = 0
 launch_rms_norm.int8_launches = 0  # those of them that wrote int8 rows too
+launch_rms_norm.no_residual_launches = 0  # those with no residual (qwen3's q / k norms)
 
 
 def launch_swiglu(gate, up, int8_rows=False):

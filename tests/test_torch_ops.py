@@ -289,6 +289,7 @@ def test_launch_counters_name_every_wrapper_and_add_a_replays_launches():
     counters = launch_counters()
     assert counters["paged_flash_decode"] == (launch_paged_decode, "launches")
     assert counters["rms_norm_int8_rows"] == (norms.launch_rms_norm, "int8_launches")
+    assert counters["rms_norm_no_residual"] == (norms.launch_rms_norm, "no_residual_launches")
     assert len({(id(fn), attr) for fn, attr in counters.values()}) == len(counters)
     before = launch_counts()
     try:
