@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 1-3 only, no final "ok" line
+    python3 chip_smoke.py --int4-steps parent_tree  # int4 decode steps, parent vs this
 
 Phases, in order; any failure exits non-zero:
 1. Device: refuse to run without CUDA (there is no CPU fallback); print the
@@ -39,7 +40,16 @@ Phases, in order; any failure exits non-zero:
    riffle wqkv, gate_up, o_proj and head (C 2560 and 4096) and Qwen2.5-3B's
    interleaved gate_up and head, bit-equal), each main case with a planted
    fault (another request's pages, or keys and values) that must fail the
-   tolerance. Every even head dim from 16 to 128, and 256, with up to 16
+   tolerance; K9 (the W4A16 grouped matmul under 512 rows, which replaces
+   no Pallas kernel) at W4A16_SHAPES: the down projections the routing
+   rule keeps off K6 at 12 rows (Qwen2.5-3B, Qwen3-4B, Falcon3-7B,
+   Vicuna-7B), the 3B gate_up at phase 6's 300-row prefill in the riffle
+   and σ layouts, a tp 2 rank's down shard there and Qwen2.5-3B's
+   interleaved gate_up (two stacks), each within W4A16_REL of its plain
+   version in fp32 and the bf16 limit after the cast, two launches bit for
+   bit, K6's planted faults beyond W4A16_REL, cuBLAS bf16 on the
+   dequantized weight as the library call. Every even head dim from 16 to
+   128, and 256, with up to 16
    query heads per kv head is taken; others raise. Max abs error against the
    stated tolerance, device time from CUDA events with the inputs rotated
    through HBM (and, beside it, replayed warm in L2), the least time the
@@ -138,7 +148,15 @@ Phases, in order; any failure exits non-zero:
    K2's inputs; one serving wave (prefix cache on, prefill_chunk 512) of 8
    image and 8 text requests behind one 256-token prefix that a warm-up
    request registered: K2 runs for the image sub-batches, K5 for the text
-   tails, and exactly the 8 text requests hit the prefix cache.
+   tails, and exactly the 8 text requests hit the prefix cache. Then the
+   same weights with the LM quantized to int4 g128 (interleaved; the tower
+   and projector bf16) on an int8 pool (llava_int4_run): the batch of four
+   image requests and one text request once (K6, K9 on down, K1q-int8, K2,
+   K3, K4), its prefill and decode step timed apart, 32 K9 launches a
+   decode step in the captured graph, the graph-vs-eager gate, decode vs
+   re-prefill of the text request with K1q faults, and the five prompts'
+   first-token logits as text through the kernels against the plain
+   versions with K6 and K9 faults.
 10. Speculative decoding (spec_phase): Llama-3.2-3B at full width and
    depth, eos off, phase 4's 12 prompts, greedy, 256 new, prompt-lookup
    drafts (n-gram 3) through SpeculativeTextGenerator with chunk_steps 8
@@ -233,11 +251,12 @@ Phases, in order; any failure exits non-zero:
    invariant with K1 faults; one serving wave (phase 5's wave 1, prefix
    cache on, chunk 512: K5) and the chunked-vs-single-shot invariant with
    K5 faults; phase 6's fp8-pool decode (K5q-fp8, K1q-fp8); then int4 g128
-   riffle weights on an int8 pool: the batch run (64 new tokens; K6,
-   K1q-int8) with its decode invariant and K1q faults, and two 1500-token
-   prompts chunked through K5q-int8 against a single-shot prefill. It
-   prints the decode floor (the weights but the embedding table read once
-   at 3.35 TB/s) and its seconds by part.
+   riffle weights on an int8 pool: the batch run (64 new tokens; K6, K9
+   on down, K1q-int8) with its decode invariant and K1q faults, its step
+   beside the bf16 step and K9's 28 launches a step in the captured graph,
+   and two 1500-token prompts chunked through K5q-int8 against a
+   single-shot prefill. It prints the decode floor (the weights but the
+   embedding table read once at 3.35 TB/s) and its seconds by part.
 16. Mistral-Large-2 (mistral_phase): Mistral-Large-Instruct-2407's
    published widths (hidden 12288, intermediate 28672, 96 heads over 8 kv
    heads, G 12, vocab 32768, rope_theta 1e6) at 4 of its 88 layers
@@ -256,9 +275,13 @@ Phases, in order; any failure exits non-zero:
    K2 faults; one serving wave (prefix cache on, chunk 512: K5) and the
    chunked-vs-single-shot invariant with K5 faults (within FAMILY_PREFILL,
    tighter than phase 5's limit); then int4 g128 on an int8 pool (riffle,
-   interleaved for Qwen2.5-3B, whose flat gate_up riffle refuses): the batch run at 64 new tokens (K6, K1q-int8) with its decode
-   invariant and K1q faults, the projections the routing rule keeps off K6
-   timed (the Qwens' down, W4A16), and two 1500-token prompts chunked
+   interleaved for Qwen2.5-3B, whose flat gate_up riffle refuses): the
+   batch run at 64 new tokens (K6, K9, K1q-int8) with its decode
+   invariant and K1q faults, its step beside the bf16 step and K9's
+   launches a step in the captured graph (the Qwens' down: 36; 0 on
+   Llama-3.2-1B, whose K9 runs in the prefill only), the projections the
+   routing rule keeps off K6 timed (off_k6_ms: the Qwens' down through K9),
+   and two 1500-token prompts chunked
    through K5q-int8 against a single-shot prefill. On Qwen3-4B K3 without
    a residual must run 72 times a decode step (2 a layer) in the captured
    graph, on the others never. Each model prints its parameters, GB in
@@ -324,6 +347,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -394,6 +418,7 @@ DEVICE_KERNELS = {
     "swiglu_int8_rows": r"rows(_loop)?_kernel<1,",
     "quantized_matmul_packed": r"qmm_kernel",
     "quantize_rows": r"quantize_rows_kernel",
+    "quantized_matmul_w4a16": r"w4a16_kernel",
 }
 KERNELS = {
     "paged_flash_decode": dict(
@@ -438,6 +463,11 @@ KERNELS = {
         route="cuda", source="lite_llama_tpu_torch/csrc/flash_prefill_chunked.cu",
         replaces="lite_llama_tpu/ops/attention_prefill.py:376",
         branch="head dims that do not pack into 128 lanes (flash_prefill, :628-637)"),
+    "quantized_matmul_w4a16": dict(
+        route="cuda", source="lite_llama_tpu_torch/csrc/qmatmul.cu",
+        replaces="no Pallas kernel: JAX's XLA dot_general, lite_llama_tpu/quant/qtensor.py:639",
+        branch="packed int4 with grouped scales under 512 rows, off K6 (qeinsum's small-M "
+               "grouped branch, :639-665)"),
 }
 # The kernels each main path must launch: batch generation of short prompts
 # (phase 4) and serving (phase 5; K2 runs there only for a prompt batch
@@ -448,7 +478,7 @@ SERVING_PATH = ("paged_flash_decode", "rms_norm", "swiglu", "flash_prefill_chunk
 # weights with an fp8 pool. K7 runs in phase 3 only: as in the JAX package,
 # no model path routes to it.
 QUANT_BATCH_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8", "flash_prefill",
-                    "rms_norm", "swiglu")
+                    "rms_norm", "swiglu", "quantized_matmul_w4a16")  # K9: the 12 x 25 prefill
 QUANT_SERVING_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8", "rms_norm", "swiglu",
                       "flash_prefill_chunked_int8")
 FP8_KV_PATH = ("flash_prefill_chunked_fp8", "paged_flash_decode_fp8")
@@ -549,6 +579,26 @@ QMM_FAMILY_SHAPES = {
     "qwen2.5-3b gate_up": (2048, 11008, False, False),
     "qwen2.5-3b lm_head": (2048, 151936, True, False),
 }
+# K9's shapes (the W4A16 grouped matmul under 512 rows): (C, logical O per
+# stack, stacks, rows, layout). The four down projections the routing rule
+# keeps off K6 at decode (86, 76, 180 and 86 groups of 128), Llama-3.2-3B's
+# flat riffle gate_up at phase 6's 12 x 25 prefill (the main case of the
+# prefill side), a tp 2 rank's down shard ("contract") at that prefill
+# (phase 11), Qwen2.5-3B's and Vicuna-7B's interleaved gate_up (two stacks,
+# 11008 padded to 11264 columns) and Llama-3.2-3B's σ gate_up there. The
+# interleaved and σ cases also hold qeinsum's whole product (the halves put
+# in the layout's column order) against its plain route.
+W4A16_SHAPES = {
+    "qwen2.5-3b down": (11008, 2048, 1, 12, "riffle"),
+    "qwen3-4b down": (9728, 2560, 1, 12, "riffle"),
+    "falcon3-7b down": (23040, 3072, 1, 12, "riffle"),
+    "vicuna-7b down": (11008, 4096, 1, 12, "interleaved"),
+    "llama-3.2-3b gate_up M300": (3072, 16384, 1, 300, "riffle"),
+    "llama-3.2-3b down tp2 M300": (4096, 3072, 1, 300, "riffle"),
+    "qwen2.5-3b gate_up M300": (2048, 11008, 2, 300, "interleaved"),
+    "llama-3.2-3b gate_up sigma M300": (3072, 16384, 1, 300, "sigma"),
+}
+W4A16_REL = 1e-5  # max |K9 - plain| / max |plain| in fp32: the same products, another order
 
 
 def log(*a):
@@ -1650,6 +1700,94 @@ def qmm_case(name, M, riffle=True, packed=True, timed=True, gs=128):
                         "bf16 product the quantization replaces)")
 
 
+def w4a16_launch_info(C, nG, Os, stacks, M):
+    """K9's launch at this shape: row tiles per block, splits of the groups,
+    grid, dynamic shared memory (from the built library) and the instance's
+    ptxas report."""
+    import ctypes
+
+    from lite_llama_tpu_torch.ops import _build
+    from lite_llama_tpu_torch.ops import qmatmul as qmm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    MT, S = qmm.plan_w4a16(C, nG, Os, stacks, M, sms)
+    lib = _build.library("qmatmul", "qmm_w4a16_smem_bytes", [ctypes.c_int])
+    ptxas = [v for k, v in ptxas_report("qmatmul").items() if f"w4a16_kernelILi{MT}E" in k]
+    return dict(row_tiles_of_16=MT, splits=S, split_groups=qmm.w4a16_split_groups(nG, S),
+                grid=[S, stacks * -(-Os // 64), -(-M // (16 * MT))],
+                smem_bytes=lib.qmm_w4a16_smem_bytes(MT), ptxas=ptxas[0] if ptxas else "not found")
+
+
+def w4a16_case(name, timed=True):
+    """K9 at W4A16_SHAPES[name]: the port's int4 g128 weight from seeded bf16
+    weights, K9 against its plain version (fp32, within W4A16_REL of the
+    largest output, and within the bf16 limit after the cast), two launches
+    bit-equal, every planted fault (K6's: scale rows shifted one group,
+    nibble halves swapped, the neighbouring pair's scale) beyond W4A16_REL;
+    the interleaved and σ cases also through qeinsum against its plain route
+    in bf16. Timed against its bound, the plain version (eager) and cuBLAS
+    bf16 on the dequantized weight (the product the quantization replaces;
+    timed here only)."""
+    import dataclasses as dc
+
+    from lite_llama_tpu_torch.ops import qmatmul as qmm
+    from lite_llama_tpu_torch.quant.qtensor import qeinsum, quantize
+
+    C, O, stacks, M, layout = W4A16_SHAPES[name]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    w = torch.randn((stacks, C, O), generator=g, device=dev).mul_(0.02).bfloat16()
+    qt = quantize(w, (1,), "int4", group_size=128, riffle_blocks=int(layout == "riffle"))
+    del w
+    if layout == "sigma":
+        qt = dc.replace(qt, sigma_out=True)
+    x = torch.randn((M, C), generator=g, device=dev).bfloat16()
+    args = (x, qt.q, qt.scale)
+    got, again = qmm.quantized_matmul_w4a16(*args), qmm.quantized_matmul_w4a16(*args)
+    want = qmm.quantized_matmul_w4a16_plain(*args)
+    torch.cuda.synchronize()
+
+    def rel(a):
+        return float((a - want).abs().max() / want.abs().max())
+
+    err, bf16_ok = max_err(got.bfloat16(), want.bfloat16())
+    Os, nG = qt.q.shape[-1], qt.scale.shape[-2]
+    rec = dict(shape=f"{name} M={M} C={C} O={O} stacks={stacks} stored={Os} groups={nG} "
+                     f"int4 {layout} out=fp32",
+               max_abs_err=float((got - want).abs().max()), rel_err=rel(got),
+               tolerance=f"max|K9 - plain| <= {W4A16_REL} * max|plain| (fp32), and "
+                         f"|err| <= {ATOL} + {RTOL}*|plain| after the cast to bf16",
+               bit_equal=bool(torch.equal(got, again)), bf16_max_abs_err=err,
+               launch=w4a16_launch_info(C, nG, Os, stacks, M))
+    rec["ok"] = rec["rel_err"] <= W4A16_REL and bf16_ok and rec["bit_equal"]
+    if layout != "riffle":  # the layout's recombination, through qeinsum
+        y = qeinsum(None, x, qt)
+        with patched(dict(quantized_matmul_w4a16=qmm.quantized_matmul_w4a16_plain)):
+            y_plain = qeinsum(None, x, qt)
+        lerr, lok = max_err(y, y_plain)
+        rec["qeinsum_max_abs_err"], rec["ok"] = lerr, rec["ok"] and lok
+    rec["faults"] = {}
+    for fname, fault in planted_k6_faults().items():
+        fq, fs = fault(qt.q, qt.scale)
+        r = rel(qmm.quantized_matmul_w4a16(x, fq.contiguous(), fs.contiguous()))
+        rec["faults"][fname] = dict(rel_err=r, caught=r > W4A16_REL)
+        rec["ok"] = rec["ok"] and r > W4A16_REL
+    if not timed:
+        return rec
+    out_bytes = M * stacks * 2 * Os * 4
+    bytes_moved = M * C * 2 + qt.q.numel() + qt.scale.numel() * 4 + out_bytes
+    t_bound, by = bound(bytes_moved, 2 * M * C * O * stacks)
+    wd = qt.dequant(torch.bfloat16).reshape(stacks, C, O).permute(1, 0, 2).reshape(
+        C, stacks * O).contiguous()  # the bf16 product it replaces
+    t = timings(qmm.quantized_matmul_w4a16, qmm.quantized_matmul_w4a16_plain, args, bytes_moved,
+                (lambda x, w: x @ w, (x, wd), M * C * 2 + wd.numel() * 2 + M * O * stacks * 2),
+                plain_in_graph=False)
+    del wd
+    return dict(rec, model=name.split(" ")[0], **t, bound_ms=t_bound, bound_by=by,
+                library="torch.matmul in bf16 on the dequantized weight (cuBLAS; the bf16 "
+                        "product the quantization replaces)")
+
+
 def kernel_phase():
     """Returns {kernel: [cases]}; the first case of each is the main path's
     own shape (Llama-3.2-3B decode step, its 12 x 25-token prefill, or the
@@ -1777,6 +1915,8 @@ def kernel_phase():
             qmm_case("o_proj", 12, packed=False, gs=48, timed=False),
             *(qmm_case(n, 12, packed=False, timed=False) for n in QMM_TP2_SHAPES),  # phase 11
         ],
+        # K9: Qwen2.5-3B's down at decode first (phase 17's main int4 path)
+        "quantized_matmul_w4a16": [w4a16_case(n) for n in W4A16_SHAPES],
     }
     for kv in ("int8", "fp8"):
         cases[f"paged_flash_decode_{kv}"] = [
@@ -1833,6 +1973,9 @@ def kernel_phase():
                 line += f" library_kernels={c['library_kernels']}"
             for k in (k for k in c if k.endswith("bit_equal")):
                 line += f" {k}={c[k]}"
+            for k in ("rel_err", "bf16_max_abs_err", "qeinsum_max_abs_err"):
+                if k in c:
+                    line += f" {k}={c[k]:.3e}"
             if "faults" in c:
                 line += f" faults={json.dumps(c['faults'])}"
             if "launch" in c:
@@ -1873,7 +2016,7 @@ def reset_counts():
 
 def plain_ops():
     """The decoder's kernel ops replaced by their plain versions (ops/ref.py,
-    and K6's in ops/qmatmul.py), patched in by this script only: the
+    and K6's and K9's in ops/qmatmul.py), patched in by this script only: the
     invariants' reading when no kernel runs, the floor their limits sit
     above."""
     from lite_llama_tpu_torch.ops import norms, qmatmul, ref
@@ -1886,13 +2029,14 @@ def plain_ops():
                 chunked_prefill_attention=ref.chunked_prefill_attention,
                 rms_norm=ref.rms_norm, skip_rms_norm=norms.skip_rms_norm_plain,
                 swiglu=norms.swiglu_plain,
-                quantized_matmul_packed=qmatmul.quantized_matmul_packed_plain)
+                quantized_matmul_packed=qmatmul.quantized_matmul_packed_plain,
+                quantized_matmul_w4a16=qmatmul.quantized_matmul_w4a16_plain)
 
 
 @contextlib.contextmanager
 def patched(patch):
-    """Replace ops of ``lite_llama_tpu_torch.ops`` (and the W4A8 matmul that
-    ``quant/qtensor.py`` routes to) for the duration; ``None`` patches
+    """Replace ops of ``lite_llama_tpu_torch.ops`` (and the W4A8 and W4A16
+    matmuls that ``quant/qtensor.py`` routes to) for the duration; ``None`` patches
     nothing. A decode graph captured before the patch keeps the kernels it
     captured: patched readings capture their own (``_decode_vs_reprefill``)
     or run eager code (prefills)."""
@@ -1902,7 +2046,8 @@ def patched(patch):
     from lite_llama_tpu_torch.quant import qtensor
 
     patch = dict(patch or {})
-    qmm = {k: patch.pop(k) for k in ("quantized_matmul_packed",) if k in patch}
+    qmm = {k: patch.pop(k) for k in ("quantized_matmul_packed", "quantized_matmul_w4a16")
+           if k in patch}
     with contextlib.ExitStack() as stack:
         if patch:
             stack.enter_context(mock.patch.multiple(ops, **patch))
@@ -2459,7 +2604,8 @@ def timed_decode(engine, prompts, sampling, max_total, G, pixel_values=None):
 
 
 def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_PATH,
-                invariant=None, absent=(), repeats=(GEN_REPEATS, SPLIT_REPEATS, EAGER_REPEATS)):
+                invariant=None, absent=(), repeats=(GEN_REPEATS, SPLIT_REPEATS, EAGER_REPEATS),
+                prefill_only=()):
     """Llama-3.2-3B (or another ``cfg``, ``params``) through InferenceEngine +
     TextGenerator on ``dev``: B prompts of P random ids, greedy,
     max_gen_len G. ``engine_kw`` goes to the engine (a quantized pool),
@@ -2474,7 +2620,8 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
     generate_tokens run holds the prefill's launches and each replay's;
     launches per decode step come from the captured step's kernel nodes
     (which the counters must equal) and the device events of a profiled
-    decode, and every decode kernel of ``path`` must be among them."""
+    decode, and every decode kernel of ``path`` must be among them, but those
+    of ``prefill_only`` (K9 where every projection takes K6 at decode)."""
     from lite_llama_tpu_torch.executor.engine import InferenceEngine
     from lite_llama_tpu_torch.generation.generate import TextGenerator
     from lite_llama_tpu_torch.generation.sampling import SamplingParams
@@ -2550,7 +2697,8 @@ def slice_phase(dev, cfg, params, B=12, P=25, G=128, engine_kw=None, path=BATCH_
                 f"{ms:.4f} of {prof['device_ms_per_step']:.4f}, {per_step[name]:.2f} launches")
     if prof["device_ms"] is not None:  # against the decode steps timed without the profiler
         prof["device_busy_share"] = prof["device_ms"] / prof["steps"] / decode_ms_per_step
-    unseen = [k for k in path if k in DEVICE_KERNELS and not per_step[k]]
+    unseen = [k for k in path if k in DEVICE_KERNELS and k not in prefill_only
+              and not per_step[k]]
     require(not unseen, f"decode kernels absent from the replayed steps' device events: {unseen}")
 
     replay = replay_costs(engine, B)
@@ -2910,6 +3058,21 @@ def planted_k1q_faults():
             "the neighbouring head's scale": neighbour_head}
 
 
+def planted_k9_patches():
+    """Each planted K6 fault handed to K9 instead, as a replacement of the
+    W4A16 matmul that qeinsum routes to under 512 rows."""
+    from lite_llama_tpu_torch.ops.qmatmul import quantized_matmul_w4a16 as k9
+
+    def make(fault):
+        def run(x, q, scale):
+            fq, fs = fault(q, scale)
+            return k9(x, fq.contiguous(), fs.contiguous())
+        return run
+
+    return {f"K9: {name}": dict(quantized_matmul_w4a16=make(f))
+            for name, f in planted_k6_faults().items()}
+
+
 def planted_k6_patches():
     """Each planted K6 fault as a replacement of the W4A8 matmul that
     qeinsum routes to: the fault applied to the layer the call reads."""
@@ -2925,29 +3088,34 @@ def planted_k6_patches():
     return {name: dict(quantized_matmul_packed=make(f)) for name, f in planted_k6_faults().items()}
 
 
-def logits_invariant(dev, cfg, qparams, prompts, bf16_logits):
+def logits_invariant(dev, cfg, qparams, prompts, bf16_logits, faults=None,
+                     limits=(QLOGITS_REL_RMS, QLOGITS_MAX_ABS)):
     """Last-token logits of the int4 model (every projection through K6:
-    the prompts are at most 256 rows) through the kernels against the plain
-    versions; the kernels must hold the limit, every K6 fault must break
-    it. The distance to the bf16 model's logits is reported, with no limit
-    (random weights say little about quantization error)."""
+    the prompts are at most 256 rows; but those the routing rule keeps off
+    it, through K9) through the kernels against the plain versions; the
+    kernels must hold the limit, every planted fault (default K6's) must
+    break it. The distance to the bf16 model's logits is reported, with no
+    limit (random weights say little about quantization error)."""
     def read(patch):
         with patched(patch), torch.inference_mode():
             return prefill_last_logits(dev, cfg, qparams,
                                        fresh_cache(dev, cfg, len(prompts), "int8"),
                                        prompts).float().cpu()
 
+    c0 = read_counts()
     kernels = read(None)
+    c1 = read_counts()
     inv = dict(plain=compare_logits(kernels, read(plain_ops())),
-               faults={n: compare_logits(read(p), kernels) for n, p in planted_k6_patches().items()},
+               faults={n: compare_logits(read(p), kernels)
+                       for n, p in (faults or planted_k6_patches()).items()},
                vs_bf16_model=compare_logits(kernels, bf16_logits),
-               limit=dict(rel_rms=QLOGITS_REL_RMS, max_abs_of_max_logit=QLOGITS_MAX_ABS))
+               launches={k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]},
+               limit=dict(rel_rms=limits[0], max_abs_of_max_logit=limits[1]))
     log(f"  int4 last-token logits: {json.dumps(inv)}")
-    limits = (QLOGITS_REL_RMS, QLOGITS_MAX_ABS)
     require(prefill_holds(inv["plain"], limits), f"kernels and plain versions disagree: {inv}")
     caught = {n: not prefill_holds(r, limits) for n, r in inv["faults"].items()}
-    log(f"  K6 planted faults caught: {caught}")
-    require(all(caught.values()), f"the logits invariant misses a planted K6 fault: {caught}")
+    log(f"  planted faults caught: {caught}")
+    require(all(caught.values()), f"the logits invariant misses a planted fault: {caught}")
     return inv
 
 
@@ -2999,14 +3167,16 @@ def quantized_phase(dev, cfg, qparams, bf16_logits):
 
     out = {}
     out["batch"], batch = slice_phase(dev, cfg, qparams, engine_kw=dict(kv_quant="int8"),
-                                      path=QUANT_BATCH_PATH, invariant=invariant)
+                                      path=QUANT_BATCH_PATH, invariant=invariant,
+                                      prefill_only=("quantized_matmul_w4a16",))
     log("quantized slice: " + json.dumps(out["batch"]))
     # K3 / K4 write the int8 rows of wqkv, gate_up, down and the head; K6's
     # own quantizer runs for o_proj alone. Counted from the device events of
     # the profiled replays (slice_phase).
     L = cfg.num_hidden_layers
     step = out["batch"]["launches_per_decode_step"]
-    want = dict(quantize_rows=L, rms_norm_int8_rows=2 * L + 1, swiglu_int8_rows=L)
+    want = dict(quantize_rows=L, rms_norm_int8_rows=2 * L + 1, swiglu_int8_rows=L,
+                quantized_matmul_w4a16=0)  # K9 in the prefill only: all of decode on K6
     got = {k: step[k] for k in want}
     log(f"  launches per int4 decode step: {got} (want {want})")
     require(got == want, f"int8-row launches per int4 decode step {got}, want {want}")
@@ -3614,6 +3784,16 @@ LLAVA_REPEATS = 2  # batch runs timed, and prefill + decode runs (and eager deco
 # 0.835. The limits sit near the geometric mean of the relative RMS
 # readings, ~3-4x from either side.
 LLAVA_PREFILL = (0.12, 0.12)
+# The LLaVA int4 run (its LM int4 g128 interleaved, an int8 pool): K6 takes
+# wqkv, o_proj, gate_up and the head at decode, K9 down (86 groups); K9 also
+# runs in the text prefill of the logits reading, K2 for the multimodal one.
+LLAVA_INT4_PATH = ("quantized_matmul_packed", "quantized_matmul_w4a16",
+                   "paged_flash_decode_int8", "flash_prefill", "rms_norm", "swiglu")
+# Its limits: decode vs re-prefill of the text request (K1q faults) within
+# the quantized decode invariant's (QUANT_INVARIANT_*); the first-token
+# logits of the five prompts as text, kernels against the plain versions
+# (K6 and K9 faults), relative RMS and max |difference| over max |logit|.
+LLAVA_INT4_LOGITS = (QLOGITS_REL_RMS, QLOGITS_MAX_ABS)
 
 
 def llava_hf_state_dict(cfg, dev):
@@ -3879,6 +4059,86 @@ def llava_serving(dev, cfg, params):
     return rec, launches
 
 
+def llava_int4_run(dev, cfg, params, prompts, px):
+    """LLaVA-1.5-7B with phase 9's weights, its LM quantized to int4 g128
+    (interleaved: riffle refuses Vicuna's ffn width 11008 in both packages;
+    the tower and the projector stay bf16), on an int8 pool: the phase's
+    four image requests and one text request (greedy, 64 new) through
+    LlavaTextGenerator, timed once (LLAVA_INT4_PATH must launch); the
+    multimodal prefill and the decode step timed apart; a profiled decode
+    (K9 one a layer a step in the captured graph, the counters equal to its
+    nodes); the graph-vs-eager gate after a multimodal prefill; decode vs
+    re-prefill of the text request with K1q faults; the first-token logits
+    of the five prompts as text (their 195 rows: down on K9, the rest on K6)
+    through the kernels against the plain versions, with K6 and K9 faults.
+    Returns (summary, launches of the batch run)."""
+    from lite_llama_tpu_torch.executor.llava_engine import LlavaEngine
+    from lite_llama_tpu_torch.generation.llava_generate import LlavaTextGenerator
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    t_run = time.perf_counter()
+    text = [[t for t in p if t != cfg.image_token_index] for p in prompts]
+    with torch.inference_mode():
+        bf16_logits = prefill_last_logits(dev, cfg, params["lm"], fresh_cache(dev, cfg, len(text)),
+                                          text).float().cpu()
+    t0 = time.perf_counter()
+    lm = quantize_decoder_params(params["lm"], "int4", group_size=128)
+    sync(dev)
+    out = dict(quantize_s=time.perf_counter() - t0, lm_gb=weight_bytes(params["lm"]) / 1e9,
+               int4_lm_gb=weight_bytes(lm) / 1e9, layout="interleaved", kv="int8")
+    engine = LlavaEngine(cfg, dict(params, lm=lm), device=dev, kv_quant="int8", max_reqs=8,
+                         page_size=16, decode_chunk=32)
+    gen = LlavaTextGenerator(engine)
+    B = len(prompts)
+    llava_streamed(gen, prompts, px, 4)  # warm-up: the decode graph of width 5 is captured
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    outs = llava_streamed(gen, prompts, px, LLAVA_GEN)
+    sync(dev)
+    out["generate_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    missing = [k for k in LLAVA_INT4_PATH if launches[k] == 0]
+    log(f"  LLaVA int4 batch: launches {launches}")
+    require(not missing, f"kernels never launched on the LLaVA int4 path: {missing}")
+    for o in outs:
+        require(1 <= len(o) <= LLAVA_GEN and all(0 <= t < cfg.vocab_size for t in o),
+                "LLaVA int4 output out of range")
+    out["tokens"] = sum(len(o) for o in outs)
+    out["tokens_per_s"] = out["tokens"] / out["generate_s"]
+    exp = engine.expanded_lens(prompts)
+    sampling = SamplingParams.make(B, temperature=0.0, device=dev)
+    out["prefill_ms"], out["decode_ms_per_step"], out["decode_steps"], _, _ = timed_decode(
+        engine, prompts, sampling, [n + LLAVA_GEN for n in exp], LLAVA_GEN, pixel_values=px)
+    out["replay"] = replay_costs(engine, B)
+    prof = profile_decode(engine, text)
+    out["decode_profile"] = prof
+    want = k9_per_step(lm, B)
+    out["k9_per_step"] = dict(graph_nodes=prof["graph_kernel_nodes"]["quantized_matmul_w4a16"],
+                              want=want,
+                              device_ms=prof["quantized_matmul_w4a16_device_ms_per_step"])
+    log("  LLaVA int4 decode: " + json.dumps({k: out[k] for k in (
+        "prefill_ms", "decode_ms_per_step", "replay", "k9_per_step")}))
+    require(out["k9_per_step"]["graph_nodes"] == want,
+            f"LLaVA int4: K9 nodes a decode step {out['k9_per_step']}")
+    out["graph_gate"] = graph_gate(engine, prompts, pixel_values=px)
+    del engine, gen
+    free_device()
+    out["decode_vs_reprefill"] = check_invariant(
+        dev, cfg, lm, [text[-1]], [outs[-1]], kv_quant="int8", faults=planted_k1q_faults(),
+        limits=(QUANT_INVARIANT_REL_RMS, QUANT_INVARIANT_MAX_ABS), top1=False)
+    out["logits"] = logits_invariant(dev, cfg, lm, text, bf16_logits,
+                                     faults={**planted_k6_patches(), **planted_k9_patches()},
+                                     limits=LLAVA_INT4_LOGITS)
+    require(out["logits"]["launches"].get("quantized_matmul_w4a16"),
+            "the LLaVA int4 logits reading never launched K9")
+    out["outputs_head"] = [o[:4] for o in outs]
+    out["seconds"] = time.perf_counter() - t_run
+    del lm
+    return out, launches
+
+
 def llava_phase(dev):
     """LLaVA-1.5-7B at full width and depth: seeded random bf16 weights under
     HF's key names converted on the card by params_from_hf_state_dict; a
@@ -3978,12 +4238,17 @@ def llava_phase(dev):
     del engine, gen
     free_device()
     out["serving"], serving = llava_serving(dev, cfg, params)
+    free_device()
+    out["int4"], int4 = llava_int4_run(dev, cfg, params, prompts, px)
+    out["int4"]["over_bf16_decode"] = (out["int4"]["decode_ms_per_step"]
+                                       / float(np.median(decode_ms)))
     del params
     free_device()
     out["seconds"] = time.perf_counter() - t_phase
     log("LLaVA phase: " + json.dumps(out))
     require(not problems, f"phase 9 invariant failed: {problems}")
-    return out, {k: launches[k] + serving[k] for k in KERNELS}
+    return out, {"llava": {k: launches[k] + serving[k] for k in KERNELS},
+                 "llava_int4_int8_pool": {k: int4[k] for k in KERNELS}}
 
 
 # ---------------------------------------------------------------------------
@@ -4533,7 +4798,7 @@ TP_PATH_KERNELS = {
     "bf16": ("paged_flash_decode", "flash_prefill", "rms_norm", "swiglu"),
     "int8_pool": ("paged_flash_decode_int8", "flash_prefill", "rms_norm", "swiglu"),
     "int4_riffle_tp2": ("quantized_matmul_packed", "paged_flash_decode_int8", "flash_prefill",
-                        "rms_norm", "swiglu"),
+                        "rms_norm", "swiglu", "quantized_matmul_w4a16"),  # K9: 300-row prefill
 }
 TP_ENGINE = dict(page_size=16, max_reqs=16, num_pages=256, decode_chunk=32)
 # The logits gate, relative RMS of tp 2's logits against tp 1's on the same
@@ -5904,15 +6169,14 @@ def mesh_phase(dev):
 FALCON_BATCH_PATH = ("paged_flash_decode", "flash_prefill", "rms_norm", "swiglu")
 FALCON_SERVING_PATH = ("paged_flash_decode", "flash_prefill_chunked", "rms_norm", "swiglu")
 FALCON_INT4_BATCH_PATH = ("quantized_matmul_packed", "paged_flash_decode_int8",
-                          "flash_prefill", "rms_norm", "swiglu")
+                          "flash_prefill", "rms_norm", "swiglu", "quantized_matmul_w4a16")
 FALCON_ABSENT = ("flash_prefill_vmem",)
 FALCON_REPEATS = (2, 3, 1)  # as phase 7's: timed runs, prefill + decode runs, eager runs
 SINGLE_RUNS = (1, 1, 1)  # phase 15's int4 run and phase 16's: one run of each kind
 # Phase 17's: one timed run and one prefill + decode run, no eager decode run
 # (graph_gate's eager run gives the eager ms a step beside the replayed one).
 FAMILY_RUNS = (1, 1, 0)
-# New tokens of phase 15's int4 run: its W4A16 down projection (ROADMAP C8)
-# makes a step 3x bf16's, and its decode invariant reads 63 eager steps.
+# New tokens of phase 15's int4 run (and its decode invariant's 63 steps).
 FALCON_INT4_GEN = 64
 # Phase 15's limits (relative RMS, max |difference| over max |logit|), each
 # set between the plain versions' reading and the smallest planted fault, as
@@ -5986,6 +6250,41 @@ def decode_floor_ms(params):
     return (weight_bytes(params) - left_out) / HBM_BYTES_PER_S * 1e3
 
 
+def k9_per_step(qparams, M):
+    """K9's launches in a decode step of M rows: one a layer for each packed
+    projection with grouped scales that the routing rule keeps off K6 at M
+    rows (an interleaved gate_up's two stacks are one call), and the head's
+    if it is off K6 too."""
+    from lite_llama_tpu_torch.quant.qtensor import QTensor, takes_int8_rows
+
+    def off(w):
+        return isinstance(w, QTensor) and w.packed and w.grouped and not takes_int8_rows(w, M)
+
+    n = sum(w.q.shape[0] for w in qparams["layers"].values()
+            if isinstance(w, QTensor) and off(w.at_layer(0)))
+    return n + int(off(qparams.get("lm_head")))
+
+
+def int4_step_record(name, bf16, int4, want_k9):
+    """The int4 + int8-pool decode step beside the bf16 step of the same
+    model in this run (replayed, ms a step and device ms a replay), and K9's
+    launches a step: the captured graph's nodes, which the counters equal
+    (profile_decode), against ``want_k9``."""
+    nodes = int4["decode_profile"]["graph_kernel_nodes"]["quantized_matmul_w4a16"]
+    rec = dict(bf16_ms_per_step=bf16["decode_ms_per_step"],
+               int4_ms_per_step=int4["decode_ms_per_step"],
+               int4_over_bf16=int4["decode_ms_per_step"] / bf16["decode_ms_per_step"],
+               bf16_device_ms_per_replay=bf16["replay"]["device_ms_per_replay"],
+               int4_device_ms_per_replay=int4["replay"]["device_ms_per_replay"],
+               k9_graph_nodes_per_step=nodes, k9_want=want_k9,
+               k9_device_ms_per_step=int4["decode_profile"][
+                   "quantized_matmul_w4a16_device_ms_per_step"])
+    log(f"  {name} int4 + int8 pool vs bf16 decode: {json.dumps(rec)}")
+    require(nodes == want_k9, f"{name}: {nodes} K9 nodes in the captured int4 decode step, "
+                              f"not {want_k9}")
+    return rec
+
+
 def falcon3_phase(dev):
     """Falcon3-7B at full width and depth, random bf16 weights from the seed
     (head dim 256: K2 for fresh prefill, never K8; K1 / K5 at DP 256): the
@@ -6051,6 +6350,8 @@ def falcon3_phase(dev):
                                     engine_kw=dict(kv_quant="int8"),
                                     path=FALCON_INT4_BATCH_PATH, invariant=q_invariant,
                                     absent=FALCON_ABSENT, repeats=SINGLE_RUNS)
+    out["int4"]["vs_bf16"] = int4_step_record("Falcon3-7B", out["batch"], out["int4"],
+                                              k9_per_step(qparams, 12))
     free_device()
     seconds["int4_batch"], t1 = time.perf_counter() - t1, time.perf_counter()
     out["int4"]["chunked_vs_single_shot"], chunked = int4_chunked_prefill(dev, cfg, qparams)
@@ -6208,7 +6509,7 @@ def prefill_vs_plain(dev, cfg, params, n=8):
 
 def off_k6_ms(dev, cfg, params, M=FAMILY_DECODE_M):
     """Each packed projection the routing rule keeps off K6 at M rows (the
-    W4A16 dual dot in plain PyTorch, ROADMAP C8's route), timed as a decode
+    W4A16 route through K9; ROADMAP C8's route), timed as a decode
     step runs it: one call per layer on M random rows, every layer's weight
     in turn (one pass reads each weight from HBM), captured in one graph.
     Returns {name: shape, ms a call, ms a step}."""
@@ -6294,13 +6595,16 @@ def family_run(dev, name, riffle):
                                limits=(QUANT_INVARIANT_REL_RMS, QUANT_INVARIANT_MAX_ABS),
                                top1=False)
 
+    k9 = k9_per_step(qparams, FAMILY_DECODE_M)
     out["int4"], int4 = slice_phase(dev, cfg, qparams, G=FAMILY_INT4_GEN,
                                     engine_kw=dict(kv_quant="int8"),
                                     path=QUANT_BATCH_PATH + (no_res if qk else ()),
                                     invariant=q_invariant,
                                     absent=FALCON_ABSENT + (() if qk else no_res),
-                                    repeats=FAMILY_RUNS)
+                                    repeats=FAMILY_RUNS,
+                                    prefill_only=() if k9 else ("quantized_matmul_w4a16",))
     r = out["int4"]
+    r["vs_bf16"] = int4_step_record(name, out["batch"], r, k9)
     r["no_residual_per_step"] = no_residual(r, "int4")
     r["off_k6"] = off_k6_ms(dev, cfg, qparams)
     prof = r["decode_profile"]
@@ -6329,7 +6633,7 @@ def family_run(dev, name, riffle):
         int4_device_ms_per_replay=r["replay"]["device_ms_per_replay"],
         eager_ms_per_step=out["batch"]["graph_gate"]["eager_ms_per_step"],
         int4_eager_ms_per_step=r["graph_gate"]["eager_ms_per_step"],
-        k6_per_step=r["k6_per_step"], off_k6=r["off_k6"],
+        k6_per_step=r["k6_per_step"], off_k6=r["off_k6"], int4_vs_bf16=r["vs_bf16"],
         no_residual_per_step=qk)))
     return out, bf16, int4
 
@@ -6350,10 +6654,87 @@ def families_phase(dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Parent against tree: the int4 decode steps (``--int4-steps PARENT``)
+
+INT4_STEP_MODELS = ("falcon3_7b", "qwen25_3b", "qwen3_4b")
+
+
+def int4_steps_child(root, label):
+    """One process of ``--int4-steps``: the package of the checkout at
+    ``root`` (first on sys.path, built there) runs the int4 g128 + int8-pool
+    decode step of each of INT4_STEP_MODELS with phase 15's and 17's
+    weights, layouts and batch (12 x 25 ids): three prefill + decode runs of
+    64 new tokens (ms a step, replayed) and a replay's device ms. Prints one
+    ``INT4_STEP`` JSON line a model."""
+    sys.path.insert(0, os.path.abspath(root))
+    from lite_llama_tpu_torch.executor.engine import InferenceEngine
+    from lite_llama_tpu_torch.generation.generate import TextGenerator
+    from lite_llama_tpu_torch.generation.sampling import SamplingParams
+    from lite_llama_tpu_torch.models import presets
+    from lite_llama_tpu_torch.models.decoder import init_decoder_params
+    from lite_llama_tpu_torch.ops import _build
+    from lite_llama_tpu_torch.quant.qtensor import quantize_decoder_params
+
+    require(os.path.abspath(_build.__file__).startswith(os.path.abspath(root)),
+            f"--int4-steps-child imported {_build.__file__}, not {root}'s package")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    dev = torch.device("cuda")
+    G = FAMILY_INT4_GEN
+    for name in INT4_STEP_MODELS:
+        t0 = time.perf_counter()
+        if name == "falcon3_7b":
+            cfg = falcon3_7b()
+            params = init_decoder_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        else:
+            cfg = getattr(presets, name)(dtype=torch.bfloat16)
+            params = family_params(cfg, dev)
+        qparams = quantize_decoder_params(params, "int4", group_size=128,
+                                          riffle=FAMILIES.get(name, True))
+        del params
+        free_device()
+        engine = InferenceEngine(cfg, qparams, device=dev, kv_quant="int8")
+        prompts = batch_prompts(cfg)
+        TextGenerator(engine).generate_tokens(prompts, max_gen_len=4, temperature=0.0)
+        sampling = SamplingParams.make(len(prompts), temperature=0.0, device=dev)
+        total = [len(p) + G for p in prompts]
+        ms = [timed_decode(engine, prompts, sampling, total, G)[1] for _ in range(3)]
+        print("INT4_STEP " + json.dumps(dict(
+            tree=label, model=name, ms_per_step=ms, median_ms_per_step=float(np.median(ms)),
+            **replay_costs(engine, len(prompts)), seconds=time.perf_counter() - t0)),
+            flush=True)
+        del engine, qparams
+        free_device()
+    return 0
+
+
+def int4_steps(parent):
+    """``--int4-steps PARENT``: the int4 decode steps of INT4_STEP_MODELS
+    through the checkout at PARENT (an unpacked parent commit) and this one
+    in turns, parent, this, this, parent, each a process of this script
+    (both packages built first, in parallel), on the one card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from lite_llama_tpu_torch.ops import _build; _build.build()")
+    builds = [subprocess.Popen([sys.executable, "-c", build, root]) for root in (parent, here)]
+    require(all(b.wait() == 0 for b in builds), "--int4-steps: a build failed")
+    log(nvidia_smi_line())
+    for root, label in ((parent, "parent"), (here, "tree"), (here, "tree"), (parent, "parent")):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--int4-steps-child", root,
+                            "--tp-dir", label], cwd=here)
+        require(r.returncode == 0, f"--int4-steps: the {label} run failed")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase (no slice, no final ok line)")
+    ap.add_argument("--int4-steps", metavar="PARENT", default=None,
+                    help="time the int4 decode steps of Falcon3-7B, Qwen2.5-3B and Qwen3-4B "
+                         "through the checkout at PARENT and this one in turns, then stop")
+    ap.add_argument("--int4-steps-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--cp-child", type=int, default=None, help=argparse.SUPPRESS)
@@ -6372,6 +6753,10 @@ def main() -> int:
         return dp_child(args.dp_child, args.tp_port, args.tp_dir)
     if args.cp_child is not None:  # one rank of phase 13
         return cp_child(args.cp_child, args.tp_port, args.tp_dir)
+    if args.int4_steps_child is not None:  # one process of --int4-steps
+        return int4_steps_child(args.int4_steps_child, args.tp_dir)
+    if args.int4_steps is not None:
+        return int4_steps(args.int4_steps)
     if args.mesh_child is not None:  # one rank of phase 14
         return mesh_child(args.mesh_child, args.tp_port, args.tp_dir)
     from lite_llama_tpu_torch.ops import _build
@@ -6408,7 +6793,8 @@ def main() -> int:
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
     by_path = {p: {k: None for k in KERNELS}
                for p in ("batch", "serving", "quantized", "fp8_kv", "open_llama", "checkpoint",
-                         "eval", "eval_int8_kv", "eval_fp8_kv", "llava", "spec",
+                         "eval", "eval_int8_kv", "eval_fp8_kv", "llava",
+                         "llava_int4_int8_pool", "spec",
                          "spec_quantized", "tp_bf16", "tp_int8_pool", "tp_int4_riffle_tp2",
                          "dp_bf16", "dp_int4_int8_pool", "cp_bf16", "cp_int8_pool",
                          "mesh_tp2_server", "mesh_tp2_spec", "mesh_dp2_int4_int8_pool_server",
@@ -6468,7 +6854,8 @@ def main() -> int:
         by_path.update(paths)
         log(f"  phase 8 took {summary['seconds']:.1f} s")
         log("phase 9: LLaVA-1.5-7B (CLIP-L/14-336 tower, projector, Vicuna-7B)")
-        summary, by_path["llava"] = llava_phase(dev)
+        summary, paths = llava_phase(dev)
+        by_path.update(paths)
         log(f"  phase 9 took {summary['seconds']:.1f} s")
         log("phase 10: speculative decoding (Llama-3.2-3B, prompt-lookup drafts)")
         summary, by_path["spec"], by_path["spec_quantized"] = spec_phase(dev)
@@ -6527,7 +6914,7 @@ def main() -> int:
             launches=None if args.kernels_only else sum(runs.values()),
             launches_by_path=runs,
             max_abs_err=max(c["max_abs_err"] for c in cs),
-            tolerance=f"|err| <= {ATOL} + {RTOL}*|plain|",
+            tolerance=main_case.get("tolerance", f"|err| <= {ATOL} + {RTOL}*|plain|"),
             ms=main_case["ms"], l2_warm_ms=main_case["l2_warm_ms"],
             eager_ms=main_case["eager_ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

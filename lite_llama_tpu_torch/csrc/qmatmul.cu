@@ -1,5 +1,6 @@
 // W4A8 and W8A8 weight matmuls for Hopper (sm_90a): K6 (qmm_kernel) and K7
-// (w8a8_kernel), with the activation quantizer they share.
+// (w8a8_kernel), with the activation quantizer they share; and K9
+// (w4a16_kernel), the W4A16 grouped matmul under 512 rows.
 //
 // Replaces the TPU kernels of lite_llama_tpu/ops/qmatmul.py:
 // - K6, quantized_matmul_packed -> _qmm_kernel: int8 activations [M, C]
@@ -123,6 +124,47 @@
 // - The epilogue puts the interleaved columns back: fragment i of tile j
 //   is column 8 tq + 4 (i & 1) + j, so a lane writes 4 + 4 neighbouring
 //   columns of a row as two vector stores.
+//
+// K9 (w4a16_kernel) replaces no Pallas kernel. The JAX package leaves this
+// product to XLA (lite_llama_tpu/quant/qtensor.py:639-661, the small-M
+// grouped branch of qeinsum): per scale group g and nibble half,
+//     y_h[m, o] = sum_g (sum_{c in g} x[m, c] * h[c, o]) * scale[g, o]
+// in fp32, with bf16 x and the integers -8..7 (their products are exact in
+// fp32). XLA fuses the int4 -> bf16 convert into the dot; plain PyTorch
+// cannot, and wrote an int8, a bf16 and an fp32 copy of every half before
+// a bmm (ROADMAP C8: an int4 decode step slower than bf16 wherever the
+// routing rule keeps a projection off K6: C not a multiple of 8 groups
+// above 4096 rows, Falcon3-7B's, Qwen2.5-3B's, Qwen3-4B's and Vicuna-7B's
+// down, and every projection at 257-511 rows).
+// - What bounds it: at decode (M = 5..16) the weight bytes, read once (2 M
+//   bf16 operations per weight, far below the card's ~295 per byte); near
+//   512 rows the bf16 operations.
+// - Each byte is read once and gives both nibbles: 0x4300 | n is the bf16
+//   of 128 + n, so a mask, an xor (the high nibble is two's complement) and
+//   one bf16x2 subtraction of 136 turn two nibbles into the exact bf16 pair
+//   (n - 8); mma.sync m16n8k16 bf16 -> fp32 takes them. The mma's k index
+//   is a permutation of the step's 16 rows chosen so that a lane's four
+//   bytes of a column are four neighbouring rows (one 32-bit shared load
+//   each for four columns, a byte permute per pair of rows) and its
+//   activations four neighbouring values of a row (one 64-bit load).
+// - One accumulator per group, as JAX's per-group dot: at the group's end
+//   it is multiplied by the group's fp32 scale (the scale rows ride the
+//   ring with the chunk) and added into the running sum.
+// - A block is 64 byte columns (two warp slabs of 32) by 16 or 32 rows;
+//   its 8 warps are 2 slabs x 4 k-lanes, k-lane l taking rows [16 l, 16 l +
+//   16) of every 64-row chunk. A cp.async ring of 8 stages holds each
+//   chunk's weights, activations and scale rows (28 KB of weights in
+//   flight per block); weight rows go to shared memory in groups of four
+//   rotated by the group's index, so the rows four apart that a lane quad
+//   reads hit 32 different banks.
+// - The card fills by splitting the groups of C: where the output tiles
+//   leave SMs idle, S splits (at most 8) of whole groups, ragged where S
+//   does not divide nG (86 = 2 x 43 groups: spans of 10 and 11), one
+//   thread-block cluster per output tile. The k-lanes' sums are added in
+//   k-lane order, then the splits' in split order, each block adding its
+//   share of the tile's outputs from every block's shared memory: fixed
+//   order, no atomics, no workspace, nothing kept between launches, so a
+//   replayed CUDA graph gives the eager launch's bits.
 
 #include <atomic>
 
@@ -1123,6 +1165,273 @@ int launch_w8_t(const Args& a, cudaStream_t st) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K9: the W4A16 grouped matmul under 512 rows (w4a16_kernel), its own design.
+
+constexpr int W4_BN = 64;       // byte columns of a block: two warp slabs of 32
+constexpr int W4_SLAB = 32;     // byte columns of a warp
+constexpr int W4_KL = 4;        // k-lanes: the warps of a slab, one 16-row step of a chunk each
+constexpr int W4_WARPS = 2 * W4_KL;
+constexpr int W4_THREADS = 32 * W4_WARPS;
+constexpr int W4_KC = 16 * W4_KL;         // contraction rows per chunk
+constexpr int W4_XS = 2 * W4_KC + 32;     // bytes per activation row of a chunk (+32: no conflicts)
+constexpr int W4_SLOTS = 4;               // scale rows per chunk: groups of 16 rows touch 4
+constexpr int W4_STAGES = 8;              // ring stages
+constexpr int W4_MAX_SPLITS = 8;          // a portable cluster (ops/qmatmul.py _W4_MAX_SPLITS)
+
+// One ring stage: the weight chunk (W4_KC rows x W4_BN bytes, one 2 KB slab
+// per warp column), 16 * MT activation rows and W4_SLOTS scale rows.
+__host__ __device__ constexpr int w4_stage_bytes(int MT) {
+  return W4_KC * W4_BN + 16 * MT * W4_XS + W4_SLOTS * W4_BN * 4;
+}
+
+// Dynamic shared memory of one K9 block: the ring, which the k-lanes' fp32
+// sums (4 x 16 * MT rows x 2 halves x W4_BN floats) reuse after the last
+// chunk (61,440 bytes at MT 1: two blocks fit an SM).
+__host__ __device__ constexpr int w4_smem_bytes(int MT) {
+  return W4_STAGES * w4_stage_bytes(MT);
+}
+static_assert(W4_KL * 16 * 2 * W4_BN * 4 <= W4_STAGES * w4_stage_bytes(1), "k-lane sums");
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two offset-binary nibbles (bits 0-3 and 16-19 of v) as the bf16 pair
+// (n0 - 8, n1 - 8): 0x4300 | n is the bf16 of 128 + n, and 128 + n - 136
+// is exact. The high nibble of a byte is two's complement (hi & 15); xor 8
+// makes it offset binary, so it rides the same subtraction.
+__device__ __forceinline__ uint32_t nib_bf16(uint32_t v, uint32_t magic) {
+  const uint32_t t = (v & 0x000F000Fu) ^ magic, k136 = 0x43084308u;  // bf16 (136, 136)
+  const __nv_bfloat162 h = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&k136));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Grid (S splits, stacks x column tiles, row tiles), W4_THREADS threads;
+// the S splits of a tile are one thread-block cluster (S > 1).
+template <int MT>
+__global__ void __launch_bounds__(W4_THREADS, MT == 1 ? 2 : 1)
+w4a16_kernel(const __nv_bfloat16* __restrict__ x,  // [M, C] activations
+             const int8_t* __restrict__ w,         // [stacks, C, Os] packed bytes
+             const float* __restrict__ scale,      // [stacks, nG, Os] paired scales
+             float* __restrict__ out,              // [M, stacks, 2, Os]
+             int M, int C, int Os, int nG) {
+  constexpr int XR = 16 * MT;  // activation rows of a block
+  constexpr int STAGE = w4_stage_bytes(MT);
+  constexpr int SLAB = W4_KC * W4_SLAB;  // bytes of a warp column's slab in a stage
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int kl = warp & (W4_KL - 1);  // this warp's 16-row step of every chunk
+  const int sl = warp / W4_KL;        // its slab of 32 byte columns
+  const int S = gridDim.x, split = blockIdx.x;
+  const int tiles = (Os + W4_BN - 1) / W4_BN;
+  const int stk = blockIdx.y / tiles;
+  const int n_blk = (blockIdx.y % tiles) * W4_BN;
+  const int m_blk = blockIdx.z * XR;
+  const int gs = C / nG;  // rows of a scale group
+  // Split s owns the groups [s * nG / S, (s + 1) * nG / S): whole groups,
+  // ragged where S does not divide nG.
+  const int r_lo = (split * nG / S) * gs, r_hi = ((split + 1) * nG / S) * gs;
+  w += (long long)stk * C * Os;
+  scale += (long long)stk * nG * Os;
+
+  // Chunk c into stage st: every thread one 16-byte weight piece (row R of
+  // the chunk, slab, half), the activation rows and the scale rows of the
+  // groups the chunk touches (slot i: group c0 / gs + i).
+  auto issue = [&](int c, int st) {
+    const int c0 = r_lo + c * W4_KC;
+    uint8_t* sB = smem + st * STAGE;
+    {
+      const int R = tid >> 2, s = (tid >> 1) & 1, h = tid & 1;
+      const int col = n_blk + s * W4_SLAB + h * 16;
+      const bool ok = c0 + R < r_hi && col < Os;
+      // Rows in groups of four, the group's rows rotated by its index: the
+      // four rows 4 apart that a quad of lanes reads land on 4 x 8 banks.
+      const int phys = (R & ~3) | ((R + (R >> 2)) & 3);
+      cp16(sB + s * SLAB + phys * W4_SLAB + h * 16,
+           ok ? w + (long long)(c0 + R) * Os + col : w, ok);
+    }
+    for (int i = tid; i < XR * (W4_KC / 8); i += W4_THREADS) {
+      const int r = i / (W4_KC / 8), k = (i % (W4_KC / 8)) * 8;
+      const bool ok = m_blk + r < M && c0 + k < r_hi;
+      cp16(sB + W4_KC * W4_BN + r * W4_XS + k * 2,
+           ok ? x + (long long)(m_blk + r) * C + c0 + k : x, ok);
+    }
+    if (tid < W4_SLOTS * (W4_BN / 4)) {
+      const int slot = tid / (W4_BN / 4), col = n_blk + (tid % (W4_BN / 4)) * 4;
+      const int g = c0 / gs + slot;
+      if (g * gs < min(c0 + W4_KC, r_hi) && col < Os)
+        cp16(sB + W4_KC * W4_BN + XR * W4_XS + (slot * W4_BN + col - n_blk) * 4,
+             scale + (long long)g * Os + col, true);
+    }
+  };
+
+  // acc: the folded sums; gacc: the running group's dots. [m tile][nibble
+  // half][column j of four][fragment]: tile j's column n is byte column
+  // 4n + j of the slab.
+  float acc[MT][2][4][4], gacc[MT][2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][h][j][i] = gacc[mt][h][j][i] = 0.f;
+
+  const int nch = (r_hi - r_lo + W4_KC - 1) / W4_KC;
+  // The group of this warp's step and the first group of the chunk, with
+  // the rows where each ends, advanced as the rows go (no division per step).
+  int g = (r_lo + 16 * kl) / gs, g_end = (g + 1) * gs;
+  int cg = r_lo / gs, cg_end = (cg + 1) * gs;
+#pragma unroll
+  for (int st = 0; st < W4_STAGES - 1; ++st) {
+    if (st < nch) issue(st, st);
+    cp_commit();  // one group per stage, empty or not, so the wait count holds
+  }
+  for (int c = 0; c < nch; ++c) {
+    cp_wait<W4_STAGES - 2>();  // chunk c has landed (this thread's copies)
+    __syncthreads();           // ... every thread's, and chunk c - 1 is consumed
+    if (c + W4_STAGES - 1 < nch) issue(c + W4_STAGES - 1, (c + W4_STAGES - 1) % W4_STAGES);
+    cp_commit();
+    const int c0 = r_lo + c * W4_KC;
+    const int row = c0 + 16 * kl;  // this warp's step: rows [row, row + 16)
+    if (row >= r_hi) continue;
+    for (; c0 >= cg_end; cg_end += gs) ++cg;
+    for (; row >= g_end; g_end += gs) ++g;
+    const uint8_t* sB = smem + (c % W4_STAGES) * STAGE;
+    // The mma's k index is a permutation of the step's rows: lane quad tq
+    // holds rows 4 tq .. 4 tq + 3 (k 2tq, 2tq + 1 | 2tq + 8, 2tq + 9), so
+    // its four weight bytes of a column are four rows of the chunk and its
+    // activations four neighbouring values of a row.
+    uint32_t wr[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      wr[r] = ld32(sB + sl * SLAB + (16 * kl + 4 * tq + ((r + tq) & 3)) * W4_SLAB + 4 * gq);
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint8_t* xp = sB + W4_KC * W4_BN + (mt * 16 + gq) * W4_XS + (16 * kl + 4 * tq) * 2;
+      const uint2 lo = *reinterpret_cast<const uint2*>(xp);
+      const uint2 hi = *reinterpret_cast<const uint2*>(xp + 8 * W4_XS);
+      a[mt][0] = lo.x, a[mt][2] = lo.y, a[mt][1] = hi.x, a[mt][3] = hi.y;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // Byte j of rows (0, 1) and of rows (2, 3) in the low bytes of two
+      // 16-bit lanes: each byte's low nibble and, shifted, its high one.
+      const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+      const uint32_t t01 = __byte_perm(wr[0], wr[1], sel), t23 = __byte_perm(wr[2], wr[3], sel);
+      const uint32_t e0 = nib_bf16(t01, 0x43004300u), e1 = nib_bf16(t23, 0x43004300u);
+      const uint32_t o0 = nib_bf16(t01 >> 4, 0x43084308u), o1 = nib_bf16(t23 >> 4, 0x43084308u);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(gacc[mt][0][j], a[mt], e0, e1);
+        mma_bf16(gacc[mt][1][j], a[mt], o0, o1);
+      }
+    }
+    // This warp's last step of the group: its dots times the group's scale
+    // (paired: one per byte column, both halves) into the sums.
+    if (row + W4_KC >= min(g_end, r_hi)) {
+      const float* sS = reinterpret_cast<const float*>(sB + W4_KC * W4_BN + XR * W4_XS) +
+                        (g - cg) * W4_BN + sl * W4_SLAB + 8 * tq;
+      const float4 s0 = *reinterpret_cast<const float4*>(sS);      // columns 8tq + j
+      const float4 s1 = *reinterpret_cast<const float4*>(sS + 4);  // columns 8tq + 4 + j
+      const float sc0[4] = {s0.x, s0.y, s0.z, s0.w}, sc1[4] = {s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[mt][h][j][i] = __fmaf_rn(gacc[mt][h][j][i], (i & 1) ? sc1[j] : sc0[j],
+                                           acc[mt][h][j][i]);
+              gacc[mt][h][j][i] = 0.f;
+            }
+    }
+  }
+
+  // The k-lanes' sums, added in k-lane order: red[kl][(r * 2 + h) * W4_BN + n].
+  cp_wait<0>();
+  __syncthreads();  // the ring is free
+  constexpr int E = XR * 2 * W4_BN;  // a block's outputs
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = mt * 16 + gq + (i >> 1) * 8;
+          const int n = sl * W4_SLAB + 8 * tq + 4 * (i & 1) + j;
+          red[kl * E + (r * 2 + h) * W4_BN + n] = acc[mt][h][j][i];
+        }
+  __syncthreads();
+  auto store = [&](int e, float v) {
+    const int r = e / (2 * W4_BN), h = (e / W4_BN) & 1, n = e % W4_BN;
+    if (m_blk + r < M && n_blk + n < Os)
+      out[((long long)(m_blk + r) * (gridDim.y / tiles) + stk) * 2 * Os + h * Os + n_blk + n] = v;
+  };
+  for (int e = tid; e < E; e += W4_THREADS) {
+    float v = red[e];
+#pragma unroll
+    for (int k = 1; k < W4_KL; ++k) v = __fadd_rn(v, red[k * E + e]);
+    if (S == 1)
+      store(e, v);
+    else
+      red[e] = v;
+  }
+  if (S == 1) return;
+  // The splits' sums, added in split order: block s adds its share of the
+  // tile's outputs from every block's shared memory (split s is cluster
+  // rank s), then waits until every block has read its own.
+  cluster_sync();
+  const int lo = split * E / S, hi = (split + 1) * E / S;
+  for (int e = lo + tid; e < hi; e += W4_THREADS) {
+    float v = ld_cluster(cluster_addr(red + e, 0));
+    for (int s = 1; s < S; ++s) v = __fadd_rn(v, ld_cluster(cluster_addr(red + e, s)));
+    store(e, v);
+  }
+  cluster_sync();
+}
+
+template <int MT>
+int launch_w4(const __nv_bfloat16* x, const int8_t* w, const float* scale, float* out, int M,
+              int C, int Os, int nG, int stacks, int S, cudaStream_t st) {
+  auto kernel = w4a16_kernel<MT>;
+  static bool ready = false;  // one per instance
+  const cudaError_t ready_e = allow_smem(kernel, ready);
+  if (ready_e != cudaSuccess) return (int)ready_e;
+  const dim3 grid(S, stacks * ((Os + W4_BN - 1) / W4_BN), (M + 16 * MT - 1) / (16 * MT));
+  const cudaError_t e = launch_kernel(kernel, {grid, dim3(W4_THREADS), w4_smem_bytes(MT), st,
+                                               false, S},
+                                      x, w, scale, out, M, C, Os, nG);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 // Checks the shape and the splits shared by K6 and K7 and fills a.sp: whole
 // fold spans on 32-row steps, in order, covering [0, C).
 bool take_splits(Args& a, const int* rows) {
@@ -1212,3 +1521,26 @@ extern "C" int qmm_smem_bytes(int MT, int F, int nspan) {
 extern "C" int qmm_w8a8_smem_bytes(int MT, int F, int kw, int nspan) {
   return w8_smem_bytes(MT, kstep_of(F), kw, nspan);
 }
+
+// K9: packed int4 weights [stacks, C, Os] (byte = 16*hi + (lo + 8)) with
+// paired fp32 scales [stacks, nG, Os] against bf16 activations x [M, C],
+// M < 512, C / nG a multiple of 16 rows, Os a multiple of 16: out [M,
+// stacks, 2, Os] fp32, the even (lo) and odd (hi) nibbles' products. S:
+// the splits of the groups, one cluster per output tile (ops/qmatmul.py
+// plan_w4a16).
+extern "C" int qmm_w4a16(const void* x, const void* w, const void* scale, void* out, int M,
+                         int C, int Os, int nG, int stacks, int S, void* stream) {
+  if (M < 1 || M > 511 || nG < 1 || C % nG || (C / nG) % 16 || Os < 16 || Os % 16 ||
+      stacks < 1 || S < 1 || S > W4_MAX_SPLITS || S > nG)
+    return (int)cudaErrorInvalidValue;
+  auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* wp = static_cast<const int8_t*>(w);
+  auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return M <= 16 ? launch_w4<1>(xp, wp, sp, op, M, C, Os, nG, stacks, S, st)
+                 : launch_w4<2>(xp, wp, sp, op, M, C, Os, nG, stacks, S, st);
+}
+
+// Dynamic shared memory of one K9 block at MT row tiles of 16.
+extern "C" int qmm_w4a16_smem_bytes(int MT) { return w4_smem_bytes(MT); }

@@ -1,6 +1,8 @@
 """LLaVA-1.5: CLIP tower + projector + Llama LM (port of
 ``lite_llama_tpu/models/llava.py``).
 
+- ``init_llava_params``: a random tree from a generator (the JAX tree's
+  keys, shapes and dtypes).
 - ``encode_images``: the tower's layer -2, the CLS row dropped ("default"
   select strategy), then the projector Linear -> GELU (erf, fp32) ->
   Linear.
@@ -29,8 +31,34 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.activations import gelu
-from .decoder import _embed, decoder_prefill
-from .vision import vision_forward
+from .decoder import _embed, decoder_prefill, init_decoder_params
+from .vision import init_vision_params, vision_forward
+
+
+def init_llava_params(cfg, generator: torch.Generator, dtype=None) -> dict:
+    """Random LLaVA tree ``{"lm", "vision", "projector"}`` drawn from
+    ``generator`` on its device, with the JAX package's keys, shapes and
+    dtypes: the LM as ``init_decoder_params`` makes it (``cfg.dtype``), the
+    tower as ``init_vision_params`` in ``dtype`` (default ``cfg.dtype``), the
+    projector's weights ``[in, out]`` N(0, 0.02) drawn in fp32 and cast,
+    its biases zero. The draws are not JAX's (a generator is not a key)."""
+    dtype = dtype or cfg.dtype
+    H_v, H_t = cfg.vision_config.hidden_size, cfg.hidden_size
+    device = generator.device
+    lm = init_decoder_params(cfg, generator)
+    vision = init_vision_params(cfg.vision_config, generator, dtype=dtype)
+
+    def init(*shape, scale=0.02):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        return w.normal_(0.0, scale, generator=generator).to(dtype)
+
+    projector = {
+        "w1": init(H_v, H_t),
+        "b1": torch.zeros(H_t, dtype=dtype, device=device),
+        "w2": init(H_t, H_t),
+        "b2": torch.zeros(H_t, dtype=dtype, device=device),
+    }
+    return {"lm": lm, "vision": vision, "projector": projector}
 
 
 def encode_images(params: dict, cfg, pixel_values: torch.Tensor) -> torch.Tensor:

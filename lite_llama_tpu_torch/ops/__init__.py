@@ -55,6 +55,7 @@ def launch_counters() -> dict:
         "flash_prefill_chunked": attention_prefill.launch_flash_prefill_chunked,
         "quantized_matmul_packed": qmatmul.launch_quantized_matmul_packed,
         "quantized_matmul_int8": qmatmul.launch_quantized_matmul_int8,
+        "quantized_matmul_w4a16": qmatmul.launch_quantized_matmul_w4a16,
         "paged_flash_decode_int8": attention_decode.launch_paged_decode_int8,
         "paged_flash_decode_fp8": attention_decode.launch_paged_decode_fp8,
         "flash_prefill_chunked_int8": attention_prefill.launch_flash_prefill_chunked_int8,

@@ -1,9 +1,14 @@
-"""W4A8 and W8A8 weight matmuls (port of ``lite_llama_tpu/ops/qmatmul.py``).
+"""W4A8 and W8A8 weight matmuls (port of ``lite_llama_tpu/ops/qmatmul.py``),
+and the W4A16 grouped matmul under 512 rows.
 
 K6 replaces the TPU kernel ``quantized_matmul_packed`` / ``_qmm_kernel`` and
 K7 ``quantized_matmul_int8`` / ``_qmm8_kernel``, two CUDA kernels of
 ``csrc/qmatmul.cu`` (its header says what bounds them and how each is laid
-out).
+out). K9 (:func:`quantized_matmul_w4a16`, same source) replaces no Pallas
+kernel: it is the product the JAX package leaves to XLA for packed int4
+weights with grouped scales at fewer than 512 rows (``qeinsum``'s small-M
+grouped branch, the shapes the routing rule keeps off K6), which plain
+PyTorch ran through three copies of each nibble half (ROADMAP C8).
 Activations are quantized per row to int8 (``quantize_activations``, which
 the JAX package leaves to XLA: plain PyTorch on the CPU, one small kernel of
 the same source on the card, which the plain version's arithmetic pins), or
@@ -51,6 +56,7 @@ from . import _build
 _BO_MAX = 512  # output-block ceiling of the TPU kernel
 _BC_MAX = 4096  # contraction-block ceiling of the TPU kernel
 
+_W4A16_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
              + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + [ctypes.c_void_p] * 3)
 _W8A8_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -574,3 +580,103 @@ def quantized_matmul_int8(x, q, scale, layer, out_dtype=None):
     if x.is_cuda:
         return launch_quantized_matmul_int8(x, q, scale, layer, out_dtype)
     return quantized_matmul_int8_plain(x, q, scale, layer, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# K9: the W4A16 grouped matmul under 512 rows
+
+_W4_BN = 64  # byte columns of a K9 block (csrc/qmatmul.cu W4_BN)
+_W4_MAX_SPLITS = 8  # the splits of a tile are one cluster (8 blocks: portable)
+W4A16_MAX_ROWS = 511  # qeinsum's small-M grouped branch: M < 512
+
+
+def plan_w4a16(C: int, nG: int, Os: int, stacks: int, M: int, sm_count: int) -> Tuple[int, int]:
+    """(MT, S): K9's 16-row tiles per block (1 up to 16 rows, else 2) and
+    its splits of the nG groups. Where the output tiles fill the SMs S is 1;
+    else the fewest splits that give two blocks per SM, at most
+    ``_W4_MAX_SPLITS`` and nG. Split s owns groups [s nG / S, (s+1) nG / S)
+    (:func:`w4a16_split_groups`)."""
+    MT = 1 if M <= 16 else 2
+    tiles = stacks * -(-Os // _W4_BN) * -(-M // (16 * MT))
+    if tiles >= sm_count:
+        return MT, 1
+    return MT, min(_W4_MAX_SPLITS, nG, -(-2 * sm_count // tiles))
+
+
+def w4a16_split_groups(nG: int, S: int) -> List[int]:
+    """The first group of each of K9's S splits, and nG: whole groups, as
+    even as S allows (ragged where it does not divide nG)."""
+    return [s * nG // S for s in range(S + 1)]
+
+
+def grouped_dot_plain(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The JAX package's small-M grouped product of one integer half: x [M,
+    C] against h [S, C, Os] (integers) with scales [S, nG, Os], as per-group
+    dots batched over the groups, times the per-(group, column) scale,
+    summed over the groups, all in fp32 (the products of x and the integer
+    weights are exact there). Returns [M, S, Os] fp32."""
+    M, C = x.shape
+    S, nG, Os = scale.shape
+    hg = h.reshape(S, nG, C // nG, Os)
+    xg = x.float().reshape(M, nG, C // nG).transpose(0, 1)  # [nG, M, Gs]
+    return torch.stack([(torch.bmm(xg, hg[s].to(x.dtype).float()) * scale[s][:, None, :])
+                        .sum(0) for s in range(S)], dim=1)
+
+
+def quantized_matmul_w4a16_plain(x, q, scale):
+    """Plain version of K9 (see :func:`quantized_matmul_w4a16`): each
+    nibble half unpacked and through :func:`grouped_dot_plain`."""
+    halves = ((q & 15) - 8, q >> 4)
+    return torch.stack([grouped_dot_plain(x, h, scale) for h in halves], dim=2)
+
+
+def launch_quantized_matmul_w4a16(x, q, scale):
+    """K9 on the card: [M, S, 2, Os] fp32 as :func:`quantized_matmul_w4a16_plain`
+    (another summation order: within fp32 rounding of it, and the same bits
+    at every launch)."""
+    if not (x.is_cuda and q.device == x.device and scale.device == x.device):
+        raise ValueError("quantized_matmul_w4a16 kernel: all tensors must be on one CUDA device")
+    if x.dtype != torch.bfloat16 or q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise ValueError("quantized_matmul_w4a16 kernel takes bf16 activations, int8 weight "
+                         f"bytes and fp32 scales, not {x.dtype}, {q.dtype}, {scale.dtype}")
+    if x.ndim != 2 or q.ndim != 3 or scale.ndim != 3:
+        raise ValueError("quantized_matmul_w4a16 kernel takes x [M, C], q [S, C, Os] and "
+                         "scale [S, nG, Os]")
+    M, C = x.shape
+    stacks, Cq, Os = q.shape
+    nG = scale.shape[1]
+    if (Cq != C or scale.shape != (stacks, nG, Os) or not 1 <= M <= W4A16_MAX_ROWS
+            or C % nG or (C // nG) % 16 or Os % 16):
+        raise ValueError(f"quantized_matmul_w4a16 kernel: unsupported shape x={tuple(x.shape)} "
+                         f"q={tuple(q.shape)} scale={tuple(scale.shape)} (needs M < 512, scale "
+                         "groups a multiple of 16 rows, a stored width that is a multiple of 16)")
+    if not (q.is_contiguous() and scale.is_contiguous()) or q.data_ptr() % 16 or \
+            scale.data_ptr() % 16:
+        raise ValueError("quantized_matmul_w4a16 kernel takes contiguous, 16-byte aligned "
+                         "weights and scales")
+    if not x.is_contiguous() or x.data_ptr() % 16:  # the kernel reads 16-byte pieces
+        x = x.clone()
+    _, S = plan_w4a16(C, nG, Os, stacks, M, _sm_count(x.device.index))
+    out = torch.empty((M, stacks, 2, Os), dtype=torch.float32, device=x.device)
+    lib = _build.library("qmatmul", "qmm_w4a16", _W4A16_ARGTYPES)
+    code = lib.qmm_w4a16(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, C, Os,
+                         nG, stacks, S, _build.current_stream(x.device))
+    _build.check(lib, code, "qmm_w4a16")
+    launch_quantized_matmul_w4a16.launches += 1
+    return out
+
+
+launch_quantized_matmul_w4a16.launches = 0
+
+
+def quantized_matmul_w4a16(x, q, scale):
+    """W4A16 grouped matmul: x [M, C] (M < 512) against the packed int4
+    weight q [S, C, Os] (``byte = 16*hi + (lo + 8)``) with paired scales
+    [S, nG, Os], in fp32. Returns [M, S, 2, Os] fp32: [..., 0, :] the even
+    (low nibble) half's product, [..., 1, :] the odd half's; ``qeinsum``
+    puts the halves in the layout's column order. A CUDA tensor launches K9
+    (or raises on a shape it refuses), a CPU tensor takes the plain
+    version."""
+    if x.is_cuda:
+        return launch_quantized_matmul_w4a16(x, q, scale)
+    return quantized_matmul_w4a16_plain(x, q, scale)

@@ -25,7 +25,10 @@ quantizer's output and quantizes the same weights to the same bytes:
 
 ``qeinsum`` routes a layer-indexed packed weight to the W4A8 kernel
 (``ops/qmatmul.py``, K6) when ``qmm_supported`` holds, and otherwise runs the
-W4A16 dual dot in plain PyTorch, as the JAX package leaves it to XLA. Its
+W4A16 dual dot, as the JAX package leaves it to XLA: with grouped scales
+under 512 rows through K9 (``quantized_matmul_w4a16``, which reads each
+packed byte once for both halves), at 512 rows and more by dequantizing
+each half once into a cuBLAS product, per-channel in plain PyTorch. Its
 activations may come as ``QuantizedRows`` (their int8 rows made by the norm
 that wrote them, ``ops/norms.py``): K6 takes those rows, every other route
 the activations (``takes_int8_rows`` says which route a weight takes).
@@ -48,10 +51,12 @@ import torch
 
 from ..ops.qmatmul import (
     QuantizedRows,
+    grouped_dot_plain,
     qmm_supported,
     qmm_tp_supported,
     quantized_matmul_packed,
     quantized_matmul_packed_tp,
+    quantized_matmul_w4a16,
 )
 
 
@@ -343,9 +348,10 @@ def qeinsum(pattern, x: torch.Tensor, w, out_dtype=None, shard=None,
     is ignored: x's trailing dims collapse to the stored contraction width
     C, the dot runs on the quantized values and the scale multiplies the
     result; the output takes the weight's logical out dims. Packed int4
-    runs two dots on the nibble halves (W4A16) and recombines the small
-    results, never the weight. ``x`` may be ``QuantizedRows``: K6 takes its
-    int8 rows, every other route its activations.
+    runs two dots on the nibble halves (W4A16: K9 with grouped scales
+    under 512 rows) and recombines the small results, never the weight.
+    ``x`` may be ``QuantizedRows``: K6 takes its int8 rows, every other
+    route its activations.
 
     ``shard`` (a ``parallel.shardings.ShardingPolicy``) with tp > 1 and
     ``tp_kind`` "contract": ``w`` and x's trailing dims are this rank's
@@ -367,30 +373,28 @@ def qeinsum(pattern, x: torch.Tensor, w, out_dtype=None, shard=None,
     M = xr.shape[0]
     stack = tuple(w.q.shape[:-2])
     S = math.prod(stack)
-    halves = w.unpack_halves() if w.packed else (w.q,)
-    ys = []
-    for h in halves:
-        h = h.reshape(S, C, Os)
-        if w.grouped:
-            nG = w.scale.shape[-2]
-            sg = w.scale.reshape(S, nG, Os)
-            hg = h.reshape(S, nG, C // nG, Os)
-            if M >= 512:
+    nG = w.scale.shape[-2] if w.grouped else 1
+    if w.packed and w.grouped and M < 512:
+        # K9: per-group dots, x the per-(group, channel) scale, summed over
+        # the groups, both halves from one pass over the packed bytes.
+        y = quantized_matmul_w4a16(xr, w.q.reshape(S, C, Os), w.scale.reshape(S, nG, Os))
+        ys = [y[:, :, 0], y[:, :, 1]]
+    else:
+        ys = []
+        for h in (w.unpack_halves() if w.packed else (w.q,)):
+            h = h.reshape(S, C, Os)
+            if w.grouped and M >= 512:
                 # Wide batches (prefill): dequantize the half once in the
                 # activation dtype, then one dot.
-                wd = (hg.float() * sg[:, :, None, :]).to(dt).reshape(S, C, Os)
-                y = torch.stack([_dot_f32(xr, wd[s]) for s in range(S)], dim=1)
+                sg = w.scale.reshape(S, nG, Os)
+                wd = (h.reshape(S, nG, C // nG, Os).float() * sg[:, :, None, :]).to(dt)
+                y = torch.stack([_dot_f32(xr, wd[s].reshape(C, Os)) for s in range(S)], dim=1)
+            elif w.grouped:  # int8 weights under 512 rows: the same per-group dots
+                y = grouped_dot_plain(xr, h, w.scale.reshape(S, nG, Os))
             else:
-                # Per-group dots, x the per-(group, channel) scale, summed
-                # over the groups (fp32: the products of x and the integer
-                # weights are exact there).
-                xg = xr.float().reshape(M, nG, C // nG).transpose(0, 1)  # [nG, M, Gs]
-                y = torch.stack([(torch.bmm(xg, hg[s].to(x.dtype).float()) * sg[s][:, None, :])
-                                 .sum(0) for s in range(S)], dim=1)
-        else:
-            sc = w.scale.reshape(S, Os)
-            y = torch.stack([_dot_f32(xr, h[s].to(dt)) * sc[s] for s in range(S)], dim=1)
-        ys.append(y)  # [M, S, Os] fp32
+                sc = w.scale.reshape(S, Os)
+                y = torch.stack([_dot_f32(xr, h[s].to(dt)) * sc[s] for s in range(S)], dim=1)
+            ys.append(y)  # [M, S, Os] fp32
     width = math.prod(w.out_shape)
     if len(ys) == 1:
         y = ys[0][..., :width]

@@ -16,7 +16,10 @@ widths from 96 to 40000, off the 16-byte grid and on strided views, their
 residual sums and int8 rows bit for bit (K6 fed by the rows equal to K6
 fed by the activations) and under CUDA-graph replay, K1q / K5q on a
 tensor-parallel shard's int8 pool at a head_offset (its global scale
-lanes), plus the refusals that keep the card off the plain code. This file imports no JAX, so it
+lanes), K9 (the W4A16 grouped matmul under 512 rows) at the down
+projections qeinsum keeps off K6 and at 257-511 rows, bit for bit across
+launches and under CUDA-graph replay, plus the refusals that keep the card
+off the plain code. This file imports no JAX, so it
 runs on a machine with a card and without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -30,6 +33,7 @@ comparisons at the main path's full shapes.
 """
 
 import contextlib
+import dataclasses
 import math
 import shutil
 
@@ -90,6 +94,17 @@ def test_launchers_refuse_cpu_tensors():
         norms.launch_rms_norm(x, None, torch.ones(64), 1e-5)
     with pytest.raises(ValueError, match="CUDA"):
         norms.launch_swiglu(x, x)
+
+
+def test_w4a16_launcher_refuses_cpu_tensors():
+    """K9's launcher never runs its plain version: handed CPU tensors it
+    raises; the dispatcher gives them the plain version."""
+    x = torch.zeros(4, 64).bfloat16()
+    q = torch.zeros(1, 64, 16, dtype=torch.int8)
+    scale = torch.ones(1, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmm.launch_quantized_matmul_w4a16(x, q, scale)
+    assert qmm.quantized_matmul_w4a16(x, q, scale).shape == (4, 1, 2, 16)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -678,6 +693,115 @@ def test_w4a8_split_kernel_back_to_back_on_one_stream(cuda):
                                                             torch.float32, False, O))
     assert torch.equal(b, qmm.quantized_matmul_packed_plain(xb, qt.q, qt.scale, 1,
                                                             torch.float32, False, O))
+
+
+# K9's shapes (chip_smoke.py phase 3): (C, O, group size, stacks, rows).
+# The four down projections the routing rule keeps off K6 at decode (86, 76,
+# 180, 86 groups), Llama-3.2-3B's flat gate_up at its 12 x 25 prefill, a tp 2
+# rank's down shard at that prefill, and an interleaved gate_up (two stacks).
+W4A16_SHAPES = {
+    "qwen2.5-3b down": (11008, 2048, 128, 1, 12),
+    "qwen3-4b down": (9728, 2560, 128, 1, 12),
+    "falcon3-7b down": (23040, 3072, 128, 1, 12),
+    "vicuna-7b down": (11008, 4096, 128, 1, 12),
+    "llama-3.2-3b gate_up M300": (3072, 16384, 128, 1, 300),
+    "llama-3.2-3b down tp2 M300": (4096, 3072, 128, 1, 300),
+    "qwen2.5-3b gate_up interleaved M300": (2048, 11008, 128, 2, 300),
+}
+
+
+def _w4a16_case(dev, C, O, gs, stacks, M, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((stacks, C, O), generator=g, device=dev).mul_(0.02).bfloat16()
+    qt = quantize(w, (1,), "int4", group_size=gs)
+    x = torch.randn((M, C), generator=g, device=dev).bfloat16()
+    return x, qt.q, qt.scale
+
+
+def _w4a16_holds(got, want):
+    """fp32: the same exact products summed in another order, within 1e-5
+    of the largest output; after the cast to bf16, the repository's bf16
+    limit."""
+    rel = float((got - want).abs().max() / want.abs().max())
+    return rel <= 1e-5 and _within(got.bfloat16(), want.bfloat16()), rel
+
+
+@pytest.mark.parametrize("name", list(W4A16_SHAPES))
+def test_w4a16_kernel_matches_plain(cuda, name):
+    x, q, scale = _w4a16_case(cuda, *W4A16_SHAPES[name])
+    before = qmm.launch_quantized_matmul_w4a16.launches
+    got = qmm.quantized_matmul_w4a16(x, q, scale)
+    again = qmm.quantized_matmul_w4a16(x, q, scale)
+    assert qmm.launch_quantized_matmul_w4a16.launches == before + 2
+    want = qmm.quantized_matmul_w4a16_plain(x, q, scale)
+    assert got.shape == want.shape == (x.shape[0], q.shape[0], 2, q.shape[-1])
+    ok, rel = _w4a16_holds(got, want)
+    assert ok, rel
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 17, 33, 511])
+@pytest.mark.parametrize("gs", [16, 48, 128])
+def test_w4a16_kernel_matches_plain_at_every_row_count_and_group_size(cuda, M, gs):
+    """Row tiles of 16 and 32, a partial last tile, groups of 16 (four in a
+    chunk), 48 (chunks that start mid-group) and 128 rows; a stored width
+    that is not a multiple of the block's 64 columns."""
+    x, q, scale = _w4a16_case(cuda, 48 * gs, 1120, gs, 1, M)
+    ok, rel = _w4a16_holds(qmm.quantized_matmul_w4a16(x, q, scale),
+                           qmm.quantized_matmul_w4a16_plain(x, q, scale))
+    assert ok, rel
+
+
+def test_w4a16_kernel_replays_in_a_cuda_graph(cuda):
+    """K9 split into clusters, captured once and replayed on new inputs:
+    each replay gives the eager launch's bits."""
+    C, O = 11008, 2048
+    x, q, scale = _w4a16_case(cuda, C, O, 128, 1, 12)
+    assert qmm.plan_w4a16(C, C // 128, O // 2, 1, 12, _sms(cuda))[1] > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qmm.quantized_matmul_w4a16(x, q, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmm.quantized_matmul_w4a16(x, q, scale)
+    for seed in range(3):
+        x.copy_(torch.randn((12, C), device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(seed)).bfloat16())
+        graph.replay()
+        assert torch.equal(out, qmm.quantized_matmul_w4a16(x, q, scale)), seed
+
+
+def test_qeinsum_runs_w4a16_on_the_card_at_257_to_511_rows(cuda):
+    """A layered packed weight at 300 rows (off K6) launches K9 once and
+    equals the plain route's product in bf16."""
+    from lite_llama_tpu_torch.quant import qtensor as tq
+
+    qt = _qmm_weights(cuda, "int4", 1024, 1024, 128, False)
+    x = torch.randn((300, 1024), device=cuda).bfloat16()
+    k6, k9 = (qmm.launch_quantized_matmul_packed.launches,
+              qmm.launch_quantized_matmul_w4a16.launches)
+    got = tq.qeinsum(None, x, qt.at_layer(1))
+    assert qmm.launch_quantized_matmul_w4a16.launches == k9 + 1
+    assert qmm.launch_quantized_matmul_packed.launches == k6
+    want = tq.qeinsum(None, x.cpu(), dataclasses.replace(qt, q=qt.q.cpu(), scale=qt.scale.cpu()
+                                                         ).at_layer(1))
+    assert _within(got.cpu(), want)
+
+
+def test_w4a16_kernel_refuses_what_it_does_not_take(cuda):
+    x, q, scale = _w4a16_case(cuda, 1024, 256, 16, 1, 12)
+    with pytest.raises(ValueError, match="unsupported"):  # 512 rows: the dequantizing branch
+        qmm.quantized_matmul_w4a16(torch.randn((512, 1024), device=cuda).bfloat16(), q, scale)
+    with pytest.raises(ValueError, match="unsupported"):  # 8-row groups: no mma k-step
+        _, q8, s8 = _w4a16_case(cuda, 1024, 256, 8, 1, 12)
+        qmm.quantized_matmul_w4a16(x, q8, s8)
+    with pytest.raises(ValueError, match="unsupported"):  # 120 byte columns: not 16-byte rows
+        _, qo, so = _w4a16_case(cuda, 1024, 240, 16, 1, 12)
+        qmm.quantized_matmul_w4a16(x, qo, so)
+    with pytest.raises(ValueError, match="bf16"):
+        qmm.quantized_matmul_w4a16(x.float(), q, scale)
 
 
 def _quant_pool(dev, kv, Hkv, D, P, ps, seed=6):
