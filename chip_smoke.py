@@ -3790,9 +3790,12 @@ LLAVA_PREFILL = (0.12, 0.12)
 LLAVA_INT4_PATH = ("quantized_matmul_packed", "quantized_matmul_w4a16",
                    "paged_flash_decode_int8", "flash_prefill", "rms_norm", "swiglu")
 # Its limits: decode vs re-prefill of the text request (K1q faults) within
-# the quantized decode invariant's (QUANT_INVARIANT_*); the first-token
-# logits of the five prompts as text, kernels against the plain versions
-# (K6 and K9 faults), relative RMS and max |difference| over max |logit|.
+# the quantized decode invariant's (QUANT_INVARIANT_*: on an H100 (PERF.md)
+# kernels 0.182, plain 0.189, smallest fault 1.19); the first-token logits
+# of the five prompts as text, kernels against the plain versions (K6 and
+# K9 faults), relative RMS and max |difference| over max |logit|: plain
+# 0.153 / 0.157, smallest fault (K9 handed the neighbouring pair's scale)
+# 0.822 / 0.834, K6's faults 1.24-1.41. 0.45 sits ~2x from either side.
 LLAVA_INT4_LOGITS = (QLOGITS_REL_RMS, QLOGITS_MAX_ABS)
 
 
